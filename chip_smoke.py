@@ -1,42 +1,64 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``image_analogies_tpu_torch``) builds
-and runs its main path on one NVIDIA card, and that what comes out is right.
+and runs its wavefront paths on one NVIDIA card, and that what comes out is
+right.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
 Phases, one line each (a failing phase exits non-zero; nothing is caught
 and carried on):
 
-1. env      — torch/CUDA versions, the card, and the build of every CUDA
-              kernel from the sources in this checkout (one nvcc per
-              source, all started together).
-2. kernels  — each kernel against its plain PyTorch version on the card at
-              the main path's shapes (seeded inputs with duplicate and
-              padding rows): picks equal except inside the stated score
-              band, scores within the stated tolerance; CUDA-event times
-              of the kernel, the plain version, a PyTorch yardstick and the
-              bound the card's peak rates allow.
-3. main     — ``create_image_analogy`` with ``PRESETS["npr_1024"]`` on the
-              1024^2 structured inputs of the cached oracle, cold then
-              warm: per-level scan and build ms, wall-clock, kernel launch
-              counts (each kernel must have launched, once per wavefront
-              step of its levels).
-4. oracle   — SSIM of B' and the tie-audit of all five levels' source maps
-              against ``bench_cache/oracle_1024_seed7.npz``.
+1. env        — torch/CUDA versions, the card, and the build of every CUDA
+                kernel from the sources in this checkout (one nvcc per
+                source, all started together).
+2. kernels    — each kernel against its plain PyTorch version on the card
+                at the shapes its path gives it (seeded inputs with
+                duplicate rows, padding rows and, for the per-tile scans, an
+                all-padding tile): picks equal except inside the stated
+                score band, scores within the stated tolerance; CUDA-event
+                times of the kernel, the plain version, a PyTorch yardstick
+                and the bound the card's peak rates allow for the function
+                (its own width: F = 68 features, 2L = 110 or 4L + 3 = 223
+                packed lanes, not the kernel's lanes rounded up to 16).
+                The four superseded packed forms are checked at a smaller
+                shape and not timed.
+3. main       — ``create_image_analogy`` with ``PRESETS["npr_1024"]`` on the
+                1024^2 structured inputs of the cached oracle, cold then
+                warm: per-level scan and build ms, wall-clock, kernel launch
+                counts (each kernel launched once per wavefront step of its
+                levels, no other kernel launched).
+4. oracle     — SSIM of B' and the tie-audit of all five levels' source maps
+                against ``bench_cache/oracle_1024_seed7.npz``.
+5. exact_hi2  — the same run, cold then warm, with
+                ``match_mode="exact_hi2"`` (the packed3 scan at every
+                level), held to the main path's oracle limits.
+6. rescue     — ``match_mode="scan_rescue"`` (IA_EXPERIMENTAL=1) at 1024^2,
+                cold then warm: one per-tile launch per step, B' finite,
+                SSIM vs the oracle >= 0.90 (a wiring check: the mode is not
+                a parity mode); then one run of ``scan_rescue_1p`` at 256^2.
+7. two_pass   — the same for ``two_pass`` and ``two_pass_1p``.
+8. gate       — ``bf16_scoring=True`` at 64^2: the parity gate's verdict on
+                this card (printed, not asserted), the mode each level ran.
+9. card_vs_cpu — each new mode at 96^2 (3 levels) on the card and on the
+                CPU, and exact_hi2 and scan_rescue on RGB sources
+                (``color_mode="source_rgb"``: exact_hi2 scans 256 lanes in
+                three passes): source maps differ on < 2% of pixels, SSIM
+                >= 0.99.
 
 ``--phases main,profile`` adds one more warm run under torch.profiler
 (device time by kernel, device busy share); ``--ptxas`` prints each
 kernel's registers, shared memory and spills.
 
-Then the kernel table as one JSON line, the card's name and power limit,
-and, as the last line, ``{"ok": true, "device": {...}}``.  Without a card,
-or outside a checkout of the repository, it exits non-zero and prints no
-result.
+Then the kernel table as one JSON line (each kernel's launches from the run
+of its path), the card's name and power limit, and, as the last line,
+``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -44,7 +66,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("env", "kernels", "main", "oracle")
+PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
+          "two_pass", "gate", "card_vs_cpu")
+
+# cycles of the spin kernel ahead of each timed call (~0.5 ms at the
+# H100's clocks, longer than any wrapper's host work)
+SPIN_CYCLES = 1_000_000
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_HBM_BYTES_S = 3.35e12
@@ -55,6 +82,19 @@ PEAK_BF16_FLOP_S = 989e12
 # kernel's levels and the DB rows it scans
 ARGMIN_SHAPE = dict(m=88, npad=65536, f=68, fp=128)  # level 2 (256^2)
 PACKED_SHAPE = dict(m=352, npad=1048576, lw=55)  # level 0 (1024^2)
+# level 0 of the new modes: the bf16 centered DB (F = 68 of Fp = 128) and
+# the packed3 arrays (2L = 110 of Kp = 128)
+SCAN_SHAPE = dict(m=352, npad=1048576, f=68, fp=128, lw=55)
+FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
+
+# the kernel (launch-count key) each resolved anchor mode runs
+ANCHOR_KERNEL = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed_best",
+                 "exact_hi2": "packed3_best",
+                 "scan_rescue": "pertile_champions",
+                 "scan_rescue_1p": "pertile_champions",
+                 "two_pass": "argmin2_l2", "two_pass_1p": "argmin2_l2"}
+NEW_MODES = ("exact_hi2", "scan_rescue", "scan_rescue_1p", "two_pass",
+             "two_pass_1p")
 
 # tolerances of kernel vs plain on the card: both are fp32 sums of the
 # same terms in different orders; picks may differ only where the plain
@@ -65,6 +105,11 @@ SCORE_BAND = 2e-5
 
 SSIM_MIN = 0.98
 UNEXPLAINED_MAX = 1e-4
+# the probe modes are not parity modes: this floor catches wiring faults
+PROBE_SSIM_MIN = 0.90
+# card against CPU at 96^2 (tests/test_torch_cuda.py's limits)
+CARD_CPU_MISMATCH_MAX = 0.02
+CARD_CPU_SSIM_MIN = 0.99
 ORACLE_DIGEST = "8512fc90ebcc2781"
 
 
@@ -88,24 +133,31 @@ def nvidia_smi() -> str:
 
 
 def cuda_time_ms(fn, reps: int, warm: int = 2, flush=None) -> float:
-    """Mean ms per call by CUDA events around each call (warmed; ``flush``
-    runs between calls, outside the timed window)."""
+    """Median device ms per call by CUDA events around each call (warmed;
+    ``flush`` runs between calls, outside the timed window).  A spin kernel
+    queued before the start event keeps the card busy while the host
+    issues the call, so the window holds the call's device work and not
+    the wrapper's Python time; the median drops the calls a stalled host
+    thread still let the card idle through."""
+    import statistics
+
     import torch
 
     for _ in range(warm):
         fn()
-    total = 0.0
+    times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -129,6 +181,37 @@ def check_picks(name, idx, val, ref_idx, ref_val, second, atol):
         fail(f"{name}: {int(bad.sum())} picks differ from the plain "
              f"version outside the {SCORE_BAND} band")
     return err, int(diff.sum())
+
+
+def check_tiles(name, vals, idx, ref_vals, ref_idx, second, atol):
+    """``check_picks`` over the finite per-tile champions; all-padding tiles
+    (-inf) must match the plain version's value and index exactly."""
+    import torch
+
+    fin = torch.isfinite(ref_vals)
+    if not torch.equal(torch.isfinite(vals), fin) or not torch.equal(
+            idx[~fin], ref_idx[~fin]):
+        fail(f"{name}: all-padding tiles differ from the plain version")
+    return check_picks(name, idx[fin], vals[fin], ref_idx[fin],
+                       ref_vals[fin], second[fin], atol)
+
+
+def flusher(dev):
+    """A call that overwrites a buffer larger than the 50 MB L2, so no
+    timed call finds the previous one's tail resident."""
+    import torch
+
+    scratch = torch.empty((256 << 20,), dtype=torch.uint8, device=dev)
+    return lambda: scratch.fill_(1)
+
+
+def kernel_row(name, source, replaces, err, k_ms, p_ms, l_ms, b):
+    return dict(
+        name=name, route="cuda",
+        source=f"image_analogies_tpu_torch/ops/csrc/{source}",
+        replaces=f"image_analogies_tpu/ops/pallas_match.py:{replaces}",
+        launches=0, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b[0],
+        bound_by=b[1], library_ms=l_ms)
 
 
 def phase_env(ptxas: bool):
@@ -196,12 +279,8 @@ def phase_kernels():
         lambda: torch.addmm(dbnd, qd, dbt, alpha=-2.0).min(dim=1), reps=20)
     b_ms, b_by = bound(4 * (m * f + npad * f + npad) + 8 * m,
                        2 * m * npad * f, PEAK_FP32_FLOP_S)
-    rows["argmin_l2"] = dict(
-        name="argmin_l2", route="cuda",
-        source="image_analogies_tpu_torch/ops/csrc/argmin_l2.cu",
-        replaces="image_analogies_tpu/ops/pallas_match.py:51",
-        launches=0, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=l_ms)
+    rows["argmin_l2"] = kernel_row("argmin_l2", "argmin_l2.cu", 51, err,
+                                   k_ms, p_ms, l_ms, (b_ms, b_by))
     say("kernels", kernel="argmin_l2", m=m, npad=npad, f=f,
         max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
@@ -239,10 +318,7 @@ def phase_kernels():
     if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
         fail(f"packed_best: duplicate/padding rule broken (idx[0]="
              f"{int(idx[0])}, max {int(idx.max())})")
-    # the 512 MiB DB exceeds the 50 MB L2 anyway; flush it between calls
-    # so no call finds the previous one's tail resident
-    scratch = torch.empty((256 << 20,), dtype=torch.uint8, device=dev)
-    flush = lambda: scratch.fill_(1)
+    flush = flusher(dev)
     k_ms = cuda_time_ms(lambda: match.packed_best(qa, wk, k_used), reps=20,
                         flush=flush)
     p_ms = cuda_time_ms(lambda: match.packed_best_plain(qa, wk, k_used),
@@ -251,67 +327,347 @@ def phase_kernels():
     l_ms = cuda_time_ms(
         lambda: torch.mm(qa, wkt, out_dtype=torch.float32).max(dim=1),
         reps=10, flush=flush)
-    b_ms, b_by = bound(2 * (m * k_used + npad * k_used) + 8 * m,
-                       2 * m * npad * k_used, PEAK_BF16_FLOP_S)
-    rows["packed_best"] = dict(
-        name="packed_best", route="cuda",
-        source="image_analogies_tpu_torch/ops/csrc/packed_best.cu",
-        replaces="image_analogies_tpu/ops/pallas_match.py:523",
-        launches=0, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=l_ms)
-    say("kernels", kernel="packed_best", m=m, npad=npad, k_used=k_used,
+    width = o2 + 2 * lw  # the function's lanes: 4L + 3 = 223
+    b_ms, b_by = bound(2 * (m * width + npad * width) + 8 * m,
+                       2 * m * npad * width, PEAK_BF16_FLOP_S)
+    rows["packed_best"] = kernel_row("packed_best", "packed_best.cu", 523,
+                                     err, k_ms, p_ms, l_ms, (b_ms, b_by))
+    say("kernels", kernel="packed_best", m=m, npad=npad, width=width,
+        k_used=k_used,
         max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
         plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-    del wk, qa, scratch, x
+    del wk, qa, x, flush
     torch.cuda.empty_cache()
+    phase_packed3_kernels(rows)
+    phase_bf16_db_kernels(rows)
+    phase_packed_forms()
     return rows
 
 
-def expected_launches(params, size: int):
-    """Wavefront steps per kernel for a size x size run: c(h-1)+w steps a
-    level, on the packed kernel where A has >= the crossover rows."""
+def phase_packed3_kernels(rows):
+    """packed3_best (exact_hi2's scan) and packed_champions (its per-tile
+    witness) at level 0 of npr_1024: M = 352 queries as 704 + 352 rows of
+    three passes, Npad = 1,048,576, 2L = 110 of 128 lanes."""
+    import torch
+
     from image_analogies_tpu_torch.backends.cuda import (
-        resolve_match_mode)
+        pack_w12, packed_shift_and_halfnorm, scan_tile_rows)
+    from image_analogies_tpu_torch.ops import match
+
+    dev = torch.device("cuda", 0)
+    s = SCAN_SHAPE
+    m, npad, lw = s["m"], s["npad"], s["lw"]
+    n_real = npad - 5000  # the last tile is all padding rows
+    tile = scan_tile_rows(npad)
+    ntiles = npad // tile
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.rand((n_real, lw), generator=gen, device=dev) * 0.2
+    x[900000] = x[12345]  # duplicate rows in different chunks and tiles
+    live = torch.arange(lw, device=dev)
+    shift, half_norm = packed_shift_and_halfnorm(x, live)
+    w1, w2, dbnh = pack_w12(x, shift, half_norm, live, npad)
+    qv = torch.rand((m, lw), generator=gen, device=dev) * 0.2 - shift
+    qv[0] = x[12345] - shift
+    del x
+    g1, g2, gr = match.bf16_split3(qv)
+    q1, q2, q3 = (t.to(torch.bfloat16) for t in (g1, g2, gr))
+    qa, qb = match._packed3_rows(q1, q2, q3, w1.shape[1])
+    k_used = match._lanes(lw)
+    kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+    flush = flusher(dev)
+
+    idx, val = match.packed_best(qa, w1, k_used, **kw)
+    vals, tidx = match.packed_champions(qa, qb, w1, w2, dbnh, tile, k_used,
+                                        fold_a=True)
+    torch.cuda.synchronize()
+    scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, True)
+    ref_idx, ref_val = match._first_max(scores)
+    second = torch.topk(scores, 2, dim=1).values[:, 1]
+    ref_tv, ref_ti = match._tile_champions(scores, tile)
+    second_t = torch.topk(scores.view(m, ntiles, tile), 2,
+                          dim=2).values[..., 1].T
+    del scores
+    err, ndiff = check_picks("packed3_best", idx, val, ref_idx, ref_val,
+                             second, PACKED_ATOL)
+    if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
+        fail(f"packed3_best: duplicate/padding rule broken (idx[0]="
+             f"{int(idx[0])}, max {int(idx.max())})")
+    terr, tdiff = check_tiles("packed_champions", vals, tidx, ref_tv,
+                              ref_ti, second_t, PACKED_ATOL)
+    if (int(tidx[12345 // tile, 0]), int(tidx[900000 // tile, 0])) != (
+            12345, 900000) or not bool(torch.isneginf(vals[-1]).all()):
+        fail("packed_champions: duplicate/all-padding tile rule broken")
+
+    w1t, w2t = w1.T, w2.T
+
+    def library_dots():
+        d = torch.mm(qa[:m], w1t, out_dtype=torch.float32)
+        d += torch.mm(qa[m:], w1t, out_dtype=torch.float32)
+        d += torch.mm(qb, w2t, out_dtype=torch.float32)
+        return d - dbnh
+
+    # the function's work at its own width 2L = 110 (the kernel rounds its
+    # lanes up to 112): three passes of 2L products per (query, row)
+    width, passes_rows = 2 * lw, 3 * m
+    base_bytes = 2 * 2 * npad * width + 4 * npad + 2 * passes_rows * width
+    flops = 2 * passes_rows * npad * width
+    k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
+                        reps=20, flush=flush)
+    p_ms = cuda_time_ms(lambda: match.packed_best_plain(qa, w1, k_used,
+                                                        **kw),
+                        reps=3, flush=flush)
+    l_ms = cuda_time_ms(lambda: library_dots().max(dim=1), reps=10,
+                        flush=flush)
+    b = bound(base_bytes + 8 * m, flops, PEAK_BF16_FLOP_S)
+    rows["packed3_best"] = kernel_row("packed3_best", "packed_best.cu", 523,
+                                      err, k_ms, p_ms, l_ms, b)
+    say("kernels", kernel="packed3_best", m=m, npad=npad, width=width,
+        k_used=k_used,
+        max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
+        plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+
+    k_ms = cuda_time_ms(lambda: match.packed_champions(
+        qa, qb, w1, w2, dbnh, tile, k_used, fold_a=True), reps=20,
+        flush=flush)
+    p_ms = cuda_time_ms(lambda: match.packed_champions_plain(
+        qa, qb, w1, w2, dbnh, tile, k_used, fold_a=True), reps=3,
+        flush=flush)
+    l_ms = cuda_time_ms(lambda: library_dots().view(m, ntiles, tile).max(
+        dim=2), reps=10, flush=flush)
+    b = bound(base_bytes + 8 * m * ntiles, flops, PEAK_BF16_FLOP_S)
+    rows["packed_champions"] = kernel_row(
+        "packed_champions", "tile_champions.cu", 426, terr, k_ms, p_ms,
+        l_ms, b)
+    say("kernels", kernel="packed_champions", m=m, npad=npad, tile=tile,
+        width=width, k_used=k_used, max_abs_err=terr, picks_differing_in_band=tdiff,
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0],
+        bound_by=b[1])
+    del w1, w2, w1t, w2t, qa, qb, dbnh
+    torch.cuda.empty_cache()
+
+
+def phase_bf16_db_kernels(rows):
+    """pertile_champions (scan_rescue) and argmin2_l2 (two_pass), q_split,
+    at level 0 of npr_1024: M = 352 queries as 704 hi/lo rows, the bf16
+    centered DB of Npad = 1,048,576 rows, F = 68 of Fp = 128 lanes, the
+    port's rescue tile."""
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import scan_tile_rows
+    from image_analogies_tpu_torch.ops import match
+
+    dev = torch.device("cuda", 0)
+    s = SCAN_SHAPE
+    m, npad, f, fp = s["m"], s["npad"], s["f"], s["fp"]
+    n_real = npad - 5000
+    tile = scan_tile_rows(npad)
+    ntiles = npad // tile
+    k_used = (f + 15) // 16 * 16
+    gen = torch.Generator(device=dev).manual_seed(19)
+    db = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
+    db[900000] = db[12345]
+    dbc = db - db.mean(dim=0)[None, :]
+    dbp = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
+    dbp[:n_real, :f] = dbc.to(torch.bfloat16)
+    dbn = torch.full((npad,), float("inf"), device=dev)
+    dbn[:n_real] = (dbc * dbc).sum(dim=1)
+    dbnh = 0.5 * dbn
+    q = torch.zeros((m, fp), device=dev)
+    q[:, :f] = dbc[torch.randint(0, n_real, (m,), generator=gen,
+                                 device=dev)] \
+        + torch.randn((m, f), generator=gen, device=dev) * 0.02
+    q[0, :f] = dbp[12345, :f].float()
+    del db, dbc
+    flush = flusher(dev)
+
+    vals, tidx = match.pertile_champions(q, dbp, dbnh, tile, True, k_used)
+    i1, v1, i2, v2 = match.argmin2_l2(q, dbp, dbn, True, k_used)
+    torch.cuda.synchronize()
+    qk = match._scan_queries(q, True)
+    dots = match._dots(qk[:m], dbp, k_used) + match._dots(qk[m:], dbp,
+                                                          k_used)
+    s2 = dots - dbnh
+    ref_tv, ref_ti = match._tile_champions(s2, tile)
+    second_t = torch.topk(s2.view(m, ntiles, tile), 2,
+                          dim=2).values[..., 1].T
+    del s2
+    terr, tdiff = check_tiles("pertile_champions", vals, tidx, ref_tv,
+                              ref_ti, second_t, PACKED_ATOL)
+    if (int(tidx[12345 // tile, 0]), int(tidx[900000 // tile, 0])) != (
+            12345, 900000) or not bool(torch.isneginf(vals[-1]).all()):
+        fail("pertile_champions: duplicate/all-padding tile rule broken")
+    sl2 = dbn[None, :] - 2.0 * dots
+    del dots
+    top3 = torch.topk(sl2, 3, dim=1, largest=False).values
+    del sl2
+    r1, rv1, r2, rv2 = match.argmin2_l2_plain(q, dbp, dbn, True, k_used)
+    e1, d1 = check_picks("argmin2_l2 first", i1, v1, r1, rv1, top3[:, 1],
+                         PACKED_ATOL)
+    e2, d2 = check_picks("argmin2_l2 second", i2, v2, r2, rv2, top3[:, 2],
+                         PACKED_ATOL)
+    if (int(i1[0]), int(i2[0])) != (12345, 900000) or \
+            int(torch.maximum(i1, i2).max()) >= n_real:
+        fail(f"argmin2_l2: duplicate/padding rule broken (i1[0]="
+             f"{int(i1[0])}, i2[0]={int(i2[0])})")
+
+    dbt = dbp.T
+
+    def library_dots():
+        return (torch.mm(qk[:m], dbt, out_dtype=torch.float32)
+                + torch.mm(qk[m:], dbt, out_dtype=torch.float32))
+
+    # the function's work at its own width F = 68 (the kernel rounds its
+    # lanes up to 80): hi and lo passes of F products per (query, row)
+    base_bytes = 2 * npad * f + 4 * npad + 2 * 2 * m * f
+    flops = 2 * 2 * m * npad * f
+
+    k_ms = cuda_time_ms(lambda: match.pertile_champions(
+        q, dbp, dbnh, tile, True, k_used), reps=20, flush=flush)
+    p_ms = cuda_time_ms(lambda: match.pertile_champions_plain(
+        q, dbp, dbnh, tile, True, k_used), reps=3, flush=flush)
+    l_ms = cuda_time_ms(lambda: (library_dots() - dbnh).view(
+        m, ntiles, tile).max(dim=2), reps=10, flush=flush)
+    b = bound(base_bytes + 8 * m * ntiles, flops, PEAK_BF16_FLOP_S)
+    rows["pertile_champions"] = kernel_row(
+        "pertile_champions", "tile_champions.cu", 300, terr, k_ms, p_ms, l_ms, b)
+    say("kernels", kernel="pertile_champions", q_split=True, m=m,
+        npad=npad, tile=tile, f=f, k_used=k_used, max_abs_err=terr,
+        picks_differing_in_band=tdiff, ms=k_ms, plain_ms=p_ms,
+        library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+
+    k_ms = cuda_time_ms(lambda: match.argmin2_l2(q, dbp, dbn, True, k_used),
+                        reps=20, flush=flush)
+    p_ms = cuda_time_ms(lambda: match.argmin2_l2_plain(
+        q, dbp, dbn, True, k_used), reps=3, flush=flush)
+    l_ms = cuda_time_ms(lambda: torch.topk(
+        dbn[None, :] - 2.0 * library_dots(), 2, dim=1, largest=False),
+        reps=10, flush=flush)
+    b = bound(base_bytes + 16 * m, flops, PEAK_BF16_FLOP_S)
+    err = max(e1, e2)
+    rows["argmin2_l2"] = kernel_row("argmin2_l2", "argmin2.cu", 131, err,
+                                    k_ms, p_ms, l_ms, b)
+    say("kernels", kernel="argmin2_l2", q_split=True, m=m, npad=npad, f=f,
+        k_used=k_used, max_abs_err=err, picks_differing_in_band=d1 + d2,
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0],
+        bound_by=b[1])
+    del q, qk, dbp, dbt, dbn, dbnh
+    torch.cuda.empty_cache()
+
+
+def phase_packed_forms():
+    """The four superseded packed forms (instances of packed_best.cu) on
+    the card against their plain versions (run on the CPU copies), at a
+    smaller shape; not timed."""
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import (
+        packed_shift_and_halfnorm)
+    from image_analogies_tpu_torch.ops import match
+
+    s = FORMS_SHAPE
+    m, npad, lw = s["m"], s["npad"], s["lw"]
+    n_real = npad - 100
+    gen = torch.Generator().manual_seed(23)
+    x = torch.rand((n_real, lw), generator=gen) * 0.2
+    x[60000] = x[345]
+    shift, half_norm = packed_shift_and_halfnorm(x, torch.arange(lw))
+    d1, d2, d3 = (t.to(torch.bfloat16) for t in match.bf16_split3(x - shift))
+    qv = torch.rand((m, lw), generator=gen) * 0.2 - shift
+    qv[0] = x[345] - shift
+    q1, q2 = (t.to(torch.bfloat16) for t in match.bf16_split3(qv)[:2])
+    dbnh = torch.full((npad,), float("inf"))
+    dbnh[:n_real] = half_norm
+
+    def pack(a, b):
+        w = torch.zeros((npad, 128), dtype=torch.bfloat16)
+        w[:n_real, :lw], w[:n_real, lw:2 * lw] = a, b
+        return w
+
+    w12, w13 = pack(d1, d2), pack(d1, d3)
+    w12n = match.add_norm_lanes(pack(d1, d2), dbnh, lw)
+    forms = {
+        "packed2_best": lambda c: match.packed2_best(
+            c(q1), c(q2), c(w12), c(w13), c(dbnh)),
+        "packed1w_best": lambda c: match.packed1w_best(
+            c(q1), c(q2), c(w12), c(dbnh)),
+        "packed2wn_best": lambda c: match.packed2wn_best(
+            c(q1), c(q2), c(w12n), c(w13)),
+        "packed1wn_best": lambda c: match.packed1wn_best(
+            c(q1), c(q2), c(w12n)),
+    }
+    errs = {}
+    match.reset_launch_counts()
+    for name, call in forms.items():
+        idx, val = (t.cpu() for t in call(lambda t: t.cuda()))
+        ref_idx, ref_val = call(lambda t: t)
+        errs[name] = float((val - ref_val).abs().max())
+        if not errs[name] <= PACKED_ATOL:
+            fail(f"{name}: max |score - plain| {errs[name]:.3g}")
+        # a pick may differ only where it scores within the band of the
+        # plain version's best
+        if bool(((idx != ref_idx) & ((val - ref_val).abs()
+                                     > SCORE_BAND)).any()):
+            fail(f"{name}: picks differ outside the {SCORE_BAND} band")
+        if int(idx[0]) != 345 or int(idx.max()) >= n_real:
+            fail(f"{name}: duplicate/padding rule broken")
+        if match.LAUNCHES[name] != 1:
+            fail(f"{name}: {match.LAUNCHES[name]} launches, expected 1")
+    say("kernels", forms=errs, m=m, npad=npad, timed=False)
+
+
+def expected_launches(params, size: int, modes=None):
+    """Kernel launches of a size x size run: c(h-1)+w wavefront steps a
+    level, each on its level's anchor kernel (``modes``: the mode each
+    level ran, finest first; default the resolution of match_mode)."""
+    from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
     from image_analogies_tpu_torch.ops.pyramid import num_feasible_levels
 
     levels = num_feasible_levels((size, size), params.levels,
                                  params.patch_size)
     c = params.patch_size // 2 + 1
-    out = {"argmin_l2": 0, "packed_best": 0}
+    out = {}
     h = size
-    for _ in range(levels):
-        steps = c * (h - 1) + h
-        mode = resolve_match_mode(params.match_mode, h * h)
-        out["packed_best" if mode == "exact_hi2_2p" else "argmin_l2"] += steps
+    for level in range(levels):
+        mode = (modes[level] if modes is not None
+                else resolve_match_mode(params.match_mode, h * h))
+        key = ANCHOR_KERNEL[mode]
+        out[key] = out.get(key, 0) + c * (h - 1) + h
         h = (h + 1) // 2
     return out
 
 
-def phase_main():
+def run_path(phase, params, a, ap, b, runs=("first",), keep_levels=True,
+             check_modes=True):
+    """``create_image_analogy`` on the card once per label in ``runs``
+    ("cold" then "warm" to time a warm run; "first" for a single run that
+    is the process's first use of its mode), with every launch count set to
+    0 just before each run and read just after: each level's anchor kernel
+    must have launched once per wavefront step, and no other kernel at all.
+    Returns (result, launches of the last run)."""
+    import numpy as np
     import torch
 
-    from image_analogies_tpu_torch import PRESETS, create_image_analogy
+    from image_analogies_tpu_torch import create_image_analogy
     from image_analogies_tpu_torch.ops import match
-    from image_analogies_tpu_torch.utils.assets import (input_digest,
-                                                        make_structured)
 
-    params = PRESETS["npr_1024"]
-    a, ap, b = make_structured(1024, 7)
-    digest = input_digest(a, ap, b)
-    if digest != ORACLE_DIGEST:
-        fail(f"inputs drifted from the cached oracle ({digest} != "
-             f"{ORACLE_DIGEST})")
-    want = expected_launches(params, 1024)
-    result = None
-    launches = None
-    for run in ("cold", "warm"):
+    size = a.shape[0]
+    result = launches = None
+    for run in runs:
         match.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        result = create_image_analogy(a, ap, b, params, keep_levels=True)
+        result = create_image_analogy(a, ap, b, params,
+                                      keep_levels=keep_levels)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(match.LAUNCHES)
-        say("main", run=run, wall_s=wall,
+        modes = [st["match_mode"] for st in sorted(result.stats,
+                                                   key=lambda st:
+                                                   st["level"])]
+        want = expected_launches(params, size,
+                                 None if check_modes else modes)
+        say(phase, run=run, size=size, match_mode=params.match_mode,
+            wall_s=wall,
             level_ms={st["level"]: st["ms"] for st in result.stats},
             level_build_ms={st["level"]: st["total_ms"] - st["ms"]
                             for st in result.stats},
@@ -319,21 +675,46 @@ def phase_main():
                         for st in result.stats},
             coherence={st["level"]: st["coherence_ratio"]
                        for st in result.stats},
-            launches=launches, expected_launches=want,
+            launches={k: v for k, v in launches.items() if v},
+            expected_launches=want,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         for name, n in launches.items():
-            if n <= 0:
-                fail(f"main path never launched kernel {name}")
-            if n != want[name]:
-                fail(f"{name}: {n} launches, expected {want[name]} (one "
-                     "per wavefront step of its levels)")
+            if n != want.get(name, 0):
+                fail(f"{phase}: {name} launched {n} times, expected "
+                     f"{want.get(name, 0)} (one per wavefront step of its "
+                     "levels)")
     bp = result.bp_y
-    if bp.shape != (1024, 1024) or not bool((bp == bp).all()):
-        fail("B' is not a finite 1024x1024 plane")
-    return a, ap, b, params, result, launches
+    if bp.shape != (size, size) or not bool(np.isfinite(bp).all()):
+        fail(f"{phase}: B' is not a finite {size}x{size} plane")
+    return result, launches
 
 
-def phase_oracle(a, ap, b, params, result):
+def load_oracle_inputs():
+    from image_analogies_tpu_torch.utils.assets import (input_digest,
+                                                        make_structured)
+
+    a, ap, b = make_structured(1024, 7)
+    digest = input_digest(a, ap, b)
+    if digest != ORACLE_DIGEST:
+        fail(f"inputs drifted from the cached oracle ({digest} != "
+             f"{ORACLE_DIGEST})")
+    return a, ap, b
+
+
+def phase_main(a, ap, b):
+    from image_analogies_tpu_torch import PRESETS
+
+    params = PRESETS["npr_1024"]
+    result, launches = run_path("main", params, a, ap, b,
+                                runs=("cold", "warm"))
+    return params, result, launches
+
+
+def phase_oracle(a, ap, b, params, result, phase="oracle",
+                 ssim_min=SSIM_MIN, unexplained_max=UNEXPLAINED_MAX):
+    """SSIM and the tie-audit against the cached 1024^2 oracle; with
+    ``unexplained_max`` None (the probe modes) the audit is reported only.
+    """
     import numpy as np
 
     from image_analogies_tpu_torch.utils.parity import (
@@ -348,7 +729,7 @@ def phase_oracle(a, ap, b, params, result):
     audit = audit_source_map_mismatches(a, ap, b, params, result.levels,
                                         oracle_levels)
     frac = audit["unexplained"] / max(audit["mismatches"], 1)
-    say("oracle", ssim=s, value_match=float(
+    say(phase, ssim=s, value_match=float(
         (result.source_map == oz["source_map"]).mean()),
         mismatches=audit["mismatches"], ctx_diverged=audit["ctx_diverged"],
         tie_exact=audit["tie_exact"], tie_fp=audit["tie_fp"],
@@ -358,11 +739,107 @@ def phase_oracle(a, ap, b, params, result):
         first_divergence_is_tie=audit["first_divergence_is_tie"],
         max_fp_band=audit["max_fp_band"],
         audit_s=time.perf_counter() - t0)
-    if not s >= SSIM_MIN:
-        fail(f"SSIM vs oracle {s:.4f} < {SSIM_MIN}")
-    if not frac <= UNEXPLAINED_MAX:
-        fail(f"tie-audit unexplained fraction {frac:.3g} > "
-             f"{UNEXPLAINED_MAX}")
+    if not s >= ssim_min:
+        fail(f"{phase}: SSIM vs oracle {s:.4f} < {ssim_min}")
+    if unexplained_max is not None and not frac <= unexplained_max:
+        fail(f"{phase}: tie-audit unexplained fraction {frac:.3g} > "
+             f"{unexplained_max}")
+
+
+def phase_exact_hi2(a, ap, b):
+    """exact_hi2 (packed3 at every level) at 1024^2, held to the main
+    path's oracle limits."""
+    from image_analogies_tpu_torch import PRESETS
+
+    params = dataclasses.replace(PRESETS["npr_1024"], match_mode="exact_hi2")
+    result, launches = run_path("exact_hi2", params, a, ap, b,
+                                runs=("cold", "warm"))
+    phase_oracle(a, ap, b, params, result, phase="exact_hi2")
+    return launches
+
+
+def phase_probe(phase, mode, a, ap, b):
+    """A non-parity probe mode at 1024^2 (a wiring check against the
+    oracle, not a parity claim), then its single-pass variant at 256^2."""
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    os.environ["IA_EXPERIMENTAL"] = "1"
+    params = dataclasses.replace(PRESETS["npr_1024"], match_mode=mode)
+    result, launches = run_path(phase, params, a, ap, b,
+                                runs=("cold", "warm"))
+    phase_oracle(a, ap, b, params, result, phase=phase,
+                 ssim_min=PROBE_SSIM_MIN, unexplained_max=None)
+    small = make_structured(256, 7)
+    run_path(phase, dataclasses.replace(params, match_mode=mode + "_1p"),
+             *small, keep_levels=False)
+    return launches
+
+
+def phase_gate():
+    """bf16_scoring at 64^2: the parity gate probes on this card (two 32^2
+    syntheses and their audit); its verdict is printed, not asserted, and
+    every level then runs the mode the verdict allows."""
+    import torch
+
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.backends import gate
+    from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    gate.reset_bf16_gate()
+    params = dataclasses.replace(PRESETS["npr_1024"], bf16_scoring=True)
+    dev = torch.device("cuda", 0)
+    match.reset_launch_counts()
+    t0 = time.perf_counter()
+    allowed = gate.bf16_gate_allows(params, dev)
+    probe_s = time.perf_counter() - t0
+    say("gate", device=gate.device_key(dev), probe_s=probe_s,
+        probe_launches={k: v for k, v in match.LAUNCHES.items() if v},
+        **gate.bf16_gate_verdict(dev))
+    a, ap, b = make_structured(64, 7)
+    result, _ = run_path("gate", params, a, ap, b, keep_levels=False,
+                         check_modes=False)
+    for st in result.stats:
+        h = a.shape[0]
+        for _ in range(st["level"]):
+            h = (h + 1) // 2
+        want = ("scan_rescue" if allowed
+                else resolve_match_mode(params.match_mode, h * h))
+        if st["match_mode"] != want:
+            fail(f"gate: level {st['level']} ran {st['match_mode']}, the "
+                 f"verdict allows {want}")
+
+
+def phase_card_vs_cpu():
+    """Each new mode at 96^2 (3 levels) on the card and on the CPU; then
+    exact_hi2 and scan_rescue on RGB sources."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
+    from image_analogies_tpu_torch.utils.assets import make_structured
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    os.environ["IA_EXPERIMENTAL"] = "1"
+    gray = make_structured(96, 7)
+    rgb = tuple(np.stack([x, x * x, 1 - x], -1).astype(np.float32)
+                for x in gray)
+    cases = [(mode, "yiq_transfer", gray) for mode in NEW_MODES] + [
+        (mode, "source_rgb", rgb) for mode in ("exact_hi2", "scan_rescue")]
+    for mode, color_mode, (a, ap, b) in cases:
+        params = AnalogyParams(levels=3, kappa=5.0, match_mode=mode,
+                               color_mode=color_mode)
+        gpu = create_image_analogy(a, ap, b, params)
+        cpu = create_image_analogy(a, ap, b, params, device="cpu")
+        diff = float((gpu.source_map != cpu.source_map).mean())
+        s = ssim(gpu.bp_y, cpu.bp_y)
+        say("card_vs_cpu", match_mode=mode, color_mode=color_mode,
+            source_map_differs=diff, ssim=s)
+        if not (diff < CARD_CPU_MISMATCH_MAX and s >= CARD_CPU_SSIM_MIN
+                and np.isfinite(gpu.bp).all()):
+            fail(f"card_vs_cpu: {mode} ({color_mode}) differs from its CPU "
+                 f"run (source maps {diff:.4f}, SSIM {s:.4f})")
 
 
 def phase_profile(a, ap, b, params):
@@ -434,17 +911,38 @@ def main() -> None:
     if "env" in phases:
         phase_env(args.ptxas)
     rows = phase_kernels() if "kernels" in phases else None
+    path_launches = {}
+    if {"main", "oracle", "profile", "exact_hi2", "rescue",
+            "two_pass"} & set(phases):
+        a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
-        a, ap_, b, params, result, launches = phase_main()
-        if rows is not None:
-            for name, n in launches.items():
-                rows[name]["launches"] = n
+        params, result, path_launches["main"] = phase_main(a, ap_, b)
         if "oracle" in phases:
             phase_oracle(a, ap_, b, params, result)
         if "profile" in phases:
             phase_profile(a, ap_, b, params)
+    if "exact_hi2" in phases:
+        path_launches["exact_hi2"] = phase_exact_hi2(a, ap_, b)
+    if "rescue" in phases:
+        path_launches["rescue"] = phase_probe("rescue", "scan_rescue",
+                                              a, ap_, b)
+    if "two_pass" in phases:
+        path_launches["two_pass"] = phase_probe("two_pass", "two_pass",
+                                                a, ap_, b)
+    if "gate" in phases:
+        phase_gate()
+    if "card_vs_cpu" in phases:
+        phase_card_vs_cpu()
     if not set(PHASES) <= set(phases):
         return
+    # each kernel's launches from the run of its path; packed_champions is
+    # an entry point on no path (the witness of packed_best), so 0
+    for path, names in (("main", ("argmin_l2", "packed_best")),
+                        ("exact_hi2", ("packed3_best",)),
+                        ("rescue", ("pertile_champions",)),
+                        ("two_pass", ("argmin2_l2",))):
+        for name in names:
+            rows[name]["launches"] = path_launches[path][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,23 +1,30 @@
 """Configuration of the PyTorch/CUDA port (counterpart of
 ``image_analogies_tpu/config.py``).
 
-Only the fields the ported main path reads are here.  Field names, defaults
-and validation mirror the JAX package so a params object reads the same in
+Only the fields the ported paths read are here.  Field names, defaults and
+validation mirror the JAX package so a params object reads the same in
 both; the backend seam becomes an explicit ``device`` ("cuda" by default —
 the port runs on the card unless the caller asks for the CPU).
 
-Values of ``strategy`` / ``match_mode`` that the JAX package supports but
-this slice has not ported raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Values of ``strategy`` that the JAX package supports but the port has not
+ported raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.  Every match mode is ported.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
-# strategy / match_mode values ported so far
+# strategy values ported so far
 PORTED_STRATEGIES = ("auto", "wavefront")
-PORTED_MATCH_MODES = ("auto", "exact_hi", "exact_hi2_2p")
+# the production match modes: every one is parity-grade (its picks hold the
+# oracle tie-audit)
+PARITY_MATCH_MODES = ("auto", "exact_hi", "exact_hi2", "exact_hi2_2p")
+# non-parity A/B probe modes (bf16-resolution scans): selecting one needs
+# IA_EXPERIMENTAL=1 in the environment
+EXPERIMENTAL_MATCH_MODES = ("scan_rescue", "scan_rescue_1p",
+                            "two_pass", "two_pass_1p")
 
 # the rest of the JAX package's surface, with the ROADMAP item porting it
 _UNPORTED_STRATEGIES = {
@@ -25,13 +32,20 @@ _UNPORTED_STRATEGIES = {
     "rowwise": "ROADMAP Queue 1 item 5",
     "batched": "ROADMAP Queue 1 item 5",
 }
-_UNPORTED_MATCH_MODES = {
-    "exact_hi2": "ROADMAP Queue 2 item 3 (packed3_best)",
-    "scan_rescue": "ROADMAP Queue 1 item 11 / Queue 2 item 5",
-    "scan_rescue_1p": "ROADMAP Queue 1 item 11 / Queue 2 item 5",
-    "two_pass": "ROADMAP Queue 1 item 11 / Queue 2 item 6",
-    "two_pass_1p": "ROADMAP Queue 1 item 11 / Queue 2 item 6",
-}
+
+
+def env_truthy(name: str) -> bool:
+    """Fail-closed boolean env gate: only explicit truthy spellings count,
+    so typos, falsey values and an unset variable never open a gate (the
+    JAX package's ``config.env_truthy`` with its one default)."""
+    raw = os.environ.get(name)
+    return raw is not None and raw.strip().lower() in ("1", "true", "yes",
+                                                      "on")
+
+
+def experimental_enabled() -> bool:
+    """True when IA_EXPERIMENTAL opts into the non-parity probe modes."""
+    return env_truthy("IA_EXPERIMENTAL")
 
 
 @dataclass(frozen=True)
@@ -43,9 +57,17 @@ class AnalogyParams:
     - ``strategy``: "auto" resolves to "wavefront" (anti-diagonal parity
       scan, ``backends/cuda.py``).
     - ``match_mode``: the wavefront anchor scan — "exact_hi" (fp32 argmin
-      kernel), "exact_hi2_2p" (bf16 lane-packed tensor-core scan), or "auto"
-      (per level: packed at or above ``backends.cuda.PACKED_CROSSOVER_ROWS``
-      A rows).
+      kernel), "exact_hi2" (three-pass packed scan, the full bf16_6x
+      product set), "exact_hi2_2p" (bf16 lane-packed K-wide scan), or
+      "auto" (per level: exact_hi2_2p at or above
+      ``backends.cuda.PACKED_CROSSOVER_ROWS`` A rows, exact_hi below).
+      Behind IA_EXPERIMENTAL=1: "scan_rescue" (bf16 per-tile champions +
+      top-8 fp32 rescue), "two_pass" (bf16 top-2 + fp32 re-score) and
+      their single-pass "_1p" variants.
+    - ``bf16_scoring``: opt-in bf16 candidate scoring for the wavefront
+      anchor (the scan_rescue machinery), gated by a parity probe on first
+      use per device (``backends/gate.py``): a verdict that is not fully
+      tie-explained keeps the exact scan.
     - ``temporal_weight``: the video term; single-image synthesis ignores it
       (video is ROADMAP Queue 1 item 6).
     - ``device``: where tensors live.  "cuda" (default) requires a card and
@@ -63,6 +85,7 @@ class AnalogyParams:
     strategy: str = "auto"
     match_mode: str = "auto"
     temporal_weight: float = 0.0
+    bf16_scoring: bool = False
     device: str = "cuda"
 
     def __post_init__(self):
@@ -76,6 +99,10 @@ class AnalogyParams:
             raise ValueError(f"kappa must be >= 0, got {self.kappa}")
         if self.color_mode not in ("yiq_transfer", "source_rgb"):
             raise ValueError(f"unknown color_mode {self.color_mode!r}")
+        if self.bf16_scoring and self.strategy not in ("wavefront", "auto"):
+            raise ValueError(
+                "bf16_scoring requires strategy 'wavefront' or 'auto', "
+                f"got {self.strategy!r}")
         if self.strategy in _UNPORTED_STRATEGIES:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported yet "
@@ -83,13 +110,17 @@ class AnalogyParams:
                 f"{PORTED_STRATEGIES}")
         if self.strategy not in PORTED_STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.match_mode in _UNPORTED_MATCH_MODES:
-            raise NotImplementedError(
-                f"match_mode {self.match_mode!r} is not ported yet "
-                f"({_UNPORTED_MATCH_MODES[self.match_mode]}); the port runs "
-                f"{PORTED_MATCH_MODES}")
-        if self.match_mode not in PORTED_MATCH_MODES:
-            raise ValueError(f"unknown match_mode {self.match_mode!r}")
+        if self.match_mode not in PARITY_MATCH_MODES:
+            if self.match_mode not in EXPERIMENTAL_MATCH_MODES:
+                raise ValueError(f"unknown match_mode {self.match_mode!r}")
+            if not experimental_enabled():
+                raise ValueError(
+                    f"match_mode {self.match_mode!r} is a non-parity "
+                    "experimental A/B probe (its bf16-resolution scan "
+                    "drifts from the oracle — see "
+                    "experiments/rescue_probe.py); set IA_EXPERIMENTAL=1 "
+                    "to enable it, or use one of "
+                    f"{PARITY_MATCH_MODES}")
         if self.device not in ("cuda", "cpu") and not \
                 self.device.startswith("cuda:"):
             raise ValueError(f"unknown device {self.device!r}")

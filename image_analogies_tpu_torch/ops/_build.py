@@ -5,8 +5,9 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled by
 headers: a file that includes them takes minutes to compile, a plain one
 seconds).  Libraries are built at first use, from the sources in this
 checkout only, into ``image_analogies_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by the source's hash, so an edited source
-rebuilds.  A missing ``nvcc`` or a failed build raises: there is no fallback.
+``.gitignore``) under a name keyed by the hash of the source and of the
+shared headers (``csrc/*.cuh``), so an edited source or header rebuilds.
+A missing ``nvcc`` or a failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Iterable, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-KERNEL_SOURCES = ("argmin_l2", "packed_best")
+KERNEL_SOURCES = ("argmin_l2", "packed_best", "tile_champions", "argmin2")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -39,10 +40,23 @@ _SIGNATURES = {
                          _INT, _VOIDP],
     },
     "packed_best": {
-        # (qa, m, wk, n, k, k_used, n_chunks, part_val, part_idx, out_idx,
-        #  out_val, device, stream)
-        "ia_packed_best": [_VOIDP, _INT, _VOIDP, _INT, _INT, _INT, _INT,
-                           _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP],
+        # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,
+        #  norm_in_w, n_chunks, part_val, part_idx, out_idx, out_val,
+        #  device, stream)
+        "ia_packed_best": [_VOIDP] * 5 + [_INT] * 8
+                          + [_VOIDP] * 4 + [_INT, _VOIDP],
+    },
+    "tile_champions": {
+        # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,
+        #  tile_n, n_chunks, out_val, out_idx, device, stream)
+        "ia_tile_champions": [_VOIDP] * 5 + [_INT] * 8
+                             + [_VOIDP] * 2 + [_INT, _VOIDP],
+    },
+    "argmin2": {
+        # (q, db, dbn, m, n, k, k_used, q_split, n_chunks, part_v1, part_i1,
+        #  part_v2, part_i2, i1, v1, i2, v2, device, stream)
+        "ia_argmin2": [_VOIDP] * 3 + [_INT] * 6 + [_VOIDP] * 8
+                      + [_INT, _VOIDP],
     },
 }
 
@@ -66,9 +80,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False

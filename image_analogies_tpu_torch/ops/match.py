@@ -1,33 +1,47 @@
 """Matching kernels of the port — the counterpart of the JAX package's
-``ops/pallas_match.py`` for the two kernels on the main path:
+``ops/pallas_match.py``, one entry per Pallas kernel:
 
 - ``argmin_l2``: per query, the lexicographic (score, index) minimum over DB
   rows of ``dbn[n] - 2 q.db[n]`` in exact fp32 (replaces ``_argmin_kernel``;
   CUDA source ``csrc/argmin_l2.cu``).
 - ``packed_best``: per query, the lexicographic (score, lowest index)
-  maximum of one K-wide bf16 dot with fp32 accumulation against the
-  lane-packed DB (replaces ``_packed_best_kernel`` in its shipping
-  ``packed2k_best`` form; CUDA source ``csrc/packed_best.cu``).
+  maximum of one to three bf16 passes with fp32 accumulation against the
+  lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
+  ``packed_best`` itself is the main path's ``packed2k`` form, and
+  ``packed3_best``, ``packed2_best``, ``packed1w_best``, ``packed2wn_best``
+  and ``packed1wn_best`` are built on it; ``csrc/packed_best.cu``).
+- ``packed_champions``: the same packed passes, one champion per DB tile
+  (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
+- ``pertile_champions``: per DB tile, the champion of ``q.db - dbnh`` over
+  the bf16 centered DB (replaces ``_pertile_kernel``; the same C entry in
+  ``csrc/tile_champions.cu``, one stream).
+- ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
+  ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-Every kernel wrapper follows one contract: a CPU tensor runs the plain
-PyTorch version in this module; a CUDA tensor launches the hand-written
-kernel or raises — there is no fallback.  ``LAUNCHES`` counts kernel
-launches (one per wrapper call that launched), so a run can show that its
-main path went through the kernels.
+The four bf16 kernels are instances of one CUDA template
+(``csrc/bf16_scan.cuh``).  Every kernel wrapper follows one contract: a CPU
+tensor runs the plain PyTorch version in this module; a CUDA tensor
+launches the hand-written kernel or raises — there is no fallback.
+``LAUNCHES`` counts kernel launches, one key per kernel entry and packed
+form (one per wrapper call that launched), so a run can show that its path
+went through the kernels.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from image_analogies_tpu_torch.ops import _build
 
-# launches of each CUDA kernel since the last reset (plain-version calls on
-# CPU tensors do not count)
-LAUNCHES = {"argmin_l2": 0, "packed_best": 0}
+# launches of each CUDA kernel entry since the last reset (plain-version
+# calls on CPU tensors do not count)
+LAUNCHES = {"argmin_l2": 0, "packed_best": 0, "packed3_best": 0,
+            "packed2_best": 0, "packed1w_best": 0, "packed2wn_best": 0,
+            "packed1wn_best": 0, "packed_champions": 0,
+            "pertile_champions": 0, "argmin2_l2": 0}
 
 # score given to padding rows by the norm-in-W scheme: far below any real
 # score, finite (an inf lane would split to hi=-inf, lo=NaN)
@@ -54,6 +68,22 @@ def bf16_split3(x: torch.Tensor):
     d1, r1 = bf16_split2(x)
     d2, r2 = bf16_split2(r1)
     return d1, d2, r2
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _snap_tile(tile_n: int, npad: int) -> int:
+    """Largest divisor of ``npad`` that is <= ``tile_n`` (a copy of the JAX
+    package's ``pallas_match._snap_tile``)."""
+    tile_n = max(min(int(tile_n), npad), 1)
+    if npad % tile_n == 0:
+        return tile_n
+    for t in range(tile_n, 0, -1):
+        if npad % t == 0:
+            return t
+    return 1
 
 
 def _lex_lt(va, ia, vb, ib):
@@ -90,9 +120,20 @@ def _chunks(n_tiles: int, q_tiles: int, device_index: int) -> int:
     return max(1, min(n_tiles, target // max(q_tiles, 1)))
 
 
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else \
+        torch.cuda.current_device()
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
 def _check_cuda(name: str, **tensors) -> None:
     dev = None
     for arg, t in tensors.items():
+        if t is None:
+            continue
         if t.device.type != "cuda":
             raise ValueError(f"{name}: {arg} is on {t.device}, expected the "
                              "card like the other operands")
@@ -138,12 +179,10 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
                          f"{tuple(dbp.shape)}, dbn {tuple(dbn.shape)}")
     if not (q.dtype == dbp.dtype == dbn.dtype == torch.float32):
         raise ValueError("argmin_l2: operands must be float32")
-    if q.device.type == "cpu" and dbp.device.type == "cpu" \
-            and dbn.device.type == "cpu":
+    if _on_cpu(q, dbp, dbn):
         return argmin_l2_plain(q, dbp, dbn)
     _check_cuda("argmin_l2", q=q, dbp=dbp, dbn=dbn)
-    dev = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
+    dev = _device_index(q)
     lib = _build.load("argmin_l2")
     n_chunks = _chunks((n + 127) // 128, (m + 31) // 32, dev)
     part_val = torch.empty((n_chunks, m), dtype=torch.float32,
@@ -163,46 +202,120 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
 
 # ------------------------------------------------------------ packed_best
 
+# (fold_a, two_streams, norm_in_w) -> the form's name and launch-count key
+_PACKED_FORMS = {
+    (False, False, True): "packed_best",  # packed2k: the main path's scan
+    (True, True, False): "packed3_best",  # exact_hi2
+    (False, True, False): "packed2_best",
+    (True, False, False): "packed1w_best",
+    (False, True, True): "packed2wn_best",
+    (True, False, True): "packed1wn_best",
+}
 
-def packed_best_plain(qa: torch.Tensor, wk: torch.Tensor, k_used: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``packed_best``: ``qa.float() @ wk.float().T`` over
-    the first ``k_used`` lanes, then the first (lowest-index) maximum."""
-    scores = qa[:, :k_used].float() @ wk[:, :k_used].float().T
-    idx = torch.argmax(scores, dim=1)
-    val = scores.gather(1, idx[:, None])[:, 0]
-    return idx.to(torch.int32), val
+
+def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
+    return q[:, :k_used].float() @ w[:, :k_used].float().T
 
 
-def packed_best(qa: torch.Tensor, wk: torch.Tensor, k_used: int = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per query row m: (idx, val) = the lexicographic maximum over DB rows
-    n of ``qa[m] . wk[n]`` (bf16 operands, fp32 accumulation), lowest index
-    on ties.
+def _packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, fold_a):
+    """The packed passes' (M, N) fp32 scores in the JAX kernels' order:
+    qa.W1 (row blocks summed with ``fold_a``), plus qb.W2, minus dbnh."""
+    m = qa.shape[0] // 2 if fold_a else qa.shape[0]
+    s = _dots(qa[:m], w1, k_used)
+    if fold_a:
+        s = s + _dots(qa[m:], w1, k_used)
+    if w2 is not None:
+        s = s + _dots(qb, w2, k_used)
+    if dbnh is not None:
+        s = s - dbnh[None, :]
+    return s
 
-    ``qa`` (M, K) bf16 query rows ``[q1|q1|1 1 1|q2|q1|0]``; ``wk`` (Npad,
-    K) bf16 packed DB ``[d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in
-    backends/cuda.py), K in {128, 256, 384, 512}.  Lanes at and past
-    ``k_used`` (a multiple of 16; 0 means K) must be zero in ``qa``; the
-    kernel skips them.  Returns (idx (M,) int32, val (M,) fp32)."""
-    if qa.dim() != 2 or wk.dim() != 2 or qa.shape[1] != wk.shape[1]:
-        raise ValueError(f"packed_best: qa {tuple(qa.shape)} and wk "
-                         f"{tuple(wk.shape)} must be (M,K) and (N,K)")
-    m, k = qa.shape
-    n = wk.shape[0]
+
+def _first_max(scores: torch.Tensor):
+    idx = torch.argmax(scores, dim=1)  # first occurrence: lowest index
+    return idx.to(torch.int32), scores.gather(1, idx[:, None])[:, 0]
+
+
+def _check_packed(name, qa, w1, k_used, qb, w2, dbnh, fold_a) -> int:
+    """Validate the packed operands; returns the used lanes."""
+    if qa.dim() != 2 or w1.dim() != 2 or qa.shape[1] != w1.shape[1]:
+        raise ValueError(f"{name}: qa {tuple(qa.shape)} and w1 "
+                         f"{tuple(w1.shape)} must be (M,K) and (N,K)")
+    qm, k = qa.shape
+    n = w1.shape[0]
     k_used = k if k_used == 0 else k_used
     if k not in (128, 256, 384, 512) or k_used % 16 or not 0 < k_used <= k:
-        raise ValueError(f"packed_best: K={k} must be 128/256/384/512 and "
+        raise ValueError(f"{name}: K={k} must be 128/256/384/512 and "
                          f"k_used={k_used} a multiple of 16 in (0, K]")
-    if m == 0 or n == 0:
-        raise ValueError("packed_best: empty operand")
-    if not (qa.dtype == wk.dtype == torch.bfloat16):
-        raise ValueError("packed_best: operands must be bfloat16")
-    if qa.device.type == "cpu" and wk.device.type == "cpu":
-        return packed_best_plain(qa, wk, k_used)
-    _check_cuda("packed_best", qa=qa, wk=wk)
-    dev = qa.device.index if qa.device.index is not None else \
-        torch.cuda.current_device()
+    if qm == 0 or n == 0 or (fold_a and qm % 2):
+        raise ValueError(f"{name}: qa has {qm} rows, w1 {n}")
+    m = qm // 2 if fold_a else qm
+    if (w2 is None) != (qb is None):
+        raise ValueError(f"{name}: qb and w2 come together")
+    if w2 is not None and (tuple(w2.shape) != tuple(w1.shape)
+                           or tuple(qb.shape) != (m, k)):
+        raise ValueError(f"{name}: qb {tuple(qb.shape)} / w2 "
+                         f"{tuple(w2.shape)} do not match qa / w1")
+    if any(t is not None and t.dtype != torch.bfloat16
+           for t in (qa, w1, qb, w2)):
+        raise ValueError(f"{name}: query and weight operands must be "
+                         "bfloat16")
+    if dbnh is not None and (dbnh.dtype != torch.float32
+                             or tuple(dbnh.shape) != (n,)):
+        raise ValueError(f"{name}: dbnh must be float32 of shape ({n},)")
+    return k_used
+
+
+def packed_best_plain(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0,
+                      *, qb: Optional[torch.Tensor] = None,
+                      w2: Optional[torch.Tensor] = None,
+                      dbnh: Optional[torch.Tensor] = None,
+                      fold_a: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``packed_best``: the fp32 scores of the packed
+    passes over the first ``k_used`` lanes, then the first (lowest-index)
+    maximum."""
+    k_used = k_used or qa.shape[1]
+    return _first_max(_packed_scores_plain(qa, w1, k_used, qb, w2, dbnh,
+                                           fold_a))
+
+
+def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
+                qb: Optional[torch.Tensor] = None,
+                w2: Optional[torch.Tensor] = None,
+                dbnh: Optional[torch.Tensor] = None,
+                fold_a: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per query row m: (idx, val) = the lexicographic maximum over DB rows
+    n of the packed passes (bf16 operands, fp32 accumulation), lowest index
+    on ties:
+
+        qa[m].w1[n] (+ qa[M+m].w1[n] with ``fold_a``) (+ qb[m].w2[n])
+        (- dbnh[n] when given; else the norm rides w1's lanes)
+
+    With no ``qb``/``w2``/``dbnh`` and no fold this is the main path's
+    ``packed2k`` form: ``qa`` (M, K) rows ``[q1|q1|1 1 1|q2|q1|0]`` against
+    ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py).
+    The other five combinations the JAX package names are the ``*_best``
+    wrappers below.  K in {128, 256, 384, 512}; lanes at and past
+    ``k_used`` (a multiple of 16; 0 means K) must be zero in the query
+    rows, the kernel skips them.  Returns (idx (M,) int32, val (M,) fp32).
+    """
+    k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
+                           fold_a)
+    form = _PACKED_FORMS.get((fold_a, w2 is not None, dbnh is None))
+    if form is None:
+        raise ValueError(
+            f"packed_best: fold_a={fold_a}, two streams={w2 is not None}, "
+            f"norm in W={dbnh is None} is not one of the packed forms")
+    if _on_cpu(qa, w1, qb, w2, dbnh):
+        return packed_best_plain(qa, w1, k_used, qb=qb, w2=w2, dbnh=dbnh,
+                                 fold_a=fold_a)
+    _check_cuda("packed_best", qa=qa, w1=w1, qb=qb, w2=w2, dbnh=dbnh)
+    k = qa.shape[1]
+    m = qa.shape[0] // 2 if fold_a else qa.shape[0]
+    n = w1.shape[0]
+    dev = _device_index(qa)
     lib = _build.load("packed_best")
     n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
     part_val = torch.empty((n_chunks, m), dtype=torch.float32,
@@ -210,11 +323,339 @@ def packed_best(qa: torch.Tensor, wk: torch.Tensor, k_used: int = 0
     part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=qa.device)
     out_idx = torch.empty((m,), dtype=torch.int32, device=qa.device)
     out_val = torch.empty((m,), dtype=torch.float32, device=qa.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.ia_packed_best(
-        qa.data_ptr(), m, wk.data_ptr(), n, k, k_used, n_chunks,
-        part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
-        out_val.data_ptr(), dev,
+        qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), ptr(dbnh), m, n, k,
+        k_used, int(fold_a), int(w2 is not None), int(dbnh is None),
+        n_chunks, part_val.data_ptr(), part_idx.data_ptr(),
+        out_idx.data_ptr(), out_val.data_ptr(), dev,
         torch.cuda.current_stream(qa.device).cuda_stream)
-    _build.check(lib, err, "packed_best launch")
-    LAUNCHES["packed_best"] += 1
+    _build.check(lib, err, f"{form} launch")
+    LAUNCHES[form] += 1
     return out_idx, out_val
+
+
+def _pack_rows(left: torch.Tensor, right: torch.Tensor, kp: int
+               ) -> torch.Tensor:
+    """(M, kp) bf16 rows ``[left | right | 0]``."""
+    m, l = left.shape
+    out = torch.zeros((m, kp), dtype=torch.bfloat16, device=left.device)
+    out[:, :l] = left
+    out[:, l:2 * l] = right
+    return out
+
+
+def norm_query_rows(q1: torch.Tensor, q2: torch.Tensor, kp: int
+                    ) -> torch.Tensor:
+    """The qa row blocks of the norm-in-W single-stream scan: rows [0, M)
+    = [q1|q1|1 1 1] (products q1.d1 + q1.d2 + norm), rows [M, 2M) =
+    [q2|0|0] (product q2.d1), folded by the kernel (JAX
+    ``norm_query_rows`` without the row padding the TPU tiles need)."""
+    l = q1.shape[1]
+    row_a = _pack_rows(q1, q1, kp)
+    row_a[:, 2 * l:2 * l + 3] = 1.0
+    return torch.cat([row_a, _pack_rows(q2, torch.zeros_like(q2), kp)])
+
+
+def _lanes(l: int, norm: bool = False) -> int:
+    return _round_up(2 * l + (3 if norm else 0), 16)
+
+
+def packed2_best(q1, q2, w1, w2, dbnh):
+    """Two-stream scan q1.d1 + q1.d2 + q2.d1 + q1.d3 - ||d||^2/2: rows
+    [q1|q1].W1 + [q2|q1].W2 with W1 = [d1|d2], W2 = [d1|d3].  Returns
+    (idx (M,), val (M,))."""
+    kp, l = w1.shape[1], q1.shape[1]
+    return packed_best(_pack_rows(q1, q1, kp), w1, _lanes(l),
+                       qb=_pack_rows(q2, q1, kp), w2=w2, dbnh=dbnh)
+
+
+def packed1w_best(q1, q2, w1, dbnh):
+    """Single-weight-stream scan q1.d1 + q1.d2 + q2.d1 - ||d||^2/2: folded
+    rows [q1|q1] and [q2|0] against W1 = [d1|d2] (rejected for parity by
+    the JAX package; kept with its test)."""
+    kp, l = w1.shape[1], q1.shape[1]
+    qa = torch.cat([_pack_rows(q1, q1, kp),
+                    _pack_rows(q2, torch.zeros_like(q2), kp)])
+    return packed_best(qa, w1, _lanes(l), dbnh=dbnh, fold_a=True)
+
+
+def packed2wn_best(q1, q2, w1n, w2):
+    """packed2's product set with the norm riding W1's lanes
+    (``add_norm_lanes``): rows [q1|q1|1 1 1].W1n + [q2|q1|0].W2
+    (superseded by ``packed_best``'s K-wide form; kept with its test)."""
+    kp, l = w1n.shape[1], q1.shape[1]
+    qa = _pack_rows(q1, q1, kp)
+    qa[:, 2 * l:2 * l + 3] = 1.0
+    return packed_best(qa, w1n, _lanes(l, norm=True),
+                       qb=_pack_rows(q2, q1, kp), w2=w2)
+
+
+def packed1wn_best(q1, q2, w1n):
+    """Single-stream, norm-in-W scan q1.d1 + q1.d2 + q2.d1 - ||d||^2/2
+    (``norm_query_rows`` folded against W1n; rejected for parity by the
+    JAX package, kept with its test)."""
+    kp, l = w1n.shape[1], q1.shape[1]
+    return packed_best(norm_query_rows(q1, q2, kp), w1n,
+                       _lanes(l, norm=True), fold_a=True)
+
+
+def _packed3_rows(q1, q2, q3, kp):
+    qa = torch.cat([_pack_rows(q1, q1, kp), _pack_rows(q2, q2, kp)])
+    return qa, _pack_rows(q1, q3, kp)
+
+
+def packed3_best(q1, q2, q3, w1, w2, dbnh):
+    """The exact_hi2 scan: the full six-product bf16_6x set
+    q1.d1 + q1.d2 + q2.d1 + q1.d3 + q2.d2 + q3.d1 - ||d||^2/2 as folded
+    rows [q1|q1], [q2|q2] against W1 = [d1|d2] plus [q1|q3] against
+    W2 = [d3|d1].  ``q1``/``q2``/``q3`` are the (M, L) bf16 splits of the
+    centered live query dims.  Returns (idx (M,), val (M,))."""
+    qa, qb = _packed3_rows(q1, q2, q3, w1.shape[1])
+    return packed_best(qa, w1, _lanes(q1.shape[1]), qb=qb, w2=w2, dbnh=dbnh,
+                       fold_a=True)
+
+
+# ------------------------------------------------------- packed_champions
+
+
+def _tile_champions(scores: torch.Tensor, tile_n: int):
+    """Tile-major (ntiles, M) per-tile (max, first argmax + tile offset)."""
+    m, npad = scores.shape
+    st = scores.view(m, npad // tile_n, tile_n)
+    arg = torch.argmax(st, dim=2)  # first occurrence within the tile
+    vals = st.gather(2, arg[..., None])[..., 0]
+    off = torch.arange(0, npad, tile_n, device=scores.device)
+    idx = (arg + off[None, :]).to(torch.int32)
+    return vals.T.contiguous(), idx.T.contiguous()
+
+
+def _check_tile(name: str, tile_n: int, npad: int) -> int:
+    """The tile snapped to a divisor of ``npad``; the CUDA per-tile scan
+    needs it to be a multiple of its 64-row shared-memory tile."""
+    tile_n = _snap_tile(tile_n, npad)
+    if tile_n % 64:
+        raise ValueError(f"{name}: the CUDA scan needs a tile of a multiple "
+                         f"of 64 rows dividing {npad}; got {tile_n}")
+    return tile_n
+
+
+def _tile_scan(name, qa, qb, w1, w2, dbnh, m, tile_n, k_used, fold_a):
+    """Launch the per-tile CUDA scan (one stream when ``w2`` is None) for
+    checked card operands; count the launch under ``name``."""
+    n, k = w1.shape
+    tile_n = _check_tile(name, tile_n, n)
+    ntiles = n // tile_n
+    dev = _device_index(qa)
+    lib = _build.load("tile_champions")
+    vals = torch.empty((ntiles, m), dtype=torch.float32, device=qa.device)
+    idx = torch.empty((ntiles, m), dtype=torch.int32, device=qa.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    n_chunks = _chunks(ntiles, (m + 127) // 128, dev)
+    err = lib.ia_tile_champions(
+        qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), dbnh.data_ptr(), m,
+        n, k, k_used, int(fold_a), int(w2 is not None), tile_n, n_chunks,
+        vals.data_ptr(), idx.data_ptr(), dev,
+        torch.cuda.current_stream(qa.device).cuda_stream)
+    _build.check(lib, err, f"{name} launch")
+    LAUNCHES[name] += 1
+    return vals, idx
+
+
+def packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n: int,
+                           k_used: int = 0, fold_a: bool = False):
+    """Plain version of ``packed_champions``."""
+    k_used = k_used or qa.shape[1]
+    tile_n = _snap_tile(tile_n, w1.shape[0])
+    return _tile_champions(
+        _packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, fold_a), tile_n)
+
+
+def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
+                     fold_a: bool = False):
+    """Per query row m and DB tile t of ``tile_n`` rows (snapped to a
+    divisor of Npad): the (max, first argmax) of the two-stream packed
+    passes  qa.W1 (+ folded block) + qb.W2 - dbnh.  Returns tile-major
+    (vals (ntiles, M) fp32, idx (ntiles, M) int32 global rows); an
+    all-padding tile gives -inf at its first row."""
+    k_used = _check_packed("packed_champions", qa, w1, k_used, qb, w2, dbnh,
+                           fold_a)
+    if w2 is None or dbnh is None:
+        raise ValueError("packed_champions: needs qb, w2 and dbnh")
+    if _on_cpu(qa, qb, w1, w2, dbnh):
+        return packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n, k_used,
+                                      fold_a)
+    _check_cuda("packed_champions", qa=qa, qb=qb, w1=w1, w2=w2, dbnh=dbnh)
+    return _tile_scan("packed_champions", qa, qb, w1, w2, dbnh, qb.shape[0],
+                      tile_n, k_used, fold_a)
+
+
+def packed2_champions(q1, q2, w1, w2, dbnh, tile_n: int):
+    """Per-tile twin of ``packed2_best``: (vals (M, ntiles), idx (M,
+    ntiles))."""
+    kp, l = w1.shape[1], q1.shape[1]
+    vals, idx = packed_champions(_pack_rows(q1, q1, kp),
+                                 _pack_rows(q2, q1, kp), w1, w2, dbnh,
+                                 tile_n, _lanes(l))
+    return vals.T, idx.T
+
+
+def packed3_champions(q1, q2, q3, w1, w2, dbnh, tile_n: int):
+    """Per-tile twin of ``packed3_best``: (vals (M, ntiles), idx (M,
+    ntiles))."""
+    qa, qb = _packed3_rows(q1, q2, q3, w1.shape[1])
+    vals, idx = packed_champions(qa, qb, w1, w2, dbnh, tile_n,
+                                 _lanes(q1.shape[1]), fold_a=True)
+    return vals.T, idx.T
+
+
+# ------------------------------------------------------ pertile_champions
+
+
+def _scan_queries(q: torch.Tensor, q_split: bool) -> torch.Tensor:
+    """The bf16 query block of the bf16-DB scans.  ``q_split``: (2M, Fp)
+    = [hi; lo] with hi the truncated bf16 of the fp32 query (exact) and lo
+    the residual ROUNDED to bf16, as the JAX entries' ``.astype``.  Without
+    it: the query rounded to bf16."""
+    if q_split:
+        hi, lo = bf16_split2(q.float())
+        return torch.cat([hi.to(torch.bfloat16), lo.to(torch.bfloat16)])
+    return q if q.dtype == torch.bfloat16 else q.to(torch.bfloat16)
+
+
+def _check_bf16_scan(name, q, dbp, norm, k_used) -> int:
+    if q.dim() != 2 or dbp.dim() != 2 or q.shape[1] != dbp.shape[1]:
+        raise ValueError(f"{name}: q {tuple(q.shape)} and dbp "
+                         f"{tuple(dbp.shape)} must be (M,Fp) and (N,Fp)")
+    m, fp = q.shape
+    n = dbp.shape[0]
+    k_used = fp if k_used == 0 else k_used
+    if fp not in (128, 256, 384, 512) or k_used % 16 or \
+            not 0 < k_used <= fp:
+        raise ValueError(f"{name}: Fp={fp} must be 128/256/384/512 and "
+                         f"k_used={k_used} a multiple of 16 in (0, Fp]")
+    if m == 0 or n == 0:
+        raise ValueError(f"{name}: empty operand")
+    if dbp.dtype != torch.bfloat16 or norm.dtype != torch.float32 or \
+            tuple(norm.shape) != (n,):
+        raise ValueError(f"{name}: dbp must be bfloat16 and its norms "
+                         f"float32 of shape ({n},)")
+    return k_used
+
+
+def pertile_champions_plain(q, dbp, dbnh, tile_n: int,
+                            q_split: bool = False, k_used: int = 0):
+    """Plain version of ``pertile_champions``."""
+    qk = _scan_queries(q, q_split)
+    k_used = k_used or qk.shape[1]
+    return packed_champions_plain(qk, None, dbp, None, dbnh, tile_n, k_used,
+                                  fold_a=q_split)
+
+
+def pertile_champions(q: torch.Tensor, dbp: torch.Tensor,
+                      dbnh: torch.Tensor, tile_n: int,
+                      q_split: bool = False, k_used: int = 0):
+    """Per query row m and DB tile t of ``tile_n`` rows (snapped to a
+    divisor of Npad): (max, first argmax) of  s2 = q.db - dbnh  over the
+    bf16 DB ``dbp`` (Npad, Fp), bigger = closer.  ``q`` (M, Fp) fp32 (or
+    bf16 without ``q_split``): rounded to bf16, or with ``q_split`` its
+    hi/lo bf16 blocks both scored and summed.  Lanes at and past
+    ``k_used`` (0: Fp) are zero in ``q`` and skipped.  Returns tile-major
+    (vals (ntiles, M) fp32, idx (ntiles, M) int32 global rows); padding
+    rows carry dbnh = +inf, so an all-padding tile gives -inf at its first
+    row."""
+    k_used = _check_bf16_scan("pertile_champions", q, dbp, dbnh, k_used)
+    if _on_cpu(q, dbp, dbnh):
+        return pertile_champions_plain(q, dbp, dbnh, tile_n, q_split, k_used)
+    qk = _scan_queries(q, q_split).contiguous()
+    _check_cuda("pertile_champions", q=qk, dbp=dbp, dbnh=dbnh)
+    return _tile_scan("pertile_champions", qk, None, dbp, None, dbnh,
+                      q.shape[0], tile_n, k_used, q_split)
+
+
+def _pad_lanes(queries: torch.Tensor, fp: int) -> torch.Tensor:
+    m, f = queries.shape
+    qp = torch.zeros((m, fp), dtype=queries.dtype, device=queries.device)
+    qp[:, :f] = queries
+    return qp
+
+
+def pertile_champions_queries(queries: torch.Tensor, dbp: torch.Tensor,
+                              dbnh: torch.Tensor, tile_n: int,
+                              q_split: bool = False):
+    """Raw-query wrapper of ``pertile_champions``: lane-pad the (M, F)
+    fp32 queries, scan, and return (vals (M, ntiles), idx (M, ntiles))."""
+    f = queries.shape[1]
+    vals, idx = pertile_champions(_pad_lanes(queries, dbp.shape[1]), dbp,
+                                  dbnh, tile_n, q_split, _round_up(f, 16))
+    return vals.T, idx.T
+
+
+# ------------------------------------------------------------- argmin2_l2
+
+
+def argmin2_l2_plain(q, dbp, dbn, q_split: bool = False, k_used: int = 0):
+    """Plain version of ``argmin2_l2``: the scores ``dbn - 2 q.db`` (hi
+    and lo dots summed first under ``q_split``), the first minimum, then
+    the first minimum with that column set to +inf."""
+    qk = _scan_queries(q, q_split)
+    k_used = k_used or qk.shape[1]
+    m = q.shape[0]
+    dots = _dots(qk[:m], dbp, k_used)
+    if q_split:
+        dots = dots + _dots(qk[m:], dbp, k_used)
+    s = dbn[None, :] - 2.0 * dots
+    i1 = torch.argmin(s, dim=1)
+    v1 = s.gather(1, i1[:, None])[:, 0]
+    s.scatter_(1, i1[:, None], float("inf"))
+    i2 = torch.argmin(s, dim=1)
+    v2 = s.gather(1, i2[:, None])[:, 0]
+    return i1.to(torch.int32), v1, i2.to(torch.int32), v2
+
+
+def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
+               q_split: bool = False, k_used: int = 0):
+    """Per query row m: the two lexicographically smallest (score, index)
+    pairs over DB rows n of  score = dbn[n] - 2 q[m].db[n]  (bf16 operands,
+    fp32 accumulation; lowest index on ties).  ``dbn`` (Npad,) holds full
+    row norms, +inf on padding rows, which lose every compare.  ``q`` as in
+    ``pertile_champions``.  Returns (i1, v1, i2, v2), (M,) each; where no
+    second row exists (a one-row DB) v2 is +inf and i2 names no real row.
+    """
+    k_used = _check_bf16_scan("argmin2_l2", q, dbp, dbn, k_used)
+    if _on_cpu(q, dbp, dbn):
+        return argmin2_l2_plain(q, dbp, dbn, q_split, k_used)
+    qk = _scan_queries(q, q_split).contiguous()
+    _check_cuda("argmin2_l2", q=qk, dbp=dbp, dbn=dbn)
+    m, fp = q.shape
+    n = dbp.shape[0]
+    dev = _device_index(qk)
+    lib = _build.load("argmin2")
+    n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
+    f32, i32 = torch.float32, torch.int32
+    part = [torch.empty((n_chunks, m), dtype=dt, device=qk.device)
+            for dt in (f32, i32, f32, i32)]
+    i1, i2 = (torch.empty((m,), dtype=i32, device=qk.device)
+              for _ in range(2))
+    v1, v2 = (torch.empty((m,), dtype=f32, device=qk.device)
+              for _ in range(2))
+    err = lib.ia_argmin2(
+        qk.data_ptr(), dbp.data_ptr(), dbn.data_ptr(), m, n, fp, k_used,
+        int(q_split), n_chunks, *(t.data_ptr() for t in part),
+        i1.data_ptr(), v1.data_ptr(), i2.data_ptr(), v2.data_ptr(), dev,
+        torch.cuda.current_stream(qk.device).cuda_stream)
+    _build.check(lib, err, "argmin2_l2 launch")
+    LAUNCHES["argmin2_l2"] += 1
+    return i1, v1, i2, v2
+
+
+def prepadded_argmin2_queries(queries: torch.Tensor, dbp: torch.Tensor,
+                              dbn: torch.Tensor, q_split: bool = False):
+    """Raw-query wrapper of ``argmin2_l2``: lane-pad the (M, F) fp32
+    queries and return (i1, i2, valid2) — valid2 is False where no second
+    distinct row exists.  Scores are not returned: two-pass callers
+    re-score both candidates in exact fp32."""
+    f = queries.shape[1]
+    i1, _, i2, v2 = argmin2_l2(_pad_lanes(queries, dbp.shape[1]), dbp, dbn,
+                               q_split, _round_up(f, 16))
+    return i1, i2, torch.isfinite(v2)

@@ -15,7 +15,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
-from image_analogies_tpu_torch.backends.cuda import LevelDB
+from image_analogies_tpu_torch.backends.cuda import LevelDB, PAD_MODES
 
 
 def _tensor(x: Optional[np.ndarray], device, dtype=None):
@@ -35,16 +35,24 @@ def level_db_from_numpy(arrays: Mapping[str, Any], meta: Mapping[str, Any],
     """Build a ``LevelDB`` on ``device`` from NumPy arrays.
 
     ``arrays``: ``db``, ``static_q``, ``a_filt_flat``, ``db_pad``,
-    ``dbn_pad`` (f32 pads, any shape of Npad elements), ``feat_mean``,
-    ``live_idx``, ``db_live`` (packed pads; None otherwise), ``fine_sqrtw``,
-    ``off`` and ``diag`` (a sequence of schedule segments).  ``meta``: the
-    static ints ``ha``, ``wa``, ``hb``, ``wb``, ``fine_start`` and the
-    resolved ``match_mode`` ("exact_hi" or "exact_hi2_2p")."""
+    ``db_pad2`` (exact_hi2's W2), ``dbn_pad`` / ``dbnh_pad`` (norms, any
+    shape of Npad elements), ``feat_mean``, ``live_idx``, ``db_live``
+    (None where the pad mode has none), ``fine_sqrtw``, ``off`` and
+    ``diag`` (a sequence of schedule segments).  ``meta``: the static ints
+    ``ha``, ``wa``, ``hb``, ``wb``, ``fine_start``, the resolved
+    ``match_mode`` (a key of ``backends.cuda.PAD_MODES``) and, for
+    scan_rescue, the per-tile scan tile ``scan_tile`` (the JAX side's tile,
+    so the rescue set is the same)."""
     mode = meta["match_mode"]
-    if mode not in ("exact_hi", "exact_hi2_2p"):
-        raise NotImplementedError(f"match_mode {mode!r} is not ported")
-    dbn = arrays.get("dbn_pad")
+    if mode not in PAD_MODES:
+        raise ValueError(f"unknown match_mode {mode!r}")
     i64 = torch.int64
+
+    def norms(name):
+        x = arrays.get(name)
+        return None if x is None else _tensor(np.asarray(x).reshape(-1),
+                                              device, torch.float32)
+
     return LevelDB(
         db=_tensor(arrays["db"], device, torch.float32),
         static_q=_tensor(arrays["static_q"], device, torch.float32),
@@ -54,12 +62,12 @@ def level_db_from_numpy(arrays: Mapping[str, Any], meta: Mapping[str, Any],
         off=_tensor(arrays["off"], device, i64),
         diag=tuple(_tensor(sg, device, i64) for sg in arrays["diag"]),
         db_pad=_tensor(arrays["db_pad"], device),
-        dbn_pad=(None if dbn is None else
-                 _tensor(np.asarray(dbn).reshape(-1), device, torch.float32)),
+        dbn_pad=norms("dbn_pad"),
         feat_mean=_tensor(arrays.get("feat_mean"), device, torch.float32),
         live_idx=_tensor(arrays.get("live_idx"), device, i64),
         db_live=_tensor(arrays.get("db_live"), device, torch.float32),
         ha=int(meta["ha"]), wa=int(meta["wa"]), hb=int(meta["hb"]),
         wb=int(meta["wb"]), fine_start=int(meta["fine_start"]),
-        match_mode=mode)
+        match_mode=mode, db_pad2=_tensor(arrays.get("db_pad2"), device),
+        dbnh_pad=norms("dbnh_pad"), scan_tile=int(meta.get("scan_tile", 0)))
 

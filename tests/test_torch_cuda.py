@@ -121,3 +121,277 @@ def test_cuda_main_path_matches_cpu_run(match_mode):
     assert gpu.bp_y.shape == (48, 48) and np.isfinite(gpu.bp_y).all()
     assert (gpu.source_map != cpu.source_map).mean() < 0.02
     assert ssim(gpu.bp_y, cpu.bp_y) >= 0.99
+
+
+# --------------------------------------- the bf16 scan template's entries
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16)
+
+
+def scan_case(n=1000, npad=1024, m=21, l=55, f=68, seed=5, dev="cpu",
+              kp=128, fp=128):
+    """Seeded operands of every bf16 scan entry on ``dev``: packed weights
+    W1 = [d1|d2], W2 = [d3|d1] / [d1|d3] of ``kp`` lanes, the K-wide wk,
+    half norms with +inf padding rows, the bf16 centered DB of ``fp`` lanes
+    with full norms, and queries — with an exact duplicate pair (rows 3 and
+    600, or 2 and 5 in the bf16 DB) that query 2 (0) hits.  The bf16 DB
+    and its queries are scaled so their norms do not grow with ``f``."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, l), generator=g) * 0.1
+    x[600 % n] = x[3 % n]
+    q = torch.randn((m, l), generator=g) * 0.1
+    q[2] = x[3 % n]
+    d1, d2, d3 = (_bf16(v) for v in match.bf16_split3(x))
+    q1, q2, q3 = (_bf16(v) for v in match.bf16_split3(q))
+    scale = (68 / f) ** 0.5
+
+    def pack(a, b):
+        w = torch.zeros((npad, kp), dtype=torch.bfloat16)
+        w[:n, :l], w[:n, l:2 * l] = a, b
+        return w
+
+    dbnh = torch.full((npad,), float("inf"))
+    dbnh[:n] = 0.5 * (x * x).sum(1)
+    db = torch.randn((n, f), generator=g) * scale
+    db[5 % n] = db[2 % n]
+    dbp = torch.zeros((npad, fp), dtype=torch.bfloat16)
+    dbp[:n, :f] = _bf16(db)
+    dbn = torch.full((npad,), float("inf"))
+    dbn[:n] = (db * db).sum(1)
+    qf = torch.zeros((m, fp))
+    qf[:, :f] = torch.randn((m, f), generator=g) * scale
+    qf[0, :f] = dbp[2 % n, :f].float()
+    out = dict(q1=q1, q2=q2, q3=q3, w12=pack(d1, d2), w31=pack(d3, d1),
+               w13=pack(d1, d3), dbnh=dbnh, dbp=dbp, dbn=dbn, qf=qf,
+               w12n=match.add_norm_lanes(pack(d1, d2), dbnh, l))
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def _form_call(form, c):
+    q1, q2, q3 = c["q1"], c["q2"], c["q3"]
+    return {
+        "packed3_best": lambda: match.packed3_best(
+            q1, q2, q3, c["w12"], c["w31"], c["dbnh"]),
+        "packed2_best": lambda: match.packed2_best(
+            q1, q2, c["w12"], c["w13"], c["dbnh"]),
+        "packed1w_best": lambda: match.packed1w_best(
+            q1, q2, c["w12"], c["dbnh"]),
+        "packed2wn_best": lambda: match.packed2wn_best(
+            q1, q2, c["w12n"], c["w13"]),
+        "packed1wn_best": lambda: match.packed1wn_best(q1, q2, c["w12n"]),
+    }[form]
+
+
+def _assert_band(name, idx, val, ref_idx, ref_val, atol=1e-5, band=2e-5):
+    """Scores within ``atol``; picks equal except where the kernel's pick
+    scores within ``band`` of the plain version's best."""
+    torch.testing.assert_close(val, ref_val, rtol=0, atol=atol)
+    bad = (idx != ref_idx) & ((val - ref_val).abs() > band)
+    assert not bool(bad.any()), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed3_best", "packed2_best",
+                                  "packed1w_best", "packed2wn_best",
+                                  "packed1wn_best"])
+@pytest.mark.parametrize("m,n,npad", [(21, 1000, 1024), (200, 1000, 1088)])
+def test_cuda_packed_forms_match_plain(form, m, n, npad):
+    dev = _card()
+    cpu = scan_case(n=n, npad=npad, m=m)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    match.reset_launch_counts()
+    idx, val = _form_call(form, card)()
+    assert match.LAUNCHES[form] == 1
+    ref_i, ref_v = _form_call(form, cpu)()  # the plain version
+    _assert_band(form, idx.cpu(), val.cpu(), ref_i, ref_v)
+    assert int(idx[2]) == 3 and int(idx.max()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("three", [False, True])
+def test_cuda_packed_champions_match_plain(three):
+    dev = _card()
+    cpu = scan_case(n=700, npad=1024, m=37)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+
+    def run(c):
+        if three:
+            return match.packed3_champions(c["q1"], c["q2"], c["q3"],
+                                           c["w12"], c["w31"], c["dbnh"], 128)
+        return match.packed2_champions(c["q1"], c["q2"], c["w12"], c["w13"],
+                                       c["dbnh"], 128)
+
+    match.reset_launch_counts()
+    vals, idx = run(card)
+    assert match.LAUNCHES["packed_champions"] == 1
+    rv, ri = run(cpu)
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals.cpu()), finite)
+    _assert_band("packed_champions", idx.cpu()[finite], vals.cpu()[finite],
+                 ri[finite], rv[finite])
+    assert torch.equal(idx.cpu()[~finite], ri[~finite])  # all-padding tiles
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_split", [False, True])
+@pytest.mark.parametrize("n,npad,tile", [(1000, 1024, 256), (700, 1024, 128),
+                                         (200, 256, 64)])
+def test_cuda_pertile_matches_plain(q_split, n, npad, tile):
+    dev = _card()
+    cpu = scan_case(n=n, npad=npad, m=45)
+    args = [cpu[k] for k in ("qf", "dbp", "dbnh")]
+    match.reset_launch_counts()
+    vals, idx = match.pertile_champions(*[a.to(dev) for a in args], tile,
+                                        q_split, 80)
+    assert match.LAUNCHES["pertile_champions"] == 1
+    rv, ri = match.pertile_champions(*args, tile, q_split, 80)
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals.cpu()), finite)
+    _assert_band("pertile", idx.cpu()[finite], vals.cpu()[finite],
+                 ri[finite], rv[finite], atol=1e-4, band=1e-4)
+    assert torch.equal(idx.cpu()[~finite], ri[~finite])
+    assert int(idx[0, 0]) == 2  # duplicate rows 2 and 5: first occurrence
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_split", [False, True])
+@pytest.mark.parametrize("n,npad", [(1000, 1024), (700, 1088), (1, 256)])
+def test_cuda_argmin2_matches_plain(q_split, n, npad):
+    dev = _card()
+    cpu = scan_case(n=n, npad=npad, m=45)
+    args = [cpu[k] for k in ("qf", "dbp", "dbn")]
+    match.reset_launch_counts()
+    i1, v1, i2, v2 = (t.cpu() for t in match.argmin2_l2(
+        *[a.to(dev) for a in args], q_split, 80))
+    assert match.LAUNCHES["argmin2_l2"] == 1
+    r1, rv1, r2, rv2 = match.argmin2_l2(*args, q_split, 80)
+    _assert_band("argmin2 first", i1, v1, r1, rv1, atol=1e-4, band=1e-4)
+    has2 = torch.isfinite(rv2)
+    assert torch.equal(torch.isfinite(v2), has2)
+    _assert_band("argmin2 second", i2[has2], v2[has2], r2[has2], rv2[has2],
+                 atol=1e-4, band=1e-4)
+    if n > 5:
+        assert (int(i1[0]), int(i2[0])) == (2, 5)
+    else:
+        assert not bool(has2.any()) and int(i1.max()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,l,kp", [
+    ("packed3_best", 123, 256),    # 3 passes x 16 k-steps: fragments re-read
+    ("packed2_best", 200, 512),    # 2 x 32, two streams single-buffered
+    ("packed1w_best", 150, 384),   # 2 x 24, one stream
+    ("packed2wn_best", 120, 256),  # 2 x 16: fragments in registers
+])
+def test_cuda_wide_packed_forms_match_plain(form, l, kp):
+    """The template's instances past the register budget for the query
+    fragments, and with two 512-lane streams past the shared memory of two
+    buffers (exact_hi2 on RGB sources takes K = 256 with three passes)."""
+    dev = _card()
+    cpu = scan_case(n=1000, npad=1088, m=150, l=l, kp=kp)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    match.reset_launch_counts()
+    idx, val = _form_call(form, card)()
+    assert match.LAUNCHES[form] == 1
+    ref_i, ref_v = _form_call(form, cpu)()
+    _assert_band(form, idx.cpu(), val.cpu(), ref_i, ref_v)
+    assert int(idx[2]) == 3 and int(idx.max()) < 1000
+    if form == "packed3_best":
+        match.reset_launch_counts()
+        c = card
+        vals, tidx = match.packed3_champions(c["q1"], c["q2"], c["q3"],
+                                             c["w12"], c["w31"], c["dbnh"],
+                                             64)
+        assert match.LAUNCHES["packed_champions"] == 1
+        rv, ri = match.packed3_champions(cpu["q1"], cpu["q2"], cpu["q3"],
+                                         cpu["w12"], cpu["w31"], cpu["dbnh"],
+                                         64)
+        finite = torch.isfinite(rv)
+        assert torch.equal(torch.isfinite(vals.cpu()), finite)
+        _assert_band("packed3_champions", tidx.cpu()[finite],
+                     vals.cpu()[finite], ri[finite], rv[finite])
+        assert torch.equal(tidx.cpu()[~finite], ri[~finite])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,fp", [(300, 384), (450, 512)])
+def test_cuda_wide_bf16_db_scans_match_plain(f, fp):
+    """pertile_champions and argmin2_l2 under q_split at 384 and 512 lanes:
+    two passes past the register budget for the query fragments."""
+    dev = _card()
+    cpu = scan_case(n=1000, npad=1024, m=45, f=f, fp=fp)
+    match.reset_launch_counts()
+    vals, idx = match.pertile_champions(
+        *[cpu[k].to(dev) for k in ("qf", "dbp", "dbnh")], 256, True,
+        (f + 15) // 16 * 16)
+    i1, v1, i2, v2 = (t.cpu() for t in match.argmin2_l2(
+        *[cpu[k].to(dev) for k in ("qf", "dbp", "dbn")], True))
+    assert match.LAUNCHES["pertile_champions"] == 1
+    assert match.LAUNCHES["argmin2_l2"] == 1
+    rv, ri = match.pertile_champions(cpu["qf"], cpu["dbp"], cpu["dbnh"], 256,
+                                     True, (f + 15) // 16 * 16)
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals.cpu()), finite)
+    _assert_band("pertile", idx.cpu()[finite], vals.cpu()[finite],
+                 ri[finite], rv[finite], atol=1e-4, band=1e-4)
+    assert int(idx[0, 0]) == 2
+    r1, rv1, r2, rv2 = match.argmin2_l2(cpu["qf"], cpu["dbp"], cpu["dbn"],
+                                        True)
+    _assert_band("argmin2 first", i1, v1, r1, rv1, atol=1e-4, band=1e-4)
+    _assert_band("argmin2 second", i2, v2, r2, rv2, atol=1e-4, band=1e-4)
+    assert (int(i1[0]), int(i2[0])) == (2, 5)
+
+
+def _rgb(x):
+    return np.stack([x, x * x, 1 - x], -1).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("match_mode,rgb", [
+    ("exact_hi2", False), ("scan_rescue", False), ("scan_rescue_1p", False),
+    ("two_pass", False), ("two_pass_1p", False),
+    # RGB sources: exact_hi2 scans K = 256 lanes in three passes
+    ("exact_hi2", True), ("scan_rescue", True)])
+def test_cuda_new_modes_match_cpu_run(match_mode, rgb, monkeypatch):
+    """Each new anchor mode's 48^2 path on the card against the same path
+    on the CPU (the plain versions), on grayscale and on RGB sources."""
+    _card()
+    monkeypatch.setenv("IA_EXPERIMENTAL", "1")
+    a, ap, b = make_structured(48, 7)
+    kw = {}
+    if rgb:
+        a, ap, b = _rgb(a), _rgb(ap), _rgb(b)
+        kw = dict(color_mode="source_rgb")
+    params = AnalogyParams(levels=3, kappa=5.0, match_mode=match_mode, **kw)
+    name = {"exact_hi2": "packed3_best", "scan_rescue": "pertile_champions",
+            "scan_rescue_1p": "pertile_champions", "two_pass": "argmin2_l2",
+            "two_pass_1p": "argmin2_l2"}[match_mode]
+    match.reset_launch_counts()
+    gpu = create_image_analogy(a, ap, b, params)
+    assert match.LAUNCHES[name] > 0
+    cpu = create_image_analogy(a, ap, b, params, device="cpu")
+    assert gpu.bp_y.shape == (48, 48) and np.isfinite(gpu.bp_y).all()
+    assert (gpu.source_map != cpu.source_map).mean() < 0.02
+    assert ssim(gpu.bp_y, cpu.bp_y) >= 0.99
+    if rgb:
+        assert gpu.bp.shape == (48, 48, 3) and np.isfinite(gpu.bp).all()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_scoring_gate_runs_on_the_card():
+    """bf16_scoring probes once on the card, caches the verdict under the
+    card's name, and runs the levels on the mode the verdict allows."""
+    from image_analogies_tpu_torch.backends import gate
+
+    dev = _card()
+    gate.reset_bf16_gate()
+    a, ap, b = make_structured(48, 7)
+    res = create_image_analogy(a, ap, b, AnalogyParams(levels=2,
+                                                       bf16_scoring=True))
+    verdict = gate.bf16_gate_verdict(dev)
+    assert verdict is not None and gate.device_key(dev) != "cpu"
+    want = "scan_rescue" if verdict["ok"] else "exact_hi"
+    assert {st["match_mode"] for st in res.stats} == {want}
+    gate.reset_bf16_gate()

@@ -16,6 +16,7 @@ from image_analogies_tpu.ops import pallas_match as pm
 from image_analogies_tpu_torch.backends.cuda import pack_wk
 from image_analogies_tpu_torch.ops import match
 from tests.test_torch_cuda import argmin_inputs, packed_inputs, query_rows
+from tests.test_torch_wavefront import one_torch_thread  # noqa: F401
 
 HIGHEST = jax.lax.Precision.HIGHEST
 

@@ -130,23 +130,28 @@ def test_make_structured_reproduces_oracle_inputs():
     assert assets.input_digest(*assets.make_structured(1024, 7)) == digest
 
 
-def test_params_presets_and_unported_surface():
+def test_params_presets_and_unported_surface(monkeypatch):
     assert set(tcfg.PRESETS) == set(jcfg.PRESETS)
     for name, tp in tcfg.PRESETS.items():
         jp = jcfg.PRESETS[name]
         for fld in ("levels", "patch_size", "coarse_patch_size", "kappa",
                     "remap_luminance", "src_weight", "color_mode",
-                    "temporal_weight", "strategy", "match_mode"):
+                    "temporal_weight", "strategy", "match_mode",
+                    "bf16_scoring"):
             assert getattr(tp, fld) == getattr(jp, fld), (name, fld)
         assert tp.device == "cuda"
         assert tp.kappa_factor(2) == jp.kappa_factor(2)
-    for bad in (dict(strategy="batched"), dict(strategy="exact"),
-                dict(match_mode="exact_hi2"), dict(match_mode="two_pass")):
+    for bad in (dict(strategy="batched"), dict(strategy="exact")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcfg.AnalogyParams(**bad)
+    # every JAX match mode is ported; the probe modes stay gated
+    monkeypatch.delenv("IA_EXPERIMENTAL", raising=False)
+    assert tcfg.AnalogyParams(match_mode="exact_hi2").match_mode == \
+        "exact_hi2"
     for bad in (dict(levels=0), dict(patch_size=4), dict(kappa=-1.0),
                 dict(color_mode="rgb"), dict(strategy="nope"),
-                dict(device="tpu")):
+                dict(device="tpu"), dict(match_mode="two_pass"),
+                dict(match_mode="nope")):
         with pytest.raises(ValueError):
             tcfg.AnalogyParams(**bad)
 

@@ -34,6 +34,17 @@ from tests.conftest import make_pair
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Torch's CPU kernels on one thread while a port test runs: the suite
+    runs files in parallel workers, and timing-sensitive files of the JAX
+    package share the cores.  Imported by the other CPU port tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(x):
     x = np.ascontiguousarray(np.asarray(x))
     return x.view(np.uint8)
@@ -209,15 +220,17 @@ def test_forced_packed_scan_matches_jax_exact_scan():
     assert ssim(port.bp_y, ref.bp_y) >= 0.99
 
 
-@pytest.mark.parametrize("mode", ["exact_hi", "exact_hi2_2p"])
-def test_state_from_jax_build_gives_the_same_scan(mode):
+@pytest.mark.parametrize("mode", sorted(tcuda.PAD_MODES))
+def test_state_from_jax_build_gives_the_same_scan(mode, monkeypatch):
     """`level_db_from_numpy` on the JAX package's level arrays: the port's
-    scan over that state equals its scan over its own build."""
+    scan over that state equals its scan over its own build, in every
+    anchor mode."""
+    monkeypatch.setenv("IA_EXPERIMENTAL", "1")
     p = 5
     planes = _level_inputs(seed=4, ha=26, wa=24, hb=22, wb=20)
     kw = dict(fine_size=p, coarse_size=3, has_coarse=True, src_channels=1)
     jspec, tspec = jfeat.FeatureSpec(**kw), tfeat.FeatureSpec(**kw)
-    pad_mode = "packed2" if mode == "exact_hi2_2p" else "f32"
+    pad_mode = tcuda.PAD_MODES[mode]
     arrs = _jax_level(jspec, planes, pad_mode)
     jparams = JParams(backend="tpu", strategy="wavefront", match_mode=mode)
     jjob = JLevelJob(level=0, spec=jspec, kappa_mult=4.0, **planes)
@@ -228,7 +241,8 @@ def test_state_from_jax_build_gives_the_same_scan(mode):
     ha, wa = planes["a_src"].shape
     hb, wb = planes["b_src"].shape
     meta = dict(ha=ha, wa=wa, hb=hb, wb=wb, fine_start=tmpl.fine_start,
-                match_mode=mode)
+                match_mode=mode,
+                scan_tile=tcuda.scan_tile_rows(arrs["db_pad"].shape[0]))
     from_jax = level_db_from_numpy(arrs, meta, CPU)
 
     tparams = TParams(match_mode=mode, device="cpu")
