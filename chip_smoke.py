@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
 """Prove that the PyTorch/CUDA port (``image_analogies_tpu_torch``) builds
-and runs its wavefront paths on one NVIDIA card, and that what comes out is
-right.
+and runs its paths on one NVIDIA card, and that what comes out is right.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
@@ -20,8 +19,11 @@ and carried on):
                 and the bound the card's peak rates allow for the function
                 (its own width: F = 68 features, 2L = 110 or 4L + 3 = 223
                 packed lanes, not the kernel's lanes rounded up to 16).
-                The four superseded packed forms are checked at a smaller
-                shape and not timed.
+                ``argmin_l2_bf16`` (the batched/rowwise approximate match)
+                at level 0 of batched npr_1024: M = 1024 queries against
+                1,048,576 bf16 rows.  The four superseded packed forms are
+                checked and timed at a smaller shape (M = 64, N = 65,536),
+                with launches 0 in the table: they are on no path.
 3. main       — ``create_image_analogy`` with ``PRESETS["npr_1024"]`` on the
                 1024^2 structured inputs of the cached oracle, cold then
                 warm: per-level scan and build ms, wall-clock, kernel launch
@@ -37,17 +39,29 @@ and carried on):
                 SSIM vs the oracle >= 0.90 (a wiring check: the mode is not
                 a parity mode); then one run of ``scan_rescue_1p`` at 256^2.
 7. two_pass   — the same for ``two_pass`` and ``two_pass_1p``.
-8. gate       — ``bf16_scoring=True`` at 64^2: the parity gate's verdict on
+8. batched    — ``strategy="batched"`` with the npr_1024 preset on the
+                oracle inputs, cold then warm: per-level ms, wall-clock,
+                peak memory, coherence and refined ratios, SSIM vs the
+                oracle (printed: batched is not a parity mode);
+                ``argmin_l2_bf16`` launched exactly once per scan row (1,984)
+                and no other kernel; then the self-analogy B = A at 256^2
+                (3 levels; SSIM of B' vs A' >= 0.9 and identity source map
+                >= 0.8, the JAX package's floors) and at 1024^2 (printed).
+9. gate       — ``bf16_scoring=True`` at 64^2: the parity gate's verdict on
                 this card (printed, not asserted), the mode each level ran.
-9. card_vs_cpu — each new mode at 96^2 (3 levels) on the card and on the
-                CPU, and exact_hi2 and scan_rescue on RGB sources
-                (``color_mode="source_rgb"``: exact_hi2 scans 256 lanes in
-                three passes): source maps differ on < 2% of pixels, SSIM
-                >= 0.99.
+10. card_vs_cpu — exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2
+                (3 levels) on the card and on the CPU, exact_hi2 and
+                scan_rescue on RGB sources (``color_mode="source_rgb"``:
+                exact_hi2 scans 256 lanes in three passes), then batched at
+                96^2 and rowwise at 64^2 against a CPU run of the same bf16
+                approximate match (the kernel's plain version) and exact at
+                48^2 against the CPU's fp32 scan: source maps differ on < 2%
+                of pixels, SSIM >= 0.99.
 
 ``--phases main,profile`` adds one more warm run under torch.profiler
-(device time by kernel, device busy share); ``--ptxas`` prints each
-kernel's registers, shared memory and spills.
+(device time by kernel, device busy share); ``--phases batched_profile``
+profiles one warm batched run at 256^2 (3 levels) the same way; ``--ptxas``
+prints each kernel's registers, shared memory and spills.
 
 Then the kernel table as one JSON line (each kernel's launches from the run
 of its path), the card's name and power limit, and, as the last line,
@@ -67,7 +81,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
-          "two_pass", "gate", "card_vs_cpu")
+          "two_pass", "batched", "gate", "card_vs_cpu")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -86,6 +100,9 @@ PACKED_SHAPE = dict(m=352, npad=1048576, lw=55)  # level 0 (1024^2)
 # the packed3 arrays (2L = 110 of Kp = 128)
 SCAN_SHAPE = dict(m=352, npad=1048576, f=68, fp=128, lw=55)
 FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
+# level 0 of batched npr_1024: one 1024-pixel scan row against the bf16
+# rows-above DB (F = 68 of Fp = 128)
+BATCHED_SHAPE = dict(m=1024, npad=1048576, f=68, fp=128)
 
 # the kernel (launch-count key) each resolved anchor mode runs
 ANCHOR_KERNEL = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed_best",
@@ -107,7 +124,11 @@ SSIM_MIN = 0.98
 UNEXPLAINED_MAX = 1e-4
 # the probe modes are not parity modes: this floor catches wiring faults
 PROBE_SSIM_MIN = 0.90
-# card against CPU at 96^2 (tests/test_torch_cuda.py's limits)
+# the JAX package's self-analogy floors for the fast strategies
+# (tests/test_backend_equivalence.py)
+SELF_SSIM_MIN = 0.9
+SELF_IDENTITY_MIN = 0.8
+# card against CPU (tests/test_torch_cuda.py's limits)
 CARD_CPU_MISMATCH_MAX = 0.02
 CARD_CPU_SSIM_MIN = 0.99
 ORACLE_DIGEST = "8512fc90ebcc2781"
@@ -340,7 +361,8 @@ def phase_kernels():
     torch.cuda.empty_cache()
     phase_packed3_kernels(rows)
     phase_bf16_db_kernels(rows)
-    phase_packed_forms()
+    phase_argmin_bf16_kernel(rows)
+    phase_packed_forms(rows)
     return rows
 
 
@@ -554,10 +576,73 @@ def phase_bf16_db_kernels(rows):
     torch.cuda.empty_cache()
 
 
-def phase_packed_forms():
+def phase_argmin_bf16_kernel(rows):
+    """argmin_l2_bf16 (the batched/rowwise approximate match) at level 0 of
+    batched npr_1024: M = 1024 queries (one scan row), the bf16 rows-above
+    DB of Npad = 1,048,576 rows (the last 5,000 padding), F = 68 of
+    Fp = 128 lanes, with a duplicate row pair in different chunks."""
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    dev = torch.device("cuda", 0)
+    s = BATCHED_SHAPE
+    m, npad, f, fp = s["m"], s["npad"], s["f"], s["fp"]
+    n_real = npad - 5000
+    k_used = (f + 15) // 16 * 16
+    gen = torch.Generator(device=dev).manual_seed(29)
+    db = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
+    db[900000] = db[12345]
+    dbp = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
+    dbp[:n_real, :f] = db.to(torch.bfloat16)
+    dbn = torch.full((npad,), float("inf"), device=dev)
+    dbn[:n_real] = (db * db).sum(dim=1)
+    q = torch.zeros((m, fp), device=dev)
+    q[:, :f] = db[torch.randint(0, n_real, (m,), generator=gen, device=dev)] \
+        + torch.randn((m, f), generator=gen, device=dev) * 0.02
+    q[0, :f] = db[12345]
+    del db
+    flush = flusher(dev)
+
+    idx, val = match.argmin_l2_bf16(q, dbp, dbn, k_used)
+    torch.cuda.synchronize()
+    qk = match._scan_queries(q, False)
+    second = torch.topk(dbn[None, :] - 2.0 * match._dots(qk, dbp, k_used), 2,
+                        dim=1, largest=False).values[:, 1]
+    ref_idx, ref_val = match.argmin_l2_bf16_plain(q, dbp, dbn, k_used)
+    err, ndiff = check_picks("argmin_l2_bf16", idx, val, ref_idx, ref_val,
+                             second, PACKED_ATOL)
+    if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
+        fail(f"argmin_l2_bf16: duplicate/padding rule broken (idx[0]="
+             f"{int(idx[0])}, max {int(idx.max())})")
+    dbt = dbp.T
+    k_ms = cuda_time_ms(lambda: match.argmin_l2_bf16(q, dbp, dbn, k_used),
+                        reps=20, flush=flush)
+    p_ms = cuda_time_ms(lambda: match.argmin_l2_bf16_plain(
+        q, dbp, dbn, k_used), reps=3, flush=flush)
+    l_ms = cuda_time_ms(lambda: (dbn[None, :] - 2.0 * torch.mm(
+        qk, dbt, out_dtype=torch.float32)).min(dim=1), reps=10, flush=flush)
+    # the function's work at its own width F = 68 (the kernel rounds its
+    # lanes up to 80): one pass of F products per (query, row)
+    b = bound(2 * npad * f + 4 * npad + 2 * m * f + 8 * m,
+              2 * m * npad * f, PEAK_BF16_FLOP_S)
+    rows["argmin_l2_bf16"] = kernel_row("argmin_l2_bf16", "argmin_bf16.cu",
+                                        51, err, k_ms, p_ms, l_ms, b)
+    say("kernels", kernel="argmin_l2_bf16", m=m, npad=npad, f=f,
+        k_used=k_used, max_abs_err=err, picks_differing_in_band=ndiff,
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0],
+        bound_by=b[1])
+    del q, qk, dbp, dbt, dbn, second
+    torch.cuda.empty_cache()
+
+
+def phase_packed_forms(rows):
     """The four superseded packed forms (instances of packed_best.cu) on
     the card against their plain versions (run on the CPU copies), at a
-    smaller shape; not timed."""
+    smaller shape (M = 64, N = 65,536); then, on the card, the kernel, its
+    plain version and the library yardstick timed on the operands each
+    form's wrapper builds, and the bound at the form's own width (its
+    product set: 4L, 3L, 4L + 3 or 3L + 3 lanes)."""
     import torch
 
     from image_analogies_tpu_torch.backends.cuda import (
@@ -595,10 +680,11 @@ def phase_packed_forms():
         "packed1wn_best": lambda c: match.packed1wn_best(
             c(q1), c(q2), c(w12n)),
     }
-    errs = {}
+    errs, picks = {}, {}
     match.reset_launch_counts()
     for name, call in forms.items():
         idx, val = (t.cpu() for t in call(lambda t: t.cuda()))
+        picks[name] = idx
         ref_idx, ref_val = call(lambda t: t)
         errs[name] = float((val - ref_val).abs().max())
         if not errs[name] <= PACKED_ATOL:
@@ -612,13 +698,74 @@ def phase_packed_forms():
             fail(f"{name}: duplicate/padding rule broken")
         if match.LAUNCHES[name] != 1:
             fail(f"{name}: {match.LAUNCHES[name]} launches, expected 1")
-    say("kernels", forms=errs, m=m, npad=npad, timed=False)
+
+    # each form's packed_best operands, as its wrapper in ops/match.py
+    # builds them, on the card: (qa, w1, k_used, keywords, lanes of the
+    # function's product set, weight lanes it reads, its line in
+    # pallas_match.py)
+    c = {k: v.cuda() for k, v in dict(q1=q1, q2=q2, w12=w12, w13=w13,
+                                      w12n=w12n, dbnh=dbnh).items()}
+    kp = 128
+    pair = lambda a, b: match._pack_rows(a, b, kp)
+    qa_n = pair(c["q1"], c["q1"])
+    qa_n[:, 2 * lw:2 * lw + 3] = 1.0
+    operands = {
+        "packed2_best": (pair(c["q1"], c["q1"]), c["w12"], match._lanes(lw),
+                         dict(qb=pair(c["q2"], c["q1"]), w2=c["w13"],
+                              dbnh=c["dbnh"]), 4 * lw, 4 * lw, 656),
+        "packed1w_best": (torch.cat([pair(c["q1"], c["q1"]),
+                                     pair(c["q2"], torch.zeros_like(
+                                         c["q2"]))]),
+                          c["w12"], match._lanes(lw),
+                          dict(dbnh=c["dbnh"], fold_a=True), 3 * lw, 2 * lw,
+                          673),
+        "packed2wn_best": (qa_n, c["w12n"], match._lanes(lw, norm=True),
+                           dict(qb=pair(c["q2"], c["q1"]), w2=c["w13"]),
+                           4 * lw + 3, 4 * lw + 3, 781),
+        "packed1wn_best": (match.norm_query_rows(c["q1"], c["q2"], kp),
+                           c["w12n"], match._lanes(lw, norm=True),
+                           dict(fold_a=True), 3 * lw + 3, 2 * lw + 3, 819),
+    }
+    flush = flusher(torch.device("cuda", 0))
+    for name, (qa, w1, k_used, kw, width, w_lanes, line) in \
+            operands.items():
+        idx, _ = match.packed_best(qa, w1, k_used, **kw)
+        if not torch.equal(idx.cpu(), picks[name]):
+            fail(f"{name}: the timed operands are not the wrapper's")
+        w1t = w1.T
+        w2t = kw["w2"].T if "w2" in kw else None
+
+        def library(qa=qa, w1t=w1t, w2t=w2t, kw=kw):
+            mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
+            d = (mm(qa[:m], w1t) + mm(qa[m:], w1t) if kw.get("fold_a")
+                 else mm(qa, w1t))
+            if w2t is not None:
+                d = d + mm(kw["qb"], w2t)
+            return (d - kw["dbnh"] if "dbnh" in kw else d).max(dim=1)
+
+        k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
+                            reps=20, flush=flush)
+        p_ms = cuda_time_ms(lambda: match.packed_best_plain(
+            qa, w1, k_used, **kw), reps=5, flush=flush)
+        l_ms = cuda_time_ms(library, reps=10, flush=flush)
+        # inputs read once (the weight lanes, the half norms unless they
+        # ride W1, q1 and q2), outputs written once
+        b = bound(2 * npad * w_lanes + (4 * npad if "dbnh" in kw else 0)
+                  + 2 * 2 * m * lw + 8 * m, 2 * m * npad * width,
+                  PEAK_BF16_FLOP_S)
+        rows[name] = kernel_row(name, "packed_best.cu", line, errs[name],
+                                k_ms, p_ms, l_ms, b)
+        say("kernels", kernel=name, m=m, npad=npad, width=width,
+            k_used=k_used, max_abs_err=errs[name], ms=k_ms,
+            plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
 
 
 def expected_launches(params, size: int, modes=None):
-    """Kernel launches of a size x size run: c(h-1)+w wavefront steps a
+    """Kernel launches of a size x size run.  Wavefront: c(h-1)+w steps a
     level, each on its level's anchor kernel (``modes``: the mode each
-    level ran, finest first; default the resolution of match_mode)."""
+    level ran, finest first; default the resolution of match_mode).
+    Batched and rowwise: one ``argmin_l2_bf16`` launch per scan row.
+    Exact: none."""
     from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
     from image_analogies_tpu_torch.ops.pyramid import num_feasible_levels
 
@@ -628,10 +775,16 @@ def expected_launches(params, size: int, modes=None):
     out = {}
     h = size
     for level in range(levels):
-        mode = (modes[level] if modes is not None
-                else resolve_match_mode(params.match_mode, h * h))
-        key = ANCHOR_KERNEL[mode]
-        out[key] = out.get(key, 0) + c * (h - 1) + h
+        if params.strategy in ("batched", "rowwise"):
+            key, n = "argmin_l2_bf16", h
+        elif params.strategy in ("auto", "wavefront"):
+            mode = (modes[level] if modes is not None
+                    else resolve_match_mode(params.match_mode, h * h))
+            key, n = ANCHOR_KERNEL[mode], c * (h - 1) + h
+        else:
+            key, n = None, 0
+        if key:
+            out[key] = out.get(key, 0) + n
         h = (h + 1) // 2
     return out
 
@@ -641,9 +794,9 @@ def run_path(phase, params, a, ap, b, runs=("first",), keep_levels=True,
     """``create_image_analogy`` on the card once per label in ``runs``
     ("cold" then "warm" to time a warm run; "first" for a single run that
     is the process's first use of its mode), with every launch count set to
-    0 just before each run and read just after: each level's anchor kernel
-    must have launched once per wavefront step, and no other kernel at all.
-    Returns (result, launches of the last run)."""
+    0 just before each run and read just after: each level's kernel must
+    have launched once per wavefront step or scan row, and no other kernel
+    at all.  Returns (result, launches of the last run)."""
     import numpy as np
     import torch
 
@@ -661,28 +814,31 @@ def run_path(phase, params, a, ap, b, runs=("first",), keep_levels=True,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(match.LAUNCHES)
-        modes = [st["match_mode"] for st in sorted(result.stats,
-                                                   key=lambda st:
-                                                   st["level"])]
+        stats = sorted(result.stats, key=lambda st: st["level"])
+        modes = [st.get("match_mode") for st in stats]
         want = expected_launches(params, size,
                                  None if check_modes else modes)
-        say(phase, run=run, size=size, match_mode=params.match_mode,
-            wall_s=wall,
-            level_ms={st["level"]: st["ms"] for st in result.stats},
+        extra = {}
+        if params.strategy == "batched":
+            extra["refined"] = {st["level"]: st["refined_ratio"]
+                                for st in stats}
+        say(phase, run=run, size=size, strategy=params.strategy,
+            match_mode=params.match_mode, wall_s=wall,
+            level_ms={st["level"]: st["ms"] for st in stats},
             level_build_ms={st["level"]: st["total_ms"] - st["ms"]
-                            for st in result.stats},
-            level_mode={st["level"]: st["match_mode"]
-                        for st in result.stats},
-            coherence={st["level"]: st["coherence_ratio"]
-                       for st in result.stats},
+                            for st in stats},
+            level_mode={st["level"]: st.get("match_mode", st["strategy"])
+                        for st in stats},
+            coherence={st["level"]: st["coherence_ratio"] for st in stats},
+            **extra,
             launches={k: v for k, v in launches.items() if v},
             expected_launches=want,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         for name, n in launches.items():
             if n != want.get(name, 0):
                 fail(f"{phase}: {name} launched {n} times, expected "
-                     f"{want.get(name, 0)} (one per wavefront step of its "
-                     "levels)")
+                     f"{want.get(name, 0)} (one per wavefront step or scan "
+                     "row of its levels)")
     bp = result.bp_y
     if bp.shape != (size, size) or not bool(np.isfinite(bp).all()):
         fail(f"{phase}: B' is not a finite {size}x{size} plane")
@@ -776,6 +932,41 @@ def phase_probe(phase, mode, a, ap, b):
     return launches
 
 
+def phase_batched(a, ap, b):
+    """The batched strategy with the npr_1024 preset at 1024^2, cold then
+    warm (SSIM vs the oracle printed, not asserted: batched is not a
+    parity mode), then the self-analogy B = A at 256^2 (3 levels, the JAX
+    package's floors asserted) and at 1024^2 (printed)."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.utils.assets import make_structured
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    params = dataclasses.replace(PRESETS["npr_1024"], strategy="batched")
+    result, launches = run_path("batched", params, a, ap, b,
+                                runs=("cold", "warm"), keep_levels=False)
+    oz = np.load(os.path.join(HERE, "bench_cache", "oracle_1024_seed7.npz"))
+    say("batched", ssim_vs_oracle=ssim(result.bp_y, oz["bp_y"]),
+        value_match=float((result.source_map == oz["source_map"]).mean()))
+    for size, levels in ((256, 3), (1024, params.levels)):
+        sa, sap = (a, ap) if size == 1024 else make_structured(size, 7)[:2]
+        res, _ = run_path("batched", dataclasses.replace(params,
+                                                         levels=levels),
+                          sa, sap, sa.copy(), keep_levels=False)
+        sv = ssim(res.bp_y, sap)
+        ident = float((res.source_map.reshape(-1)
+                       == np.arange(sa.size)).mean())
+        say("batched", self_analogy=size, levels=levels, ssim_vs_ap=sv,
+            identity=ident)
+        if size == 256 and not (sv >= SELF_SSIM_MIN
+                                and ident >= SELF_IDENTITY_MIN):
+            fail(f"batched: self-analogy at 256^2 SSIM {sv:.4f} (floor "
+                 f"{SELF_SSIM_MIN}), identity {ident:.4f} (floor "
+                 f"{SELF_IDENTITY_MIN})")
+    return launches
+
+
 def phase_gate():
     """bf16_scoring at 64^2: the parity gate probes on this card (two 32^2
     syntheses and their audit); its verdict is printed, not asserted, and
@@ -813,11 +1004,15 @@ def phase_gate():
 
 
 def phase_card_vs_cpu():
-    """Each new mode at 96^2 (3 levels) on the card and on the CPU; then
-    exact_hi2 and scan_rescue on RGB sources."""
+    """exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2 (3 levels) on
+    the card and on the CPU, exact_hi2 and scan_rescue on RGB sources; then
+    batched (96^2) and rowwise (64^2) against a CPU run of the same bf16
+    approximate match (the kernel's plain version, through the level's
+    approx_fn), and exact (48^2) against the CPU's fp32 scan."""
     import numpy as np
 
     from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
+    from image_analogies_tpu_torch.backends.cuda import CudaMatcher
     from image_analogies_tpu_torch.utils.assets import make_structured
     from image_analogies_tpu_torch.utils.ssim import ssim
 
@@ -825,24 +1020,29 @@ def phase_card_vs_cpu():
     gray = make_structured(96, 7)
     rgb = tuple(np.stack([x, x * x, 1 - x], -1).astype(np.float32)
                 for x in gray)
-    cases = [(mode, "yiq_transfer", gray) for mode in NEW_MODES] + [
-        (mode, "source_rgb", rgb) for mode in ("exact_hi2", "scan_rescue")]
-    for mode, color_mode, (a, ap, b) in cases:
-        params = AnalogyParams(levels=3, kappa=5.0, match_mode=mode,
-                               color_mode=color_mode)
+    cases = [(dict(match_mode=mode), gray) for mode in NEW_MODES] + [
+        (dict(match_mode=mode, color_mode="source_rgb"), rgb)
+        for mode in ("exact_hi2", "scan_rescue")] + [
+        (dict(strategy=strategy), make_structured(size, 7))
+        for strategy, size in (("batched", 96), ("rowwise", 64),
+                               ("exact", 48))]
+    for kw, (a, ap, b) in cases:
+        params = AnalogyParams(levels=3, kappa=5.0, **kw)
         gpu = create_image_analogy(a, ap, b, params)
-        cpu = create_image_analogy(a, ap, b, params, device="cpu")
+        cpu = create_image_analogy(a, ap, b, params, backend=CudaMatcher(
+            params, "cpu", bf16_approx=params.strategy in ("batched",
+                                                           "rowwise")))
         diff = float((gpu.source_map != cpu.source_map).mean())
         s = ssim(gpu.bp_y, cpu.bp_y)
-        say("card_vs_cpu", match_mode=mode, color_mode=color_mode,
-            source_map_differs=diff, ssim=s)
+        say("card_vs_cpu", size=a.shape[0], **kw, source_map_differs=diff,
+            ssim=s)
         if not (diff < CARD_CPU_MISMATCH_MAX and s >= CARD_CPU_SSIM_MIN
                 and np.isfinite(gpu.bp).all()):
-            fail(f"card_vs_cpu: {mode} ({color_mode}) differs from its CPU "
-                 f"run (source maps {diff:.4f}, SSIM {s:.4f})")
+            fail(f"card_vs_cpu: {kw} differs from its CPU run (source maps "
+                 f"{diff:.4f}, SSIM {s:.4f})")
 
 
-def phase_profile(a, ap, b, params):
+def phase_profile(a, ap, b, params, phase="profile"):
     """One more warm run under torch.profiler: device busy time by kernel
     name, and the busy share of the profiled wall-clock (the profiler adds
     host cost, so the share is a lower bound for the plain run)."""
@@ -877,7 +1077,7 @@ def phase_profile(a, ap, b, params):
             cur_e = max(cur_e, e_us)
     busy = (busy + cur_e - cur_s) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    say("profile", wall_ms=wall * 1e3, device_busy_ms=busy,
+    say(phase, wall_ms=wall * 1e3, device_busy_ms=busy,
         busy_share=busy / (wall * 1e3), device_kernels=len(spans),
         top={name[:60]: {"ms": ms, "n": n} for name, (ms, n) in top})
 
@@ -887,13 +1087,15 @@ def main() -> None:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default), or with 'profile': one more warm run of "
-                      "the main path under torch.profiler")
+                      "the main path under torch.profiler, or "
+                      "'batched_profile': a profiled warm batched run at "
+                      "256^2")
     ap.add_argument("--ptxas", action="store_true",
                     help="rebuild with -Xptxas -v and print each kernel's "
                          "registers, shared memory and spills")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
-    if any(p not in PHASES + ("profile",) for p in phases):
+    if any(p not in PHASES + ("profile", "batched_profile") for p in phases):
         fail(f"unknown phase in {phases}", code=2)
     if not os.path.isdir(os.path.join(HERE, "image_analogies_tpu_torch")):
         fail("image_analogies_tpu_torch/ is not beside this script: run it "
@@ -913,7 +1115,7 @@ def main() -> None:
     rows = phase_kernels() if "kernels" in phases else None
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue",
-            "two_pass"} & set(phases):
+            "two_pass", "batched"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -929,18 +1131,32 @@ def main() -> None:
     if "two_pass" in phases:
         path_launches["two_pass"] = phase_probe("two_pass", "two_pass",
                                                 a, ap_, b)
+    if "batched" in phases:
+        path_launches["batched"] = phase_batched(a, ap_, b)
+    if "batched_profile" in phases:
+        from image_analogies_tpu_torch import PRESETS
+        from image_analogies_tpu_torch.utils.assets import make_structured
+
+        small = make_structured(256, 7)
+        bparams = dataclasses.replace(PRESETS["npr_1024"], strategy="batched",
+                                      levels=3)
+        run_path("batched_profile", bparams, *small, runs=("cold",),
+                 keep_levels=False)
+        phase_profile(*small, bparams, phase="batched_profile")
     if "gate" in phases:
         phase_gate()
     if "card_vs_cpu" in phases:
         phase_card_vs_cpu()
     if not set(PHASES) <= set(phases):
         return
-    # each kernel's launches from the run of its path; packed_champions is
-    # an entry point on no path (the witness of packed_best), so 0
+    # each kernel's launches from the run of its path; packed_champions
+    # (the witness of packed_best) and the four superseded packed forms are
+    # on no path, so 0
     for path, names in (("main", ("argmin_l2", "packed_best")),
                         ("exact_hi2", ("packed3_best",)),
                         ("rescue", ("pertile_champions",)),
-                        ("two_pass", ("argmin2_l2",))):
+                        ("two_pass", ("argmin2_l2",)),
+                        ("batched", ("argmin_l2_bf16",))):
         for name in names:
             rows[name]["launches"] = path_launches[path][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

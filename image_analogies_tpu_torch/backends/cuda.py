@@ -1,14 +1,15 @@
-"""CUDA backend: the single-device wavefront main path in PyTorch
-(counterpart of the single-chip part of ``image_analogies_tpu/backends/
-tpu.py``).
+"""CUDA backend: every single-device strategy in PyTorch (counterpart of
+the single-chip part of ``image_analogies_tpu/backends/tpu.py``).
 
 Per level, ``CudaMatcher.build_features`` builds the A/A' feature DB, the
-static B queries and the padded scan copy on the device (``LevelDB``), and
-``synthesize_level`` runs the raster scan re-scheduled onto anti-diagonals
-skewed by c = patch_radius + 1 (``wavefront_scan_core``): pixel (i, j) runs
-at t = j + c*i, so every causal dependency — edge-clamped window positions
-included — lies on a strictly earlier diagonal, and each diagonal resolves
-as one batch:
+static B queries and the scan copy on the device (``LevelDB``), and
+``synthesize_level`` runs the level's strategy.
+
+**wavefront** (what "auto" resolves to): the raster scan re-scheduled onto
+anti-diagonals skewed by c = patch_radius + 1 (``wavefront_scan_core``):
+pixel (i, j) runs at t = j + c*i, so every causal dependency — edge-clamped
+window positions included — lies on a strictly earlier diagonal, and each
+diagonal resolves as one batch:
 
 - the anchor scan over the whole DB (``make_anchor_fn``): the fp32 argmin
   kernel (``exact_hi``), the bf16 lane-packed tensor-core scans
@@ -19,13 +20,26 @@ as one batch:
 - the kappa rule (Hertzmann §3.2 eq. 2);
 - a scatter of (A' value, source index) into the carry.
 
-The step loop never waits on the device: no ``.item()``, no ``nonzero``, no
-boolean-mask indexing, no Python branch on a tensor; the coherence count
-stays a device scalar until the single final fetch.
+**batched** (``batched_scan_core``): the causal window is cut to the rows
+strictly above, for the queries, the DB (``db_rowsafe``) and the coherence
+candidates, so a whole scan row resolves in one step: the approximate match
+(``make_approx_fn``: one bf16 pass on the card, exact fp32 on the CPU),
+rows-above coherence, the kappa rule, then ``refine_passes`` vectorized
+passes that restore same-row left-propagation (``_left_refine``).
+
+**rowwise** and **exact** (``_run_rowwise``, ``_run_exact``): the per-pixel
+sequential scan, kept for parity validation as in the JAX package — rowwise
+takes one approximate match per row and re-scores each pick in fp32, exact
+scores every pixel against the full DB in fp32.
+
+The step loops never wait on the device: no ``.item()``, no ``nonzero``, no
+boolean-mask indexing, no Python branch on a tensor; the coherence counts
+stay device scalars until the single final fetch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from dataclasses import dataclass
@@ -38,6 +52,7 @@ from image_analogies_tpu_torch.backends.base import LevelJob, Matcher
 from image_analogies_tpu_torch.ops.features import (
     FeatureSpec,
     build_features_torch,
+    causal_mask,
     window_offsets,
 )
 from image_analogies_tpu_torch.backends import gate
@@ -45,11 +60,13 @@ from image_analogies_tpu_torch.ops.match import (
     _lex_lt,
     add_norm_lanes,
     argmin_l2,
+    argmin_l2_plain,
     bf16_split3,
     packed3_best,
     packed_best,
     pertile_champions_queries,
     prepadded_argmin2_queries,
+    prepadded_argmin_queries,
 )
 
 _F32 = torch.float32
@@ -97,8 +114,10 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclass
 class LevelDB:
-    """Device-resident per-level state of the wavefront scan (the fields of
-    the JAX package's ``TpuLevelDB`` that this path reads)."""
+    """Device-resident per-level state of a level scan (the fields of the
+    JAX package's ``TpuLevelDB`` that the port's strategies read).  The
+    fields after ``scan_tile`` serve the exact, rowwise and batched
+    strategies; wavefront levels leave them at their defaults."""
 
     db: torch.Tensor  # (Na, F) fp32: re-score / coherence source
     static_q: torch.Tensor  # (Nb, F) fp32, fine_filt block zero
@@ -128,6 +147,20 @@ class LevelDB:
     dbnh_pad: Optional[torch.Tensor] = None
     # per-tile champion scan tile (scan_rescue): decides the rescue set
     scan_tile: int = 0
+    strategy: str = "wavefront"  # resolved ("auto" -> "wavefront")
+    db_sqnorm: Optional[torch.Tensor] = None  # (Na,) fp32
+    # (Na, F) the DB with its fine_filt block masked to the rows above, and
+    # its (Na,) norms: the batched strategy's symmetric metric
+    db_rowsafe: Optional[torch.Tensor] = None
+    db_rowsafe_sqnorm: Optional[torch.Tensor] = None
+    # (Nb, nf) gather maps (``gather_maps_device``): int64 clipped window
+    # indices, fp32 in-bounds-and-causal, fp32 causal-and-written
+    flat_idx: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+    written: Optional[torch.Tensor] = None
+    rowsafe: Optional[torch.Tensor] = None  # (nf,) fp32 causal offsets, di<0
+    n_rowsafe: int = 0  # (p // 2) * p: the rows-above window positions
+    refine_passes: int = 3  # batched left-propagation passes
 
 
 @functools.lru_cache(maxsize=64)
@@ -254,35 +287,98 @@ def pack_wk(src: torch.Tensor, shift: torch.Tensor, half_norm: torch.Tensor,
     return wk, dbnh
 
 
+def rowsafe_mask(p: int) -> np.ndarray:
+    """(p*p,) fp32: 1 on the causal window offsets strictly above the
+    center row (di < 0) — what the batched strategy's queries, DB and
+    coherence candidates keep of the fine_filt block."""
+    off = window_offsets(p)
+    return (off[:, 0] < 0).astype(np.float32) * causal_mask(p)
+
+
+def gather_maps_device(h: int, w: int, p: int, device):
+    """Device twin of ``ops.features.fine_gather_maps`` (the JAX package's
+    ``_gather_maps_device``), computed from index arithmetic on ``device``:
+    (flat_idx int64, valid fp32, written fp32), each (h*w, p*p) — clipped
+    flat window indices, in-bounds-and-causal, and causal-and-already-
+    written (clamped index < pixel index)."""
+    off = torch.from_numpy(window_offsets(p).astype(np.int64)).to(device)
+    ii = torch.arange(h, device=device).repeat_interleave(w)[:, None]
+    jj = torch.arange(w, device=device).repeat(h)[:, None]
+    qi = ii + off[None, :, 0]
+    qj = jj + off[None, :, 1]
+    inb = (qi >= 0) & (qi < h) & (qj >= 0) & (qj < w)
+    flat = qi.clamp(0, h - 1) * w + qj.clamp(0, w - 1)
+    causal = torch.from_numpy(causal_mask(p) > 0).to(device)[None, :]
+    valid = (inb & causal).to(_F32)
+    written = (causal & (flat < ii * w + jj)).to(_F32)
+    return flat, valid, written
+
+
+def pad_bf16_uncentered(src: torch.Tensor, srcn: torch.Tensor,
+                        pad_tile: int = PAD_TILE):
+    """The scan copy of the batched/rowwise approximate match on the card:
+    the rows ``src`` (N, F) ROUNDED to bf16 (as JAX ``.astype``), not
+    centered, lane-padded to (Npad, Fp) with Npad a multiple of
+    ``pad_tile``, beside ``srcn`` — the exact fp32 norms of the UNROUNDED
+    rows — with +inf on the padding rows.  (The "bf16" pad mode centers on
+    the column mean first: rounding centered values gives other numbers.)
+    Returns (db_pad (Npad, Fp) bf16, dbn_pad (Npad,) fp32)."""
+    n, f = src.shape
+    fp = max(_round_up(f, 128), 128)
+    npad = _round_up(n, pad_tile)
+    db_pad = torch.zeros((npad, fp), dtype=torch.bfloat16, device=src.device)
+    db_pad[:n, :f] = src.to(torch.bfloat16)
+    return db_pad, _inf_pad(srcn, npad)
+
+
 def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
                          a_filt_coarse, b_src, b_src_coarse, b_filt_coarse,
-                         pad_mode: str = "f32", pad_tile: int = PAD_TILE
+                         pad_mode: Optional[str] = "f32",
+                         pad_tile: int = PAD_TILE,
+                         rowsafe: Optional[torch.Tensor] = None
                          ) -> Dict[str, Optional[torch.Tensor]]:
-    """Torch counterpart of the JAX ``_prepare_level_arrays`` for the
-    wavefront (``pad_full=True``, no bucketing), in every pad mode:
+    """Torch counterpart of the JAX ``_prepare_level_arrays`` (no
+    bucketing).  ``rowsafe`` None is the wavefront (``pad_full=True``):
+    ``db_rowsafe`` aliases the full DB.  With ``rowsafe`` (the (nf,) mask
+    of ``rowsafe_mask``; ``pad_full=False``) ``db_rowsafe`` is the DB with
+    its fine_filt block times the mask, and the scan copy is built from it.
+    Pad modes of the scan copy:
 
     - "f32": fp32 pre-pad + row norms (exact_hi);
     - "packed": W1 = [d1|d2], W2 = [d3|d1] + half norms (exact_hi2);
     - "packed2": the K-wide ``wk`` (exact_hi2_2p);
     - "bf16": the DB centered on the mean of ALL columns, ROUNDED to bf16,
       with the exact fp32 norms and half norms of the centered rows
-      (scan_rescue / two_pass).
+      (scan_rescue / two_pass);
+    - "bf16_uncentered": ``pad_bf16_uncentered`` (batched and rowwise on
+      the card);
+    - None: no scan copy (exact, and batched/rowwise on the CPU).
 
     Inputs are fp32 tensors on the target device; the dict keys mirror the
     JAX function's (``dbn_pad`` / ``dbnh_pad`` are 1-D here)."""
-    if pad_mode not in ("f32", "packed", "packed2", "bf16"):
+    if pad_mode not in (None, "f32", "packed", "packed2", "bf16",
+                        "bf16_uncentered"):
         raise ValueError(f"unknown pad_mode {pad_mode!r}")
     db = build_features_torch(spec, a_src, a_filt, a_src_coarse,
                               a_filt_coarse)
     static_q = build_features_torch(spec, b_src, None, b_src_coarse,
                                     b_filt_coarse)
     db_sqnorm = (db * db).sum(dim=1)
+    if rowsafe is None:
+        db_rowsafe, db_rowsafe_sqnorm = db, db_sqnorm
+    else:
+        fsl = spec.fine_filt_slice
+        db_rowsafe = db.clone()
+        db_rowsafe[:, fsl] = db[:, fsl] * rowsafe[None, :]
+        db_rowsafe_sqnorm = (db_rowsafe * db_rowsafe).sum(dim=1)
+    src, srcn = db_rowsafe, db_rowsafe_sqnorm
     dev = db.device
     n, f = db.shape
     fp = max(_round_up(f, 128), 128)
     npad = _round_up(n, pad_tile)
     out: Dict[str, Optional[torch.Tensor]] = {
-        "db": db, "db_sqnorm": db_sqnorm, "static_q": static_q,
+        "db": db, "db_sqnorm": db_sqnorm, "db_rowsafe": db_rowsafe,
+        "db_rowsafe_sqnorm": db_rowsafe_sqnorm, "static_q": static_q,
         "a_filt_flat": a_filt.reshape(-1), "db_pad": None, "db_pad2": None,
         "dbn_pad": None, "dbnh_pad": None, "feat_mean": None,
         "live_idx": None, "db_live": None,
@@ -299,18 +395,18 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
         out["db_live"] = torch.cat(
             [db[:, live], (db[:, dead] ** 2).sum(dim=1)[:, None],
              a_filt.reshape(-1)[:, None]], dim=1)
-        shift, half_norm = packed_shift_and_halfnorm(db, live)
+        shift, half_norm = packed_shift_and_halfnorm(src, live)
         if pad_mode == "packed2":
-            w1, dbnh = pack_wk(db, shift, half_norm, live, npad)
+            w1, dbnh = pack_wk(src, shift, half_norm, live, npad)
             w2 = None
         else:
-            w1, w2, dbnh = pack_w12(db, shift, half_norm, live, npad)
+            w1, w2, dbnh = pack_w12(src, shift, half_norm, live, npad)
         feat_mean[:f] = shift
         out.update(db_pad=w1, db_pad2=w2, dbnh_pad=dbnh, feat_mean=feat_mean,
                    live_idx=live)
     elif pad_mode == "bf16":
-        mean = db.mean(dim=0)
-        srcc = db - mean[None, :]
+        mean = src.mean(dim=0)
+        srcc = src - mean[None, :]
         nrm = (srcc * srcc).sum(dim=1)
         feat_mean[:f] = mean
         db_pad = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
@@ -318,10 +414,13 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
         out.update(db_pad=db_pad, dbn_pad=_inf_pad(nrm, npad),
                    dbnh_pad=_inf_pad(0.5 * nrm, npad),
                    feat_mean=feat_mean)
-    else:
+    elif pad_mode == "bf16_uncentered":
+        db_pad, dbn_pad = pad_bf16_uncentered(src, srcn, pad_tile)
+        out.update(db_pad=db_pad, dbn_pad=dbn_pad)
+    elif pad_mode == "f32":
         db_pad = torch.zeros((npad, fp), dtype=_F32, device=dev)
-        db_pad[:n, :f] = db
-        out.update(db_pad=db_pad, dbn_pad=_inf_pad(db_sqnorm, npad))
+        db_pad[:n, :f] = src
+        out.update(db_pad=db_pad, dbn_pad=_inf_pad(srcn, npad))
     return out
 
 
@@ -473,11 +572,14 @@ def make_anchor_fn(db: LevelDB):
 # --------------------------------------------------------------- coherence
 
 
-def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None):
+def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None,
+                       row_fn=None):
     """Batched Ashikhmin candidates for M pixels (Hertzmann §3.2): for each
-    query the candidates are {s(r) + (q - r)} over its causal window
-    positions r (``s_r`` (M, nc) source indices there, ``ok`` their base
-    validity), scored in fp32 — against the full DB rows, or, with
+    query the candidates are {s(r) + (q - r)} over its first nc causal
+    window positions r (``s_r`` (M, nc) source indices there, ``ok`` their
+    base validity), scored in fp32 — against ``row_fn(cand)``, a gather of
+    the scoring DB's rows (default the full DB; the rows-above DB for the
+    batched strategy), or, with
     ``p_app`` (the packed anchor's deferred pick), by the live/dead split
     d = sum_live (cf - q)^2 + dead norm over ``db_live`` rows with the pick
     appended as one more gathered column, so its exact re-score and A'
@@ -501,7 +603,7 @@ def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None):
             + cf[..., lw]  # (M, nc+1)
         dc = dca[:, :nc]
     else:
-        cf = db.db[cand]  # (M, nc, F)
+        cf = db.db[cand] if row_fn is None else row_fn(cand)  # (M, nc, F)
         dc = ((cf - queries[:, None, :]) ** 2).sum(dim=-1)
     dc = torch.where(ok, dc, torch.full_like(dc, float("inf")))
     k = torch.argmin(dc, dim=1)
@@ -590,6 +692,230 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     return bp[:nb], s[:nb].to(torch.int32), n_coh
 
 
+# ------------------------------------------------------ per-pixel pieces
+
+
+def _exact_qvec(db: LevelDB, q: int, bp: torch.Tensor) -> torch.Tensor:
+    """(F,) causal query of pixel ``q``: its static row with the fine_filt
+    block filled from the B' values already written."""
+    nf = int(db.off.shape[0])
+    qvec = db.static_q[q].clone()
+    qvec[db.fine_start:db.fine_start + nf] = (
+        bp[db.flat_idx[q]] * db.written[q] * db.fine_sqrtw)
+    return qvec
+
+
+def _exact_d_app(db: LevelDB, qvec: torch.Tensor):
+    """The exact strategy's approximate match: the full-DB fp32 argmin of
+    ``db_sqnorm - 2 db.qvec`` (first minimum) and its squared distance,
+    clamped at 0.  Returns ((1,) int64, (1,) fp32)."""
+    scores = db.db_sqnorm - 2.0 * (db.db @ qvec)
+    p = torch.argmin(scores).view(1)
+    return p, torch.clamp(scores[p] + qvec @ qvec, min=0.0)
+
+
+def _rescore_d_app(db: LevelDB, qvec: torch.Tensor, p_app: torch.Tensor):
+    """Oracle re-score of a precomputed approximate pick (rowwise): the
+    exact fp32 squared distance of the FULL DB row to the causal query."""
+    return p_app, ((db.db[p_app] - qvec) ** 2).sum(dim=1)
+
+
+def _pixel_coherence(db: LevelDB, qvec: torch.Tensor, q: int,
+                     s: torch.Tensor):
+    """Ashikhmin candidates for one pixel from its full causal window.
+    Returns (p_coh (1,) int64, d_coh (1,) fp32, has_coh () bool)."""
+    s_r = s[db.flat_idx[q]]
+    ci = s_r // db.wa - db.off[:, 0]
+    cj = s_r % db.wa - db.off[:, 1]
+    inb = ((ci >= 0) & (ci < db.ha) & (cj >= 0) & (cj < db.wa)
+           & (db.valid[q] > 0))
+    cand = ci.clamp(0, db.ha - 1) * db.wa + cj.clamp(0, db.wa - 1)
+    dc = ((db.db[cand] - qvec[None, :]) ** 2).sum(dim=1)
+    dc = dc.masked_fill(~inb, float("inf"))
+    k = torch.argmin(dc).view(1)
+    return cand[k], dc[k], inb.any()
+
+
+def _resolve_pixel(db: LevelDB, q: int, bp, s, coh, p_app, d_app_fn,
+                   kappa):
+    """The per-pixel decision of the exact and rowwise strategies: build
+    the causal query, take d_app from ``d_app_fn(qvec, p_app)`` (full-DB
+    scores for exact, the pick's re-score for rowwise), take the best
+    coherence candidate, apply the kappa rule and write (bp, s) and the
+    coherence flag at ``q`` in place."""
+    qvec = _exact_qvec(db, q, bp)
+    p_app, d_app = d_app_fn(qvec, p_app)
+    p_coh, d_coh, has_coh = _pixel_coherence(db, qvec, q, s)
+    use_coh = has_coh & (d_coh <= d_app * kappa)
+    p = torch.where(use_coh, p_coh, p_app)
+    bp[q:q + 1] = db.a_filt_flat[p]
+    s[q:q + 1] = p
+    coh[q:q + 1] = use_coh
+
+
+def _pixel_scan(db: LevelDB, kappa_mult: float, per_row):
+    """The per-pixel raster scan shared by exact and rowwise: ``per_row(r,
+    bp)`` returns the row's (d_app_fn, approximate picks or None).
+    Returns (bp (Nb,) fp32, s (Nb,) int32, n_coh () int64)."""
+    nb = db.hb * db.wb
+    dev = db.static_q.device
+    bp = torch.zeros((nb,), dtype=_F32, device=dev)
+    s = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    coh = torch.zeros((nb,), dtype=torch.bool, device=dev)
+    kappa = torch.tensor(kappa_mult, dtype=_F32, device=dev)
+    for r in range(db.hb):
+        d_app_fn, p_apps = per_row(r, bp)
+        for j in range(db.wb):
+            q = r * db.wb + j
+            p_app = None if p_apps is None else p_apps[j:j + 1]
+            _resolve_pixel(db, q, bp, s, coh, p_app, d_app_fn, kappa)
+    return bp, s.to(torch.int32), coh.sum()
+
+
+def _run_exact(db: LevelDB, kappa_mult: float):
+    """The exact strategy: every pixel in raster order, its approximate
+    match the full-DB fp32 argmin (a plain product, as the JAX package
+    leaves it to XLA outside any Pallas kernel; TF32 stays off)."""
+    exact = lambda qvec, _: _exact_d_app(db, qvec)
+    return _pixel_scan(db, kappa_mult, lambda r, bp: (exact, None))
+
+
+def _run_rowwise(db: LevelDB, kappa_mult: float):
+    """The rowwise strategy: one approximate match per scan row over the
+    rows-above metric (``make_approx_fn``), then the per-pixel pass, each
+    pick re-scored in fp32 against the full DB row."""
+    approx_fn = make_approx_fn(db)
+    rescore = lambda qvec, p_app: _rescore_d_app(db, qvec, p_app)
+
+    def per_row(r, bp):
+        p_apps, _ = approx_fn(_row_queries(db, r, bp, db.rowsafe))
+        return rescore, p_apps.long()
+
+    return _pixel_scan(db, kappa_mult, per_row)
+
+
+# ------------------------------------------------------------ batched scan
+
+
+def make_approx_fn(db: LevelDB):
+    """The batched and rowwise strategies' approximate match, queries (M,
+    F) -> (idx (M,), d (M,) squared distance), against the rows-above DB
+    (the JAX ``make_approx_fn`` without its ANN branch):
+
+    - with the level's bf16 scan copy (built on the card):
+      ``prepadded_argmin_queries`` — one bf16 pass with fp32 accumulation
+      (``argmin_l2_bf16``), the kernel precision the JAX package gives
+      these strategies.  ``d`` is that pass's score plus ||q||^2: the kappa
+      rule sees the scan's own distance, with no fp32 re-score.
+    - without it (the CPU): the exact fp32 scores of ``argmin_l2_plain``,
+      what the JAX package computes off the TPU.
+
+    A card level without the scan copy raises: the card never runs the
+    fp32 form in place of the kernel."""
+    if db.db_pad is not None:
+        return lambda queries: prepadded_argmin_queries(queries, db.db_pad,
+                                                        db.dbn_pad)
+    if db.db_rowsafe.device.type != "cpu":
+        raise ValueError(
+            "the approximate match on the card scans the bf16 copy of the "
+            "rows-above DB (pad mode 'bf16_uncentered'); this level has none")
+
+    def approx_fn(queries):
+        idx, score = argmin_l2_plain(queries, db.db_rowsafe,
+                                     db.db_rowsafe_sqnorm)
+        return idx, torch.clamp(score + (queries * queries).sum(dim=1),
+                                min=0.0)
+
+    return approx_fn
+
+
+def _row_queries(db: LevelDB, r: int, bp: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """(wb, F) queries of scan row ``r``; ``mask`` picks which causal
+    offsets contribute B' values (rowsafe for batched and rowwise)."""
+    nf = int(db.off.shape[0])
+    rows = slice(r * db.wb, (r + 1) * db.wb)
+    queries = db.static_q[rows].clone()
+    queries[:, db.fine_start:db.fine_start + nf] = (
+        bp[db.flat_idx[rows]] * db.written[rows] * mask[None, :]
+        * db.fine_sqrtw[None, :])
+    return queries
+
+
+def _left_refine(db: LevelDB, queries, p, d_pick, d_app, kappa, row_fn):
+    """One vectorized left-propagation pass over a resolved row: the
+    same-row candidates {s(j-d) + (0, d)}, d = 1..radius, from the row's
+    current picks ``p``, each kept only if it passes the kappa rule against
+    ``d_app`` and beats the current pick's distance ``d_pick`` (+inf on
+    approximate picks).  ``torch.roll`` wraps as ``jnp.roll`` does; the
+    ``j >= d`` mask hides the wrapped columns.  Returns (p, d_pick)."""
+    wb = queries.shape[0]
+    wa = db.wa
+    jcol = torch.arange(wb, device=queries.device)
+    radius = int(round(int(db.off.shape[0]) ** 0.5)) // 2
+    best_p, best_d = p, d_pick
+    for d in range(1, radius + 1):
+        pj = torch.roll(p, d)  # p[j - d] aligned at j
+        si = pj // wa
+        sj = pj % wa + d
+        ok = (jcol >= d) & (sj < wa)
+        cand = si * wa + sj.clamp(max=wa - 1)
+        dc = ((row_fn(cand) - queries) ** 2).sum(dim=1)
+        dc = dc.masked_fill(~ok, float("inf"))
+        better = (dc <= d_app * kappa) & (dc < best_d)
+        best_p = torch.where(better, cand, best_p)
+        best_d = torch.where(better, dc, best_d)
+    return best_p, best_d
+
+
+def batched_scan_core(db: LevelDB, kappa_mult: float, approx_fn,
+                      row_fn=None, afilt_fn=None):
+    """The batched level scan given an approximate-match function (the JAX
+    package's ``batched_scan_core``).  ``approx_fn(queries (wb, F)) ->
+    (idx, d)`` is the pluggable match (``make_approx_fn``); ``row_fn`` /
+    ``afilt_fn`` gather scoring-DB rows / A' values by index (default the
+    rows-above DB and ``a_filt_flat``).
+
+    Per scan row: the rows-above queries, the approximate match, the
+    coherence candidates of the first ``n_rowsafe`` window offsets, the
+    kappa rule, ``refine_passes`` left-propagation passes, then the row's
+    (A' value, source index) written into the carry.  Returns (bp (Nb,)
+    fp32, s (Nb,) int32, counts (2,) int64 = [coherence picks before the
+    refinement, picks the refinement switched to a same-row candidate])."""
+    nrs = db.n_rowsafe
+    wb = db.wb
+    dev = db.static_q.device
+    if row_fn is None:
+        row_fn = lambda i: db.db_rowsafe[i]
+    if afilt_fn is None:
+        afilt_fn = lambda i: db.a_filt_flat[i]
+    nb = db.hb * wb
+    bp = torch.zeros((nb,), dtype=_F32, device=dev)
+    s = torch.zeros((nb,), dtype=torch.int64, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    kappa = torch.tensor(kappa_mult, dtype=_F32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    for r in range(db.hb):
+        rows = slice(r * wb, (r + 1) * wb)
+        queries = _row_queries(db, r, bp, db.rowsafe)
+        p_app, d_app = approx_fn(queries)
+        # rows-above coherence candidates (positions known at row start)
+        p_coh, d_coh, has_coh = _batched_coherence(
+            db, queries, s[db.flat_idx[rows, :nrs]],
+            db.valid[rows, :nrs] > 0, row_fn=row_fn)
+        use_coh = has_coh & (d_coh <= d_app * kappa)
+        p = torch.where(use_coh, p_coh, p_app.long())
+        d_pick = torch.where(use_coh, d_coh, inf)
+        for _ in range(db.refine_passes):
+            p, d_pick = _left_refine(db, queries, p, d_pick, d_app, kappa,
+                                     row_fn)
+        bp[rows] = afilt_fn(p)
+        s[rows] = p
+        n_coh = use_coh.sum()
+        counts += torch.stack([n_coh, (d_pick < inf).sum() - n_coh])
+    return bp, s.to(torch.int32), counts
+
+
 # ------------------------------------------------------------------ matcher
 
 
@@ -604,11 +930,23 @@ def resolve_match_mode(match_mode: str, a_rows: int) -> str:
 
 class CudaMatcher(Matcher):
     """The port's matcher: every tensor on ``device`` (the card, or the CPU
-    where every kernel runs its plain version)."""
+    where every kernel runs its plain version).
 
-    def __init__(self, params, device: torch.device):
+    ``bf16_approx`` picks the form of the rowwise and batched approximate
+    match: None runs the bf16 pass on the card and exact fp32 on the CPU
+    (as the JAX package off a TPU); True runs the bf16 form on the CPU too
+    (the kernel's plain version — the reference a card run is held
+    against).  The card has no fp32 form: False there raises."""
+
+    def __init__(self, params, device: torch.device,
+                 bf16_approx: Optional[bool] = None):
         super().__init__(params)
         self.device = torch.device(device)
+        if bf16_approx is False and self.device.type == "cuda":
+            raise ValueError("the approximate match on the card is the bf16 "
+                             "kernel; the fp32 form runs on the CPU only")
+        self.bf16_approx = (self.device.type == "cuda" if bf16_approx is None
+                            else bf16_approx)
 
     def _t(self, x) -> Optional[torch.Tensor]:
         if x is None:
@@ -622,26 +960,33 @@ class CudaMatcher(Matcher):
         spec = job.spec
         ha, wa = job.a_shape
         hb, wb = job.b_shape
+        strategy = ("wavefront" if self.params.strategy == "auto"
+                    else self.params.strategy)
         # JAX TpuMatcher.build_features steering: match_mode resolved per
-        # level, then bf16_scoring switches to scan_rescue once the parity
-        # gate allows it on this device (a refused verdict keeps the exact
-        # scan), then the pad mode of the resolved scan
+        # level, then bf16_scoring switches the wavefront to scan_rescue
+        # once the parity gate allows it on this device (a refused verdict
+        # keeps the exact scan), then the pad mode of the resolved scan.
+        # The other strategies score the rows-above DB (pad_full=False);
+        # rowwise and batched scan its bf16 copy (``bf16_approx``).
         mode = resolve_match_mode(self.params.match_mode, ha * wa)
-        if self.params.bf16_scoring and gate.bf16_gate_allows(self.params,
-                                                              self.device):
-            mode = "scan_rescue"
-        pad_mode = PAD_MODES[mode]
+        rowsafe = None
+        if strategy == "wavefront":
+            if self.params.bf16_scoring and gate.bf16_gate_allows(
+                    self.params, self.device):
+                mode = "scan_rescue"
+            pad_mode = PAD_MODES[mode]
+        else:
+            rowsafe = torch.from_numpy(rowsafe_mask(spec.fine_size)).to(
+                self.device)
+            pad_mode = ("bf16_uncentered" if strategy != "exact"
+                        and self.bf16_approx else None)
         arrs = prepare_level_arrays(
             spec, self._t(job.a_src), self._t(job.a_filt),
             self._t(job.a_src_coarse), self._t(job.a_filt_coarse),
             self._t(job.b_src), self._t(job.b_src_coarse),
-            self._t(job.b_filt_coarse), pad_mode=pad_mode)
-        npad = int(arrs["db_pad"].shape[0])
+            self._t(job.b_filt_coarse), pad_mode=pad_mode, rowsafe=rowsafe)
         fsl = spec.fine_filt_slice
-        diag = tuple(torch.from_numpy(sg.astype(np.int64)).to(self.device)
-                     for sg in _diag_schedule_np(hb, wb,
-                                                 spec.fine_size // 2 + 1))
-        return LevelDB(
+        level = dict(
             db=arrs["db"], static_q=arrs["static_q"],
             a_filt_flat=arrs["a_filt_flat"],
             fine_sqrtw=torch.from_numpy(spec.sqrt_weights()[fsl]).to(
@@ -649,31 +994,59 @@ class CudaMatcher(Matcher):
             off=torch.from_numpy(
                 window_offsets(spec.fine_size).astype(np.int64)).to(
                     self.device),
-            diag=diag, db_pad=arrs["db_pad"], dbn_pad=arrs["dbn_pad"],
+            db_pad=arrs["db_pad"], dbn_pad=arrs["dbn_pad"],
             feat_mean=arrs["feat_mean"], live_idx=arrs["live_idx"],
             db_live=arrs["db_live"], ha=ha, wa=wa, hb=hb, wb=wb,
             fine_start=fsl.start, match_mode=mode, db_pad2=arrs["db_pad2"],
-            dbnh_pad=arrs["dbnh_pad"],
-            scan_tile=scan_tile_rows(npad) if pad_mode == "bf16" else 0)
+            dbnh_pad=arrs["dbnh_pad"], strategy=strategy,
+            db_sqnorm=arrs["db_sqnorm"])
+        if strategy == "wavefront":
+            diag = tuple(torch.from_numpy(sg.astype(np.int64)).to(self.device)
+                         for sg in _diag_schedule_np(
+                             hb, wb, spec.fine_size // 2 + 1))
+            return LevelDB(
+                diag=diag, scan_tile=(scan_tile_rows(arrs["db_pad"].shape[0])
+                                      if pad_mode == "bf16" else 0),
+                **level)
+        flat_idx, valid, written = gather_maps_device(hb, wb, spec.fine_size,
+                                                      self.device)
+        return LevelDB(
+            diag=(), db_rowsafe=arrs["db_rowsafe"],
+            db_rowsafe_sqnorm=arrs["db_rowsafe_sqnorm"], flat_idx=flat_idx,
+            valid=valid, written=written, rowsafe=rowsafe,
+            n_rowsafe=(spec.fine_size // 2) * spec.fine_size,
+            refine_passes=self.params.refine_passes, **level)
 
     def synthesize_level(self, db: LevelDB, job: LevelJob
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     Dict[str, Any]]:
         """Returns device-resident (bp (hb, wb), s (hb, wb)) plus stats;
-        the coherence count stays a device scalar under "_n_coh"."""
+        the coherence count stays a device scalar under "_n_coh" (and the
+        batched strategy's refinement count under "_n_ref")."""
         t0 = time.perf_counter()
-        bp, s, n_coh = wavefront_scan_core(
-            db, job.kappa_mult, make_anchor_fn(db))
         hb, wb = job.b_shape
         stats: Dict[str, Any] = {
             "level": job.level,
             "db_rows": job.a_shape[0] * job.a_shape[1],
             "pixels": hb * wb,
-            "_n_coh": n_coh,
             "backend": self.device.type,
-            "strategy": "wavefront",
-            "match_mode": db.match_mode,
+            "strategy": db.strategy,
         }
+        if db.strategy == "wavefront":
+            bp, s, n_coh = wavefront_scan_core(
+                db, job.kappa_mult, make_anchor_fn(db))
+            stats["match_mode"] = db.match_mode
+        elif db.strategy == "batched":
+            bp, s, counts = batched_scan_core(db, job.kappa_mult,
+                                              make_approx_fn(db))
+            n_coh = counts[0]
+            # picks the left-propagation refinement switched to a same-row
+            # candidate, apart so coherence_ratio stays the oracle's stat
+            stats["_n_ref"] = counts[1]
+        else:
+            run = _run_exact if db.strategy == "exact" else _run_rowwise
+            bp, s, n_coh = run(db, job.kappa_mult)
+        stats["_n_coh"] = n_coh
         # one wait per level (never inside the step loop): per-level ms is
         # the device's time, not the enqueue time
         if self.device.type == "cuda":
@@ -682,3 +1055,28 @@ class CudaMatcher(Matcher):
         stats["ms"] = dt * 1e3
         stats["pixels_per_s"] = hb * wb / max(dt, 1e-9)
         return bp.reshape(hb, wb), s.reshape(hb, wb), stats
+
+    def best_match(self, db: LevelDB, job: LevelJob, q: int,
+                   bp_flat: np.ndarray, s_flat: np.ndarray
+                   ) -> Tuple[int, float, bool]:
+        """Single-pixel reference path (the JAX ``TpuMatcher.best_match``,
+        a unit-test seam, not a fast path): the exact strategy's decision
+        at pixel ``q`` given the B' values and source map so far.  Returns
+        (source index, squared distance, coherence won)."""
+        if db.flat_idx is None:
+            # wavefront levels carry no gather maps (the scan computes its
+            # window indices per step); this seam is per-pixel and cold
+            flat_idx, valid, written = gather_maps_device(
+                db.hb, db.wb, int(round(int(db.off.shape[0]) ** 0.5)),
+                self.device)
+            db = dataclasses.replace(db, flat_idx=flat_idx, valid=valid,
+                                     written=written)
+        bp = self._t(np.asarray(bp_flat, np.float32))
+        s = torch.from_numpy(np.asarray(s_flat, np.int64)).to(self.device)
+        qvec = _exact_qvec(db, q, bp)
+        p_app, d_app = _exact_d_app(db, qvec)
+        p_coh, d_coh, has_coh = _pixel_coherence(db, qvec, q, s)
+        p_app, d_app = int(p_app), float(d_app)
+        if bool(has_coh) and float(d_coh) <= d_app * job.kappa_mult:
+            return int(p_coh), float(d_coh), True
+        return p_app, d_app, False

@@ -4,11 +4,8 @@
 Only the fields the ported paths read are here.  Field names, defaults and
 validation mirror the JAX package so a params object reads the same in
 both; the backend seam becomes an explicit ``device`` ("cuda" by default —
-the port runs on the card unless the caller asks for the CPU).
-
-Values of ``strategy`` that the JAX package supports but the port has not
-ported raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.  Every match mode is ported.
+the port runs on the card unless the caller asks for the CPU).  Every
+strategy and every match mode of the JAX package is ported.
 """
 
 from __future__ import annotations
@@ -16,8 +13,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-# strategy values ported so far
-PORTED_STRATEGIES = ("auto", "wavefront")
+# the JAX package's strategies ("auto" resolves to "wavefront")
+STRATEGIES = ("auto", "wavefront", "exact", "rowwise", "batched")
 # the production match modes: every one is parity-grade (its picks hold the
 # oracle tie-audit)
 PARITY_MATCH_MODES = ("auto", "exact_hi", "exact_hi2", "exact_hi2_2p")
@@ -25,13 +22,6 @@ PARITY_MATCH_MODES = ("auto", "exact_hi", "exact_hi2", "exact_hi2_2p")
 # IA_EXPERIMENTAL=1 in the environment
 EXPERIMENTAL_MATCH_MODES = ("scan_rescue", "scan_rescue_1p",
                             "two_pass", "two_pass_1p")
-
-# the rest of the JAX package's surface, with the ROADMAP item porting it
-_UNPORTED_STRATEGIES = {
-    "exact": "ROADMAP Queue 1 item 5",
-    "rowwise": "ROADMAP Queue 1 item 5",
-    "batched": "ROADMAP Queue 1 item 5",
-}
 
 
 def env_truthy(name: str) -> bool:
@@ -55,7 +45,14 @@ class AnalogyParams:
 
     - ``kappa``: coherence wins iff ``d_coh <= d_app * kappa_factor(l)**2``.
     - ``strategy``: "auto" resolves to "wavefront" (anti-diagonal parity
-      scan, ``backends/cuda.py``).
+      scan, ``backends/cuda.py``); "exact" (per-pixel sequential scan,
+      full-DB fp32 scores), "rowwise" (one approximate match per scan row,
+      then the per-pixel pass) and "batched" (a whole scan row per step
+      over the rows-above metric, then ``refine_passes`` left-propagation
+      passes).  On the card the approximate match of rowwise and batched
+      is one bf16 pass with fp32 accumulation; on the CPU it is exact fp32.
+    - ``refine_passes``: batched strategy's vectorized left-propagation
+      refinement passes per scan row.
     - ``match_mode``: the wavefront anchor scan — "exact_hi" (fp32 argmin
       kernel), "exact_hi2" (three-pass packed scan, the full bf16_6x
       product set), "exact_hi2_2p" (bf16 lane-packed K-wide scan), or
@@ -83,6 +80,7 @@ class AnalogyParams:
     src_weight: float = 1.0
     color_mode: str = "yiq_transfer"  # "yiq_transfer" | "source_rgb"
     strategy: str = "auto"
+    refine_passes: int = 3
     match_mode: str = "auto"
     temporal_weight: float = 0.0
     bf16_scoring: bool = False
@@ -103,13 +101,11 @@ class AnalogyParams:
             raise ValueError(
                 "bf16_scoring requires strategy 'wavefront' or 'auto', "
                 f"got {self.strategy!r}")
-        if self.strategy in _UNPORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported yet "
-                f"({_UNPORTED_STRATEGIES[self.strategy]}); the port runs "
-                f"{PORTED_STRATEGIES}")
-        if self.strategy not in PORTED_STRATEGIES:
+        if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
+        if self.refine_passes < 0:
+            raise ValueError(
+                f"refine_passes must be >= 0, got {self.refine_passes}")
         if self.match_mode not in PARITY_MATCH_MODES:
             if self.match_mode not in EXPERIMENTAL_MATCH_MODES:
                 raise ValueError(f"unknown match_mode {self.match_mode!r}")

@@ -3,7 +3,8 @@
 delegating feature building and the level scan to ``CudaMatcher``.
 
 B' chains between levels as a device tensor; the host fetches once at the
-end (the finest plane together with every level's coherence count).
+end (the finest plane together with every level's coherence count and,
+for the batched strategy, its refinement count).
 Pipelining/prefetch, buffer donation, checkpoints, retries and the
 watchdog, the exemplar catalog, chaos, observability and the temporal
 (video) term are not ported yet (ROADMAP Queue 1 items 5-10).
@@ -99,10 +100,13 @@ def _prep_planes(a, ap, b, params):
 
 
 def _finalize_stats(st: Dict[str, Any]) -> Dict[str, Any]:
-    """Turn a fetched coherence count into the documented ratio."""
+    """Turn the fetched coherence (and refinement) counts into the
+    documented coherence_ratio (and refined_ratio)."""
     if "_n_coh" in st:
         n = max(st.get("pixels", 1), 1)
         st["coherence_ratio"] = float(st.pop("_n_coh")) / n
+        if "_n_ref" in st:
+            st["refined_ratio"] = float(st.pop("_n_ref")) / n
     return st
 
 
@@ -113,15 +117,19 @@ def create_image_analogy(
     params: AnalogyParams = AnalogyParams(),
     device=None,
     keep_levels: bool = False,
+    backend: Optional[CudaMatcher] = None,
 ) -> AnalogyResult:
     """Synthesize B' such that A : A' :: B : B' (Hertzmann §3).
 
     ``device`` None means ``params.device`` ("cuda" by default), which
     raises when no card is present; pass ``device="cpu"`` to run on the
     CPU.  ``keep_levels`` returns every level's (bp, s) for the tie-audit.
+    ``backend`` replaces the matcher (as the JAX package's argument of the
+    same name; ``device`` is then the matcher's).
     """
-    dev = resolve_device(params.device if device is None else device)
-    backend = CudaMatcher(params, dev)
+    if backend is None:
+        backend = CudaMatcher(params, resolve_device(
+            params.device if device is None else device))
     a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(a, ap, b, params)
 
     min_shape = (min(a_src.shape[0], b_src.shape[0]),
@@ -157,14 +165,18 @@ def create_image_analogy(
         bp_pyr[level], s_pyr[level] = bp, s
         stats.append(st)
 
-    # ONE host fetch for the finest B' plane and every level's coherence
-    # count (counts <= 2^24 are exact in fp32)
-    counts = torch.stack([st["_n_coh"] for st in stats]).to(torch.float32)
+    # ONE host fetch for the finest B' plane and every level's device
+    # counts (counts <= 2^24 are exact in fp32)
+    deferred = [(st, k) for st in stats for k in ("_n_coh", "_n_ref")
+                if k in st]
+    counts = torch.stack([st[k].reshape(()) for st, k in deferred]).to(
+        torch.float32)
     fetched = torch.cat([bp_pyr[0].reshape(-1), counts]).cpu().numpy()
     hb, wb = b_src.shape[:2]
     bp_y = fetched[:hb * wb].reshape(hb, wb).astype(np.float32)
-    for st, c in zip(stats, fetched[hb * wb:]):
-        st["_n_coh"] = float(c)
+    for (st, k), c in zip(deferred, fetched[hb * wb:]):
+        st[k] = float(c)
+    for st in stats:
         _finalize_stats(st)
 
     need_s_host = params.color_mode == "source_rgb" or keep_levels

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-KERNEL_SOURCES = ("argmin_l2", "packed_best", "tile_champions", "argmin2")
+KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed_best",
+                  "tile_champions", "argmin2")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -38,6 +39,12 @@ _SIGNATURES = {
         "ia_argmin_l2": [_VOIDP, _INT, _INT, _VOIDP, _INT, _INT, _INT,
                          _VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                          _INT, _VOIDP],
+    },
+    "argmin_bf16": {
+        # (q, db, dbn, m, n, k, k_used, n_chunks, part_val, part_idx,
+        #  out_idx, out_val, device, stream)
+        "ia_argmin_l2_bf16": [_VOIDP] * 3 + [_INT] * 5 + [_VOIDP] * 4
+                             + [_INT, _VOIDP],
     },
     "packed_best": {
         # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,

@@ -2,8 +2,11 @@
 ``ops/pallas_match.py``, one entry per Pallas kernel:
 
 - ``argmin_l2``: per query, the lexicographic (score, index) minimum over DB
-  rows of ``dbn[n] - 2 q.db[n]`` in exact fp32 (replaces ``_argmin_kernel``;
-  CUDA source ``csrc/argmin_l2.cu``).
+  rows of ``dbn[n] - 2 q.db[n]`` in exact fp32 (replaces ``_argmin_kernel``
+  at HIGHEST, the wavefront's form; CUDA source ``csrc/argmin_l2.cu``).
+- ``argmin_l2_bf16``: the same minimum over one bf16 pass with fp32
+  accumulation (replaces ``_argmin_kernel`` at DEFAULT precision, the
+  batched and rowwise strategies' form; ``csrc/argmin_bf16.cu``).
 - ``packed_best``: per query, the lexicographic (score, lowest index)
   maximum of one to three bf16 passes with fp32 accumulation against the
   lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
@@ -18,7 +21,7 @@
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The four bf16 kernels are instances of one CUDA template
+The five bf16 kernels are instances of one CUDA template
 (``csrc/bf16_scan.cuh``).  Every kernel wrapper follows one contract: a CPU
 tensor runs the plain PyTorch version in this module; a CUDA tensor
 launches the hand-written kernel or raises — there is no fallback.
@@ -38,9 +41,9 @@ from image_analogies_tpu_torch.ops import _build
 
 # launches of each CUDA kernel entry since the last reset (plain-version
 # calls on CPU tensors do not count)
-LAUNCHES = {"argmin_l2": 0, "packed_best": 0, "packed3_best": 0,
-            "packed2_best": 0, "packed1w_best": 0, "packed2wn_best": 0,
-            "packed1wn_best": 0, "packed_champions": 0,
+LAUNCHES = {"argmin_l2": 0, "argmin_l2_bf16": 0, "packed_best": 0,
+            "packed3_best": 0, "packed2_best": 0, "packed1w_best": 0,
+            "packed2wn_best": 0, "packed1wn_best": 0, "packed_champions": 0,
             "pertile_champions": 0, "argmin2_l2": 0}
 
 # score given to padding rows by the norm-in-W scheme: far below any real
@@ -589,6 +592,72 @@ def pertile_champions_queries(queries: torch.Tensor, dbp: torch.Tensor,
     vals, idx = pertile_champions(_pad_lanes(queries, dbp.shape[1]), dbp,
                                   dbnh, tile_n, q_split, _round_up(f, 16))
     return vals.T, idx.T
+
+
+# --------------------------------------------------------- argmin_l2_bf16
+
+
+def argmin_l2_bf16_plain(q, dbp, dbn, k_used: int = 0):
+    """Plain version of ``argmin_l2_bf16``: round the query to bf16, go
+    back to fp32, one fp32 product with the bf16 DB, then the first
+    (lowest-index) minimum of ``dbn - 2 dots``."""
+    qk = _scan_queries(q, False)
+    k_used = k_used or qk.shape[1]
+    s = dbn[None, :] - 2.0 * _dots(qk, dbp, k_used)
+    idx = torch.argmin(s, dim=1)
+    return idx.to(torch.int32), s.gather(1, idx[:, None])[:, 0]
+
+
+def argmin_l2_bf16(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
+                   k_used: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per query row m: (idx, score) = the lexicographic minimum over DB
+    rows n of  score = dbn[n] - 2 q[m].dbp[n]  with bf16 operands and fp32
+    accumulation, lowest index on ties — what the JAX package's
+    ``pallas_argmin_l2(..., bf16=True)`` computes.
+
+    ``q`` (M, Fp) fp32, rounded to bf16 here (or already bf16); ``dbp``
+    (Npad, Fp) bf16 rows, rounded from fp32; ``dbn`` (Npad,) fp32 norms of
+    the UNROUNDED rows, +inf on padding rows, which never win.  Lanes at
+    and past ``k_used`` (0: Fp) are zero in ``q`` and skipped.  The caller
+    adds ||q||^2.  Returns (idx (M,) int32, score (M,) fp32)."""
+    k_used = _check_bf16_scan("argmin_l2_bf16", q, dbp, dbn, k_used)
+    if _on_cpu(q, dbp, dbn):
+        return argmin_l2_bf16_plain(q, dbp, dbn, k_used)
+    qk = _scan_queries(q, False).contiguous()
+    _check_cuda("argmin_l2_bf16", q=qk, dbp=dbp, dbn=dbn)
+    m, fp = q.shape
+    n = dbp.shape[0]
+    dev = _device_index(qk)
+    lib = _build.load("argmin_bf16")
+    n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
+    part_val = torch.empty((n_chunks, m), dtype=torch.float32,
+                           device=qk.device)
+    part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=qk.device)
+    out_idx = torch.empty((m,), dtype=torch.int32, device=qk.device)
+    out_val = torch.empty((m,), dtype=torch.float32, device=qk.device)
+    err = lib.ia_argmin_l2_bf16(
+        qk.data_ptr(), dbp.data_ptr(), dbn.data_ptr(), m, n, fp, k_used,
+        n_chunks, part_val.data_ptr(), part_idx.data_ptr(),
+        out_idx.data_ptr(), out_val.data_ptr(), dev,
+        torch.cuda.current_stream(qk.device).cuda_stream)
+    _build.check(lib, err, "argmin_l2_bf16 launch")
+    LAUNCHES["argmin_l2_bf16"] += 1
+    return out_idx, out_val
+
+
+def prepadded_argmin_queries(queries: torch.Tensor, dbp: torch.Tensor,
+                             dbn: torch.Tensor):
+    """Raw-query wrapper of ``argmin_l2_bf16`` (the JAX package's
+    ``prepadded_argmin_queries`` at DEFAULT precision): lane-pad the (M, F)
+    fp32 queries, scan, and recover the squared distance
+    d = max(score + ||q||^2, 0) with the norm of the unrounded query.  The
+    kernel takes any M, so the rows are not padded to the TPU's tiles.
+    Returns (idx (M,) int32, d (M,) fp32)."""
+    f = queries.shape[1]
+    idx, score = argmin_l2_bf16(_pad_lanes(queries, dbp.shape[1]), dbp, dbn,
+                                _round_up(f, 16))
+    qn = (queries * queries).sum(dim=1)
+    return idx, torch.clamp(score + qn, min=0.0)
 
 
 # ------------------------------------------------------------- argmin2_l2

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
-from image_analogies_tpu_torch.backends.cuda import pack_wk
+from image_analogies_tpu_torch.backends.cuda import CudaMatcher, pack_wk
 from image_analogies_tpu_torch.ops import match
 from image_analogies_tpu_torch.utils.assets import make_structured
 from image_analogies_tpu_torch.utils.ssim import ssim
@@ -342,6 +342,52 @@ def test_cuda_wide_bf16_db_scans_match_plain(f, fp):
     _assert_band("argmin2 first", i1, v1, r1, rv1, atol=1e-4, band=1e-4)
     _assert_band("argmin2 second", i2, v2, r2, rv2, atol=1e-4, band=1e-4)
     assert (int(i1[0]), int(i2[0])) == (2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,npad", [(13, 900, 1024), (130, 1000, 1088),
+                                      (1024, 3000, 3072), (5, 1, 256)])
+def test_cuda_argmin_l2_bf16_matches_plain(m, n, npad):
+    """The single-bf16-pass argmin (batched/rowwise) against its plain
+    version: duplicate rows 2 and 5 go to 2, padding rows never win, and a
+    one-row DB gives that row."""
+    dev = _card()
+    cpu = scan_case(n=n, npad=npad, m=m)
+    args = [cpu[k] for k in ("qf", "dbp", "dbn")]
+    match.reset_launch_counts()
+    idx, val = (t.cpu() for t in match.argmin_l2_bf16(
+        *[a.to(dev) for a in args], 80))
+    assert match.LAUNCHES["argmin_l2_bf16"] == 1
+    ref_i, ref_v = match.argmin_l2_bf16(*args, 80)
+    _assert_band("argmin_l2_bf16", idx, val, ref_i, ref_v, atol=1e-4,
+                 band=1e-4)
+    assert int(idx.max()) < n and int(idx[0]) == (2 if n > 5 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,size", [("batched", 48), ("rowwise", 48),
+                                           ("exact", 32)])
+def test_cuda_strategies_match_cpu_run(strategy, size):
+    """Each non-wavefront strategy on the card against the CPU: batched and
+    rowwise against a CPU run of the same bf16 approximate match (the
+    kernel's plain version), exact against the CPU's fp32 scan.  Only the
+    bf16 argmin launches, once per scan row of the approximate
+    strategies."""
+    _card()
+    a, ap, b = make_structured(size, 7)
+    params = AnalogyParams(levels=3, kappa=5.0, strategy=strategy)
+    match.reset_launch_counts()
+    gpu = create_image_analogy(a, ap, b, params)
+    rows = 0 if strategy == "exact" else size + size // 2 + size // 4
+    assert {k: v for k, v in match.LAUNCHES.items() if v} == (
+        {"argmin_l2_bf16": rows} if rows else {})
+    cpu = create_image_analogy(a, ap, b, params, backend=CudaMatcher(
+        params, "cpu", bf16_approx=strategy != "exact"))
+    assert gpu.bp_y.shape == (size, size) and np.isfinite(gpu.bp_y).all()
+    assert (gpu.source_map != cpu.source_map).mean() < 0.02
+    assert ssim(gpu.bp_y, cpu.bp_y) >= 0.99
+    if strategy == "batched":
+        assert all(0.0 <= st["refined_ratio"] <= 1.0 for st in gpu.stats)
 
 
 def _rgb(x):

@@ -137,12 +137,20 @@ def test_params_presets_and_unported_surface(monkeypatch):
         for fld in ("levels", "patch_size", "coarse_patch_size", "kappa",
                     "remap_luminance", "src_weight", "color_mode",
                     "temporal_weight", "strategy", "match_mode",
-                    "bf16_scoring"):
+                    "bf16_scoring", "refine_passes"):
             assert getattr(tp, fld) == getattr(jp, fld), (name, fld)
         assert tp.device == "cuda"
         assert tp.kappa_factor(2) == jp.kappa_factor(2)
-    for bad in (dict(strategy="batched"), dict(strategy="exact")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every JAX strategy is ported and validated as in the JAX package
+    for strategy in ("auto", "wavefront", "exact", "rowwise", "batched"):
+        assert tcfg.AnalogyParams(strategy=strategy).strategy == strategy
+        jcfg.AnalogyParams(strategy=strategy)
+    assert tcfg.AnalogyParams(refine_passes=0).refine_passes == 0
+    for bad in (dict(refine_passes=-1), dict(strategy="batched",
+                                             bf16_scoring=True)):
+        with pytest.raises(ValueError):
+            jcfg.AnalogyParams(**bad)
+        with pytest.raises(ValueError):
             tcfg.AnalogyParams(**bad)
     # every JAX match mode is ported; the probe modes stay gated
     monkeypatch.delenv("IA_EXPERIMENTAL", raising=False)
