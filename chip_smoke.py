@@ -19,6 +19,14 @@ and carried on):
                 and the bound the card's peak rates allow for the function
                 (its own width: F = 68 features, 2L = 110 or 4L + 3 = 223
                 packed lanes, not the kernel's lanes rounded up to 16).
+                ``argmin_l2`` also at each wavefront segment shape of
+                npr_1024's argmin levels 2-4 (padded batch M, DB of the
+                level's N): held against its plain version, timed beside
+                its yardstick and bound, device ms weighted by the
+                segments' steps per level and in all; with ``--parent
+                DIR`` also the argmin_l2 of the checkout in DIR on the same
+                inputs (a child process), whose (idx, val) must be the
+                same bits.
                 ``argmin_l2_bf16`` (the batched/rowwise approximate match)
                 at level 0 of batched npr_1024: M = 1024 queries against
                 1,048,576 bf16 rows.  The four superseded packed forms are
@@ -95,6 +103,7 @@ PEAK_BF16_FLOP_S = 989e12
 # main-path shapes (npr_1024): the widest anti-diagonal batch of each
 # kernel's levels and the DB rows it scans
 ARGMIN_SHAPE = dict(m=88, npad=65536, f=68, fp=128)  # level 2 (256^2)
+ARGMIN_LEVELS = (2, 3, 4)  # the fp32 argmin's levels (256^2 to 64^2)
 PACKED_SHAPE = dict(m=352, npad=1048576, lw=55)  # level 0 (1024^2)
 # level 0 of the new modes: the bf16 centered DB (F = 68 of Fp = 128) and
 # the packed3 arrays (2L = 110 of Kp = 128)
@@ -257,30 +266,80 @@ def phase_env(ptxas: bool):
                     print(f"[ptxas {name}] {line.strip()}", flush=True)
 
 
-def phase_kernels():
+def argmin_level_shapes():
+    """[(level, npad, m, steps)]: every wavefront segment of npr_1024's
+    fp32-argmin levels, its padded batch M and its step count
+    (``_diag_schedule_np``, skew patch // 2 + 1), against the level's DB of
+    h^2 rows."""
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.backends.cuda import _diag_schedule_np
+
+    c = PRESETS["npr_1024"].patch_size // 2 + 1
+    out = []
+    for level in ARGMIN_LEVELS:
+        h = 1024 >> level
+        out += [(level, h * h, int(sg.shape[1]), int(sg.shape[0]))
+                for sg in _diag_schedule_np(h, h, c)]
+    return out
+
+
+def argmin_operands(m, npad, f=68, fp=128, seed=11, dup=None):
+    """Seeded numpy operands of ``argmin_l2``: DB rows uniform in [0, 0.2)
+    in the first f of fp lanes, the last 100 rows padding (zero features,
+    +inf norms), row dup[1] a copy of row dup[0] (default N/64 and 15N/16:
+    different DB chunks) and query 0 equal to it.  Returns (q, db, dbn,
+    n_real, dup[0])."""
     import numpy as np
-    import torch
 
-    from image_analogies_tpu_torch.backends.cuda import (
-        pack_wk, packed_shift_and_halfnorm)
-    from image_analogies_tpu_torch.ops import match
-
-    dev = torch.device("cuda", 0)
-    rows = {}
-
-    # --- argmin_l2 at level 2 (256^2): Mp=88, Npad=65536 -------------
-    s = ARGMIN_SHAPE
-    m, npad, f, fp = s["m"], s["npad"], s["f"], s["fp"]
-    n_real = npad - 100  # 100 padding rows: zero features, +inf norms
-    rng = np.random.default_rng(11)
+    n_real = npad - 100
+    lo, hi = dup or (npad // 64, npad * 15 // 16)
+    rng = np.random.default_rng(seed)
     db = np.zeros((npad, fp), np.float32)
     db[:n_real, :f] = rng.uniform(0, 1, (n_real, f)).astype(np.float32) * .2
-    db[64000] = db[1000]  # duplicate rows: ties go to the lowest index
+    db[hi] = db[lo]  # duplicate rows: ties go to the lowest index
     q = rng.uniform(0, 1, (m, f)).astype(np.float32) * 0.2
-    q[0] = db[1000, :f]
+    q[0] = db[lo, :f]
     dbn = np.full((npad,), np.inf, np.float32)
     dbn[:n_real] = (db[:n_real] ** 2).sum(1)
-    qd, dbd, dbnd = (torch.from_numpy(x).to(dev) for x in (q, db, dbn))
+    return q, db, dbn, n_real, lo
+
+
+def argmin_bound(m, npad, f):
+    """Bound of one fp32 argmin call: q, the F used DB columns and the norms
+    read once, (idx, val) written once; 2 M N F operations."""
+    return bound(4 * (m * f + npad * f + npad) + 8 * m, 2 * m * npad * f,
+                 PEAK_FP32_FLOP_S)
+
+
+def run_argmin_shapes(match, shapes):
+    """``match.argmin_l2`` on the seeded operands of each (level, npad, m,
+    steps): {"npad/m": (idx, val, device ms, operands on the card, real
+    rows, duplicated row)}."""
+    import torch
+
+    out = {}
+    for _, npad, m, _ in shapes:
+        q, db, dbn, n_real, lo = argmin_operands(m, npad, seed=npad + m)
+        args = tuple(torch.from_numpy(x).cuda() for x in (q, db, dbn))
+        idx, val = match.argmin_l2(*args)
+        ms = cuda_time_ms(lambda: match.argmin_l2(*args), reps=50)
+        out[f"{npad}/{m}"] = (idx.cpu().numpy(), val.cpu().numpy(), ms, args,
+                              n_real, lo)
+    return out
+
+
+def phase_argmin_kernel(rows):
+    """argmin_l2 (the exact_hi scan) at its headline shape: level 2 of
+    npr_1024, M = 88, Npad = 65,536, F = 68 of Fp = 128 lanes."""
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    s = ARGMIN_SHAPE
+    m, npad, f, fp = s["m"], s["npad"], s["f"], s["fp"]
+    arrays = argmin_operands(m, npad, f, fp, seed=11, dup=(1000, 64000))
+    n_real = arrays[3]
+    qd, dbd, dbnd = (torch.from_numpy(x).cuda() for x in arrays[:3])
     match.reset_launch_counts()
     idx, val = match.argmin_l2(qd, dbd, dbnd)
     torch.cuda.synchronize()
@@ -298,14 +357,128 @@ def phase_kernels():
     dbt = dbd[:, :f].T
     l_ms = cuda_time_ms(
         lambda: torch.addmm(dbnd, qd, dbt, alpha=-2.0).min(dim=1), reps=20)
-    b_ms, b_by = bound(4 * (m * f + npad * f + npad) + 8 * m,
-                       2 * m * npad * f, PEAK_FP32_FLOP_S)
+    # the same window around one empty launch: what any single kernel
+    # call pays between the two events before it does any work
+    floor_ms = cuda_time_ms(lambda: torch.cuda._sleep(1), reps=50)
+    b_ms, b_by = argmin_bound(m, npad, f)
     rows["argmin_l2"] = kernel_row("argmin_l2", "argmin_l2.cu", 51, err,
                                    k_ms, p_ms, l_ms, (b_ms, b_by))
     say("kernels", kernel="argmin_l2", m=m, npad=npad, f=f,
         max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
-        plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-    del qd, dbd, dbnd, scores, dbt
+        plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        launch_floor_ms=floor_ms)
+
+
+def phase_argmin_levels(parent):
+    """argmin_l2 at every wavefront segment shape of npr_1024's argmin
+    levels (2-4), each on a DB of its level's N: held against its plain
+    version (scores within ARGMIN_ATOL, picks equal outside SCORE_BAND,
+    the duplicate and padding rules), timed beside the addmm + min
+    yardstick and the bound; device ms weighted by each segment's steps,
+    per level and in all.  With ``parent`` (a checkout of another commit,
+    e.g. the parent): that tree's argmin_l2 on the same inputs in a child
+    process, whose picks and scores must be the same bits, and its times."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    shapes = argmin_level_shapes()
+    got = run_argmin_shapes(match, shapes)
+    theirs = None
+    if parent:
+        out = os.path.join(HERE, "image_analogies_tpu_torch", "_build",
+                           "argmin_parent_bits.npz")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--argmin-bits-of",
+             os.path.abspath(parent), out, "--shapes", json.dumps(shapes)],
+            capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"argmin_l2 of {parent}: exit {child.returncode}\n"
+                 f"{child.stdout[-2000:]}{child.stderr[-4000:]}")
+        theirs = dict(np.load(out))
+        parent_ms = json.loads(child.stdout.strip().splitlines()[-1])
+    total = dict(ms=0.0, library_ms=0.0, bound_ms=0.0, parent_ms=0.0)
+    for level in ARGMIN_LEVELS:
+        segs, tot = [], dict.fromkeys(total, 0.0)
+        for _, npad, m, steps in (s for s in shapes if s[0] == level):
+            key = f"{npad}/{m}"
+            idx, val, k_ms, (qd, dbd, dbnd), n_real, lo = got[key]
+            f = qd.shape[1]
+            scores = dbnd[None, :] - 2.0 * (qd @ dbd[:, :f].T)
+            ref_idx, ref_val = match.argmin_l2_plain(qd, dbd, dbnd)
+            second = torch.topk(scores, 2, dim=1, largest=False).values[:, 1]
+            del scores
+            name = f"argmin_l2 level {level} M={m}"
+            err, ndiff = check_picks(name, torch.from_numpy(idx).cuda(),
+                                     torch.from_numpy(val).cuda(), ref_idx,
+                                     ref_val, second, ARGMIN_ATOL)
+            if int(idx[0]) != lo or int(idx.max()) >= n_real:
+                fail(f"{name}: duplicate/padding rule broken")
+            dbt = dbd[:, :f].T
+            l_ms = cuda_time_ms(lambda: torch.addmm(
+                dbnd, qd, dbt, alpha=-2.0).min(dim=1), reps=20)
+            seg = dict(m=m, steps=steps, ms=k_ms, library_ms=l_ms,
+                       bound_ms=argmin_bound(m, npad, f)[0],
+                       max_abs_err=err, picks_differing_in_band=ndiff)
+            if theirs is not None:
+                same = bool(np.array_equal(theirs[f"idx/{key}"], idx)
+                            and np.array_equal(
+                                theirs[f"val/{key}"].view(np.int32),
+                                val.view(np.int32)))
+                seg.update(parent_ms=parent_ms[key], bits_equal_parent=same)
+                if not same:
+                    say("kernels", kernel="argmin_l2", level=level, **seg)
+                    fail(f"{name}: (idx, val) differ from {parent}'s kernel")
+            for k in tot:
+                tot[k] += steps * seg.get(k, 0.0)
+            segs.append(seg)
+            del qd, dbd, dbnd, dbt, got[key]
+        for k in total:
+            total[k] += tot[k]
+        say("kernels", kernel="argmin_l2", level=level, npad=1024 ** 2 >> (
+            2 * level), segments=segs, launches=sum(s["steps"] for s in segs),
+            **{f"weighted_{k}": v for k, v in tot.items()
+               if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="argmin_l2", levels=list(ARGMIN_LEVELS),
+        launches=sum(s[3] for s in shapes),
+        **{f"weighted_{k}": v for k, v in total.items()
+           if theirs is not None or k != "parent_ms"})
+    torch.cuda.empty_cache()
+
+
+def argmin_bits_child(root, out, shapes):
+    """Child of ``phase_argmin_levels``: the argmin_l2 of the checkout at
+    ``root`` (built from its own sources) on the same seeded operands;
+    saves (idx, val) per shape to ``out`` and prints its device ms per
+    shape as the last line."""
+    import numpy as np
+
+    sys.path.insert(0, root)
+    from image_analogies_tpu_torch.ops import match
+
+    if not os.path.abspath(match.__file__).startswith(root + os.sep):
+        fail(f"imported {match.__file__}, not the package under {root}")
+    got = run_argmin_shapes(match, [tuple(s) for s in shapes])
+    arrays = {}
+    for key, (idx, val, *_) in got.items():
+        arrays[f"idx/{key}"], arrays[f"val/{key}"] = idx, val
+    np.savez(out, **arrays)
+    print(json.dumps({k: v[2] for k, v in got.items()}), flush=True)
+
+
+def phase_kernels(parent=None):
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import (
+        pack_wk, packed_shift_and_halfnorm)
+    from image_analogies_tpu_torch.ops import match
+
+    dev = torch.device("cuda", 0)
+    rows = {}
+    phase_argmin_kernel(rows)
+    phase_argmin_levels(parent)
 
     # --- packed_best at level 0 (1024^2): Mp=352, Npad=1,048,576 -----
     s = PACKED_SHAPE
@@ -1077,8 +1250,12 @@ def phase_profile(a, ap, b, params, phase="profile"):
             cur_e = max(cur_e, e_us)
     busy = (busy + cur_e - cur_s) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    # device kernels of the fp32 argmin, one per argmin_l2 call
+    argmin = {name[:60]: n for name, (_, n) in by_name.items()
+              if "argmin" in name}
     say(phase, wall_ms=wall * 1e3, device_busy_ms=busy,
         busy_share=busy / (wall * 1e3), device_kernels=len(spans),
+        argmin_device_kernels=argmin,
         top={name[:60]: {"ms": ms, "n": n} for name, (ms, n) in top})
 
 
@@ -1093,6 +1270,14 @@ def main() -> None:
     ap.add_argument("--ptxas", action="store_true",
                     help="rebuild with -Xptxas -v and print each kernel's "
                          "registers, shared memory and spills")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="with the kernels phase: run the argmin_l2 of the "
+                         "checkout in DIR (e.g. the parent commit, unpacked "
+                         "by git archive) on the argmin level shapes too; "
+                         "its picks and scores must be the same bits")
+    ap.add_argument("--argmin-bits-of", nargs=2, metavar=("ROOT", "OUT"),
+                    help=argparse.SUPPRESS)  # the child of --parent
+    ap.add_argument("--shapes", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES + ("profile", "batched_profile") for p in phases):
@@ -1107,12 +1292,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a card",
              code=2)
+    if args.argmin_bits_of:
+        argmin_bits_child(*args.argmin_bits_of, json.loads(args.shapes))
+        return
     sys.path.insert(0, HERE)
     import image_analogies_tpu_torch  # noqa: F401  (sets TF32 off)
 
     if "env" in phases:
         phase_env(args.ptxas)
-    rows = phase_kernels() if "kernels" in phases else None
+    rows = phase_kernels(args.parent) if "kernels" in phases else None
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue",
             "two_pass", "batched"} & set(phases):

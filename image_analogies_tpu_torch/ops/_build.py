@@ -34,11 +34,11 @@ _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures: every pointer and the stream as void*, sizes as int
 _SIGNATURES = {
     "argmin_l2": {
-        # (q, m, ldq, db, n, lddb, f, dbn, n_chunks, part_val, part_idx,
-        #  out_idx, out_val, device, stream)
+        # (q, m, ldq, db, n, lddb, f, dbn, nq, q_chunks, n_chunks,
+        #  tiles_per_chunk, keys, ticket, out_idx, out_val, device, stream)
         "ia_argmin_l2": [_VOIDP, _INT, _INT, _VOIDP, _INT, _INT, _INT,
-                         _VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                         _INT, _VOIDP],
+                         _VOIDP] + [_INT] * 4 + [_VOIDP] * 4
+                        + [_INT, _VOIDP],
     },
     "argmin_bf16": {
         # (q, db, dbn, m, n, k, k_used, n_chunks, part_val, part_idx,

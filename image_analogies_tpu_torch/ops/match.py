@@ -33,7 +33,7 @@ went through the kernels.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -164,15 +164,94 @@ def argmin_l2_plain(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
     return idx.to(torch.int32), val
 
 
+# launch geometry of csrc/argmin_l2.cu: 8 warps a block, each warp nq
+# queries (nq <= 16: 128 a block), 128-row DB tiles, k slabs of <= 18
+# float4 columns in a ring of two stages, and the shared memory a block
+# may use (one block per SM)
+_ARGMIN_WARPS = 8
+_ARGMIN_MAX_NQ = 16
+_ARGMIN_ROWS = 128
+_ARGMIN_SLAB4 = 18
+_ARGMIN_SMEM = 232448 - 1024
+_ARGMIN_KEY_STRIDE = 16  # int64s between two queries' merge keys
+
+
+class ArgminPlan(NamedTuple):
+    nq: int  # queries per warp: the kernel instance (8 nq queries a block)
+    rows: int  # DB rows per tile
+    tiles_per_chunk: int  # DB tiles per block
+    n_chunks: int  # grid x: DB chunks
+    q_chunks: int  # grid y: query chunks of 8 nq queries
+
+
+def _argmin_smem(f: int, nq: int) -> int:
+    """Dynamic shared memory of the nq instance at width F: the resident
+    queries plus two stages, each one k slab (its float4 columns of a
+    tile's rows and one pad) and the tile's norms (the kernel's
+    ``smem_bytes``)."""
+    kc = (f + 3) // 4
+    n_slabs = -(-kc // _ARGMIN_SLAB4)
+    slab4 = -(-kc // n_slabs)
+    return (16 * kc * _ARGMIN_WARPS * nq
+            + 2 * (16 * slab4 * (_ARGMIN_ROWS + 1) + 4 * _ARGMIN_ROWS))
+
+
+def _argmin_plan(m: int, n: int, sm_count: int, f: int) -> ArgminPlan:
+    """Launch plan of ``argmin_l2`` for M queries of width F against N DB
+    rows on a card of ``sm_count`` SMs (F enters because the queries stay
+    resident in shared memory).  The query groups of 8 are split into the
+    fewest chunks the instance cap and the shared memory allow, evenly; the
+    128-row DB tiles are cut into about one chunk per SM for each query
+    chunk, never less than one tile a block."""
+    if m < 1 or n < 1 or f < 1 or sm_count < 1:
+        raise ValueError(f"argmin_l2 plan: m={m}, n={n}, f={f}, "
+                         f"sm_count={sm_count}")
+    nq_cap = _ARGMIN_MAX_NQ
+    while nq_cap and _argmin_smem(f, nq_cap) > _ARGMIN_SMEM:
+        nq_cap -= 1
+    if not nq_cap:
+        raise ValueError(f"argmin_l2: F={f} is too wide for the kernel's "
+                         "shared memory")
+    groups = -(-m // _ARGMIN_WARPS)
+    q_chunks = -(-groups // nq_cap)
+    nq = -(-groups // q_chunks)
+    tiles = -(-n // _ARGMIN_ROWS)
+    per = -(-tiles // max(1, sm_count // q_chunks))
+    return ArgminPlan(nq, _ARGMIN_ROWS, per, -(-tiles // per), q_chunks)
+
+
+# (device index, stream) -> (keys, ticket) of the one-launch merge
+_ARGMIN_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] \
+    = {}
+
+
+def _argmin_workspace(device: torch.device, stream: int, m: int):
+    """The merge workspace of ``stream``: (keys (>= 16 M,) int64 all-ones,
+    query m's at 16 m, one 128-byte line each; ticket (1,) int32 zero),
+    the state every launch leaves behind.  Allocated once per (device,
+    stream), grown for a larger M."""
+    key = (device.index, stream)
+    ws = _ARGMIN_WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < m * _ARGMIN_KEY_STRIDE:
+        keys = torch.full((max(m, 256) * _ARGMIN_KEY_STRIDE,), -1,
+                          dtype=torch.int64, device=device)
+        ticket = ws[1] if ws is not None else torch.zeros(
+            (1,), dtype=torch.int32, device=device)
+        ws = _ARGMIN_WORKSPACE[key] = (keys, ticket)
+    return ws
+
+
 def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per query m: (idx, score) = the lexicographic minimum over DB rows n
     of ``dbn[n] - 2 q[m].dbp[n]``, exact fp32, lowest index on ties.
 
     ``q`` (M, F) fp32; ``dbp`` (Npad, Fp >= F) fp32 (only the first F
-    columns are read — the rest is lane padding); ``dbn`` (Npad,) fp32 row
-    norms, +inf on padding rows so they never win.  The caller adds
-    ||q||^2.  Returns (idx (M,) int32, score (M,) fp32)."""
+    columns are read — the rest is lane padding; on the card Fp is a
+    multiple of 4); ``dbn`` (Npad,) fp32 row norms, +inf on padding rows so
+    they never win.  The caller adds ||q||^2.  Returns (idx (M,) int32,
+    score (M,) fp32).  On the card: one kernel launch, and no allocation
+    past the two outputs."""
     if q.dim() != 2 or dbp.dim() != 2 or dbn.dim() != 1:
         raise ValueError("argmin_l2: q (M,F), dbp (N,Fp), dbn (N,)")
     m, f = q.shape
@@ -185,19 +264,21 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
     if _on_cpu(q, dbp, dbn):
         return argmin_l2_plain(q, dbp, dbn)
     _check_cuda("argmin_l2", q=q, dbp=dbp, dbn=dbn)
+    if fp % 4:
+        raise ValueError(f"argmin_l2: the card kernel copies DB rows in "
+                         f"16-byte pieces; Fp={fp} must be a multiple of 4")
     dev = _device_index(q)
+    plan = _argmin_plan(m, n, _sm_count(dev), f)
     lib = _build.load("argmin_l2")
-    n_chunks = _chunks((n + 127) // 128, (m + 31) // 32, dev)
-    part_val = torch.empty((n_chunks, m), dtype=torch.float32,
-                           device=q.device)
-    part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    keys, ticket = _argmin_workspace(torch.device("cuda", dev), stream, m)
     out_idx = torch.empty((m,), dtype=torch.int32, device=q.device)
     out_val = torch.empty((m,), dtype=torch.float32, device=q.device)
     err = lib.ia_argmin_l2(
         q.data_ptr(), m, f, dbp.data_ptr(), n, fp, f, dbn.data_ptr(),
-        n_chunks, part_val.data_ptr(), part_idx.data_ptr(),
-        out_idx.data_ptr(), out_val.data_ptr(), dev,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        plan.nq, plan.q_chunks, plan.n_chunks, plan.tiles_per_chunk,
+        keys.data_ptr(), ticket.data_ptr(), out_idx.data_ptr(),
+        out_val.data_ptr(), dev, stream)
     _build.check(lib, err, "argmin_l2 launch")
     LAUNCHES["argmin_l2"] += 1
     return out_idx, out_val

@@ -19,17 +19,18 @@ from image_analogies_tpu_torch.utils.assets import make_structured
 from image_analogies_tpu_torch.utils.ssim import ssim
 
 
-def argmin_inputs(m=13, f=68, n=900, npad=1024, fp=128, seed=3):
-    """Seeded argmin operands: lane-padded DB with a duplicate row pair in
-    different 512-row tiles, +inf-norm padding rows, and queries equal to
-    (and near) the duplicated row."""
+def argmin_inputs(m=13, f=68, n=900, npad=1024, fp=128, seed=3,
+                  dup=(40, 700)):
+    """Seeded argmin operands: lane-padded DB with a duplicate row pair
+    (``dup``, by default in different 512-row tiles), +inf-norm padding
+    rows, and queries equal to (and near) the duplicated row."""
     rng = np.random.default_rng(seed)
     db = np.zeros((npad, fp), np.float32)
     db[:n, :f] = rng.standard_normal((n, f)).astype(np.float32)
-    db[700] = db[40]
+    db[dup[1]] = db[dup[0]]
     q = rng.standard_normal((m, f)).astype(np.float32)
-    q[0] = db[40, :f]
-    q[1] = db[40, :f] + 1e-3
+    q[0] = db[dup[0], :f]
+    q[1:2] = db[dup[0], :f] + 1e-3
     dbn = np.full((npad,), np.inf, np.float32)
     dbn[:n] = (db[:n] ** 2).sum(1)
     return q, db, dbn
@@ -62,18 +63,51 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [2, 37, 130])
-def test_cuda_argmin_matches_plain(m):
+@pytest.mark.parametrize("m,n,npad,f,fp", [
+    # every query-instance edge (1, 24 = level 4, 32, 33, 88 = level 2) and
+    # two query chunks (130), against one partial tile, 4,096 rows (the
+    # last 296 padding: all-padding DB chunks) and 65,536 rows (the last
+    # 1,536 padding: all-padding chunks)
+    *[(m, n, npad, 68, 128) for m in (1, 24, 32, 33, 88, 130)
+      for n, npad in ((99, 99), (3800, 4096), (64000, 65536))],
+    (2, 900, 1024, 68, 128),
+    (37, 900, 1024, 68, 128),
+    (33, 3800, 4096, 67, 128),  # F not a multiple of 4
+    (130, 64000, 65536, 67, 128),
+    (88, 3800, 4096, 300, 384),  # five k slabs per tile
+    # two query chunks: shared memory caps a block at 72 queries
+    (88, 3800, 4096, 520, 640),
+])
+def test_cuda_argmin_matches_plain(m, n, npad, f, fp):
+    """The fp32 argmin kernel against its plain version: the same picks,
+    scores within 1e-5; duplicate rows in different blocks go to the lower
+    index; padding rows never win; a call right after one of another M and
+    N (the merge workspace and ticket come back reset); ten repeated calls
+    give the same bits."""
     dev = _card()
-    args = [torch.from_numpy(a).to(dev)
-            for a in argmin_inputs(m=m, n=900, npad=1024)]
+    dup = (40, n - 60) if n > 100 else (40, 80)
+    args = [torch.from_numpy(a).to(dev) for a in argmin_inputs(
+        m=m, f=f, n=n, npad=npad, fp=fp, dup=dup)]
+    plan = match._argmin_plan(
+        m, npad, match._sm_count(match._device_index(args[0])), f)
+    if npad >= 4096:  # the kernel's blocks: dup rows apart, a padding chunk
+        rows = plan.tiles_per_chunk * plan.rows
+        assert dup[0] // rows != dup[1] // rows
+        assert (plan.n_chunks - 1) * rows >= n
+    other = [torch.from_numpy(a).to(dev) for a in argmin_inputs(
+        m=m % 17 + 5, f=f, n=500, npad=640, fp=fp, seed=4, dup=(40, 400))]
+    match.argmin_l2(*other)
     match.reset_launch_counts()
     idx, score = match.argmin_l2(*args)
     ref_i, ref_s = match.argmin_l2_plain(*args)
     assert match.LAUNCHES["argmin_l2"] == 1
-    assert torch.equal(idx, ref_i) and int(idx[0]) == 40
-    assert int(idx.max()) < 900
+    assert torch.equal(idx, ref_i) and int(idx[0]) == dup[0]
+    assert int(idx.max()) < n
     torch.testing.assert_close(score, ref_s, rtol=1e-5, atol=1e-5)
+    for _ in range(10):
+        again_i, again_s = match.argmin_l2(*args)
+        assert torch.equal(again_i, idx)
+        assert torch.equal(again_s.view(torch.int32), score.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -56,6 +56,38 @@ def test_argmin_plain_matches_pallas_interpret(far):
         assert int(idx[0]) == 40  # duplicate tie -> lowest index
 
 
+@pytest.mark.parametrize("n", [64, 99, 4096, 16384, 65000, 65536, 1048576])
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_argmin_plan_covers_every_tile_once(n, sm_count):
+    """The fp32 argmin kernel's launch plan, M = 1..300: the DB chunks
+    cover every 256-row tile exactly once and none is empty, the instance
+    is the query bucket ceil(M / 8) while M fits one block (128 queries,
+    fewer where the shared memory of a wide F caps it), the query chunks
+    hold every query, and the grid stays within the launch limits and
+    about one block per SM."""
+    tiles = -(-n // match._ARGMIN_ROWS)
+    for f in (68, 67, 300, 520):
+        cap = max(nq for nq in range(1, 17)
+                  if match._argmin_smem(f, nq) <= match._ARGMIN_SMEM)
+        for m in range(1, 301):
+            plan = match._argmin_plan(m, n, sm_count, f)
+            per = plan.tiles_per_chunk
+            assert plan.rows == match._ARGMIN_ROWS and per >= 1
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            assert 1 <= plan.nq <= cap and plan.q_chunks <= 65535
+            assert 8 * plan.nq * plan.q_chunks >= m
+            assert 8 * plan.nq * (plan.q_chunks - 1) < m  # no empty chunk
+            if m <= 8 * cap:
+                assert (plan.q_chunks, plan.nq) == (1, -(-m // 8))
+            blocks = plan.n_chunks * plan.q_chunks
+            assert blocks <= max(sm_count, plan.q_chunks)
+            if n == 65536 and sm_count == 132 and m <= 128 and f == 68:
+                assert (plan.n_chunks, per) == (128, 4)  # 4 tiles a block
+    assert (cap, match._argmin_plan(88, 65536, 132, 68).nq) == (9, 11)
+    with pytest.raises(ValueError):
+        match._argmin_plan(8, n, sm_count, 8000)  # queries do not fit
+
+
 def test_packed_plain_matches_pallas_interpret():
     """The plain packed scan against `packed2k_best(interpret=True)` on the
     same K-wide weight array, with padding rows (norm lanes -3e38) and
