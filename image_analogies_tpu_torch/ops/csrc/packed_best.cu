@@ -1,12 +1,11 @@
 // Global-champion instances of the bf16 scan template (bf16_scan.cuh).
 //
 // Replaces: image_analogies_tpu/ops/pallas_match.py `_packed_best_kernel`
-// (entry `pallas_packed_best`) in all six of its forms:
+// (entry `pallas_packed_best`) in five of its six forms; the sixth,
+// packed2k (the main path's scan: no fold, one stream, the norm in W's
+// lanes), is packed2k_best.cu on the Hopper core (hopper_scan.cuh):
 //
 //   form       FOLD  TWO  norm        product set (score maximised)
-//   packed2k   no    no   in W lanes  q1.d1 + q1.d2 + q2.d1 + q1.d3 - |d|^2/2
-//                                     (the main path's exact_hi2_2p scan,
-//                                      one K-wide dot against wk)
 //   packed3    yes   yes  - dbnh      [q1|q1].W1 + [q2|q2].W1 + [q1|q3].W2
 //                                     (exact_hi2: the six bf16_6x products)
 //   packed2    no    yes  - dbnh      [q1|q1].W1 + [q2|q1].W2
@@ -44,6 +43,8 @@ extern "C" {
 // does not read them.  k in {128, 256, 384, 512}; lanes >= k_used (a
 // multiple of 16) are skipped.  part_val/part_idx (n_chunks, m) scratch;
 // out_idx/out_val (m,).  Launches on `stream`, returns cudaGetLastError().
+// The packed2k form (fold_a = 0, two_streams = 0, norm_in_w = 1) is not
+// taken: its entry is ia_packed2k_best.
 int ia_packed_best(const void* qa, const void* qb, const void* w1,
                    const void* w2, const void* dbnh, int m, int n, int k,
                    int k_used, int fold_a, int two_streams, int norm_in_w,
@@ -69,9 +70,6 @@ int ia_packed_best(const void* qa, const void* qb, const void* w1,
   const int form = (fold_a ? 4 : 0) | (two_streams ? 2 : 0) |
                    (norm_in_w ? 1 : 0);
   switch (form) {
-    case 1:  // packed2k
-      return launch_best<false, false, NORM_IN_W>(k, a, n_chunks, out_idx,
-                                                  out_val, s);
     case 6:  // packed3
       return launch_best<true, true, NORM_SUB>(k, a, n_chunks, out_idx,
                                                out_val, s);

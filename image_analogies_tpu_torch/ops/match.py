@@ -10,9 +10,10 @@
 - ``packed_best``: per query, the lexicographic (score, lowest index)
   maximum of one to three bf16 passes with fp32 accumulation against the
   lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
-  ``packed_best`` itself is the main path's ``packed2k`` form, and
-  ``packed3_best``, ``packed2_best``, ``packed1w_best``, ``packed2wn_best``
-  and ``packed1wn_best`` are built on it; ``csrc/packed_best.cu``).
+  ``packed_best`` itself is the main path's ``packed2k`` form,
+  ``csrc/packed2k_best.cu``, and ``packed3_best``, ``packed2_best``,
+  ``packed1w_best``, ``packed2wn_best`` and ``packed1wn_best`` are built on
+  it, ``csrc/packed_best.cu``).
 - ``packed_champions``: the same packed passes, one champion per DB tile
   (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
 - ``pertile_champions``: per DB tile, the champion of ``q.db - dbnh`` over
@@ -21,10 +22,12 @@
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The five bf16 kernels are instances of one CUDA template
-(``csrc/bf16_scan.cuh``).  Every kernel wrapper follows one contract: a CPU
-tensor runs the plain PyTorch version in this module; a CUDA tensor
-launches the hand-written kernel or raises — there is no fallback.
+The packed2k scan runs on the Hopper core ``csrc/hopper_scan.cuh``
+(``wgmma`` fed by a TMA ring); the other bf16 kernels are instances of the
+template ``csrc/bf16_scan.cuh``.  Every kernel wrapper follows one
+contract: a CPU tensor runs the plain PyTorch version in this module; a
+CUDA tensor launches the hand-written kernel or raises — there is no
+fallback.
 ``LAUNCHES`` counts kernel launches, one key per kernel entry and packed
 form (one per wrapper call that launched), so a run can show that its path
 went through the kernels.
@@ -297,6 +300,74 @@ _PACKED_FORMS = {
 }
 
 
+# launch geometry of csrc/packed2k_best.cu (hopper_scan.cuh), whose entry
+# takes the plan and only refuses one outside these limits: two or three
+# consumer warpgroups of 64 query rows a block, 64-row DB tiles, rows cut
+# into 32-lane boxes of 4 KiB (64 rows x 64 bytes), a ring of at most 8
+# stages, and the dynamic shared memory a block may take (one block per SM)
+_P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a tile
+_P2K_CONSUMERS = (3, 2)  # the most first
+_P2K_BOX = 32
+_P2K_MAX_STAGES = 8
+_P2K_SMEM = 232448 - 1024
+
+
+class Packed2kPlan(NamedTuple):
+    consumers: int  # consumer warpgroups a block (2 or 3)
+    bm: int  # query rows a block (<= 64 consumers)
+    stages: int  # ring depth
+    tiles_per_chunk: int  # DB tiles per block
+    n_chunks: int  # grid y: DB chunks
+    q_tiles: int  # grid x: query tiles of bm rows
+    smem: int  # dynamic shared memory of a block
+
+
+def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
+    """Dynamic shared memory of a packed2k block (the kernel's
+    ``smem_bytes``): 1 KiB of alignment slack, the consumer warpgroups'
+    resident query rows and the ring, each ceil(k_used / 32) boxes a row."""
+    nbox = -(-k_used // _P2K_BOX)
+    return 1024 + (consumers + stages) * nbox * _P2K_ROWS * _P2K_BOX * 2
+
+
+def _packed2k_stages(k_used: int, consumers: int) -> int:
+    """The deepest ring (at most 8 stages) that fits beside the resident
+    queries of ``consumers`` warpgroups; 0 if none does."""
+    stages = _P2K_MAX_STAGES
+    while stages and _packed2k_smem(k_used, stages, consumers) > _P2K_SMEM:
+        stages -= 1
+    return stages
+
+
+def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
+                   ) -> Packed2kPlan:
+    """Launch plan of the packed2k scan for M queries against N DB rows on a
+    card of ``sm_count`` SMs.  Three consumer warpgroups a block where the
+    ring beside their resident queries keeps at least two stages, else
+    two; the fewest query tiles of at most 64 rows a warpgroup, as even as
+    they come (each tile's blocks read every DB tile from L2 again, and
+    blocks of equal work stay in step, so the later ones find it there);
+    the deepest ring the shared memory allows; and the 64-row DB tiles cut
+    into about one chunk per SM for each query tile, so each block walks
+    one long run of tiles and the ring fills once per SM."""
+    if m < 1 or n < 1 or sm_count < 1 or k_used < 16 or k_used % 16:
+        raise ValueError(f"packed2k plan: m={m}, n={n}, k_used={k_used}, "
+                         f"sm_count={sm_count}")
+    consumers, stages = next(
+        ((c, st) for c in _P2K_CONSUMERS
+         for st in [_packed2k_stages(k_used, c)] if st >= 2),
+        (2, _packed2k_stages(k_used, 2)))
+    if not stages:
+        raise ValueError(f"packed2k: k_used={k_used} is too wide for the "
+                         "kernel's shared memory")
+    bm = -(-m // -(-m // (_P2K_ROWS * consumers)))
+    q_tiles = -(-m // bm)
+    tiles = -(-n // _P2K_ROWS)
+    per = -(-tiles // max(1, sm_count // q_tiles))
+    return Packed2kPlan(consumers, bm, stages, per, -(-tiles // per),
+                        q_tiles, _packed2k_smem(k_used, stages, consumers))
+
+
 def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
     return q[:, :k_used].float() @ w[:, :k_used].float().T
 
@@ -379,11 +450,13 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
 
     With no ``qb``/``w2``/``dbnh`` and no fold this is the main path's
     ``packed2k`` form: ``qa`` (M, K) rows ``[q1|q1|1 1 1|q2|q1|0]`` against
-    ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py).
-    The other five combinations the JAX package names are the ``*_best``
-    wrappers below.  K in {128, 256, 384, 512}; lanes at and past
-    ``k_used`` (a multiple of 16; 0 means K) must be zero in the query
-    rows, the kernel skips them.  Returns (idx (M,) int32, val (M,) fp32).
+    ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py);
+    on the card it runs ``csrc/packed2k_best.cu`` (``wgmma`` on a TMA ring,
+    launch plan ``_packed2k_plan``).  The other five combinations the JAX
+    package names are the ``*_best`` wrappers below.  K in {128, 256, 384,
+    512}; lanes at and past ``k_used`` (a multiple of 16; 0 means K) must
+    be zero in the query rows, the kernel skips them.  Returns (idx (M,)
+    int32, val (M,) fp32).
     """
     k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
                            fold_a)
@@ -400,20 +473,32 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     m = qa.shape[0] // 2 if fold_a else qa.shape[0]
     n = w1.shape[0]
     dev = _device_index(qa)
-    lib = _build.load("packed_best")
-    n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
+    stream = torch.cuda.current_stream(qa.device).cuda_stream
+    if form == "packed_best":
+        plan = _packed2k_plan(m, n, _sm_count(dev), k_used)
+        n_chunks = plan.n_chunks
+    else:
+        n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
     part_val = torch.empty((n_chunks, m), dtype=torch.float32,
                            device=qa.device)
     part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=qa.device)
     out_idx = torch.empty((m,), dtype=torch.int32, device=qa.device)
     out_val = torch.empty((m,), dtype=torch.float32, device=qa.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.ia_packed_best(
-        qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), ptr(dbnh), m, n, k,
-        k_used, int(fold_a), int(w2 is not None), int(dbnh is None),
-        n_chunks, part_val.data_ptr(), part_idx.data_ptr(),
-        out_idx.data_ptr(), out_val.data_ptr(), dev,
-        torch.cuda.current_stream(qa.device).cuda_stream)
+    outs = (part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
+            out_val.data_ptr(), dev, stream)
+    if form == "packed_best":
+        lib = _build.load("packed2k_best")
+        err = lib.ia_packed2k_best(
+            qa.data_ptr(), w1.data_ptr(), m, n, k, k_used, plan.consumers,
+            plan.bm, plan.stages, plan.tiles_per_chunk, plan.smem, n_chunks,
+            *outs)
+    else:
+        lib = _build.load("packed_best")
+        ptr = lambda t: None if t is None else t.data_ptr()
+        err = lib.ia_packed_best(
+            qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), ptr(dbnh), m, n,
+            k, k_used, int(fold_a), int(w2 is not None), int(dbnh is None),
+            n_chunks, *outs)
     _build.check(lib, err, f"{form} launch")
     LAUNCHES[form] += 1
     return out_idx, out_val

@@ -36,14 +36,14 @@ def argmin_inputs(m=13, f=68, n=900, npad=1024, fp=128, seed=3,
     return q, db, dbn
 
 
-def packed_inputs(m=13, l=55, n=1000, seed=0):
-    """Seeded live-dim rows (one exact duplicate pair) and queries, one of
-    them equal to the duplicated row."""
+def packed_inputs(m=13, l=55, n=1000, seed=0, dup=(3, 600)):
+    """Seeded live-dim rows (one exact duplicate pair, rows ``dup``) and
+    queries, query min(2, m - 1) equal to the duplicated row."""
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((n, l)) * 0.1).astype(np.float32)
-    x[600] = x[3]
+    x[dup[1]] = x[dup[0]]
     q = (rng.standard_normal((m, l)) * 0.1).astype(np.float32)
-    q[2] = x[3]
+    q[min(2, m - 1)] = x[dup[0]]
     return x, q
 
 
@@ -111,10 +111,26 @@ def test_cuda_argmin_matches_plain(m, n, npad, f, fp):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,npad", [(21, 1024), (200, 1088)])
-def test_cuda_packed_best_matches_plain(m, npad):
+@pytest.mark.parametrize("m,n,npad", [
+    (21, 1000, 1024), (200, 1000, 1088),
+    # every warpgroup edge of the query tiles (up to three warpgroups of
+    # 64 rows, 192 rows a tile; the later ones skipped where the tile has
+    # no rows for them), the wavefront's widths (48-176 at level 1, 88-344
+    # at level 0), against N past a 64-row tile edge (the box past the end
+    # reads zeros, which would score 0 and win)
+    *[(m, 1000, 1100) for m in (1, 48, 64, 65, 88, 128, 129, 176, 192, 193,
+                                256, 344)],
+    # many tiles a block, the duplicate rows in different chunks
+    (48, 69000, 70000), (344, 69000, 70000),
+])
+def test_cuda_packed_best_matches_plain(m, n, npad):
+    """The packed2k kernel against its plain version: the same picks,
+    scores within 1e-6; the duplicate rows go to the lower index; padding
+    rows and rows past N never win; ten repeated calls give the same
+    bits."""
     dev = _card()
-    x, qv = packed_inputs(m=m, n=1000)
+    dup = (3, 600) if n <= 1000 else (3, n - 60)
+    x, qv = packed_inputs(m=m, n=n, dup=dup)
     l = qv.shape[1]
     xt = torch.from_numpy(x).to(dev)
     wk, _ = pack_wk(xt, torch.zeros(l, device=dev), 0.5 * (xt * xt).sum(1),
@@ -122,13 +138,53 @@ def test_cuda_packed_best_matches_plain(m, npad):
     g1, g2, _ = match.bf16_split3(torch.from_numpy(qv).to(dev))
     qa = query_rows(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
                     wk.shape[1])
+    plan = match._packed2k_plan(m, npad, match._sm_count(
+        match._device_index(qa)), 224)
+    rows = plan.tiles_per_chunk * 64
+    assert dup[0] // rows != dup[1] // rows  # in different blocks
     match.reset_launch_counts()
     idx, val = match.packed_best(qa, wk, 224)
     ref_i, ref_v = match.packed_best_plain(qa, wk, 224)
     assert match.LAUNCHES["packed_best"] == 1
-    assert torch.equal(idx, ref_i) and int(idx[2]) == 3
-    assert int(idx.max()) < 1000
+    assert torch.equal(idx, ref_i) and int(idx[min(2, m - 1)]) == dup[0]
+    assert int(idx.max()) < n
     torch.testing.assert_close(val, ref_v, rtol=0, atol=1e-6)
+    for _ in range(10):
+        again_i, again_v = match.packed_best(qa, wk, 224)
+        assert torch.equal(again_i, idx)
+        assert torch.equal(again_v.view(torch.int32), val.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [13, 100, 127])
+def test_cuda_packed_best_other_lane_widths(l):
+    """The packed2k kernel at the other lane widths the level builds give:
+    K = 128 (4 k steps, three warpgroups, a ring of 8 stages), K = 512
+    with 26 k steps (two warpgroups, 2 stages) and with all 32 (two, 1
+    stage: their resident queries leave room for one tile), against its
+    plain version, four DB tiles a block.  Scores within 1e-5
+    (chip_smoke.py's PACKED_ATOL): up to 512 products a score, summed by
+    the tensor cores and by the plain fp32 product in other orders."""
+    dev = _card()
+    x, qv = packed_inputs(m=70, l=l, n=30000, dup=(3, 29900))
+    xt = torch.from_numpy(x).to(dev)
+    wk, _ = pack_wk(xt, torch.zeros(l, device=dev), 0.5 * (xt * xt).sum(1),
+                    torch.arange(l, device=dev), 31000)
+    g1, g2, _ = match.bf16_split3(torch.from_numpy(qv).to(dev))
+    qa = query_rows(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+                    wk.shape[1])
+    k_used = (4 * l + 3 + 15) // 16 * 16
+    plan = match._packed2k_plan(70, 31000, 132, k_used)
+    assert plan.stages == {13: 8, 100: 2, 127: 1}[l]
+    assert plan.consumers == {13: 3, 100: 2, 127: 2}[l]
+    assert plan.tiles_per_chunk == 4
+    match.reset_launch_counts()
+    idx, val = match.packed_best(qa, wk, k_used)
+    ref_i, ref_v = match.packed_best_plain(qa, wk, k_used)
+    assert match.LAUNCHES["packed_best"] == 1
+    assert torch.equal(idx, ref_i) and int(idx[2]) == 3
+    assert int(idx.max()) < 30000
+    torch.testing.assert_close(val, ref_v, rtol=0, atol=1e-5)
 
 
 @pytest.mark.cuda

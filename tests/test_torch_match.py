@@ -122,6 +122,57 @@ def test_packed_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(idx_full.numpy(), ref_i)
 
 
+@pytest.mark.parametrize("n", [64, 99, 4096, 4097, 65000, 65536, 262144,
+                               1048000, 1048576])
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_packed2k_plan_covers_every_tile_once(n, sm_count):
+    """The packed2k kernel's launch plan, M = 1..400: the DB chunks cover
+    every 64-row tile exactly once and none is empty; three consumer
+    warpgroups a block where a ring of two stages fits beside their
+    resident queries, else two; the block's shared memory (those queries
+    and the deepest ring that fits) stays within the card's 232,448 bytes;
+    the fewest query tiles of at most 64 rows a warpgroup hold every query,
+    as even as they come, none empty (the kernel skips a warpgroup with no
+    row of its tile: the card tests at M 64/65/128/129/192/193 cover it);
+    and the grid is about one block per SM."""
+    tiles = -(-n // match._P2K_ROWS)
+    for k_used in (224, 128, 96, 16, 512):
+        nbox = -(-k_used // match._P2K_BOX)
+        for m in range(1, 401):
+            plan = match._packed2k_plan(m, n, sm_count, k_used)
+            per = plan.tiles_per_chunk
+            assert per >= 1
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            c = plan.consumers
+            assert plan.smem == match._packed2k_smem(k_used, plan.stages, c)
+            assert plan.smem + 1024 <= 232448
+            assert plan.smem == 1024 + (c + plan.stages) * nbox * 4096
+            assert 1 <= plan.stages <= 8
+            assert (plan.stages == match._P2K_MAX_STAGES
+                    or match._packed2k_smem(k_used, plan.stages + 1, c)
+                    > match._P2K_SMEM)
+            three = match._packed2k_smem(k_used, 2, 3) <= match._P2K_SMEM
+            assert c == (3 if three else 2)
+            bm = plan.bm
+            assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+            assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+            assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                       plan.q_tiles)
+    # the widest level-0 batch, M = 344: two tiles of 172 rows (three
+    # warpgroups each), 5 stages, 66 chunks of 249 tiles; level 1's M =
+    # 176: one tile, 128 chunks of 32
+    assert match._packed2k_plan(344, 1048576, 132, 224) == (
+        3, 172, 5, 249, 66, 2, 230400)
+    assert match._packed2k_plan(176, 262144, 132, 224)[:6] == (
+        3, 176, 5, 32, 128, 1)
+    assert match._packed2k_plan(48, 262144, 132, 224)[:5] == (
+        3, 48, 5, 32, 128)
+    # K = 512 lanes: two warpgroups, a ring of one stage
+    assert match._packed2k_plan(8, n, sm_count, 512)[:3] == (2, 8, 1)
+    with pytest.raises(ValueError):
+        match._packed2k_plan(8, n, sm_count, 100)  # not a multiple of 16
+
+
 def test_bf16_split3_and_norm_lanes_bit_equal():
     rng = np.random.default_rng(5)
     x = np.concatenate([
