@@ -25,10 +25,14 @@ and carried on):
                 shape of levels 0-1 beside its headline M = 352: held
                 against the plain version, timed beside the yardstick and
                 bound, device ms weighted by the segments' steps per level
-                and in all; with ``--parent DIR`` also both kernels of the
-                checkout in DIR on the same inputs (a child process):
-                argmin_l2's (idx, val) must be the same bits, packed_best's
-                equal picks and val bits are counted.
+                and in all.  ``argmin2_l2`` (two_pass's top-2 scan, q_split)
+                the same way at every segment shape of all five levels and
+                at the M = 352 headline.  With ``--parent DIR`` also the
+                three kernels of the checkout in DIR on the same inputs (a
+                child process each): argmin_l2's (idx, val) must be the
+                same bits, argmin2_l2's (i1, i2) picks >= 99.9% equal;
+                equal picks and val bits of argmin2_l2 and packed_best are
+                counted.
                 ``argmin_l2_bf16`` (the batched/rowwise approximate match)
                 at level 0 of batched npr_1024: M = 1024 queries against
                 1,048,576 bf16 rows.  The four superseded packed forms are
@@ -453,11 +457,179 @@ def phase_argmin_levels(parent):
     torch.cuda.empty_cache()
 
 
+def argmin2_cases(shapes, f=68, fp=128):
+    """Yield (level, npad, m, steps, q, dbp, dbn, n_real, lo, hi) for each
+    (level, npad, m, steps), one DB per N at a time, built on the card as
+    the two_pass level builds it: the bf16 centered DB of rows uniform in
+    [0, 0.2) (F = 68 of Fp = 128 lanes), full fp32 norms of the unrounded
+    rows, the last npad / 1024 rows (at least 64) padding with +inf norms,
+    row ``hi`` a copy of row ``lo`` in another DB chunk (12,345 and 900,000
+    at N = 2^20, scaled with N); M queries near seeded DB rows, query 0
+    equal to the bf16 row lo.  Torch only: the --parent child builds the
+    same operands for the other tree's kernel."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    db = None
+    for level, npad, m, steps in shapes:
+        if db is None or db[0] != npad:
+            db = None
+            torch.cuda.empty_cache()
+            n_real = npad - max(64, npad >> 10)
+            lo, hi = 12345 * npad >> 20, 900000 * npad >> 20
+            gen = torch.Generator(device=dev).manual_seed(31)
+            x = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
+            x[hi] = x[lo]  # duplicate rows: ties go to the lowest index
+            xc = x - x.mean(dim=0)[None, :]
+            del x
+            dbp = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
+            dbp[:n_real, :f] = xc.to(torch.bfloat16)
+            dbn = torch.full((npad,), float("inf"), device=dev)
+            dbn[:n_real] = (xc * xc).sum(dim=1)
+            db = (npad, xc, dbp, dbn, n_real, lo, hi)
+        _, xc, dbp, dbn, n_real, lo, hi = db
+        gen = torch.Generator(device=dev).manual_seed(m)
+        q = torch.zeros((m, fp), device=dev)
+        q[:, :f] = xc[torch.randint(0, n_real, (m,), generator=gen,
+                                    device=dev)] \
+            + torch.randn((m, f), generator=gen, device=dev) * 0.02
+        q[0, :f] = dbp[lo, :f].float()
+        yield level, npad, m, steps, q, dbp, dbn, n_real, lo, hi
+
+
+def run_argmin2_shapes(match, shapes):
+    """``match.argmin2_l2`` (q_split, 80 lanes) on the seeded operands of
+    each (level, npad, m, steps): {"npad/m": (idx (2, M) = (i1; i2),
+    val (2, M) = (v1; v2), device ms)}, timed from a cold L2."""
+    import numpy as np
+    import torch
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for _, npad, m, _, q, dbp, dbn, *_ in argmin2_cases(shapes):
+        i1, v1, i2, v2 = match.argmin2_l2(q, dbp, dbn, True, 80)
+        ms = cuda_time_ms(lambda: match.argmin2_l2(q, dbp, dbn, True, 80),
+                          reps=20, flush=flush)
+        out[f"{npad}/{m}"] = (np.stack([i1.cpu().numpy(), i2.cpu().numpy()]),
+                              np.stack([v1.cpu().numpy(), v2.cpu().numpy()]),
+                              ms)
+    return out
+
+
+def phase_argmin2_levels(parent):
+    """argmin2_l2 (two_pass's scan, q_split) at every wavefront segment
+    shape of npr_1024's five levels (two_pass runs it at all of them), each
+    on a DB of its level's N, and at the headline M = 352 of level 0: held
+    against its plain version (scores within PACKED_ATOL, picks equal
+    outside SCORE_BAND, the duplicate and padding rules), timed from a cold
+    L2 beside the ``topk(dbn - 2 (mm hi + mm lo), 2)`` yardstick and the
+    bound; device ms weighted by each segment's steps, per level and in
+    all.  With ``parent``: that tree's argmin2_l2 on the same inputs (a
+    child process), its ms and the counts of equal (i1, i2) picks and equal
+    (v1, v2) val bits; fewer than 99.9% equal picks at a shape fails."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    f, k_used = SCAN_SHAPE["f"], 80
+    levels = (0, 1, 2, 3, 4)
+    shapes = merge_repeats(level_shapes(levels)) + [
+        ("headline", SCAN_SHAPE["npad"], SCAN_SHAPE["m"], 0)]
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("argmin2", parent, shapes)
+    flush = flusher(torch.device("cuda", 0))
+    segs = []
+    for level, npad, m, steps, q, dbp, dbn, n_real, lo, hi in argmin2_cases(
+            shapes):
+        name = f"argmin2_l2 level {level} M={m}"
+        match.reset_launch_counts()
+        got = match.argmin2_l2(q, dbp, dbn, True, k_used)
+        torch.cuda.synchronize()
+        if match.LAUNCHES["argmin2_l2"] != 1:
+            fail(f"{name}: {match.LAUNCHES['argmin2_l2']} launches")
+        i1, v1, i2, v2 = got
+        qk = match._scan_queries(q, True)
+        dbt = dbp.T
+
+        def library_dots():
+            return (torch.mm(qk[:m], dbt, out_dtype=torch.float32)
+                    + torch.mm(qk[m:], dbt, out_dtype=torch.float32))
+
+        top3 = torch.topk(dbn[None, :] - 2.0 * library_dots(), 3, dim=1,
+                          largest=False).values
+        r1, rv1, r2, rv2 = match.argmin2_l2_plain(q, dbp, dbn, True, k_used)
+        e1, d1 = check_picks(f"{name} first", i1, v1, r1, rv1, top3[:, 1],
+                             PACKED_ATOL)
+        e2, d2 = check_picks(f"{name} second", i2, v2, r2, rv2, top3[:, 2],
+                             PACKED_ATOL)
+        del top3, r1, rv1, r2, rv2
+        if (int(i1[0]), int(i2[0])) != (lo, hi) or \
+                int(torch.maximum(i1, i2).max()) >= n_real:
+            fail(f"{name}: duplicate/padding rule broken (i1[0]="
+                 f"{int(i1[0])}, i2[0]={int(i2[0])})")
+        k_ms = cuda_time_ms(lambda: match.argmin2_l2(q, dbp, dbn, True,
+                                                     k_used),
+                            reps=20, flush=flush)
+        l_ms = cuda_time_ms(lambda: torch.topk(
+            dbn[None, :] - 2.0 * library_dots(), 2, dim=1, largest=False),
+            reps=10, flush=flush)
+        seg = dict(m=m, steps=steps, ms=k_ms, library_ms=l_ms,
+                   bound_ms=argmin2_bound(m, npad, f)[0],
+                   max_abs_err=max(e1, e2), picks_differing_in_band=d1 + d2)
+        if theirs is not None:
+            key = f"{npad}/{m}"
+            ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+            mine_i = np.stack([i1.cpu().numpy(), i2.cpu().numpy()])
+            mine_v = np.stack([v1.cpu().numpy(), v2.cpu().numpy()])
+            picks = int((ti == mine_i).all(axis=0).sum())
+            seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                       val_bits_equal_parent=int(
+                           (tv.view(np.int32) == mine_v.view(np.int32)).all(
+                               axis=0).sum()))
+            if picks < 0.999 * m:
+                say("kernels", kernel="argmin2_l2", level=level, **seg)
+                fail(f"{name}: {picks} of {m} (i1, i2) picks equal to "
+                     f"{parent}'s kernel, fewer than 99.9%")
+        segs.append((level, seg))
+        del q, qk, dbt, got, i1, v1, i2, v2
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(("ms", "library_ms", "bound_ms", "parent_ms"), 0.0)
+    for level in levels:
+        lsegs = [sg for lv, sg in segs if lv == level]
+        tot = {k: sum(sg["steps"] * sg.get(k, 0.0) for sg in lsegs)
+               for k in total}
+        for k in total:
+            total[k] += tot[k]
+        say("kernels", kernel="argmin2_l2", level=level,
+            npad=1024 ** 2 >> (2 * level), segments=lsegs,
+            launches=sum(sg["steps"] for sg in lsegs),
+            **{f"weighted_{k}": v for k, v in tot.items()
+               if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="argmin2_l2", levels=list(levels),
+        launches=sum(sh[3] for sh in shapes),
+        **{f"weighted_{k}": v for k, v in total.items()
+           if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="argmin2_l2", npad=SCAN_SHAPE["npad"], f=f,
+        k_used=k_used, **segs[-1][1])
+
+
+def argmin2_bound(m, npad, f):
+    """Bound of one argmin2 call (q_split) at the function's own width F:
+    the F used DB lanes, the norms and the hi and lo query rows read once,
+    (i1, v1, i2, v2) written once; hi and lo passes of 2 M N F bf16
+    operations."""
+    return bound(2 * npad * f + 4 * npad + 2 * 2 * m * f + 16 * m,
+                 2 * 2 * m * npad * f, PEAK_BF16_FLOP_S)
+
+
 def parent_bits(kind, parent, shapes):
-    """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best) of
-    the checkout in ``parent`` on the same seeded operands, in a child
-    process built from that tree's sources: ({"idx/<npad>/<m>": ...,
-    "val/<npad>/<m>": ...}, {"<npad>/<m>": device ms})."""
+    """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
+    "argmin2": argmin2_l2) of the checkout in ``parent`` on the same seeded
+    operands, in a child process built from that tree's sources:
+    ({"idx/<npad>/<m>": ..., "val/<npad>/<m>": ...}, {"<npad>/<m>": device
+    ms})."""
     import numpy as np
 
     out = os.path.join(HERE, "image_analogies_tpu_torch", "_build",
@@ -486,7 +658,8 @@ def bits_child(kind, root, out, shapes):
 
     if not os.path.abspath(match.__file__).startswith(root + os.sep):
         fail(f"imported {match.__file__}, not the package under {root}")
-    run = run_argmin_shapes if kind == "argmin" else run_packed_shapes
+    run = {"argmin": run_argmin_shapes, "packed": run_packed_shapes,
+           "argmin2": run_argmin2_shapes}[kind]
     got = run(match, [tuple(s) for s in shapes])
     arrays = {}
     for key, (idx, val, *_) in got.items():
@@ -499,6 +672,7 @@ def phase_kernels(parent=None):
     rows = {}
     phase_argmin_kernel(rows)
     phase_argmin_levels(parent)
+    phase_argmin2_levels(parent)
     phase_packed_kernel(rows, parent)
     phase_packed3_kernels(rows)
     phase_bf16_db_kernels(rows)
@@ -880,7 +1054,7 @@ def phase_bf16_db_kernels(rows):
     l_ms = cuda_time_ms(lambda: torch.topk(
         dbn[None, :] - 2.0 * library_dots(), 2, dim=1, largest=False),
         reps=10, flush=flush)
-    b = bound(base_bytes + 16 * m, flops, PEAK_BF16_FLOP_S)
+    b = argmin2_bound(m, npad, f)
     err = max(e1, e2)
     rows["argmin2_l2"] = kernel_row("argmin2_l2", "argmin2.cu", 131, err,
                                     k_ms, p_ms, l_ms, b)
@@ -1425,12 +1599,14 @@ def main() -> None:
                     help="rebuild with -Xptxas -v and print each kernel's "
                          "registers, shared memory and spills")
     ap.add_argument("--parent", metavar="DIR",
-                    help="with the kernels phase: run the argmin_l2 and "
-                         "packed_best of the checkout in DIR (e.g. the "
-                         "parent commit, unpacked by git archive) on their "
-                         "level shapes too; argmin_l2's picks and scores "
-                         "must be the same bits, packed_best's equal picks "
-                         "and val bits are counted")
+                    help="with the kernels phase: run the argmin_l2, "
+                         "argmin2_l2 and packed_best of the checkout in DIR "
+                         "(e.g. the parent commit, unpacked by git archive) "
+                         "on their level shapes too; argmin_l2's picks and "
+                         "scores must be the same bits, argmin2_l2's (i1, "
+                         "i2) picks must be >= 99.9%% equal, and the equal "
+                         "picks and val bits of argmin2_l2 and packed_best "
+                         "are counted")
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)

@@ -67,9 +67,10 @@ _SIGNATURES = {
                              + [_VOIDP] * 2 + [_INT, _VOIDP],
     },
     "argmin2": {
-        # (q, db, dbn, m, n, k, k_used, q_split, n_chunks, part_v1, part_i1,
-        #  part_v2, part_i2, i1, v1, i2, v2, device, stream)
-        "ia_argmin2": [_VOIDP] * 3 + [_INT] * 6 + [_VOIDP] * 8
+        # (q, db, dbn, m, n, k, k_used, q_split, consumers, bm, stages,
+        #  tiles_per_chunk, smem, n_chunks, part_v1, part_i1, part_v2,
+        #  part_i2, i1, v1, i2, v2, device, stream)
+        "ia_argmin2": [_VOIDP] * 3 + [_INT] * 11 + [_VOIDP] * 8
                       + [_INT, _VOIDP],
     },
 }

@@ -1,13 +1,16 @@
-// One bf16 tensor-core scan template for Hopper (sm_90a), shared by every
-// champion scan of the port: packed_best.cu, tile_champions.cu and
-// argmin2.cu each instantiate it and add their C entry.
+// The first-design bf16 tensor-core scan template (sm_90a, mma.sync),
+// the core of the champion scans not yet on the Hopper core
+// (hopper_scan.cuh, which serves packed2k and argmin2): packed_best.cu
+// (packed3 and the four superseded packed forms), tile_champions.cu
+// (packed_champions, pertile_champions) and argmin_bf16.cu each
+// instantiate it and add their C entry.
 //
 // Replaces the family of Pallas kernels in
 // image_analogies_tpu/ops/pallas_match.py that score bf16 query rows
 // against a bf16 DB with fp32 accumulation and keep a champion:
-// `_packed_best_kernel` (global champion, every form), `_packed_kernel` and
-// `_pertile_kernel` (one champion per DB tile) and `_argmin2_kernel`
-// (lexicographic top-2).  They differ along three compile-time axes:
+// `_packed_best_kernel` (global champion, its forms but packed2k),
+// `_packed_kernel` and `_pertile_kernel` (one champion per DB tile) and
+// `_argmin_kernel`'s bf16 form.  They differ along three compile-time axes:
 //
 // - passes: one to three (query row block, weight stream) pairs summed into
 //   ONE fp32 accumulator — pass 0 is qa rows [0, m) against W1; with FOLD,
@@ -20,8 +23,7 @@
 //   scanned internally as its exact negation 2 dots - dbn and negated back).
 // - epilogue: EPI_BEST (global champion: per-chunk partials + a
 //   lexicographic merge), EPI_TILE (one champion per `tile_n` rows, written
-//   tile-major (ntiles, m)), EPI_TOP2 (per-chunk lexicographic top-2
-//   partials + a top-2 merge).  Every comparison is the lexicographic
+//   tile-major (ntiles, m)).  Every comparison is the lexicographic
 //   (score, lowest index) rule of `_lex_lt`, so ties go to the lowest row
 //   everywhere, exactly as the TPU's strict cross-tile compare plus
 //   first-occurrence argmax.
@@ -49,7 +51,8 @@
 // by shuffle.  Blocks over (query tile, DB chunk) run in parallel, query
 // tiles fastest so the blocks sharing a DB chunk read it together and hit
 // L2.  Lanes at and past k_used are skipped (zero on the query side).
-// wgmma, TMA and warp specialisation are later work.
+// wgmma, TMA and warp specialisation are hopper_scan.cuh's; each instance
+// here moves there in its own redesign.
 
 #pragma once
 
@@ -73,7 +76,7 @@ constexpr int MAX_FRAG_STEPS = 32;
 constexpr int SMEM_MAX = 232448;
 
 enum Norm { NORM_IN_W = 0, NORM_SUB = 1, NORM_L2 = 2 };
-enum Epi { EPI_BEST = 0, EPI_TILE = 1, EPI_TOP2 = 2 };
+enum Epi { EPI_BEST = 0, EPI_TILE = 1 };
 
 struct ScanArgs {
   const __nv_bfloat16* qa;  // (m, k), or (2m, k) with FOLD
@@ -84,11 +87,9 @@ struct ScanArgs {
   int m, n, ksteps_used;
   int tiles_per_chunk;  // BN-row tiles per block
   int tile_sub;         // EPI_TILE: BN-row tiles per output tile
-  // EPI_BEST / EPI_TOP2: partials (n_chunks, m); EPI_TILE: (ntiles, m)
+  // EPI_BEST: partials (n_chunks, m); EPI_TILE: (ntiles, m)
   float* val;
   int* idx;
-  float* val2;  // EPI_TOP2: second place
-  int* idx2;
 };
 
 __device__ __forceinline__ bool lex_better(float va, int ia, float vb,
@@ -104,6 +105,7 @@ __device__ __forceinline__ void fold(float& bv, int& bi, float v, int i) {
 }
 
 // insert (v, i) into the sorted pair (v1, i1) > (v2, i2); keys are distinct
+// (the top-2 merges of argmin2.cu and hopper_scan.cuh's EpiTop2)
 __device__ __forceinline__ void fold2(float& v1, int& i1, float& v2, int& i2,
                                       float v, int i) {
   if (lex_better(v, i, v1, i1)) {
@@ -228,9 +230,6 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(ScanArgs a) {
 
   float bv0 = -INFINITY, bv1 = -INFINITY;
   int bi0 = INT_MAX, bi1 = INT_MAX;
-  // second place (EPI_TOP2 only; dead code elsewhere)
-  float sv0 = -INFINITY, sv1 = -INFINITY;
-  int si0 = INT_MAX, si1 = INT_MAX;
 
   const int row_chunks = ksteps_used * 2;  // 16-byte pieces per used row
   auto load_tile = [&](int t, int buf) {
@@ -270,27 +269,8 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(ScanArgs a) {
       const int oi0 = __shfl_xor_sync(0xffffffffu, bi0, off);
       const float ov1 = __shfl_xor_sync(0xffffffffu, bv1, off);
       const int oi1 = __shfl_xor_sync(0xffffffffu, bi1, off);
-      if constexpr (EPI == EPI_TOP2) {
-        const float ow0 = __shfl_xor_sync(0xffffffffu, sv0, off);
-        const int oj0 = __shfl_xor_sync(0xffffffffu, si0, off);
-        const float ow1 = __shfl_xor_sync(0xffffffffu, sv1, off);
-        const int oj1 = __shfl_xor_sync(0xffffffffu, si1, off);
-        fold2(bv0, bi0, sv0, si0, ov0, oi0);
-        fold2(bv0, bi0, sv0, si0, ow0, oj0);
-        fold2(bv1, bi1, sv1, si1, ov1, oi1);
-        fold2(bv1, bi1, sv1, si1, ow1, oj1);
-      } else {
-        fold(bv0, bi0, ov0, oi0);
-        fold(bv1, bi1, ov1, oi1);
-      }
-    }
-  };
-
-  auto keep = [&](float& v, int& i, float& w, int& j, float s, int gn) {
-    if constexpr (EPI == EPI_TOP2) {
-      fold2(v, i, w, j, s, gn);
-    } else {
-      fold(v, i, s, gn);
+      fold(bv0, bi0, ov0, oi0);
+      fold(bv1, bi1, ov1, oi1);
     }
   };
 
@@ -299,12 +279,12 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(ScanArgs a) {
                      float c3) {
     const int gn = t * BN + nt * 8 + tig * 2;
     if (gn < n) {
-      keep(bv0, bi0, sv0, si0, score<NORM>(c0, a.norm, gn), gn);
-      keep(bv1, bi1, sv1, si1, score<NORM>(c2, a.norm, gn), gn);
+      fold(bv0, bi0, score<NORM>(c0, a.norm, gn), gn);
+      fold(bv1, bi1, score<NORM>(c2, a.norm, gn), gn);
     }
     if (gn + 1 < n) {
-      keep(bv0, bi0, sv0, si0, score<NORM>(c1, a.norm, gn + 1), gn + 1);
-      keep(bv1, bi1, sv1, si1, score<NORM>(c3, a.norm, gn + 1), gn + 1);
+      fold(bv0, bi0, score<NORM>(c1, a.norm, gn + 1), gn + 1);
+      fold(bv1, bi1, score<NORM>(c3, a.norm, gn + 1), gn + 1);
     }
   };
 
@@ -400,18 +380,10 @@ __global__ void __launch_bounds__(THREADS, 1) scan_kernel(ScanArgs a) {
       if (r0 < m) {
         a.val[o + r0] = bv0;
         a.idx[o + r0] = bi0;
-        if constexpr (EPI == EPI_TOP2) {
-          a.val2[o + r0] = sv0;
-          a.idx2[o + r0] = si0;
-        }
       }
       if (r1 < m) {
         a.val[o + r1] = bv1;
         a.idx[o + r1] = bi1;
-        if constexpr (EPI == EPI_TOP2) {
-          a.val2[o + r1] = sv1;
-          a.idx2[o + r1] = si1;
-        }
       }
     }
   }

@@ -1,11 +1,11 @@
-// The Hopper core of the bf16 champion scans (sm_90a): `wgmma` fed by a
-// TMA ring with a producer warp.  packed2k_best.cu instantiates it; the
-// other instances of bf16_scan.cuh (packed3 and the superseded packed
-// forms, tile_champions, argmin2, argmin_bf16) are to move onto it.
-//
-// It implements packed2k's point of bf16_scan.cuh's axes (one pass, the
-// norm in W's lanes, the global champion); the instance that moves here
-// next adds its passes, norm term or epilogue as template parameters.
+// The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
+// with a producer warp.  Two instances use it: packed2k_best.cu (one pass,
+// the norm in W's lanes, the global champion: EpiBest) and argmin2.cu (the
+// hi/lo query blocks folded, the fp32 norms in the ring, the lexicographic
+// top-2: EpiTop2).  The other instances of bf16_scan.cuh (packed3 and the
+// superseded packed forms, tile_champions, argmin_bf16) are to move here;
+// pertile_champions needs only a per-tile epilogue on top of FOLD and the
+// norm ring.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -14,31 +14,43 @@
 //   (`cp.async.bulk.tensor.2d`, full/empty mbarriers), so no consumer
 //   thread spends an instruction or a register on the copy, and the grid
 //   is sized to about one block per SM: each block walks one long run of
-//   tiles, so the ring's fill is paid once per SM.
-// - Operations: 2 M N k_used bf16 products (M = 344: 163 us at 989
-//   TFLOP/s).  Up to three consumer warpgroups each own 64 query rows and
-//   run `wgmma.mma_async m64n64k16` with both operands read from shared
-//   memory by the tensor cores (no ldmatrix, no per-thread shared loads):
-//   the query rows are loaded once per block by TMA and stay resident.
+//   tiles, so the ring's fill is paid once per SM.  A scan with a separate
+//   norm array (kNorms) has the producer copy each full tile's fp32 norms
+//   into the stage too (a 1-D `cp.async.bulk` on the same full barrier);
+//   the ragged last tile reads its norms from global memory.
+// - Operations: 2 M N k_used bf16 products per query block (M = 344: 163
+//   us at 989 TFLOP/s for packed2k; twice the rows with FOLD).  Up to three
+//   consumer warpgroups each own 64 query rows and run
+//   `wgmma.mma_async m64nNk16` with both operands read from shared memory
+//   by the tensor cores (no ldmatrix, no per-thread shared loads): the
+//   query rows (with FOLD the hi and the lo block) are loaded once per
+//   block by TMA and stay resident.  A tile's products are one chain of
+//   dependent steps into one accumulator, and on the card a block's pace
+//   followed the chain, not the tensor cores' rate (per 64-row tile of
+//   argmin2 about 1,800 cycles with two warpgroups or three): so argmin2
+//   takes 128-row tiles (m64n128k16, twice the work a step) where they
+//   fit, `tile_rows`.
 // - L2 -> SM traffic: every query tile's blocks read every DB tile, so a
 //   call moves (query tiles) x the DB from L2 to the SMs, and on the card
 //   that runs at about 4 TB/s.  So a block takes as many query rows as it
 //   can (three warpgroups: 192 rows, two tiles at M = 344 instead of
 //   three), the tiles are cut evenly (blocks of equal work stay in step,
 //   and the later ones find each DB tile still in L2), and where the
-//   queries of three warpgroups leave no room for a ring of two stages
-//   (k_used > 352) a block takes two.
+//   queries of three warpgroups leave no room for a ring of two stages a
+//   block takes two (one at the widest folded lanes).
 // - Lanes: k_used (a multiple of 16) is cut into 32-lane boxes with the
 //   64-byte swizzle (a 64-byte box row is the swizzle span), so at k_used =
 //   224 exactly the 448 used bytes of a row are read: the 128-byte swizzle
 //   would read 64-lane boxes, 512 bytes a row, +14% bytes.  A k_used that
 //   is an odd multiple of 16 reads 16 unused lanes in its last box and
 //   skips them in the product.
-// - Registers: 12 consumer warps + 1 producer warp = 416 threads, so the
-//   compiler may give each up to 152 registers; a consumer needs its 32
-//   accumulators, 4 champion registers and addresses, far below that, so
-//   no `setmaxnreg` rebalancing is needed (and the producer is one warp,
-//   not a warpgroup, so it holds little to give).
+// - Registers: 12 consumer warps + 1 producer warp = 416 threads; ptxas
+//   gives each at most 128.  packed2k's instances take 58-96, argmin2's
+//   (64 accumulators at 128-row tiles) 96-128 with no spills, so the
+//   epilogues hold no score arrays and a second accumulator set (to
+//   overlap a tile's epilogue with the next chain) does not fit; the
+//   producer is one warp, not a warpgroup, so `setmaxnreg` has little to
+//   move.
 //
 // The wgmma accumulator of m64nNk16 puts, in each warp's 16 rows, rows g
 // and g+8 and columns 2 tig, 2 tig + 1 of every 8-column block in one
@@ -59,9 +71,8 @@ namespace ia_hopper {
 
 constexpr int CONSUMERS = 3;                     // consumer warpgroups, most
 constexpr int WG_ROWS = 64;                      // query rows a warpgroup
-constexpr int BN = 64;                           // DB rows a stage
 constexpr int BOX = 32;                          // lanes a TMA box
-constexpr int BOX_BYTES = 64 * BOX * 2;          // a box of 64 rows
+constexpr int QBOX_BYTES = WG_ROWS * BOX * 2;    // a query box of 64 rows
 constexpr int THREADS = 128 * CONSUMERS + 32;    // + the producer warp
 constexpr int MAX_STAGES = 8;
 constexpr int MAX_KSTEPS = 32;                   // k_used <= 512
@@ -70,24 +81,50 @@ constexpr int SMEM_ALIGN = 1024;                 // the swizzle's repeat
 // static barriers
 constexpr int SMEM_DYN_MAX = 232448 - 1024;
 
-static_assert(WG_ROWS == BN, "query and DB boxes share one shape");
+// DB rows a tile (a ring stage): 128 for an epilogue that takes them
+// (kWide) up to k_used = 256, else 64.  A tile's wgmma chain is 2 KSTEPS
+// (folded) dependent steps into one accumulator; at 64 rows a step's
+// latency, not the tensor cores, sets the pace, and m64n128k16 does twice
+// the work a step.  Past 256 lanes the 128-row stages leave no room.
+__host__ __device__ constexpr int tile_rows(bool wide, int ksteps) {
+  return wide && ksteps <= 16 ? 128 : 64;
+}
 
 struct HopperArgs {
   int m, n;
-  int consumers;        // consumer warpgroups of a launch, 2..CONSUMERS
+  int consumers;        // consumer warpgroups of a launch, 1..CONSUMERS
   int bm;               // query rows a block, <= 64 consumers
   int nbox;             // ceil(k_used / 32) boxes a row
   int stages;           // ring stages, 1..MAX_STAGES
-  int tiles_per_chunk;  // BN-row DB tiles a block
+  int tiles_per_chunk;  // DB tiles a block
   int smem;             // dynamic shared memory, >= smem_bytes(...)
+  const float* norm;    // (n,) fp32 norms of an epilogue with kNorms
   float* val;           // partials (n_chunks, m)
   int* idx;
+  float* val2;          // EpiTop2: second place
+  int* idx2;
 };
 
 // dynamic shared memory a launch needs: the alignment slack, the resident
-// query rows of its consumer warpgroups and the ring
-inline int smem_bytes(int nbox, int stages, int consumers) {
-  return SMEM_ALIGN + (consumers + stages) * nbox * BOX_BYTES;
+// query rows of its consumer warpgroups (two blocks each with FOLD), the
+// ring of `bn`-row tiles and, with norms, each stage's fp32 norms
+inline int smem_bytes(int nbox, int stages, int consumers, bool fold,
+                      bool norms, int bn) {
+  return SMEM_ALIGN + consumers * (fold ? 2 : 1) * nbox * QBOX_BYTES +
+         stages * (nbox * bn * BOX * 2 + (norms ? bn * 4 : 0));
+}
+
+// the checks every C entry makes of a launch plan
+inline bool plan_ok(int n, int bn, int nbox, int consumers, int bm,
+                    int stages, int tiles_per_chunk, int smem, int n_chunks,
+                    bool fold, bool norms) {
+  const int n_tiles = (n + bn - 1) / bn;
+  return consumers >= 1 && consumers <= CONSUMERS && bm >= 1 &&
+         bm <= consumers * WG_ROWS && stages >= 1 && stages <= MAX_STAGES &&
+         smem >= smem_bytes(nbox, stages, consumers, fold, norms, bn) &&
+         smem <= SMEM_DYN_MAX && tiles_per_chunk >= 1 &&
+         (long long)(n_chunks - 1) * tiles_per_chunk < n_tiles &&
+         (long long)n_chunks * tiles_per_chunk >= n_tiles;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -141,6 +178,26 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of global
+// memory into shared memory, completing them on the barrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // wgmma descriptor of a K-major operand in the 64-byte swizzle: rows of 64
 // bytes, 8-row groups 512 bytes apart (SBO); the leading offset is unused
 // by swizzled K-major layouts
@@ -151,22 +208,25 @@ __device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
          (static_cast<uint64_t>(2) << 62);
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A B^T over one k step, both operands K-major in shared memory
+// d (+)= A B^T over one k step, m64n64k16, both operands K-major in shared
+// memory
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -178,40 +238,276 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// fold one tile's scores into the running champions of rows g and g+8;
-// with MASK only the columns c < lim (DB rows below N) count
-template <bool MASK>
-__device__ __forceinline__ void fold_tile(const float (&d)[32], int gbase,
-                                          int lim, float& bv0, int& bi0,
-                                          float& bv1, int& bi1) {
-  float tv0 = -INFINITY, tv1 = -INFINITY;
-  int tc0 = 0, tc1 = 0;
+// d (+)= A B^T over one k step, m64n128k16, both operands K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the wgmma of a tile of N DB rows
+template <int N>
+__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16(d, da, db, scale_d);
+  } else {
+    wgmma_m64n64k16(d, da, db, scale_d);
+  }
+}
+
+// The epilogues.  Each folds one tile's accumulators into its state for
+// rows g and g+8 (tile<MASK, FIRST, N>: N DB rows a tile; with MASK only
+// the columns c < lim, DB rows below N, count; FIRST marks a block's first
+// tile), reduces the four threads of a row group, and writes one partial
+// per (chunk, row).  An epilogue with norms (kNorms) reads the norms of
+// columns 8 j + 2 tig and 8 j + 2 tig + 1 from the stage (ns, at 8 tig
+// bytes in) or, for the ragged last tile, from global memory (norm).
+
+// the global champion of scores that carry their norm in W's lanes
+// (packed2k): the maximum of the dots, lowest index on ties
+struct EpiBest {
+  static constexpr bool kNorms = false;
+  static constexpr bool kWide = false;  // 64-row tiles always
+  float bv0 = -INFINITY, bv1 = -INFINITY;
+  int bi0 = INT_MAX, bi1 = INT_MAX;
+
+  template <bool MASK, bool FIRST, int N>
+  __device__ __forceinline__ void tile(const float (&d)[N / 2], uint32_t,
+                                       const float*, int gbase, int lim) {
+    float tv0 = -INFINITY, tv1 = -INFINITY;
+    int tc0 = 0, tc1 = 0;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = 8 * j + e;
-      if (!MASK || c < lim) {
-        if (d[4 * j + e] > tv0) {
-          tv0 = d[4 * j + e];
-          tc0 = c;
-        }
-        if (d[4 * j + 2 + e] > tv1) {
-          tv1 = d[4 * j + 2 + e];
-          tc1 = c;
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + e;
+        if (!MASK || c < lim) {
+          if (d[4 * j + e] > tv0) {
+            tv0 = d[4 * j + e];
+            tc0 = c;
+          }
+          if (d[4 * j + 2 + e] > tv1) {
+            tv1 = d[4 * j + 2 + e];
+            tc1 = c;
+          }
         }
       }
     }
+    if (tv0 > bv0) {
+      bv0 = tv0;
+      bi0 = gbase + tc0;
+    }
+    if (tv1 > bv1) {
+      bv1 = tv1;
+      bi1 = gbase + tc1;
+    }
   }
-  if (tv0 > bv0) {
-    bv0 = tv0;
-    bi0 = gbase + tc0;
+
+  __device__ __forceinline__ void reduce_quad() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ov0 = __shfl_xor_sync(0xffffffffu, bv0, off);
+      const int oi0 = __shfl_xor_sync(0xffffffffu, bi0, off);
+      const float ov1 = __shfl_xor_sync(0xffffffffu, bv1, off);
+      const int oi1 = __shfl_xor_sync(0xffffffffu, bi1, off);
+      ia_scan::fold(bv0, bi0, ov0, oi0);
+      ia_scan::fold(bv1, bi1, ov1, oi1);
+    }
   }
-  if (tv1 > bv1) {
-    bv1 = tv1;
-    bi1 = gbase + tc1;
+
+  __device__ __forceinline__ void write(const HopperArgs& a, size_t o,
+                                        int r0, int r1, int q_end) const {
+    if (r0 < q_end) {
+      a.val[o + r0] = bv0;
+      a.idx[o + r0] = bi0;
+    }
+    if (r1 < q_end) {
+      a.val[o + r1] = bv1;
+      a.idx[o + r1] = bi1;
+    }
   }
-}
+};
+
+// The lexicographic top-2 of score = 2 dots - norm, the exact negation of
+// the L2 score dbn - 2 q.db (argmin2.cu negates back).  A block's first
+// tile (and the ragged last one) takes every score through the full rule
+// (fold2): so a padding row (+inf norm, score -inf) takes an empty second
+// place, as the lowest-index -inf.  After it a score can enter only by
+// beating the running second place of its thread and the row's threshold
+// t: the second best value the row's four threads held after their last
+// insert.  Two entries of lower index at least that good exist and are
+// only ever displaced by better ones, so a score <= t can never place, and
+// since the columns of a thread arrive in increasing row order, a strict
+// `>` is the lexicographic rule there.  A row's scores of a tile are
+// tested at once and the (branch-free) insert runs only where one passes,
+// after warm-up in a few tiles of a hundred; the scores are recomputed
+// there rather than held, so the epilogue needs no registers beyond the
+// accumulators and its state.
+struct EpiTop2 {
+  static constexpr bool kNorms = true;
+  static constexpr bool kWide = true;  // 128-row tiles where they fit
+  float v0 = -INFINITY, w0 = -INFINITY, v1 = -INFINITY, w1 = -INFINITY;
+  int i0 = INT_MAX, j0 = INT_MAX, i1 = INT_MAX, j1 = INT_MAX;
+  float t0 = -INFINITY, t1 = -INFINITY;  // the rows' thresholds
+
+  // (s, c) into the sorted pair (v, i) > (w, j) if it beats w and the
+  // threshold t; c is above every index held
+  __device__ __forceinline__ static void insert(float& v, int& i, float& w,
+                                                int& j, float t, float s,
+                                                int c) {
+    const bool in = s > fmaxf(w, t);
+    const bool top = in && s > v;
+    w = top ? v : (in ? s : w);
+    j = top ? i : (in ? c : j);
+    v = top ? s : v;
+    i = top ? c : i;
+  }
+
+  // the second best value of the row's four threads' pairs (v, w)
+  __device__ __forceinline__ static float quad_second(float v, float w) {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+      const float ow = __shfl_xor_sync(0xffffffffu, w, off);
+      w = fmaxf(fminf(v, ov), fmaxf(w, ow));
+      v = fmaxf(v, ov);
+    }
+    return w;
+  }
+
+  // the norms of 8-column block j
+  template <bool MASK>
+  __device__ __forceinline__ static float2 norms(int j, uint32_t ns,
+                                                 const float* norm,
+                                                 int gbase, int lim) {
+    if constexpr (MASK) {
+      float2 r;
+      r.x = 8 * j < lim ? __ldg(norm + gbase + 8 * j) : INFINITY;
+      r.y = 8 * j + 1 < lim ? __ldg(norm + gbase + 8 * j + 1) : INFINITY;
+      return r;
+    } else {
+      return lds_f2(ns + 32 * j);
+    }
+  }
+
+  template <bool MASK, bool FIRST, int N>
+  __device__ __forceinline__ void tile(const float (&d)[N / 2], uint32_t ns,
+                                       const float* norm, int gbase,
+                                       int lim) {
+    if constexpr (MASK || FIRST) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float2 n = norms<MASK>(j, ns, norm, gbase, lim);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + e;
+          const float nc = e ? n.y : n.x;
+          if (!MASK || c < lim) {
+            ia_scan::fold2(v0, i0, w0, j0, 2.0f * d[4 * j + e] - nc,
+                           gbase + c);
+            ia_scan::fold2(v1, i1, w1, j1, 2.0f * d[4 * j + 2 + e] - nc,
+                           gbase + c);
+          }
+        }
+      }
+    } else {
+      const float h0 = fmaxf(w0, t0), h1 = fmaxf(w1, t1);
+      bool hit0 = false, hit1 = false;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const float2 n = lds_f2(ns + 32 * j);
+        hit0 |= 2.0f * d[4 * j] - n.x > h0;
+        hit0 |= 2.0f * d[4 * j + 1] - n.y > h0;
+        hit1 |= 2.0f * d[4 * j + 2] - n.x > h1;
+        hit1 |= 2.0f * d[4 * j + 3] - n.y > h1;
+      }
+      if (hit0) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 n = lds_f2(ns + 32 * j);
+          insert(v0, i0, w0, j0, t0, 2.0f * d[4 * j] - n.x, gbase + 8 * j);
+          insert(v0, i0, w0, j0, t0, 2.0f * d[4 * j + 1] - n.y,
+                 gbase + 8 * j + 1);
+        }
+      }
+      if (hit1) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const float2 n = lds_f2(ns + 32 * j);
+          insert(v1, i1, w1, j1, t1, 2.0f * d[4 * j + 2] - n.x,
+                 gbase + 8 * j);
+          insert(v1, i1, w1, j1, t1, 2.0f * d[4 * j + 3] - n.y,
+                 gbase + 8 * j + 1);
+        }
+      }
+      // a threshold moves only where a score was inserted
+      if (!__any_sync(0xffffffffu, hit0 || hit1)) return;
+    }
+    t0 = quad_second(v0, w0);
+    t1 = quad_second(v1, w1);
+  }
+
+  __device__ __forceinline__ void reduce_quad() {
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float ov0 = __shfl_xor_sync(0xffffffffu, v0, off);
+      const int oi0 = __shfl_xor_sync(0xffffffffu, i0, off);
+      const float ow0 = __shfl_xor_sync(0xffffffffu, w0, off);
+      const int oj0 = __shfl_xor_sync(0xffffffffu, j0, off);
+      const float ov1 = __shfl_xor_sync(0xffffffffu, v1, off);
+      const int oi1 = __shfl_xor_sync(0xffffffffu, i1, off);
+      const float ow1 = __shfl_xor_sync(0xffffffffu, w1, off);
+      const int oj1 = __shfl_xor_sync(0xffffffffu, j1, off);
+      ia_scan::fold2(v0, i0, w0, j0, ov0, oi0);
+      ia_scan::fold2(v0, i0, w0, j0, ow0, oj0);
+      ia_scan::fold2(v1, i1, w1, j1, ov1, oi1);
+      ia_scan::fold2(v1, i1, w1, j1, ow1, oj1);
+    }
+  }
+
+  __device__ __forceinline__ void write(const HopperArgs& a, size_t o,
+                                        int r0, int r1, int q_end) const {
+    if (r0 < q_end) {
+      a.val[o + r0] = v0;
+      a.idx[o + r0] = i0;
+      a.val2[o + r0] = w0;
+      a.idx2[o + r0] = j0;
+    }
+    if (r1 < q_end) {
+      a.val[o + r1] = v1;
+      a.idx[o + r1] = i1;
+      a.val2[o + r1] = w1;
+      a.idx2[o + r1] = j1;
+    }
+  }
+};
 
 // a position in the ring: stage and the parity of its current phase
 struct Ring {
@@ -230,18 +526,26 @@ struct Ring {
 // idle), the last warp produces.  KSTEPS = k_used / 16 is a template
 // parameter so that a tile's wgmma chain is one branch-free block: with a
 // runtime count the compiler fences the accumulators between every two
-// wgmma.
-template <int KSTEPS>
+// wgmma.  With FOLD the query tensor is (2m, k), hi rows then lo rows:
+// each DB tile runs the hi chain, then the lo chain, into one accumulator
+// (k16 steps in the order of bf16_scan.cuh: pass, then k step).  A tile
+// has tile_rows(Epi::kWide, KSTEPS) DB rows.
+template <int KSTEPS, bool FOLD, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     scan_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap wmap, HopperArgs a) {
+  constexpr int QSETS = FOLD ? 2 : 1;  // resident query blocks a warpgroup
+  constexpr int BN = tile_rows(Epi::kWide, KSTEPS);
+  constexpr int WBOX_BYTES = BN * BOX * 2;  // a DB box of BN rows
   __shared__ __align__(8) uint64_t bars[2 * MAX_STAGES + 1];
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base =
       (smem_u32(smem_raw) + SMEM_ALIGN - 1) & ~uint32_t(SMEM_ALIGN - 1);
-  const int stage_bytes = a.nbox * BOX_BYTES;
+  const int qset_bytes = a.nbox * QBOX_BYTES;
+  const int stage_bytes = a.nbox * WBOX_BYTES;
   const uint32_t q_base = base;
-  const uint32_t w_base = base + a.consumers * stage_bytes;
+  const uint32_t w_base = base + a.consumers * QSETS * qset_bytes;
+  const uint32_t n_base = w_base + a.stages * stage_bytes;  // kNorms only
   const uint32_t full0 = smem_u32(&bars[0]);
   const uint32_t empty0 = smem_u32(&bars[MAX_STAGES]);
   const uint32_t qfull = smem_u32(&bars[2 * MAX_STAGES]);
@@ -271,20 +575,29 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&wmap))
                    : "memory");
-      mbar_expect_tx(qfull, live * stage_bytes);
+      mbar_expect_tx(qfull, live * QSETS * qset_bytes);
       for (int wg = 0; wg < live; ++wg)
-        for (int b = 0; b < a.nbox; ++b)
-          tma_load_2d(q_base + (wg * a.nbox + b) * BOX_BYTES, &qmap, qfull,
-                      b * BOX, q0 + wg * WG_ROWS);
+        for (int p = 0; p < QSETS; ++p)
+          for (int b = 0; b < a.nbox; ++b)
+            // the lo block starts at row m; a hi box past m reads lo rows
+            // into query rows this block does not own
+            tma_load_2d(q_base + ((wg * QSETS + p) * a.nbox + b) * QBOX_BYTES,
+                        &qmap, qfull, b * BOX, p * a.m + q0 + wg * WG_ROWS);
       Ring r{0, 0};
       for (int t = t_begin; t < t_end; ++t) {
         // the first pass over the ring finds every stage free
         mbar_wait(empty0 + 8 * r.stage, r.phase ^ 1);
         const uint32_t full = full0 + 8 * r.stage;
-        mbar_expect_tx(full, stage_bytes);
+        // a full tile's norms ride the stage; the ragged last tile's are
+        // read from global memory by the consumers
+        const bool norms = Epi::kNorms && t * BN + BN <= a.n;
+        mbar_expect_tx(full, stage_bytes + (norms ? BN * 4 : 0));
         for (int b = 0; b < a.nbox; ++b)
-          tma_load_2d(w_base + r.stage * stage_bytes + b * BOX_BYTES, &wmap,
+          tma_load_2d(w_base + r.stage * stage_bytes + b * WBOX_BYTES, &wmap,
                       full, b * BOX, t * BN);
+        if (norms)
+          bulk_load(n_base + r.stage * BN * 4, a.norm + (size_t)t * BN,
+                    BN * 4, full);
         r.next(a.stages);
       }
     }
@@ -294,12 +607,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int wg = warp >> 2;
     const int g = lane >> 2, tig = lane & 3;
     const int r0 = q0 + wg * WG_ROWS + (warp & 3) * 16 + g, r1 = r0 + 8;
-    const uint32_t qa_base = q_base + wg * stage_bytes;
-    float acc[32];
+    const uint32_t qa_base = q_base + wg * QSETS * qset_bytes;
+    float acc[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float bv0 = -INFINITY, bv1 = -INFINITY;
-    int bi0 = INT_MAX, bi1 = INT_MAX;
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    Epi ep;
     mbar_wait(qfull, 0);
     Ring r{0, 0};
     for (int t = t_begin; t < t_end; ++t) {
@@ -308,45 +620,44 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_acc(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        // k step ks: box ks / 2, its 16-lane half ks % 2 (32 bytes in)
-        const uint32_t off = (ks >> 1) * BOX_BYTES + (ks & 1) * 32;
-        wgmma_m64n64k16(acc, desc_sw64(qa_base + off), desc_sw64(wb + off),
-                        ks > 0);
+      for (int p = 0; p < QSETS; ++p) {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          // k step ks: box ks / 2, its 16-lane half ks % 2 (32 bytes in)
+          wgmma_k16<BN>(acc,
+                        desc_sw64(qa_base + p * qset_bytes +
+                                  (ks >> 1) * QBOX_BYTES + (ks & 1) * 32),
+                        desc_sw64(wb + (ks >> 1) * WBOX_BYTES + (ks & 1) * 32),
+                        p > 0 || ks > 0);
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(acc);
-      if (lane == 0) mbar_arrive(empty0 + 8 * r.stage);
+      const uint32_t empty = empty0 + 8 * r.stage;
+      const uint32_t ns = n_base + r.stage * (BN * 4) + 8 * tig;
+      // an epilogue that reads the stage's norms releases it after them
+      if constexpr (!Epi::kNorms) {
+        if (lane == 0) mbar_arrive(empty);
+      }
       r.next(a.stages);
       const int gbase = t * BN + 2 * tig;
-      if (t * BN + BN <= a.n) {
-        fold_tile<false>(acc, gbase, BN, bv0, bi0, bv1, bi1);
+      if (t * BN + BN > a.n) {
+        ep.template tile<true, true, BN>(acc, ns, a.norm, gbase,
+                                         a.n - gbase);
+      } else if (Epi::kNorms && t == t_begin) {
+        ep.template tile<false, true, BN>(acc, ns, a.norm, gbase, BN);
       } else {
-        fold_tile<true>(acc, gbase, a.n - gbase, bv0, bi0, bv1, bi1);
+        ep.template tile<false, false, BN>(acc, ns, a.norm, gbase, BN);
+      }
+      if constexpr (Epi::kNorms) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty);
       }
     }
     // the four threads of a row group hold disjoint columns
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float ov0 = __shfl_xor_sync(0xffffffffu, bv0, off);
-      const int oi0 = __shfl_xor_sync(0xffffffffu, bi0, off);
-      const float ov1 = __shfl_xor_sync(0xffffffffu, bv1, off);
-      const int oi1 = __shfl_xor_sync(0xffffffffu, bi1, off);
-      ia_scan::fold(bv0, bi0, ov0, oi0);
-      ia_scan::fold(bv1, bi1, ov1, oi1);
-    }
-    if (tig == 0) {
-      const size_t o = (size_t)blockIdx.y * a.m;
-      if (r0 < q_end) {
-        a.val[o + r0] = bv0;
-        a.idx[o + r0] = bi0;
-      }
-      if (r1 < q_end) {
-        a.val[o + r1] = bv1;
-        a.idx[o + r1] = bi1;
-      }
-    }
+    ep.reduce_quad();
+    if (tig == 0) ep.write(a, (size_t)blockIdx.y * a.m, r0, r1, q_end);
   }
   // the warps of a warpgroup with no row of this tile have nothing to do
 }
@@ -379,15 +690,15 @@ inline EncodeTiled encode_tiled() {
 }
 
 // the tensor map of a (rows, k) row-major bf16 array, boxes of 32 lanes x
-// 64 rows in the 64-byte swizzle; reads past the last row give zeros
-inline int bf16_rows_map(CUtensorMap* map, const void* ptr, int rows,
-                         int k) {
+// box_rows rows in the 64-byte swizzle; reads past the last row give zeros
+inline int bf16_rows_map(CUtensorMap* map, const void* ptr, int rows, int k,
+                         int box_rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
-  const cuuint32_t box[2] = {BOX, 64};
+  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t estr[2] = {1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
                   const_cast<void*>(ptr), dims, strides, box, estr,
@@ -397,43 +708,38 @@ inline int bf16_rows_map(CUtensorMap* map, const void* ptr, int rows,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One champion scan over grid (ceil(m / a.bm), n_chunks), then the merge
-// of the partials; returns the first CUDA error.  The shared memory limit
-// is raised on every launch: the attribute belongs to the current device.
-template <int KSTEPS>
-int launch_best(const void* qa, const void* w, int k, HopperArgs a,
-                int n_chunks, int* out_idx, float* out_val,
-                cudaStream_t s) {
+// One scan over grid (ceil(m / a.bm), n_chunks), writing the partials;
+// q is (m, k), or (2m, k) with FOLD.  Returns the first CUDA error.  The
+// shared memory limit is raised on every launch: the attribute belongs to
+// the current device.
+template <int KSTEPS, bool FOLD, class Epi>
+int launch_scan(const void* q, const void* w, int k, const HopperArgs& a,
+                int n_chunks, cudaStream_t s) {
   CUtensorMap qmap, wmap;
-  int e = bf16_rows_map(&qmap, qa, a.m, k);
+  int e = bf16_rows_map(&qmap, q, FOLD ? 2 * a.m : a.m, k, WG_ROWS);
   if (e != cudaSuccess) return e;
-  e = bf16_rows_map(&wmap, w, a.n, k);
+  e = bf16_rows_map(&wmap, w, a.n, k, tile_rows(Epi::kWide, KSTEPS));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(scan_kernel<KSTEPS>,
+  e = cudaFuncSetAttribute(scan_kernel<KSTEPS, FOLD, Epi>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            a.smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.m + a.bm - 1) / a.bm, n_chunks);
-  scan_kernel<KSTEPS><<<grid, THREADS, a.smem, s>>>(qmap, wmap, a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  ia_scan::best_merge_kernel<<<a.m, 32, 0, s>>>(a.val, a.idx, a.m, n_chunks,
-                                                out_idx, out_val);
+  scan_kernel<KSTEPS, FOLD, Epi><<<grid, THREADS, a.smem, s>>>(qmap, wmap, a);
   return cudaGetLastError();
 }
 
-// launch_best of the instance with ksteps = k_used / 16 k steps (1..32)
-template <int KSTEPS = 1>
-int launch_best_k(int ksteps, const void* qa, const void* w, int k,
-                  HopperArgs a, int n_chunks, int* out_idx, float* out_val,
-                  cudaStream_t s) {
+// launch_scan of the instance with ksteps = k_used / 16 k steps (1..32)
+template <bool FOLD, class Epi, int KSTEPS = 1>
+int launch_scan_k(int ksteps, const void* q, const void* w, int k,
+                  const HopperArgs& a, int n_chunks, cudaStream_t s) {
   if constexpr (KSTEPS > MAX_KSTEPS) {
     return cudaErrorInvalidValue;
   } else {
     if (ksteps == KSTEPS)
-      return launch_best<KSTEPS>(qa, w, k, a, n_chunks, out_idx, out_val, s);
-    return launch_best_k<KSTEPS + 1>(ksteps, qa, w, k, a, n_chunks, out_idx,
-                                     out_val, s);
+      return launch_scan<KSTEPS, FOLD, Epi>(q, w, k, a, n_chunks, s);
+    return launch_scan_k<FOLD, Epi, KSTEPS + 1>(ksteps, q, w, k, a,
+                                                n_chunks, s);
   }
 }
 

@@ -42,13 +42,9 @@ int ia_packed2k_best(const void* qa, const void* wk, int m, int n, int k,
     return cudaErrorInvalidValue;
   }
   const int nbox = (k_used + BOX - 1) / BOX;
-  const int n_tiles = (n + BN - 1) / BN;
-  if (consumers < 2 || consumers > CONSUMERS || bm < 1 ||
-      bm > consumers * WG_ROWS || stages < 1 || stages > MAX_STAGES ||
-      smem < smem_bytes(nbox, stages, consumers) || smem > SMEM_DYN_MAX ||
-      tiles_per_chunk < 1 ||
-      (long long)(n_chunks - 1) * tiles_per_chunk >= n_tiles ||
-      (long long)n_chunks * tiles_per_chunk < n_tiles) {
+  if (consumers < 2 || !plan_ok(n, tile_rows(false, k_used / 16), nbox,
+                                consumers, bm, stages, tiles_per_chunk, smem,
+                                n_chunks, false, false)) {
     return cudaErrorInvalidValue;
   }
   int e = ia_scan::use_device(device);
@@ -64,8 +60,12 @@ int ia_packed2k_best(const void* qa, const void* wk, int m, int n, int k,
   a.smem = smem;
   a.val = part_val;
   a.idx = part_idx;
-  return launch_best_k(k_used / 16, qa, wk, k, a, n_chunks, out_idx, out_val,
-                       static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = launch_scan_k<false, EpiBest>(k_used / 16, qa, wk, k, a, n_chunks, s);
+  if (e != cudaSuccess) return e;
+  ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
+                                              n_chunks, out_idx, out_val);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

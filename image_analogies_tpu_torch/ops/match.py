@@ -22,12 +22,12 @@
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The packed2k scan runs on the Hopper core ``csrc/hopper_scan.cuh``
-(``wgmma`` fed by a TMA ring); the other bf16 kernels are instances of the
-template ``csrc/bf16_scan.cuh``.  Every kernel wrapper follows one
-contract: a CPU tensor runs the plain PyTorch version in this module; a
-CUDA tensor launches the hand-written kernel or raises — there is no
-fallback.
+The packed2k and argmin2 scans run on the Hopper core
+``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); the other bf16
+kernels are instances of the template ``csrc/bf16_scan.cuh``.  Every
+kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
+version in this module; a CUDA tensor launches the hand-written kernel or
+raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches, one key per kernel entry and packed
 form (one per wrapper call that launched), so a run can show that its path
 went through the kernels.
@@ -300,20 +300,23 @@ _PACKED_FORMS = {
 }
 
 
-# launch geometry of csrc/packed2k_best.cu (hopper_scan.cuh), whose entry
-# takes the plan and only refuses one outside these limits: two or three
-# consumer warpgroups of 64 query rows a block, 64-row DB tiles, rows cut
-# into 32-lane boxes of 4 KiB (64 rows x 64 bytes), a ring of at most 8
-# stages, and the dynamic shared memory a block may take (one block per SM)
-_P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a tile
+# launch geometry of the Hopper core csrc/hopper_scan.cuh (packed2k_best.cu
+# and argmin2.cu), whose entries take the plan and only refuse one outside
+# these limits: one to three consumer warpgroups of 64 query rows a block,
+# DB tiles of 64 rows (argmin2 up to k_used = 256: 128, the kernel's
+# ``tile_rows``), rows cut into 32-lane boxes (64 bytes a row), a ring of
+# at most 8 stages (with the norms in the ring, 4 bytes a tile row), and
+# the dynamic shared memory a block may take (one block per SM)
+_P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a packed2k tile
 _P2K_CONSUMERS = (3, 2)  # the most first
+_A2_CONSUMERS = (3, 2, 1)  # argmin2: one where folded queries are wide
 _P2K_BOX = 32
 _P2K_MAX_STAGES = 8
 _P2K_SMEM = 232448 - 1024
 
 
 class Packed2kPlan(NamedTuple):
-    consumers: int  # consumer warpgroups a block (2 or 3)
+    consumers: int  # consumer warpgroups a block
     bm: int  # query rows a block (<= 64 consumers)
     stages: int  # ring depth
     tiles_per_chunk: int  # DB tiles per block
@@ -322,50 +325,97 @@ class Packed2kPlan(NamedTuple):
     smem: int  # dynamic shared memory of a block
 
 
-def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
-    """Dynamic shared memory of a packed2k block (the kernel's
+def _hopper_smem(k_used: int, stages: int, consumers: int,
+                 fold: bool = False, norms: bool = False,
+                 rows: int = _P2K_ROWS) -> int:
+    """Dynamic shared memory of a block of the Hopper core (the kernel's
     ``smem_bytes``): 1 KiB of alignment slack, the consumer warpgroups'
-    resident query rows and the ring, each ceil(k_used / 32) boxes a row."""
+    resident query rows (two blocks each with ``fold``) and the ring of
+    ``rows``-row DB tiles, ceil(k_used / 32) 64-byte boxes a row, and with
+    ``norms`` 4 bytes a tile row."""
     nbox = -(-k_used // _P2K_BOX)
-    return 1024 + (consumers + stages) * nbox * _P2K_ROWS * _P2K_BOX * 2
+    box_row = _P2K_BOX * 2
+    return (1024 + consumers * (2 if fold else 1) * nbox * _P2K_ROWS
+            * box_row + stages * (nbox * rows * box_row
+                                  + (4 * rows if norms else 0)))
 
 
-def _packed2k_stages(k_used: int, consumers: int) -> int:
+def _hopper_stages(k_used: int, consumers: int, fold: bool = False,
+                   norms: bool = False, rows: int = _P2K_ROWS) -> int:
     """The deepest ring (at most 8 stages) that fits beside the resident
     queries of ``consumers`` warpgroups; 0 if none does."""
     stages = _P2K_MAX_STAGES
-    while stages and _packed2k_smem(k_used, stages, consumers) > _P2K_SMEM:
+    while stages and _hopper_smem(k_used, stages, consumers, fold, norms,
+                                  rows) > _P2K_SMEM:
         stages -= 1
     return stages
 
 
-def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
-                   ) -> Packed2kPlan:
-    """Launch plan of the packed2k scan for M queries against N DB rows on a
-    card of ``sm_count`` SMs.  Three consumer warpgroups a block where the
-    ring beside their resident queries keeps at least two stages, else
-    two; the fewest query tiles of at most 64 rows a warpgroup, as even as
-    they come (each tile's blocks read every DB tile from L2 again, and
-    blocks of equal work stay in step, so the later ones find it there);
-    the deepest ring the shared memory allows; and the 64-row DB tiles cut
-    into about one chunk per SM for each query tile, so each block walks
-    one long run of tiles and the ring fills once per SM."""
+def _argmin2_rows(k_used: int) -> int:
+    """DB rows of an argmin2 tile (the kernel's ``tile_rows``): 128 up to
+    k_used = 256, where each dependent ``wgmma`` step then does twice the
+    work, else 64."""
+    return 128 if k_used <= 256 else 64
+
+
+def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
+                 consumer_choices, fold: bool, norms: bool,
+                 rows: int = _P2K_ROWS) -> Packed2kPlan:
+    """Launch plan of a Hopper-core scan for M queries against N DB rows on
+    a card of ``sm_count`` SMs.  The most consumer warpgroups a block (of
+    ``consumer_choices``) for which the ring beside their resident queries
+    keeps at least two stages, else the fewest with the ring that fits;
+    the fewest query tiles of at most 64 rows a warpgroup, as even as they
+    come (each tile's blocks read every DB tile from L2 again, and blocks
+    of equal work stay in step, so the later ones find it there); the
+    deepest ring the shared memory allows; and the 64-row DB tiles cut into
+    about one chunk per SM for each query tile, so each block walks one
+    long run of tiles and the ring fills once per SM."""
     if m < 1 or n < 1 or sm_count < 1 or k_used < 16 or k_used % 16:
-        raise ValueError(f"packed2k plan: m={m}, n={n}, k_used={k_used}, "
+        raise ValueError(f"{name} plan: m={m}, n={n}, k_used={k_used}, "
                          f"sm_count={sm_count}")
+    last = consumer_choices[-1]
     consumers, stages = next(
-        ((c, st) for c in _P2K_CONSUMERS
-         for st in [_packed2k_stages(k_used, c)] if st >= 2),
-        (2, _packed2k_stages(k_used, 2)))
+        ((c, st) for c in consumer_choices
+         for st in [_hopper_stages(k_used, c, fold, norms, rows)]
+         if st >= 2),
+        (last, _hopper_stages(k_used, last, fold, norms, rows)))
     if not stages:
-        raise ValueError(f"packed2k: k_used={k_used} is too wide for the "
+        raise ValueError(f"{name}: k_used={k_used} is too wide for the "
                          "kernel's shared memory")
     bm = -(-m // -(-m // (_P2K_ROWS * consumers)))
     q_tiles = -(-m // bm)
-    tiles = -(-n // _P2K_ROWS)
+    tiles = -(-n // rows)
     per = -(-tiles // max(1, sm_count // q_tiles))
     return Packed2kPlan(consumers, bm, stages, per, -(-tiles // per),
-                        q_tiles, _packed2k_smem(k_used, stages, consumers))
+                        q_tiles, _hopper_smem(k_used, stages, consumers,
+                                              fold, norms, rows))
+
+
+def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
+    """Dynamic shared memory of a packed2k block (``_hopper_smem``)."""
+    return _hopper_smem(k_used, stages, consumers)
+
+
+def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
+                   ) -> Packed2kPlan:
+    """Launch plan of the packed2k scan (``_hopper_plan``): three consumer
+    warpgroups a block where a ring of two stages fits beside their
+    resident queries, else two."""
+    return _hopper_plan("packed2k", m, n, sm_count, k_used, _P2K_CONSUMERS,
+                        fold=False, norms=False)
+
+
+def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
+                  ) -> Packed2kPlan:
+    """Launch plan of the argmin2 scan (``_hopper_plan``), its norms in the
+    ring and its tiles ``_argmin2_rows`` rows; with ``fold`` (q_split) each
+    warpgroup holds its hi and its lo query rows.  Three consumer
+    warpgroups where a ring of two stages fits beside their queries, else
+    two, else one with the ring that fits: at k_used = 512 folded, one
+    stage."""
+    return _hopper_plan("argmin2", m, n, sm_count, k_used, _A2_CONSUMERS,
+                        fold=fold, norms=True, rows=_argmin2_rows(k_used))
 
 
 def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
@@ -856,6 +906,8 @@ def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
     row norms, +inf on padding rows, which lose every compare.  ``q`` as in
     ``pertile_champions``.  Returns (i1, v1, i2, v2), (M,) each; where no
     second row exists (a one-row DB) v2 is +inf and i2 names no real row.
+    On the card it runs ``csrc/argmin2.cu`` on the Hopper core (``wgmma``
+    on a TMA ring, the norms in the ring; launch plan ``_argmin2_plan``).
     """
     k_used = _check_bf16_scan("argmin2_l2", q, dbp, dbn, k_used)
     if _on_cpu(q, dbp, dbn):
@@ -865,10 +917,10 @@ def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
     m, fp = q.shape
     n = dbp.shape[0]
     dev = _device_index(qk)
+    plan = _argmin2_plan(m, n, _sm_count(dev), k_used, q_split)
     lib = _build.load("argmin2")
-    n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
     f32, i32 = torch.float32, torch.int32
-    part = [torch.empty((n_chunks, m), dtype=dt, device=qk.device)
+    part = [torch.empty((plan.n_chunks, m), dtype=dt, device=qk.device)
             for dt in (f32, i32, f32, i32)]
     i1, i2 = (torch.empty((m,), dtype=i32, device=qk.device)
               for _ in range(2))
@@ -876,8 +928,10 @@ def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
               for _ in range(2))
     err = lib.ia_argmin2(
         qk.data_ptr(), dbp.data_ptr(), dbn.data_ptr(), m, n, fp, k_used,
-        int(q_split), n_chunks, *(t.data_ptr() for t in part),
-        i1.data_ptr(), v1.data_ptr(), i2.data_ptr(), v2.data_ptr(), dev,
+        int(q_split), plan.consumers, plan.bm, plan.stages,
+        plan.tiles_per_chunk, plan.smem, plan.n_chunks,
+        *(t.data_ptr() for t in part), i1.data_ptr(), v1.data_ptr(),
+        i2.data_ptr(), v2.data_ptr(), dev,
         torch.cuda.current_stream(qk.device).cuda_stream)
     _build.check(lib, err, "argmin2_l2 launch")
     LAUNCHES["argmin2_l2"] += 1

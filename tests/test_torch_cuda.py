@@ -366,6 +366,81 @@ def test_cuda_argmin2_matches_plain(q_split, n, npad):
         assert (int(i1[0]), int(i2[0])) == (2, 5)
     else:
         assert not bool(has2.any()) and int(i1.max()) == 0
+        # no second real row: the lowest padding row takes second place
+        assert bool((i2 == n).all())
+
+
+def argmin2_case(m, n, npad, f=68, fp=128, seed=9):
+    """Seeded operands of ``argmin2_l2`` at any size: the bf16 DB of ``fp``
+    lanes (``f`` used, rows [n, npad) padding with +inf norms) with full
+    norms of the unrounded rows, and queries.  Exact duplicate pairs: rows
+    2 and 10 (one thread's columns of a tile), 3 and 5 (two threads'), 1
+    and n - 1 (different DB chunks once n spans chunks); queries 0, 1 and 2
+    equal the bf16 rows 2, 3 and 1.  Scaled so the norms do not grow with
+    ``f``."""
+    g = torch.Generator().manual_seed(seed)
+    scale = (68 / f) ** 0.5
+    db = torch.randn((n, f), generator=g) * scale
+    q = torch.zeros((m, fp))
+    q[:, :f] = torch.randn((m, f), generator=g) * scale
+    if n > 10:
+        for lo, hi in ((2, 10), (3, 5), (1, n - 1)):
+            db[hi] = db[lo]
+    dbp = torch.zeros((npad, fp), dtype=torch.bfloat16)
+    dbp[:n, :f] = _bf16(db)
+    dbn = torch.full((npad,), float("inf"))
+    dbn[:n] = (db * db).sum(1)
+    if n > 10:
+        for row, src in enumerate((2, 3, 1)[:m]):
+            q[row, :f] = dbp[src, :f].float()
+    return q, dbp, dbn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_split", [False, True])
+@pytest.mark.parametrize("m,n,npad,f,fp", [
+    # the widest wavefront segment of each of npr_1024's five levels, the
+    # last 100 rows padding
+    (344, 1048476, 1048576, 68, 128), (176, 262044, 262144, 68, 128),
+    (88, 65436, 65536, 68, 128), (48, 16284, 16384, 68, 128),
+    (24, 3996, 4096, 68, 128),
+    # N not a multiple of 64 (the ragged last tile reads its norms from
+    # global memory), at every lane width the wrapper takes: one consumer
+    # warpgroup and one or two stages at 384 and 512 folded lanes
+    (45, 1000, 1000, 68, 128), (200, 3001, 3041, 200, 256),
+    (130, 2000, 2003, 300, 384), (70, 1500, 1500, 450, 512),
+    # one real row: the second place is (+inf, the lowest padding row)
+    (45, 1, 256, 68, 128), (3, 1, 5000, 68, 128)])
+def test_cuda_argmin2_hopper_matches_plain(q_split, m, n, npad, f, fp):
+    """argmin2_l2 on the Hopper core against its plain version on the card:
+    scores within 1e-4, picks equal outside the 1e-4 band, duplicate rows
+    in one thread, across threads and across DB chunks go to the lower
+    index, padding rows never place unless no real row is left, and ten
+    repeated calls give the same bits."""
+    dev = _card()
+    q, dbp, dbn = (t.to(dev) for t in argmin2_case(m, n, npad, f, fp))
+    k_used = (f + 15) // 16 * 16
+    match.reset_launch_counts()
+    got = match.argmin2_l2(q, dbp, dbn, q_split, k_used)
+    assert match.LAUNCHES["argmin2_l2"] == 1
+    for _ in range(10):
+        again = match.argmin2_l2(q, dbp, dbn, q_split, k_used)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    i1, v1, i2, v2 = (t.cpu() for t in got)
+    r1, rv1, r2, rv2 = (t.cpu() for t in match.argmin2_l2_plain(
+        q, dbp, dbn, q_split, k_used))
+    _assert_band("argmin2 first", i1, v1, r1, rv1, atol=1e-4, band=1e-4)
+    has2 = torch.isfinite(rv2)
+    assert torch.equal(torch.isfinite(v2), has2)
+    _assert_band("argmin2 second", i2[has2], v2[has2], r2[has2], rv2[has2],
+                 atol=1e-4, band=1e-4)
+    if n > 10:
+        assert int(torch.maximum(i1, i2).max()) < n
+        assert [(int(i1[r]), int(i2[r])) for r in range(3)] == [
+            (2, 10), (3, 5), (1, n - 1)]
+    else:
+        assert int(i1.max()) == 0 and not bool(has2.any())
+        assert bool((i2 == n).all())
 
 
 @pytest.mark.cuda

@@ -173,6 +173,59 @@ def test_packed2k_plan_covers_every_tile_once(n, sm_count):
         match._packed2k_plan(8, n, sm_count, 100)  # not a multiple of 16
 
 
+@pytest.mark.parametrize("n", [1, 63, 64, 4096, 4097, 16384, 65536, 262144,
+                               1048000, 1048576])
+@pytest.mark.parametrize("sm_count", [132, 114, 1])
+@pytest.mark.parametrize("fold", [False, True])
+def test_argmin2_plan_covers_every_tile_once(n, sm_count, fold):
+    """The argmin2 kernel's launch plan, M = 1..400 and k_used 16..512, hi
+    and lo query blocks folded or not: DB tiles of 128 rows up to k_used =
+    256, else 64; the DB chunks cover every tile exactly once and none is
+    empty; the query tiles of at most 64 rows a warpgroup hold every query,
+    as even as they come, none empty; the block's shared memory (the
+    resident query blocks of 4 KiB a 32-lane box, the ring and 4 bytes of
+    norms a tile row a stage) stays within the card's 232,448 bytes; the
+    most consumer warpgroups (3, 2, 1) that keep a ring of two stages, else
+    one; the ring the deepest that fits; and the grid about one block per
+    SM."""
+    qsets = 2 if fold else 1
+    for k_used in (16, 80, 112, 224, 256, 272, 368, 384, 512):
+        rows = 128 if k_used <= 256 else 64
+        tiles = -(-n // rows)
+        nbox = -(-k_used // 32)
+        smem = lambda st, c: (1024 + c * qsets * nbox * 4096
+                              + st * (nbox * rows * 64 + 4 * rows))
+        for m in range(1, 401):
+            plan = match._argmin2_plan(m, n, sm_count, k_used, fold)
+            per = plan.tiles_per_chunk
+            assert per >= 1
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            c, st = plan.consumers, plan.stages
+            assert plan.smem == smem(st, c)
+            assert plan.smem + 1024 <= 232448
+            assert 1 <= st <= 8
+            assert st == 8 or smem(st + 1, c) > 232448 - 1024
+            two = [cc for cc in (3, 2, 1) if smem(2, cc) <= 232448 - 1024]
+            assert c == (two[0] if two else 1)
+            bm = plan.bm
+            assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+            assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+            assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                       plan.q_tiles)
+    # level 0 of two_pass at the widest batch (M = 344, 80 lanes, hi/lo):
+    # two query tiles of 172 rows on three warpgroups, a ring of 6 stages
+    # of 128 DB rows, 66 chunks of 125 tiles; the headline M = 352 the same
+    # with 176 rows
+    assert match._argmin2_plan(344, 1048576, 132, 80, True) == (
+        3, 172, 6, 125, 66, 2, 225280)
+    assert match._argmin2_plan(352, 1048576, 132, 80, True)[:3] == (
+        3, 176, 6)
+    # the widest lanes the wrapper takes, folded: one warpgroup, one stage
+    assert match._argmin2_plan(45, n, sm_count, 512, True)[:3] == (1, 45, 1)
+    with pytest.raises(ValueError):
+        match._argmin2_plan(8, n, sm_count, 100, fold)  # not a multiple of 16
+
+
 def test_bf16_split3_and_norm_lanes_bit_equal():
     rng = np.random.default_rng(5)
     x = np.concatenate([
