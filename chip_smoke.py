@@ -27,12 +27,16 @@ and carried on):
                 bound, device ms weighted by the segments' steps per level
                 and in all.  ``argmin2_l2`` (two_pass's top-2 scan, q_split)
                 the same way at every segment shape of all five levels and
-                at the M = 352 headline.  With ``--parent DIR`` also the
-                three kernels of the checkout in DIR on the same inputs (a
-                child process each): argmin_l2's (idx, val) must be the
-                same bits, argmin2_l2's (i1, i2) picks >= 99.9% equal;
-                equal picks and val bits of argmin2_l2 and packed_best are
-                counted.
+                at the M = 352 headline, and ``packed3_best`` (exact_hi2's
+                three-pass scan, 2L = 110 of 128 lanes) too; packed3 also
+                once at the RGB width (256 lanes) at M = 352, N = 2^20, and
+                past 256 lanes (the width rule's packed_best.cu) at a small
+                shape.  With ``--parent DIR`` also the four level-phase
+                kernels of the checkout in DIR on the same inputs (a child
+                process each): argmin_l2's (idx, val) must be the same
+                bits, argmin2_l2's (i1, i2) and packed3_best's picks >=
+                99.9% equal; equal picks and val bits of argmin2_l2,
+                packed3_best and packed_best are counted.
                 ``argmin_l2_bf16`` (the batched/rowwise approximate match)
                 at level 0 of batched npr_1024: M = 1024 queries against
                 1,048,576 bf16 rows.  The four superseded packed forms are
@@ -117,6 +121,10 @@ PACKED_LEVELS = (0, 1)  # the packed2k scan's levels (1024^2, 512^2)
 # level 0 of the new modes: the bf16 centered DB (F = 68 of Fp = 128) and
 # the packed3 arrays (2L = 110 of Kp = 128)
 SCAN_SHAPE = dict(m=352, npad=1048576, f=68, fp=128, lw=55)
+# packed3 at the RGB width (exact_hi2 on RGB and source_rgb sources: 2L =
+# 256 of Kp = 256) and past the Hopper kernel's 256 lanes (2L = 300 of 384)
+P3_RGB_SHAPE = dict(m=352, npad=1048576, lw=128)
+P3_WIDE_SHAPE = dict(m=64, npad=65536, lw=150)
 FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
 # level 0 of batched npr_1024: one 1024-pixel scan row against the bf16
 # rows-above DB (F = 68 of Fp = 128)
@@ -624,9 +632,221 @@ def argmin2_bound(m, npad, f):
                  2 * 2 * m * npad * f, PEAK_BF16_FLOP_S)
 
 
+def packed3_key(npad, m, lw=55):
+    """The --parent key of a packed3 shape: "npad/m", with "/lw" past the
+    luminance width."""
+    return f"{npad}/{m}" + (f"/{lw}" if lw != 55 else "")
+
+
+def packed3_cases(match, shapes, lw=55):
+    """Yield (level, npad, m, steps, L, qa, qb, w1, w2, dbnh, k_used,
+    n_real, lo) for each (level, npad, m, steps[, lane width L, default
+    ``lw``]), one DB per (N, L) at a time, built on the card as the
+    exact_hi2 level build makes it (``pack_w12``: W1 = [d1|d2], W2 =
+    [d3|d1], 2L = 110 of Kp = 128 lanes at L = 55, half norms): live-dim
+    rows uniform in [0, 0.2), the last npad / 1024 rows (at least 64)
+    padding with +inf half norms, row ``hi`` a copy of row ``lo`` in
+    another DB chunk (12,345 and 900,000 at N = 2^20, scaled with N); M
+    queries near seeded DB rows, centered by the DB's shift and split in
+    three bf16 parts (``_packed3_rows``), query 0 equal to row lo.  Torch
+    and the imported tree's match module only: the --parent child builds
+    the same operands for the other tree's kernel."""
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import (
+        pack_w12, packed_shift_and_halfnorm)
+
+    dev = torch.device("cuda", 0)
+    db = None
+    for level, npad, m, steps, *width in shapes:
+        lw_s = width[0] if width else lw
+        k_used = (2 * lw_s + 15) // 16 * 16
+        if db is None or db[0] != (npad, lw_s):
+            db = None
+            torch.cuda.empty_cache()
+            n_real = npad - max(64, npad >> 10)
+            lo, hi = 12345 * npad >> 20, 900000 * npad >> 20
+            gen = torch.Generator(device=dev).manual_seed(37)
+            x = torch.rand((n_real, lw_s), generator=gen, device=dev) * 0.2
+            x[hi] = x[lo]  # duplicate rows: ties go to the lowest index
+            live = torch.arange(lw_s, device=dev)
+            shift, half_norm = packed_shift_and_halfnorm(x, live)
+            w1, w2, dbnh = pack_w12(x, shift, half_norm, live, npad)
+            db = ((npad, lw_s), x, shift, w1, w2, dbnh, n_real, lo)
+        _, x, shift, w1, w2, dbnh, n_real, lo = db
+        gen = torch.Generator(device=dev).manual_seed(m)
+        qv = x[torch.randint(0, n_real, (m,), generator=gen, device=dev)] \
+            + torch.randn((m, lw_s), generator=gen, device=dev) * 0.02
+        qv[0] = x[lo]
+        q1, q2, q3 = (t.to(torch.bfloat16)
+                      for t in match.bf16_split3(qv - shift))
+        qa, qb = match._packed3_rows(q1, q2, q3, w1.shape[1])
+        yield (level, npad, m, steps, lw_s, qa, qb, w1, w2, dbnh, k_used,
+               n_real, lo)
+
+
+def run_packed3_shapes(match, shapes):
+    """``match.packed_best``'s packed3 form on the seeded operands of each
+    (level, npad, m, steps[, L]): {``packed3_key``: (idx, val, device
+    ms)}, timed from a cold L2."""
+    import torch
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for _, npad, m, _, lw, qa, qb, w1, w2, dbnh, k_used, *_ in \
+            packed3_cases(match, shapes):
+        kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+        idx, val = match.packed_best(qa, w1, k_used, **kw)
+        ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
+                          reps=20, flush=flush)
+        out[packed3_key(npad, m, lw)] = (idx.cpu().numpy(),
+                                         val.cpu().numpy(), ms)
+    return out
+
+
+def packed3_bound(m, npad, width, tiles=1):
+    """Bound of one packed3 call at the function's own width 2L (the
+    kernel rounds its lanes up to a multiple of 16): both weight arrays'
+    2L lanes, the half norms and the three query sets read once, (idx,
+    val) written once per query (and DB tile: ``tiles``, the per-tile
+    witness); three passes of 2 M N 2L bf16 operations."""
+    return bound(2 * 2 * npad * width + 4 * npad + 2 * 3 * m * width
+                 + 8 * m * tiles, 2 * 3 * m * npad * width,
+                 PEAK_BF16_FLOP_S)
+
+
+def packed3_library(qa, qb, w1, w2, dbnh, m):
+    """The yardstick of packed3: three bf16 ``mm``s into fp32, minus the
+    half norms, then ``max``."""
+    import torch
+
+    w1t, w2t = w1.T, w2.T
+
+    def call():
+        d = torch.mm(qa[:m], w1t, out_dtype=torch.float32)
+        d += torch.mm(qa[m:], w1t, out_dtype=torch.float32)
+        d += torch.mm(qb, w2t, out_dtype=torch.float32)
+        return (d - dbnh).max(dim=1)
+
+    return call
+
+
+def check_packed3(name, match, qa, qb, w1, w2, dbnh, k_used, n_real, lo):
+    """packed3 (the packed_best wrapper, one launch) against its plain
+    version on the card: scores within PACKED_ATOL, picks equal outside
+    SCORE_BAND, the duplicate and padding rules.  Returns (idx, val,
+    max |score - plain|, picks differing in the band)."""
+    import torch
+
+    m = qb.shape[0]
+    kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+    match.reset_launch_counts()
+    idx, val = match.packed_best(qa, w1, k_used, **kw)
+    torch.cuda.synchronize()
+    if match.LAUNCHES["packed3_best"] != 1:
+        fail(f"{name}: {match.LAUNCHES['packed3_best']} launches")
+    scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, True)
+    ref_idx, ref_val = match._first_max(scores)
+    second = torch.topk(scores, 2, dim=1).values[:, 1]
+    del scores
+    err, ndiff = check_picks(name, idx, val, ref_idx, ref_val, second,
+                             PACKED_ATOL)
+    if int(idx[0]) != lo or int(idx.max()) >= n_real or m != idx.shape[0]:
+        fail(f"{name}: duplicate/padding rule broken (idx[0]="
+             f"{int(idx[0])}, max {int(idx.max())})")
+    return idx, val, err, ndiff
+
+
+def phase_packed3_levels(parent):
+    """packed3_best (exact_hi2's scan: [q1|q1].W1 + [q2|q2].W1 +
+    [q1|q3].W2 - dbnh, 2L = 110 of 128 lanes) at every wavefront segment
+    shape of npr_1024's five levels (exact_hi2 runs it at all of them), each
+    on a DB of its level's N, and at the headline M = 352 of level 0: held
+    against its plain version (``check_packed3``), timed from a cold L2
+    beside the ``3 mm + max`` yardstick and the bound; device ms weighted by
+    each segment's steps, per level and in all.  Then the RGB width (2L =
+    256 of 256 lanes) once at M = 352, N = 2^20, and the width rule's
+    packed_best.cu past 256 lanes (2L = 300) at M = 64, N = 65,536, each
+    held against plain and timed.  With ``parent``: that tree's packed3 on
+    the same inputs at every one of these shapes (a child process), its ms
+    and the counts of equal picks and equal val bits; fewer than 99.9%
+    equal picks at a shape fails."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    lw = SCAN_SHAPE["lw"]
+    width = 2 * lw
+    levels = (0, 1, 2, 3, 4)
+    shapes = merge_repeats(level_shapes(levels)) + [
+        ("headline", SCAN_SHAPE["npad"], SCAN_SHAPE["m"], 0)]
+    wide = [(label, sh["npad"], sh["m"], 0, sh["lw"])
+            for label, sh in (("rgb", P3_RGB_SHAPE), ("wide", P3_WIDE_SHAPE))]
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("packed3", parent, shapes + wide)
+    flush = flusher(torch.device("cuda", 0))
+    segs = []
+    for (level, npad, m, steps, lw_s, qa, qb, w1, w2, dbnh, k_used, n_real,
+         lo) in packed3_cases(match, shapes + wide, lw):
+        route = match._packed3_route(k_used)
+        name = f"packed3_best {route} level {level} M={m} k_used={k_used}"
+        idx, val, err, ndiff = check_packed3(name, match, qa, qb, w1, w2,
+                                             dbnh, k_used, n_real, lo)
+        kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+        k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
+                            reps=20, flush=flush)
+        l_ms = cuda_time_ms(packed3_library(qa, qb, w1, w2, dbnh, m),
+                            reps=10, flush=flush)
+        b = packed3_bound(m, npad, 2 * lw_s)
+        seg = dict(m=m, steps=steps, ms=k_ms, library_ms=l_ms,
+                   bound_ms=b[0], max_abs_err=err,
+                   picks_differing_in_band=ndiff)
+        if theirs is not None:
+            key = packed3_key(npad, m, lw_s)
+            ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+            picks = int((ti == idx.cpu().numpy()).sum())
+            seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                       val_bits_equal_parent=int(
+                           (tv.view(np.int32) == val.cpu().numpy().view(
+                               np.int32)).sum()))
+            if picks < 0.999 * m:
+                say("kernels", kernel="packed3_best", level=level, **seg)
+                fail(f"{name}: {picks} of {m} picks equal to {parent}'s "
+                     "kernel, fewer than 99.9%")
+        if lw_s != lw:
+            say("kernels", kernel="packed3_best", route=route, npad=npad,
+                width=2 * lw_s, kp=w1.shape[1], k_used=k_used,
+                bound_by=b[1], **seg)
+        else:
+            segs.append((level, seg))
+        del qa, qb, w1, w2, dbnh, idx, val
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(("ms", "library_ms", "bound_ms", "parent_ms"), 0.0)
+    for level in levels:
+        lsegs = [sg for lv, sg in segs if lv == level]
+        tot = {k: sum(sg["steps"] * sg.get(k, 0.0) for sg in lsegs)
+               for k in total}
+        for k in total:
+            total[k] += tot[k]
+        say("kernels", kernel="packed3_best", level=level,
+            npad=1024 ** 2 >> (2 * level), width=width, segments=lsegs,
+            launches=sum(sg["steps"] for sg in lsegs),
+            **{f"weighted_{k}": v for k, v in tot.items()
+               if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="packed3_best", levels=list(levels),
+        launches=sum(sh[3] for sh in shapes),
+        **{f"weighted_{k}": v for k, v in total.items()
+           if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="packed3_best", npad=SCAN_SHAPE["npad"],
+        width=width, k_used=(width + 15) // 16 * 16, **segs[-1][1])
+
+
 def parent_bits(kind, parent, shapes):
     """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
-    "argmin2": argmin2_l2) of the checkout in ``parent`` on the same seeded
+    "argmin2": argmin2_l2, "packed3": packed_best's packed3 form) of the
+    checkout in ``parent`` on the same seeded
     operands, in a child process built from that tree's sources:
     ({"idx/<npad>/<m>": ..., "val/<npad>/<m>": ...}, {"<npad>/<m>": device
     ms})."""
@@ -659,7 +879,8 @@ def bits_child(kind, root, out, shapes):
     if not os.path.abspath(match.__file__).startswith(root + os.sep):
         fail(f"imported {match.__file__}, not the package under {root}")
     run = {"argmin": run_argmin_shapes, "packed": run_packed_shapes,
-           "argmin2": run_argmin2_shapes}[kind]
+           "argmin2": run_argmin2_shapes,
+           "packed3": run_packed3_shapes}[kind]
     got = run(match, [tuple(s) for s in shapes])
     arrays = {}
     for key, (idx, val, *_) in got.items():
@@ -673,6 +894,7 @@ def phase_kernels(parent=None):
     phase_argmin_kernel(rows)
     phase_argmin_levels(parent)
     phase_argmin2_levels(parent)
+    phase_packed3_levels(parent)
     phase_packed_kernel(rows, parent)
     phase_packed3_kernels(rows)
     phase_bf16_db_kernels(rows)
@@ -920,19 +1142,17 @@ def phase_packed3_kernels(rows):
 
     # the function's work at its own width 2L = 110 (the kernel rounds its
     # lanes up to 112): three passes of 2L products per (query, row)
-    width, passes_rows = 2 * lw, 3 * m
-    base_bytes = 2 * 2 * npad * width + 4 * npad + 2 * passes_rows * width
-    flops = 2 * passes_rows * npad * width
+    width = 2 * lw
+    b = packed3_bound(m, npad, width)
     k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
                         reps=20, flush=flush)
     p_ms = cuda_time_ms(lambda: match.packed_best_plain(qa, w1, k_used,
                                                         **kw),
                         reps=3, flush=flush)
-    l_ms = cuda_time_ms(lambda: library_dots().max(dim=1), reps=10,
+    l_ms = cuda_time_ms(packed3_library(qa, qb, w1, w2, dbnh, m), reps=10,
                         flush=flush)
-    b = bound(base_bytes + 8 * m, flops, PEAK_BF16_FLOP_S)
-    rows["packed3_best"] = kernel_row("packed3_best", "packed_best.cu", 523,
-                                      err, k_ms, p_ms, l_ms, b)
+    rows["packed3_best"] = kernel_row("packed3_best", "packed3_best.cu",
+                                      523, err, k_ms, p_ms, l_ms, b)
     say("kernels", kernel="packed3_best", m=m, npad=npad, width=width,
         k_used=k_used,
         max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
@@ -946,7 +1166,7 @@ def phase_packed3_kernels(rows):
         flush=flush)
     l_ms = cuda_time_ms(lambda: library_dots().view(m, ntiles, tile).max(
         dim=2), reps=10, flush=flush)
-    b = bound(base_bytes + 8 * m * ntiles, flops, PEAK_BF16_FLOP_S)
+    b = packed3_bound(m, npad, width, ntiles)
     rows["packed_champions"] = kernel_row(
         "packed_champions", "tile_champions.cu", 426, terr, k_ms, p_ms,
         l_ms, b)
@@ -1600,13 +1820,14 @@ def main() -> None:
                          "registers, shared memory and spills")
     ap.add_argument("--parent", metavar="DIR",
                     help="with the kernels phase: run the argmin_l2, "
-                         "argmin2_l2 and packed_best of the checkout in DIR "
-                         "(e.g. the parent commit, unpacked by git archive) "
-                         "on their level shapes too; argmin_l2's picks and "
-                         "scores must be the same bits, argmin2_l2's (i1, "
-                         "i2) picks must be >= 99.9%% equal, and the equal "
-                         "picks and val bits of argmin2_l2 and packed_best "
-                         "are counted")
+                         "argmin2_l2, packed3_best and packed_best of the "
+                         "checkout in DIR (e.g. the parent commit, unpacked "
+                         "by git archive) on their level shapes too; "
+                         "argmin_l2's picks and scores must be the same "
+                         "bits, argmin2_l2's (i1, i2) and packed3_best's "
+                         "picks must be >= 99.9%% equal, and the equal "
+                         "picks and val bits of argmin2_l2, packed3_best "
+                         "and packed_best are counted")
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)

@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed2k_best",
-                  "packed_best", "tile_champions", "argmin2")
+                  "packed3_best", "packed_best", "tile_champions", "argmin2")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -52,6 +52,13 @@ _SIGNATURES = {
         #  stream)
         "ia_packed2k_best": [_VOIDP] * 2 + [_INT] * 10 + [_VOIDP] * 4
                             + [_INT, _VOIDP],
+    },
+    "packed3_best": {
+        # (q, w1, w2, dbnh, m, n, k, k_used, consumers, bm, stages,
+        #  tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx,
+        #  out_val, device, stream)
+        "ia_packed3_best": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4
+                           + [_INT, _VOIDP],
     },
     "packed_best": {
         # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,

@@ -95,8 +95,8 @@ int ia_argmin2(const void* q, const void* db, const void* dbn, int m, int n,
   }
   const int nbox = (k_used + BOX - 1) / BOX;
   if (!plan_ok(n, tile_rows(true, k_used / 16), nbox, consumers, bm,
-               stages, tiles_per_chunk, smem, n_chunks, q_split != 0,
-               true)) {
+               stages, tiles_per_chunk, smem, n_chunks,
+               query_sets(q_split != 0, false), 1, true)) {
     return cudaErrorInvalidValue;
   }
   int e = ia_scan::use_device(device);
@@ -117,9 +117,10 @@ int ia_argmin2(const void* q, const void* db, const void* dbn, int m, int n,
   a.idx2 = part_i2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ksteps = k_used / 16;
-  e = q_split ? launch_scan_k<true, EpiTop2>(ksteps, q, db, k, a, n_chunks, s)
-              : launch_scan_k<false, EpiTop2>(ksteps, q, db, k, a, n_chunks,
-                                              s);
+  e = q_split ? launch_scan_k<true, false, EpiTop2>(ksteps, q, db, nullptr, k,
+                                                   a, n_chunks, s)
+              : launch_scan_k<false, false, EpiTop2>(ksteps, q, db, nullptr,
+                                                     k, a, n_chunks, s);
   if (e != cudaSuccess) return e;
   top2_merge_kernel<<<m, 32, 0, s>>>(part_v1, part_i1, part_v2, part_i2, m,
                                      n_chunks, i1, v1, i2, v2);

@@ -1,9 +1,10 @@
 // The first-design bf16 tensor-core scan template (sm_90a, mma.sync),
 // the core of the champion scans not yet on the Hopper core
-// (hopper_scan.cuh, which serves packed2k and argmin2): packed_best.cu
-// (packed3 and the four superseded packed forms), tile_champions.cu
-// (packed_champions, pertile_champions) and argmin_bf16.cu each
-// instantiate it and add their C entry.
+// (hopper_scan.cuh, which serves packed2k, packed3 up to 256 lanes and
+// argmin2): packed_best.cu (the four superseded packed forms, and packed3
+// past 256 lanes), tile_champions.cu (packed_champions,
+// pertile_champions) and argmin_bf16.cu each instantiate it and add their
+// C entry.
 //
 // Replaces the family of Pallas kernels in
 // image_analogies_tpu/ops/pallas_match.py that score bf16 query rows

@@ -1,11 +1,13 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
-// with a producer warp.  Two instances use it: packed2k_best.cu (one pass,
-// the norm in W's lanes, the global champion: EpiBest) and argmin2.cu (the
+// with a producer warp.  Three instances use it: packed2k_best.cu (one pass,
+// the norm in W's lanes, the global champion: EpiBest), argmin2.cu (the
 // hi/lo query blocks folded, the fp32 norms in the ring, the lexicographic
-// top-2: EpiTop2).  The other instances of bf16_scan.cuh (packed3 and the
-// superseded packed forms, tile_champions, argmin_bf16) are to move here;
-// pertile_champions needs only a per-tile epilogue on top of FOLD and the
-// norm ring.
+// top-2: EpiTop2) and packed3_best.cu (exact_hi2: two folded query sets
+// against W1 and a third against a second weight stream W2 (TWO), the
+// norms in the ring, the global champion of dots - norm: EpiBestSub).  The
+// other instances of bf16_scan.cuh (the superseded packed forms,
+// tile_champions, argmin_bf16) are to move here; pertile_champions needs
+// only a per-tile epilogue on top of FOLD and the norm ring.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -19,13 +21,14 @@
 //   into the stage too (a 1-D `cp.async.bulk` on the same full barrier);
 //   the ragged last tile reads its norms from global memory.
 // - Operations: 2 M N k_used bf16 products per query block (M = 344: 163
-//   us at 989 TFLOP/s for packed2k; twice the rows with FOLD).  Up to three
+//   us at 989 TFLOP/s for packed2k; twice the rows with FOLD, three times
+//   with FOLD and TWO).  Up to three
 //   consumer warpgroups each own 64 query rows and run
 //   `wgmma.mma_async m64nNk16` with both operands read from shared memory
 //   by the tensor cores (no ldmatrix, no per-thread shared loads): the
-//   query rows (with FOLD the hi and the lo block) are loaded once per
-//   block by TMA and stay resident.  A tile's products are one chain of
-//   dependent steps into one accumulator, and on the card a block's pace
+//   query rows (with FOLD the hi and the lo block, with TWO a third block)
+//   are loaded once per block by TMA and stay resident.  A tile's products
+//   are one chain of dependent steps into one accumulator, and on the card a block's pace
 //   followed the chain, not the tensor cores' rate (per 64-row tile of
 //   argmin2 about 1,800 cycles with two warpgroups or three): so argmin2
 //   takes 128-row tiles (m64n128k16, twice the work a step) where they
@@ -46,11 +49,11 @@
 //   skips them in the product.
 // - Registers: 12 consumer warps + 1 producer warp = 416 threads; ptxas
 //   gives each at most 128.  packed2k's instances take 58-96, argmin2's
-//   (64 accumulators at 128-row tiles) 96-128 with no spills, so the
+//   (64 accumulators at 128-row tiles) 96-128 with no spills, packed3's
+//   93-128 (its 240- and 256-lane instances spill 12-16 bytes), so the
 //   epilogues hold no score arrays and a second accumulator set (to
-//   overlap a tile's epilogue with the next chain) does not fit; the
-//   producer is one warp, not a warpgroup, so `setmaxnreg` has little to
-//   move.
+//   overlap a tile's epilogue with the next chain) does not fit; the producer is one warp, not a warpgroup, so
+//   `setmaxnreg` has little to move.
 //
 // The wgmma accumulator of m64nNk16 puts, in each warp's 16 rows, rows g
 // and g+8 and columns 2 tig, 2 tig + 1 of every 8-column block in one
@@ -105,23 +108,31 @@ struct HopperArgs {
   int* idx2;
 };
 
+// resident query sets of a warpgroup: one, a folded second, a third
+// against the second weight stream
+__host__ __device__ constexpr int query_sets(bool fold, bool two) {
+  return 1 + (fold ? 1 : 0) + (two ? 1 : 0);
+}
+
 // dynamic shared memory a launch needs: the alignment slack, the resident
-// query rows of its consumer warpgroups (two blocks each with FOLD), the
-// ring of `bn`-row tiles and, with norms, each stage's fp32 norms
-inline int smem_bytes(int nbox, int stages, int consumers, bool fold,
-                      bool norms, int bn) {
-  return SMEM_ALIGN + consumers * (fold ? 2 : 1) * nbox * QBOX_BYTES +
-         stages * (nbox * bn * BOX * 2 + (norms ? bn * 4 : 0));
+// query rows of its consumer warpgroups (`qsets` blocks each), the ring of
+// `bn`-row tiles of `streams` weight arrays and, with norms, each stage's
+// fp32 norms
+inline int smem_bytes(int nbox, int stages, int consumers, int qsets,
+                      int streams, bool norms, int bn) {
+  return SMEM_ALIGN + consumers * qsets * nbox * QBOX_BYTES +
+         stages * (streams * nbox * bn * BOX * 2 + (norms ? bn * 4 : 0));
 }
 
 // the checks every C entry makes of a launch plan
 inline bool plan_ok(int n, int bn, int nbox, int consumers, int bm,
                     int stages, int tiles_per_chunk, int smem, int n_chunks,
-                    bool fold, bool norms) {
+                    int qsets, int streams, bool norms) {
   const int n_tiles = (n + bn - 1) / bn;
   return consumers >= 1 && consumers <= CONSUMERS && bm >= 1 &&
          bm <= consumers * WG_ROWS && stages >= 1 && stages <= MAX_STAGES &&
-         smem >= smem_bytes(nbox, stages, consumers, fold, norms, bn) &&
+         smem >= smem_bytes(nbox, stages, consumers, qsets, streams, norms,
+                            bn) &&
          smem <= SMEM_DYN_MAX && tiles_per_chunk >= 1 &&
          (long long)(n_chunks - 1) * tiles_per_chunk < n_tiles &&
          (long long)n_chunks * tiles_per_chunk >= n_tiles;
@@ -509,6 +520,71 @@ struct EpiTop2 {
   }
 };
 
+// The global champion of score = dots - norm (packed3: the norms of the
+// stage, or of global memory for the ragged last tile): the maximum, lowest
+// index on ties, in fp32 with the single subtract of the first design
+// (bf16_scan.cuh NORM_SUB).  A row's scores of a tile cost one subtract and
+// one max each; only a tile maximum that beats the running best looks up
+// its lowest column (recomputing the scores, the same fp32 values), which
+// after the first few tiles is rare.  A padding row (+inf norm) scores
+// -inf, which a strict `>` never takes, so a thread, and a chunk, that saw
+// only padding keeps (-inf, INT_MAX) and loses every lexicographic merge to
+// a real row.  The state, the quad reduce and the write are EpiBest's; the
+// tiles are EpiBest's 64 rows too (128-row ones leave room for three query
+// sets only on two warpgroups: three query tiles at M = 352).
+struct EpiBestSub : EpiBest {
+  static constexpr bool kNorms = true;
+
+  // the lowest column of this thread's row (r = 0: row g; r = 2: row
+  // g + 8) whose score is s
+  template <bool MASK, int N>
+  __device__ __forceinline__ static int first_col(const float (&d)[N / 2],
+                                                  int r, float s, uint32_t ns,
+                                                  const float* norm,
+                                                  int gbase, int lim) {
+    int col = 0;
+#pragma unroll
+    for (int j = N / 8 - 1; j >= 0; --j) {
+      const float2 n = EpiTop2::norms<MASK>(j, ns, norm, gbase, lim);
+#pragma unroll
+      for (int e = 1; e >= 0; --e) {
+        const int c = 8 * j + e;
+        if ((!MASK || c < lim) && d[4 * j + r + e] - (e ? n.y : n.x) == s)
+          col = c;
+      }
+    }
+    return col;
+  }
+
+  template <bool MASK, bool FIRST, int N>
+  __device__ __forceinline__ void tile(const float (&d)[N / 2], uint32_t ns,
+                                       const float* norm, int gbase,
+                                       int lim) {
+    float tv0 = -INFINITY, tv1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float2 n = EpiTop2::norms<MASK>(j, ns, norm, gbase, lim);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + e;
+        const float nc = e ? n.y : n.x;
+        if (!MASK || c < lim) {
+          tv0 = fmaxf(tv0, d[4 * j + e] - nc);
+          tv1 = fmaxf(tv1, d[4 * j + 2 + e] - nc);
+        }
+      }
+    }
+    if (tv0 > bv0) {
+      bi0 = gbase + first_col<MASK, N>(d, 0, tv0, ns, norm, gbase, lim);
+      bv0 = tv0;
+    }
+    if (tv1 > bv1) {
+      bi1 = gbase + first_col<MASK, N>(d, 2, tv1, ns, norm, gbase, lim);
+      bv1 = tv1;
+    }
+  }
+};
+
 // a position in the ring: stage and the parity of its current phase
 struct Ring {
   int stage;
@@ -526,15 +602,19 @@ struct Ring {
 // idle), the last warp produces.  KSTEPS = k_used / 16 is a template
 // parameter so that a tile's wgmma chain is one branch-free block: with a
 // runtime count the compiler fences the accumulators between every two
-// wgmma.  With FOLD the query tensor is (2m, k), hi rows then lo rows:
-// each DB tile runs the hi chain, then the lo chain, into one accumulator
-// (k16 steps in the order of bf16_scan.cuh: pass, then k step).  A tile
-// has tile_rows(Epi::kWide, KSTEPS) DB rows.
-template <int KSTEPS, bool FOLD, class Epi>
+// wgmma.  The query tensor holds query_sets(FOLD, TWO) blocks of m rows:
+// with FOLD (2m, k), hi rows then lo rows, each DB tile running the hi
+// chain, then the lo chain, into one accumulator; with TWO a last block
+// against the second weight stream (wmap2), whose tile rides the stage
+// after the first's boxes.  k16 steps run in the order of bf16_scan.cuh:
+// pass, then k step.  A tile has tile_rows(Epi::kWide, KSTEPS) DB rows.
+template <int KSTEPS, bool FOLD, bool TWO, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     scan_kernel(const __grid_constant__ CUtensorMap qmap,
-                const __grid_constant__ CUtensorMap wmap, HopperArgs a) {
-  constexpr int QSETS = FOLD ? 2 : 1;  // resident query blocks a warpgroup
+                const __grid_constant__ CUtensorMap wmap,
+                const __grid_constant__ CUtensorMap wmap2, HopperArgs a) {
+  // resident query blocks a warpgroup
+  constexpr int QSETS = query_sets(FOLD, TWO);
   constexpr int BN = tile_rows(Epi::kWide, KSTEPS);
   constexpr int WBOX_BYTES = BN * BOX * 2;  // a DB box of BN rows
   __shared__ __align__(8) uint64_t bars[2 * MAX_STAGES + 1];
@@ -542,7 +622,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t base =
       (smem_u32(smem_raw) + SMEM_ALIGN - 1) & ~uint32_t(SMEM_ALIGN - 1);
   const int qset_bytes = a.nbox * QBOX_BYTES;
-  const int stage_bytes = a.nbox * WBOX_BYTES;
+  const int wtile_bytes = a.nbox * WBOX_BYTES;  // one stream's tile
+  const int stage_bytes = (TWO ? 2 : 1) * wtile_bytes;
   const uint32_t q_base = base;
   const uint32_t w_base = base + a.consumers * QSETS * qset_bytes;
   const uint32_t n_base = w_base + a.stages * stage_bytes;  // kNorms only
@@ -575,12 +656,16 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                        reinterpret_cast<uint64_t>(&wmap))
                    : "memory");
+      if constexpr (TWO)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(&wmap2))
+                     : "memory");
       mbar_expect_tx(qfull, live * QSETS * qset_bytes);
       for (int wg = 0; wg < live; ++wg)
         for (int p = 0; p < QSETS; ++p)
           for (int b = 0; b < a.nbox; ++b)
-            // the lo block starts at row m; a hi box past m reads lo rows
-            // into query rows this block does not own
+            // block p starts at row p m; a box past it reads the next
+            // block's rows into query rows this block does not own
             tma_load_2d(q_base + ((wg * QSETS + p) * a.nbox + b) * QBOX_BYTES,
                         &qmap, qfull, b * BOX, p * a.m + q0 + wg * WG_ROWS);
       Ring r{0, 0};
@@ -595,6 +680,12 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int b = 0; b < a.nbox; ++b)
           tma_load_2d(w_base + r.stage * stage_bytes + b * WBOX_BYTES, &wmap,
                       full, b * BOX, t * BN);
+        if constexpr (TWO) {
+          for (int b = 0; b < a.nbox; ++b)
+            tma_load_2d(w_base + r.stage * stage_bytes + wtile_bytes +
+                            b * WBOX_BYTES,
+                        &wmap2, full, b * BOX, t * BN);
+        }
         if (norms)
           bulk_load(n_base + r.stage * BN * 4, a.norm + (size_t)t * BN,
                     BN * 4, full);
@@ -621,13 +712,15 @@ __global__ void __launch_bounds__(THREADS, 1)
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int p = 0; p < QSETS; ++p) {
+        // the last pass of a TWO scan reads the second stream's tile
+        const uint32_t wp = (TWO && p == QSETS - 1) ? wb + wtile_bytes : wb;
 #pragma unroll
         for (int ks = 0; ks < KSTEPS; ++ks) {
           // k step ks: box ks / 2, its 16-lane half ks % 2 (32 bytes in)
           wgmma_k16<BN>(acc,
                         desc_sw64(qa_base + p * qset_bytes +
                                   (ks >> 1) * QBOX_BYTES + (ks & 1) * 32),
-                        desc_sw64(wb + (ks >> 1) * WBOX_BYTES + (ks & 1) * 32),
+                        desc_sw64(wp + (ks >> 1) * WBOX_BYTES + (ks & 1) * 32),
                         p > 0 || ks > 0);
         }
       }
@@ -709,37 +802,45 @@ inline int bf16_rows_map(CUtensorMap* map, const void* ptr, int rows, int k,
 }
 
 // One scan over grid (ceil(m / a.bm), n_chunks), writing the partials;
-// q is (m, k), or (2m, k) with FOLD.  Returns the first CUDA error.  The
-// shared memory limit is raised on every launch: the attribute belongs to
-// the current device.
-template <int KSTEPS, bool FOLD, class Epi>
-int launch_scan(const void* q, const void* w, int k, const HopperArgs& a,
-                int n_chunks, cudaStream_t s) {
-  CUtensorMap qmap, wmap;
-  int e = bf16_rows_map(&qmap, q, FOLD ? 2 * a.m : a.m, k, WG_ROWS);
+// q is (query_sets(FOLD, TWO) m, k), w2 the second stream (TWO only).
+// Returns the first CUDA error.  The shared memory limit is raised on
+// every launch: the attribute belongs to the current device.
+template <int KSTEPS, bool FOLD, bool TWO, class Epi>
+int launch_scan(const void* q, const void* w, const void* w2, int k,
+                const HopperArgs& a, int n_chunks, cudaStream_t s) {
+  constexpr int BN = tile_rows(Epi::kWide, KSTEPS);
+  CUtensorMap qmap, wmap, wmap2;
+  int e = bf16_rows_map(&qmap, q, query_sets(FOLD, TWO) * a.m, k, WG_ROWS);
   if (e != cudaSuccess) return e;
-  e = bf16_rows_map(&wmap, w, a.n, k, tile_rows(Epi::kWide, KSTEPS));
+  e = bf16_rows_map(&wmap, w, a.n, k, BN);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(scan_kernel<KSTEPS, FOLD, Epi>,
+  wmap2 = wmap;
+  if constexpr (TWO) {
+    e = bf16_rows_map(&wmap2, w2, a.n, k, BN);
+    if (e != cudaSuccess) return e;
+  }
+  e = cudaFuncSetAttribute(scan_kernel<KSTEPS, FOLD, TWO, Epi>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            a.smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.m + a.bm - 1) / a.bm, n_chunks);
-  scan_kernel<KSTEPS, FOLD, Epi><<<grid, THREADS, a.smem, s>>>(qmap, wmap, a);
+  scan_kernel<KSTEPS, FOLD, TWO, Epi>
+      <<<grid, THREADS, a.smem, s>>>(qmap, wmap, wmap2, a);
   return cudaGetLastError();
 }
 
-// launch_scan of the instance with ksteps = k_used / 16 k steps (1..32)
-template <bool FOLD, class Epi, int KSTEPS = 1>
-int launch_scan_k(int ksteps, const void* q, const void* w, int k,
-                  const HopperArgs& a, int n_chunks, cudaStream_t s) {
-  if constexpr (KSTEPS > MAX_KSTEPS) {
+// launch_scan of the instance with ksteps = k_used / 16 k steps (1..KMAX)
+template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS,
+          int KSTEPS = 1>
+int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
+                  int k, const HopperArgs& a, int n_chunks, cudaStream_t s) {
+  if constexpr (KSTEPS > KMAX) {
     return cudaErrorInvalidValue;
   } else {
     if (ksteps == KSTEPS)
-      return launch_scan<KSTEPS, FOLD, Epi>(q, w, k, a, n_chunks, s);
-    return launch_scan_k<FOLD, Epi, KSTEPS + 1>(ksteps, q, w, k, a,
-                                                n_chunks, s);
+      return launch_scan<KSTEPS, FOLD, TWO, Epi>(q, w, w2, k, a, n_chunks, s);
+    return launch_scan_k<FOLD, TWO, Epi, KMAX, KSTEPS + 1>(
+        ksteps, q, w, w2, k, a, n_chunks, s);
   }
 }
 

@@ -44,7 +44,7 @@ int ia_packed2k_best(const void* qa, const void* wk, int m, int n, int k,
   const int nbox = (k_used + BOX - 1) / BOX;
   if (consumers < 2 || !plan_ok(n, tile_rows(false, k_used / 16), nbox,
                                 consumers, bm, stages, tiles_per_chunk, smem,
-                                n_chunks, false, false)) {
+                                n_chunks, 1, 1, false)) {
     return cudaErrorInvalidValue;
   }
   int e = ia_scan::use_device(device);
@@ -61,7 +61,8 @@ int ia_packed2k_best(const void* qa, const void* wk, int m, int n, int k,
   a.val = part_val;
   a.idx = part_idx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_scan_k<false, EpiBest>(k_used / 16, qa, wk, k, a, n_chunks, s);
+  e = launch_scan_k<false, false, EpiBest>(k_used / 16, qa, wk, nullptr, k, a,
+                                           n_chunks, s);
   if (e != cudaSuccess) return e;
   ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
                                               n_chunks, out_idx, out_val);

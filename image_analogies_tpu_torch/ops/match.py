@@ -11,9 +11,10 @@
   maximum of one to three bf16 passes with fp32 accumulation against the
   lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
   ``packed_best`` itself is the main path's ``packed2k`` form,
-  ``csrc/packed2k_best.cu``, and ``packed3_best``, ``packed2_best``,
-  ``packed1w_best``, ``packed2wn_best`` and ``packed1wn_best`` are built on
-  it, ``csrc/packed_best.cu``).
+  ``csrc/packed2k_best.cu``; ``packed3_best`` (exact_hi2) is
+  ``csrc/packed3_best.cu`` up to 256 lanes and ``csrc/packed_best.cu`` past
+  them (``_packed3_route``); ``packed2_best``, ``packed1w_best``,
+  ``packed2wn_best`` and ``packed1wn_best`` are ``csrc/packed_best.cu``).
 - ``packed_champions``: the same packed passes, one champion per DB tile
   (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
 - ``pertile_champions``: per DB tile, the champion of ``q.db - dbnh`` over
@@ -22,7 +23,7 @@
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The packed2k and argmin2 scans run on the Hopper core
+The packed2k, packed3 and argmin2 scans run on the Hopper core
 ``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); the other bf16
 kernels are instances of the template ``csrc/bf16_scan.cuh``.  Every
 kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
@@ -300,16 +301,20 @@ _PACKED_FORMS = {
 }
 
 
-# launch geometry of the Hopper core csrc/hopper_scan.cuh (packed2k_best.cu
-# and argmin2.cu), whose entries take the plan and only refuse one outside
-# these limits: one to three consumer warpgroups of 64 query rows a block,
-# DB tiles of 64 rows (argmin2 up to k_used = 256: 128, the kernel's
-# ``tile_rows``), rows cut into 32-lane boxes (64 bytes a row), a ring of
-# at most 8 stages (with the norms in the ring, 4 bytes a tile row), and
-# the dynamic shared memory a block may take (one block per SM)
+# launch geometry of the Hopper core csrc/hopper_scan.cuh (packed2k_best.cu,
+# argmin2.cu and packed3_best.cu), whose entries take the plan and only
+# refuse one outside these limits: one to three consumer warpgroups of 64
+# query rows a block, each holding its query sets (one; two folded; three
+# with a second weight stream), DB tiles of 64 rows (argmin2 up to k_used
+# = 256: 128, the kernel's ``tile_rows``), rows cut into 32-lane boxes (64
+# bytes a row), a ring of at most 8 stages, each one DB tile of every
+# weight stream (with the norms in the ring, 4 bytes a tile row), and the
+# dynamic shared memory a block may take (one block per SM)
 _P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a packed2k tile
 _P2K_CONSUMERS = (3, 2)  # the most first
 _A2_CONSUMERS = (3, 2, 1)  # argmin2: one where folded queries are wide
+_P3_CONSUMERS = (3, 2, 1)  # packed3: one at 256 lanes
+_P3_MAX_LANES = 256  # packed3_best.cu's widest k_used (``_packed3_route``)
 _P2K_BOX = 32
 _P2K_MAX_STAGES = 8
 _P2K_SMEM = 232448 - 1024
@@ -325,28 +330,29 @@ class Packed2kPlan(NamedTuple):
     smem: int  # dynamic shared memory of a block
 
 
-def _hopper_smem(k_used: int, stages: int, consumers: int,
-                 fold: bool = False, norms: bool = False,
-                 rows: int = _P2K_ROWS) -> int:
+def _hopper_smem(k_used: int, stages: int, consumers: int, qsets: int = 1,
+                 norms: bool = False, rows: int = _P2K_ROWS,
+                 streams: int = 1) -> int:
     """Dynamic shared memory of a block of the Hopper core (the kernel's
     ``smem_bytes``): 1 KiB of alignment slack, the consumer warpgroups'
-    resident query rows (two blocks each with ``fold``) and the ring of
-    ``rows``-row DB tiles, ceil(k_used / 32) 64-byte boxes a row, and with
-    ``norms`` 4 bytes a tile row."""
+    resident query rows (``qsets`` blocks each) and the ring of
+    ``rows``-row DB tiles of ``streams`` weight arrays, ceil(k_used / 32)
+    64-byte boxes a row, and with ``norms`` 4 bytes a tile row."""
     nbox = -(-k_used // _P2K_BOX)
     box_row = _P2K_BOX * 2
-    return (1024 + consumers * (2 if fold else 1) * nbox * _P2K_ROWS
-            * box_row + stages * (nbox * rows * box_row
-                                  + (4 * rows if norms else 0)))
+    return (1024 + consumers * qsets * nbox * _P2K_ROWS * box_row
+            + stages * (streams * nbox * rows * box_row
+                        + (4 * rows if norms else 0)))
 
 
-def _hopper_stages(k_used: int, consumers: int, fold: bool = False,
-                   norms: bool = False, rows: int = _P2K_ROWS) -> int:
+def _hopper_stages(k_used: int, consumers: int, qsets: int = 1,
+                   norms: bool = False, rows: int = _P2K_ROWS,
+                   streams: int = 1) -> int:
     """The deepest ring (at most 8 stages) that fits beside the resident
     queries of ``consumers`` warpgroups; 0 if none does."""
     stages = _P2K_MAX_STAGES
-    while stages and _hopper_smem(k_used, stages, consumers, fold, norms,
-                                  rows) > _P2K_SMEM:
+    while stages and _hopper_smem(k_used, stages, consumers, qsets, norms,
+                                  rows, streams) > _P2K_SMEM:
         stages -= 1
     return stages
 
@@ -359,8 +365,8 @@ def _argmin2_rows(k_used: int) -> int:
 
 
 def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
-                 consumer_choices, fold: bool, norms: bool,
-                 rows: int = _P2K_ROWS) -> Packed2kPlan:
+                 consumer_choices, qsets: int, norms: bool,
+                 rows: int = _P2K_ROWS, streams: int = 1) -> Packed2kPlan:
     """Launch plan of a Hopper-core scan for M queries against N DB rows on
     a card of ``sm_count`` SMs.  The most consumer warpgroups a block (of
     ``consumer_choices``) for which the ring beside their resident queries
@@ -377,9 +383,9 @@ def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
     last = consumer_choices[-1]
     consumers, stages = next(
         ((c, st) for c in consumer_choices
-         for st in [_hopper_stages(k_used, c, fold, norms, rows)]
+         for st in [_hopper_stages(k_used, c, qsets, norms, rows, streams)]
          if st >= 2),
-        (last, _hopper_stages(k_used, last, fold, norms, rows)))
+        (last, _hopper_stages(k_used, last, qsets, norms, rows, streams)))
     if not stages:
         raise ValueError(f"{name}: k_used={k_used} is too wide for the "
                          "kernel's shared memory")
@@ -389,7 +395,7 @@ def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
     per = -(-tiles // max(1, sm_count // q_tiles))
     return Packed2kPlan(consumers, bm, stages, per, -(-tiles // per),
                         q_tiles, _hopper_smem(k_used, stages, consumers,
-                                              fold, norms, rows))
+                                              qsets, norms, rows, streams))
 
 
 def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
@@ -403,7 +409,7 @@ def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
     warpgroups a block where a ring of two stages fits beside their
     resident queries, else two."""
     return _hopper_plan("packed2k", m, n, sm_count, k_used, _P2K_CONSUMERS,
-                        fold=False, norms=False)
+                        qsets=1, norms=False)
 
 
 def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
@@ -415,7 +421,32 @@ def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
     two, else one with the ring that fits: at k_used = 512 folded, one
     stage."""
     return _hopper_plan("argmin2", m, n, sm_count, k_used, _A2_CONSUMERS,
-                        fold=fold, norms=True, rows=_argmin2_rows(k_used))
+                        qsets=2 if fold else 1, norms=True,
+                        rows=_argmin2_rows(k_used))
+
+
+def _packed3_route(k_used: int) -> str:
+    """The library that runs the packed3 form at ``k_used`` lanes, by
+    width alone: ``packed3_best`` (csrc/packed3_best.cu on the Hopper core)
+    up to 256 lanes; past them a warpgroup's three resident query sets
+    (147,456 bytes at 384 lanes) leave no room for one ring stage of both
+    weight streams, so ``packed_best`` (csrc/packed_best.cu, which re-reads
+    the query fragments from L2 per DB tile)."""
+    return "packed3_best" if k_used <= _P3_MAX_LANES else "packed_best"
+
+
+def _packed3_plan(m: int, n: int, sm_count: int, k_used: int
+                  ) -> Packed2kPlan:
+    """Launch plan of the packed3 scan (``_hopper_plan``): three query
+    sets a warpgroup ([q1|q1], [q2|q2], [q1|q3]), a ring stage of one W1
+    and one W2 tile of 64 rows and their norms; three consumer warpgroups
+    where a ring of two stages fits beside their queries, else two, else
+    one (at 256 lanes)."""
+    if k_used > _P3_MAX_LANES:
+        raise ValueError(f"packed3: k_used={k_used} is past the Hopper "
+                         f"kernel's {_P3_MAX_LANES} lanes")
+    return _hopper_plan("packed3", m, n, sm_count, k_used, _P3_CONSUMERS,
+                        qsets=3, norms=True, streams=2)
 
 
 def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
@@ -502,10 +533,17 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     ``packed2k`` form: ``qa`` (M, K) rows ``[q1|q1|1 1 1|q2|q1|0]`` against
     ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py);
     on the card it runs ``csrc/packed2k_best.cu`` (``wgmma`` on a TMA ring,
-    launch plan ``_packed2k_plan``).  The other five combinations the JAX
-    package names are the ``*_best`` wrappers below.  K in {128, 256, 384,
-    512}; lanes at and past ``k_used`` (a multiple of 16; 0 means K) must
-    be zero in the query rows, the kernel skips them.  Returns (idx (M,)
+    launch plan ``_packed2k_plan``).  Folded, with both streams and dbnh it
+    is exact_hi2's ``packed3`` form (``packed3_best``), which the width
+    rule ``_packed3_route`` sends to ``csrc/packed3_best.cu`` (the same
+    core with a second weight stream, plan ``_packed3_plan``) up to
+    ``k_used`` = 256 and to ``csrc/packed_best.cu`` past it; its kernel
+    reads ``qa`` and ``qb`` as one (3M, K) tensor, without a copy where
+    ``qb`` lies right after ``qa`` (``_packed3_rows`` builds them so).  The
+    other four combinations the JAX package names are the ``*_best``
+    wrappers below (``csrc/packed_best.cu``).  K in {128, 256, 384, 512};
+    lanes at and past ``k_used`` (a multiple of 16; 0 means K) must be
+    zero in the query rows, the kernel skips them.  Returns (idx (M,)
     int32, val (M,) fp32).
     """
     k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
@@ -524,8 +562,13 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     n = w1.shape[0]
     dev = _device_index(qa)
     stream = torch.cuda.current_stream(qa.device).cuda_stream
+    hopper3 = (form == "packed3_best"
+               and _packed3_route(k_used) == "packed3_best")
     if form == "packed_best":
         plan = _packed2k_plan(m, n, _sm_count(dev), k_used)
+        n_chunks = plan.n_chunks
+    elif hopper3:
+        plan = _packed3_plan(m, n, _sm_count(dev), k_used)
         n_chunks = plan.n_chunks
     else:
         n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
@@ -542,6 +585,16 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
             qa.data_ptr(), w1.data_ptr(), m, n, k, k_used, plan.consumers,
             plan.bm, plan.stages, plan.tiles_per_chunk, plan.smem, n_chunks,
             *outs)
+    elif hopper3:
+        lib = _build.load("packed3_best")
+        # the kernel's one (3M, K) query operand: qb right after qa
+        adjacent = (qb.data_ptr()
+                    == qa.data_ptr() + qa.numel() * qa.element_size())
+        q = qa if adjacent else torch.cat([qa, qb])
+        err = lib.ia_packed3_best(
+            q.data_ptr(), w1.data_ptr(), w2.data_ptr(), dbnh.data_ptr(), m,
+            n, k, k_used, plan.consumers, plan.bm, plan.stages,
+            plan.tiles_per_chunk, plan.smem, n_chunks, *outs)
     else:
         lib = _build.load("packed_best")
         ptr = lambda t: None if t is None else t.data_ptr()
@@ -620,8 +673,15 @@ def packed1wn_best(q1, q2, w1n):
 
 
 def _packed3_rows(q1, q2, q3, kp):
-    qa = torch.cat([_pack_rows(q1, q1, kp), _pack_rows(q2, q2, kp)])
-    return qa, _pack_rows(q1, q3, kp)
+    """(qa, qb) of the packed3 scan: views of one (3M, kp) bf16 tensor
+    with rows [q1|q1], [q2|q2] (qa, folded) and [q1|q3] (qb), built once so
+    that the card kernel reads them as its one query operand."""
+    m, l = q1.shape
+    q = torch.zeros((3, m, kp), dtype=torch.bfloat16, device=q1.device)
+    q[:, :, :l] = torch.stack([q1, q2, q1])
+    q[:, :, l:2 * l] = torch.stack([q1, q2, q3])
+    q = q.view(3 * m, kp)
+    return q[:2 * m], q[2 * m:]
 
 
 def packed3_best(q1, q2, q3, w1, w2, dbnh):

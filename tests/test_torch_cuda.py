@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
-from image_analogies_tpu_torch.backends.cuda import CudaMatcher, pack_wk
+from image_analogies_tpu_torch.backends.cuda import (
+    CudaMatcher, pack_w12, pack_wk, packed_shift_and_halfnorm)
 from image_analogies_tpu_torch.ops import match
 from image_analogies_tpu_torch.utils.assets import make_structured
 from image_analogies_tpu_torch.utils.ssim import ssim
@@ -443,9 +444,141 @@ def test_cuda_argmin2_hopper_matches_plain(q_split, m, n, npad, f, fp):
         assert bool((i2 == n).all())
 
 
+def packed3_case(m, n, npad, l=55, seed=7):
+    """Seeded packed3 operands as the exact_hi2 level build makes them
+    (``pack_w12``: W1 = [d1|d2], W2 = [d3|d1] of 2L rounded up to 128
+    lanes, half norms with +inf on rows [n, npad)), on the CPU: live-dim
+    rows with exact duplicate pairs 2 and 10 (one thread's columns of a
+    tile), 3 and 5 (two threads') and 1 and n - 1 (different DB chunks once
+    n spans chunks); queries centered by the DB's shift and split in three
+    bf16 parts, queries 0, 1 and 2 equal to rows 2, 3 and 1.  Returns (q1,
+    q2, q3, w1, w2, dbnh)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, l), generator=g) * 0.1
+    q = torch.randn((m, l), generator=g) * 0.1
+    for lo, hi in ((2, 10), (3, 5), (1, n - 1)):
+        x[hi] = x[lo]
+    for row, src in enumerate((2, 3, 1)[:m]):
+        q[row] = x[src]
+    live = torch.arange(l)
+    shift, half_norm = packed_shift_and_halfnorm(x, live)
+    w1, w2, dbnh = pack_w12(x, shift, half_norm, live, npad)
+    return (*(_bf16(v) for v in match.bf16_split3(q - shift)), w1, w2, dbnh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,npad,l", [
+    (m, n, npad, l)
+    # 2L = 110 of 128 lanes (luminance) and 256 of 256 (RGB sources)
+    for l in (55, 128)
+    # one query, every warpgroup edge, level 1's and level 0's widest
+    for m in (1, 63, 64, 65, 176, 352)
+    # N ragged (the box past N reads zeros, the last tile's norms come from
+    # global memory), an all-padding last tile, and many chunks with an
+    # all-padding last chunk
+    for n, npad in ((1000, 1000), (1000, 1100), (69000, 72000))])
+def test_cuda_packed3_hopper_matches_plain(m, n, npad, l):
+    """packed3_best on the Hopper core (packed3_best.cu) against its plain
+    version on the card: one launch a call, scores within 1e-5, picks
+    equal outside the 2e-5 band, duplicate rows in one thread, across
+    threads and across DB chunks go to the lower index, padding rows never
+    win, and ten repeated calls give the same bits."""
+    dev = _card()
+    q1, q2, q3, w1, w2, dbnh = (t.to(dev) for t in packed3_case(m, n, npad,
+                                                                l))
+    k_used = (2 * l + 15) // 16 * 16
+    assert match._packed3_route(k_used) == "packed3_best"
+    plan = match._packed3_plan(
+        m, npad, match._sm_count(match._device_index(w1)), k_used)
+    if n > 10000:  # rows 1 and n - 1 in different blocks, a padding chunk
+        chunk = plan.tiles_per_chunk * 64
+        assert 1 // chunk != (n - 1) // chunk
+        assert (plan.n_chunks - 1) * chunk >= n
+    match.reset_launch_counts()
+    idx, val = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
+    assert match.LAUNCHES["packed3_best"] == 1
+    qa, qb = match._packed3_rows(q1, q2, q3, w1.shape[1])
+    ref_i, ref_v = match.packed_best_plain(qa, w1, k_used, qb=qb, w2=w2,
+                                           dbnh=dbnh, fold_a=True)
+    _assert_band("packed3_best", idx.cpu(), val.cpu(), ref_i.cpu(),
+                 ref_v.cpu())
+    assert [int(i) for i in idx[:3]] == [2, 3, 1][:m]
+    assert int(idx.max()) < n
+    for _ in range(10):
+        again_i, again_v = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
+        assert torch.equal(again_i, idx)
+        assert torch.equal(again_v.view(torch.int32), val.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,l", [(70, 150), (3, 200)])
+def test_cuda_packed3_wide_route_matches_plain(m, l):
+    """Past 256 lanes (2L = 300 and 400 of 384 and 512) the width rule
+    sends packed3 to packed_best.cu: one launch a call, picks equal to the
+    plain version's outside the band.  Scores within 4e-5: at these widths
+    the tensor cores' fp32 accumulation over 3 x 19-25 k steps differs from
+    the plain fp32 product by up to 2.8e-5 (scores ~1;
+    ``test_cuda_packed3_scores_against_float64`` shows which of the two
+    strays from the exact sum).  Separate qa and qb operands (not one
+    tensor) are taken too."""
+    dev = _card()
+    q1, q2, q3, w1, w2, dbnh = (t.to(dev) for t in packed3_case(
+        m, 1000, 1088, l))
+    k_used = (2 * l + 15) // 16 * 16
+    assert match._packed3_route(k_used) == "packed_best"
+    match.reset_launch_counts()
+    idx, val = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
+    assert match.LAUNCHES["packed3_best"] == 1
+    qa, qb = (t.clone() for t in match._packed3_rows(q1, q2, q3,
+                                                      w1.shape[1]))
+    ref_i, ref_v = match.packed_best_plain(qa, w1, k_used, qb=qb, w2=w2,
+                                           dbnh=dbnh, fold_a=True)
+    _assert_band("packed3_best", idx.cpu(), val.cpu(), ref_i.cpu(),
+                 ref_v.cpu(), atol=4e-5, band=4e-5)
+    assert [int(i) for i in idx[:3]] == [2, 3, 1][:m]
+    assert int(idx.max()) < 1000
+    # the Hopper kernel with qa and qb apart: the wrapper joins them
+    if m > 1:
+        k2 = 112
+        c = [t.to(dev) for t in packed3_case(m, 1000, 1088, 55)]
+        qa, qb = (t.clone() for t in match._packed3_rows(*c[:3], 128))
+        got = match.packed_best(qa, c[3], k2, qb=qb, w2=c[4], dbnh=c[5],
+                                fold_a=True)
+        want = match.packed3_best(*c)
+        assert torch.equal(got[0], want[0]) and torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,atol", [(55, 1e-5), (128, 1e-5), (150, 4e-5),
+                                    (200, 4e-5)])
+def test_cuda_packed3_scores_against_float64(l, atol):
+    """The packed3 scores of both routes (the Hopper core up to 256 lanes,
+    packed_best.cu past them) against a float64 sum of the same six bf16
+    products: the tensor cores' fp32 accumulation over 3 x 7-25 k steps
+    strays by up to ``atol`` (scores ~1), further than the plain fp32
+    product, which stays within 1e-6 -- so the plain version is the
+    reference the kernels are held to within these tolerances."""
+    dev = _card()
+    c = packed3_case(70, 1000, 1088, l)
+    k_used = (2 * l + 15) // 16 * 16
+    idx, val = match.packed3_best(*(t.to(dev) for t in c))
+    qa, qb = match._packed3_rows(*c[:3], c[3].shape[1])
+    w1, w2, dbnh = c[3:]
+    f64 = lambda a, b: a[:, :k_used].double() @ b[:, :k_used].double().T
+    exact = (f64(qa[:70], w1) + f64(qa[70:], w1) + f64(qb, w2)
+             - dbnh.double())
+    ref_i, ref_v = match.packed_best_plain(
+        *(t.to(dev) for t in (qa, w1)), k_used, qb=qb.to(dev),
+        w2=w2.to(dev), dbnh=dbnh.to(dev), fold_a=True)
+    at = lambda i: exact.gather(1, i.cpu().long()[:, None])[:, 0]
+    assert float((val.cpu().double() - at(idx)).abs().max()) <= atol
+    assert float((ref_v.cpu().double() - at(ref_i)).abs().max()) <= 1e-6
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,l,kp", [
-    ("packed3_best", 123, 256),    # 3 passes x 16 k-steps: fragments re-read
+    ("packed3_best", 123, 256),    # 3 passes x 16 k-steps (the Hopper core)
     ("packed2_best", 200, 512),    # 2 x 32, two streams single-buffered
     ("packed1w_best", 150, 384),   # 2 x 24, one stream
     ("packed2wn_best", 120, 256),  # 2 x 16: fragments in registers

@@ -226,6 +226,79 @@ def test_argmin2_plan_covers_every_tile_once(n, sm_count, fold):
         match._argmin2_plan(8, n, sm_count, 100, fold)  # not a multiple of 16
 
 
+@pytest.mark.parametrize("n", [64, 99, 4096, 4097, 65536, 262144, 1048000,
+                               1048576])
+@pytest.mark.parametrize("sm_count", [132, 114])
+def test_packed3_plan_covers_every_tile_once(n, sm_count):
+    """The packed3 kernel's launch plan, M = 1..400 at the lane widths
+    exact_hi2 scans (112: luminance; up to 256: RGB sources): the DB chunks
+    cover every 64-row tile exactly once and none is empty; the query tiles of at
+    most 64 rows a warpgroup hold every query, as even as they come, none
+    empty; the block's shared memory (three resident query sets of 4 KiB a
+    32-lane box per warpgroup, and a ring whose stages hold a W1 and a W2
+    tile and 4 bytes of norms a tile row) stays within the card's 232,448
+    bytes with the deepest ring that fits; the most consumer warpgroups
+    (3, 2, 1) that keep a ring of two stages; and the grid about one block
+    per SM."""
+    for k_used in (112, 128, 160, 256):
+        nbox = -(-k_used // 32)
+        tiles = -(-n // 64)
+        smem = lambda st, c: (1024 + c * 3 * nbox * 4096
+                              + st * (2 * nbox * 64 * 64 + 4 * 64))
+        for m in range(1, 401):
+            plan = match._packed3_plan(m, n, sm_count, k_used)
+            per = plan.tiles_per_chunk
+            assert per >= 1
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            c, st = plan.consumers, plan.stages
+            assert plan.smem == smem(st, c)
+            assert plan.smem + 1024 <= 232448
+            assert 2 <= st <= 8
+            assert st == 8 or smem(st + 1, c) > 232448 - 1024
+            two = [cc for cc in match._P3_CONSUMERS
+                   if smem(2, cc) <= 232448 - 1024]
+            assert c == two[0]
+            bm = plan.bm
+            assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+            assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+            assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                       plan.q_tiles)
+    with pytest.raises(ValueError):
+        match._packed3_plan(8, n, sm_count, 272)  # past the Hopper kernel
+
+
+def test_packed3_plan_headline_and_route():
+    """The headline packed3 plan (exact_hi2 at level 0 of npr_1024: M =
+    352, N = 2^20, 2L = 110 lanes used as 112, 132 SMs) is pinned; at 256
+    lanes (RGB sources) one warpgroup keeps a ring of two stages; the width
+    rule sends every k_used up to 256 to the Hopper kernel and the wider
+    ones to packed_best.cu."""
+    assert match._packed3_plan(352, 1048576, 132, 112) == (
+        3, 176, 2, 249, 66, 2, 214528)
+    assert match._packed3_plan(352, 1048576, 132, 256)[:4] == (1, 59, 2, 745)
+    for k_used in range(16, 513, 16):
+        assert match._packed3_route(k_used) == (
+            "packed3_best" if k_used <= 256 else "packed_best")
+
+
+def test_packed3_rows_are_one_tensor():
+    """The packed3 query operands are adjacent views of one (3M, K) tensor
+    (so the card kernel reads them without a copy), with the rows of the
+    first design's concatenation."""
+    g = torch.Generator().manual_seed(2)
+    q1, q2, q3 = (torch.randn((5, 11), generator=g).to(torch.bfloat16)
+                  for _ in range(3))
+    qa, qb = match._packed3_rows(q1, q2, q3, 128)
+    assert qa.shape == (10, 128) and qb.shape == (5, 128)
+    assert qa.is_contiguous() and qb.is_contiguous()
+    assert qb.data_ptr() == qa.data_ptr() + qa.numel() * 2
+    want = torch.cat([match._pack_rows(q1, q1, 128),
+                      match._pack_rows(q2, q2, 128),
+                      match._pack_rows(q1, q3, 128)])
+    assert torch.equal(torch.cat([qa, qb]).view(torch.int16),
+                       want.view(torch.int16))
+
+
 def test_bf16_split3_and_norm_lanes_bit_equal():
     rng = np.random.default_rng(5)
     x = np.concatenate([
