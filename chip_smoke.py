@@ -27,16 +27,21 @@ and carried on):
                 bound, device ms weighted by the segments' steps per level
                 and in all.  ``argmin2_l2`` (two_pass's top-2 scan, q_split)
                 the same way at every segment shape of all five levels and
-                at the M = 352 headline, and ``packed3_best`` (exact_hi2's
-                three-pass scan, 2L = 110 of 128 lanes) too; packed3 also
-                once at the RGB width (256 lanes) at M = 352, N = 2^20, and
-                past 256 lanes (the width rule's packed_best.cu) at a small
-                shape.  With ``--parent DIR`` also the four level-phase
-                kernels of the checkout in DIR on the same inputs (a child
-                process each): argmin_l2's (idx, val) must be the same
-                bits, argmin2_l2's (i1, i2) and packed3_best's picks >=
-                99.9% equal; equal picks and val bits of argmin2_l2,
-                packed3_best and packed_best are counted.
+                at the M = 352 headline, ``pertile_champions``
+                (scan_rescue's per-tile scan, q_split, each level's scan
+                tile, the last tile all padding; the launch timed at every
+                split of a level's few scan tiles in parts) and
+                ``packed3_best`` (exact_hi2's three-pass scan, 2L = 110 of
+                128 lanes) too; packed3 also once at the RGB width (256
+                lanes) at M = 352, N = 2^20, and past 256 lanes (the width
+                rule's packed_best.cu) at a small shape and at M = 352, N =
+                2^20 (2L = 288 and 384).  With ``--parent DIR`` also the
+                five level-phase kernels of the checkout in DIR on the same
+                inputs (a child process each): argmin_l2's (idx, val) must
+                be the same bits, argmin2_l2's (i1, i2), pertile's and
+                packed3_best's picks >= 99.9% equal; equal picks and val
+                bits of argmin2_l2, pertile_champions, packed3_best and
+                packed_best are counted.
                 ``argmin_l2_bf16`` (the batched/rowwise approximate match)
                 at level 0 of batched npr_1024: M = 1024 queries against
                 1,048,576 bf16 rows.  The four superseded packed forms are
@@ -122,9 +127,12 @@ PACKED_LEVELS = (0, 1)  # the packed2k scan's levels (1024^2, 512^2)
 # the packed3 arrays (2L = 110 of Kp = 128)
 SCAN_SHAPE = dict(m=352, npad=1048576, f=68, fp=128, lw=55)
 # packed3 at the RGB width (exact_hi2 on RGB and source_rgb sources: 2L =
-# 256 of Kp = 256) and past the Hopper kernel's 256 lanes (2L = 300 of 384)
+# 256 of Kp = 256) and past the Hopper kernel's 256 lanes: 2L = 300 of 384
+# at a small shape, and 2L = 288 and 384 of 384 at the level-0 headline
 P3_RGB_SHAPE = dict(m=352, npad=1048576, lw=128)
 P3_WIDE_SHAPE = dict(m=64, npad=65536, lw=150)
+P3_PAST256_SHAPES = (dict(m=352, npad=1048576, lw=144),
+                     dict(m=352, npad=1048576, lw=192))
 FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
 # level 0 of batched npr_1024: one 1024-pixel scan row against the bf16
 # rows-above DB (F = 68 of Fp = 128)
@@ -465,16 +473,17 @@ def phase_argmin_levels(parent):
     torch.cuda.empty_cache()
 
 
-def argmin2_cases(shapes, f=68, fp=128):
+def argmin2_cases(shapes, f=68, fp=128,
+                  pad=lambda npad: max(64, npad >> 10)):
     """Yield (level, npad, m, steps, q, dbp, dbn, n_real, lo, hi) for each
     (level, npad, m, steps), one DB per N at a time, built on the card as
     the two_pass level builds it: the bf16 centered DB of rows uniform in
     [0, 0.2) (F = 68 of Fp = 128 lanes), full fp32 norms of the unrounded
-    rows, the last npad / 1024 rows (at least 64) padding with +inf norms,
-    row ``hi`` a copy of row ``lo`` in another DB chunk (12,345 and 900,000
-    at N = 2^20, scaled with N); M queries near seeded DB rows, query 0
-    equal to the bf16 row lo.  Torch only: the --parent child builds the
-    same operands for the other tree's kernel."""
+    rows, the last ``pad(npad)`` rows (by default npad / 1024, at least 64)
+    padding with +inf norms, row ``hi`` a copy of row ``lo`` in another DB
+    chunk (12,345 and 900,000 at N = 2^20, scaled with N); M queries near
+    seeded DB rows, query 0 equal to the bf16 row lo.  Torch only: the
+    --parent child builds the same operands for the other tree's kernel."""
     import torch
 
     dev = torch.device("cuda", 0)
@@ -483,7 +492,7 @@ def argmin2_cases(shapes, f=68, fp=128):
         if db is None or db[0] != npad:
             db = None
             torch.cuda.empty_cache()
-            n_real = npad - max(64, npad >> 10)
+            n_real = npad - pad(npad)
             lo, hi = 12345 * npad >> 20, 900000 * npad >> 20
             gen = torch.Generator(device=dev).manual_seed(31)
             x = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
@@ -632,6 +641,178 @@ def argmin2_bound(m, npad, f):
                  2 * 2 * m * npad * f, PEAK_BF16_FLOP_S)
 
 
+def pertile_pad(npad):
+    """Padding rows of the pertile level cases: the last scan tile
+    (``scan_tile_rows``) all padding, and 64 rows of the one before."""
+    from image_analogies_tpu_torch.backends.cuda import scan_tile_rows
+
+    return scan_tile_rows(npad) + 64
+
+
+def run_pertile_shapes(match, shapes):
+    """``match.pertile_champions`` (q_split, 80 lanes, the level's scan
+    tile) on the seeded operands of each (level, npad, m, steps)
+    (``argmin2_cases`` with ``pertile_pad``, half norms): {"npad/m": (idx
+    (ntiles, M), vals (ntiles, M), device ms)}, timed from a cold L2."""
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import scan_tile_rows
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for _, npad, m, _, q, dbp, dbn, *_ in argmin2_cases(shapes,
+                                                       pad=pertile_pad):
+        tile, dbnh = scan_tile_rows(npad), 0.5 * dbn
+        vals, idx = match.pertile_champions(q, dbp, dbnh, tile, True, 80)
+        ms = cuda_time_ms(lambda: match.pertile_champions(
+            q, dbp, dbnh, tile, True, 80), reps=20, flush=flush)
+        out[f"{npad}/{m}"] = (idx.cpu().numpy(), vals.cpu().numpy(), ms)
+    return out
+
+
+def pertile_bound(m, npad, f, ntiles):
+    """Bound of one pertile call (q_split) at the function's own width F:
+    the F used DB lanes, the half norms and the hi and lo query rows read
+    once, (val, idx) written once per (scan tile, query); hi and lo passes
+    of 2 M N F bf16 operations."""
+    return bound(2 * npad * f + 4 * npad + 2 * 2 * m * f + 8 * m * ntiles,
+                 2 * 2 * m * npad * f, PEAK_BF16_FLOP_S)
+
+
+def phase_pertile_levels(parent):
+    """pertile_champions (scan_rescue's scan, q_split, 80 lanes) at every
+    wavefront segment shape of npr_1024's five levels (scan_rescue runs it
+    at all of them), each on a DB of its level's N cut into the level's scan
+    tiles (``scan_tile_rows``), and at the headline M = 352 of level 0:
+    held against its plain version (``check_tiles``: finite champions
+    within PACKED_ATOL, picks equal outside SCORE_BAND, all-padding tiles
+    exact), the duplicate rule (query 0's row and its twin each win their
+    tile) and the all-padding tile rule (the last tile: -inf at its first
+    row); timed from a cold L2 beside the ``mm`` hi + ``mm`` lo - dbnh,
+    per-tile ``max`` yardstick and the bound, device ms weighted by each
+    segment's steps, per level and in all.  Where the card holds more than
+    one split of the scan tiles in parts, the kernel launch alone is timed
+    at each power of two (the same bits required).  With ``parent``: that tree's pertile_champions on the
+    same inputs (a child process), its ms and the counts of equal picks
+    and equal val bits over every (scan tile, query); fewer than 99.9%
+    equal picks at a shape fails."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import scan_tile_rows
+    from image_analogies_tpu_torch.ops import match
+
+    f, k_used = SCAN_SHAPE["f"], 80
+    levels = (0, 1, 2, 3, 4)
+    shapes = merge_repeats(level_shapes(levels)) + [
+        ("headline", SCAN_SHAPE["npad"], SCAN_SHAPE["m"], 0)]
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("pertile", parent, shapes)
+    dev = torch.device("cuda", 0)
+    flush = flusher(dev)
+    segs = []
+    for level, npad, m, steps, q, dbp, dbn, n_real, lo, hi in argmin2_cases(
+            shapes, pad=pertile_pad):
+        name = f"pertile_champions level {level} M={m}"
+        tile = scan_tile_rows(npad)
+        ntiles = npad // tile
+        dbnh = 0.5 * dbn
+        match.reset_launch_counts()
+        vals, idx = match.pertile_champions(q, dbp, dbnh, tile, True, k_used)
+        torch.cuda.synchronize()
+        if match.LAUNCHES["pertile_champions"] != 1:
+            fail(f"{name}: {match.LAUNCHES['pertile_champions']} launches")
+        qk = match._scan_queries(q, True)
+        dbt = dbp.T
+
+        def library_s2():
+            return (torch.mm(qk[:m], dbt, out_dtype=torch.float32)
+                    + torch.mm(qk[m:], dbt, out_dtype=torch.float32)) - dbnh
+
+        s2 = library_s2()
+        second = torch.topk(s2.view(m, ntiles, tile), 2,
+                            dim=2).values[..., 1].T
+        del s2
+        rv, ri = match.pertile_champions_plain(q, dbp, dbnh, tile, True,
+                                               k_used)
+        err, ndiff = check_tiles(name, vals, idx, rv, ri, second,
+                                 PACKED_ATOL)
+        del rv, ri, second
+        if (int(idx[lo // tile, 0]), int(idx[hi // tile, 0])) != (lo, hi) \
+                or not bool(torch.isneginf(vals[-1]).all()) \
+                or not bool((idx[-1] == npad - tile).all()) \
+                or int(idx[:-1].max()) >= n_real:
+            fail(f"{name}: duplicate/all-padding tile rule broken")
+        k_ms = cuda_time_ms(lambda: match.pertile_champions(
+            q, dbp, dbnh, tile, True, k_used), reps=20, flush=flush)
+        l_ms = cuda_time_ms(lambda: library_s2().view(m, ntiles, tile).max(
+            dim=2), reps=10, flush=flush)
+        plan = match._pertile_plan(m, npad, match._sm_count(0), k_used, True,
+                                   tile)
+        seg = dict(m=m, steps=steps, tile=tile, parts=plan.parts, ms=k_ms,
+                   library_ms=l_ms,
+                   bound_ms=pertile_bound(m, npad, f, ntiles)[0],
+                   max_abs_err=err, picks_differing_in_band=ndiff)
+        # the C entry alone (no wrapper) at every power-of-two split of the
+        # scan tiles that the card holds, the plan's among them: the same
+        # bits required
+        room = max(1, match._sm_count(0) // plan.q_tiles)
+        sub = tile // plan.rows
+        splits = [p for p in (1, 2, 4, 8, 16, 32)
+                  if sub % p == 0 and (p == 1 or ntiles * p <= room)]
+        if len(splits) > 1:
+            seg["launch_ms_by_parts"] = {}
+            for p in splits:
+                alt = match._pertile_plan(m, npad, match._sm_count(0),
+                                          k_used, True, tile, parts=p)
+                av, ai = match._pertile_launch(q, dbp, dbnh, tile, k_used,
+                                               True, alt)
+                if not (torch.equal(ai, idx) and torch.equal(
+                        av.view(torch.int32), vals.view(torch.int32))):
+                    fail(f"{name}: {p} parts give other bits than "
+                         f"{plan.parts}")
+                seg["launch_ms_by_parts"][p] = cuda_time_ms(
+                    lambda: match._pertile_launch(q, dbp, dbnh, tile, k_used,
+                                                  True, alt),
+                    reps=20, flush=flush)
+        if theirs is not None:
+            key = f"{npad}/{m}"
+            ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+            picks = int((ti == idx.cpu().numpy()).sum())
+            seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                       val_bits_equal_parent=int(
+                           (tv.view(np.int32) == vals.cpu().numpy().view(
+                               np.int32)).sum()),
+                       champions=ntiles * m)
+            if picks < 0.999 * ntiles * m:
+                say("kernels", kernel="pertile_champions", level=level,
+                    **seg)
+                fail(f"{name}: {picks} of {ntiles * m} picks equal to "
+                     f"{parent}'s kernel, fewer than 99.9%")
+        segs.append((level, seg))
+        del q, qk, dbt, dbnh, vals, idx
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(("ms", "library_ms", "bound_ms", "parent_ms"), 0.0)
+    for level in levels:
+        lsegs = [sg for lv, sg in segs if lv == level]
+        tot = {k: sum(sg["steps"] * sg.get(k, 0.0) for sg in lsegs)
+               for k in total}
+        for k in total:
+            total[k] += tot[k]
+        say("kernels", kernel="pertile_champions", level=level,
+            npad=1024 ** 2 >> (2 * level), segments=lsegs,
+            launches=sum(sg["steps"] for sg in lsegs),
+            **{f"weighted_{k}": v for k, v in tot.items()
+               if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="pertile_champions", levels=list(levels),
+        launches=sum(sh[3] for sh in shapes),
+        **{f"weighted_{k}": v for k, v in total.items()
+           if theirs is not None or k != "parent_ms"})
+    say("kernels", kernel="pertile_champions", npad=SCAN_SHAPE["npad"], f=f,
+        k_used=k_used, **segs[-1][1])
+
+
 def packed3_key(npad, m, lw=55):
     """The --parent key of a packed3 shape: "npad/m", with "/lw" past the
     luminance width."""
@@ -766,8 +947,9 @@ def phase_packed3_levels(parent):
     beside the ``3 mm + max`` yardstick and the bound; device ms weighted by
     each segment's steps, per level and in all.  Then the RGB width (2L =
     256 of 256 lanes) once at M = 352, N = 2^20, and the width rule's
-    packed_best.cu past 256 lanes (2L = 300) at M = 64, N = 65,536, each
-    held against plain and timed.  With ``parent``: that tree's packed3 on
+    packed_best.cu past 256 lanes (2L = 300) at M = 64, N = 65,536 and (2L
+    = 288 and 384 of 384) at M = 352, N = 2^20, each held against plain and
+    timed beside it.  With ``parent``: that tree's packed3 on
     the same inputs at every one of these shapes (a child process), its ms
     and the counts of equal picks and equal val bits; fewer than 99.9%
     equal picks at a shape fails."""
@@ -782,7 +964,8 @@ def phase_packed3_levels(parent):
     shapes = merge_repeats(level_shapes(levels)) + [
         ("headline", SCAN_SHAPE["npad"], SCAN_SHAPE["m"], 0)]
     wide = [(label, sh["npad"], sh["m"], 0, sh["lw"])
-            for label, sh in (("rgb", P3_RGB_SHAPE), ("wide", P3_WIDE_SHAPE))]
+            for label, sh in (("rgb", P3_RGB_SHAPE), ("wide", P3_WIDE_SHAPE),
+                              *(("past256", sh) for sh in P3_PAST256_SHAPES))]
     theirs = None
     if parent:
         theirs, parent_ms = parent_bits("packed3", parent, shapes + wide)
@@ -816,6 +999,8 @@ def phase_packed3_levels(parent):
                 fail(f"{name}: {picks} of {m} picks equal to {parent}'s "
                      "kernel, fewer than 99.9%")
         if lw_s != lw:
+            seg["plain_ms"] = cuda_time_ms(lambda: match.packed_best_plain(
+                qa, w1, k_used, **kw), reps=3, flush=flush)
             say("kernels", kernel="packed3_best", route=route, npad=npad,
                 width=2 * lw_s, kp=w1.shape[1], k_used=k_used,
                 bound_by=b[1], **seg)
@@ -845,8 +1030,9 @@ def phase_packed3_levels(parent):
 
 def parent_bits(kind, parent, shapes):
     """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
-    "argmin2": argmin2_l2, "packed3": packed_best's packed3 form) of the
-    checkout in ``parent`` on the same seeded
+    "argmin2": argmin2_l2, "packed3": packed_best's packed3 form,
+    "pertile": pertile_champions) of the checkout in ``parent`` on the
+    same seeded
     operands, in a child process built from that tree's sources:
     ({"idx/<npad>/<m>": ..., "val/<npad>/<m>": ...}, {"<npad>/<m>": device
     ms})."""
@@ -880,7 +1066,8 @@ def bits_child(kind, root, out, shapes):
         fail(f"imported {match.__file__}, not the package under {root}")
     run = {"argmin": run_argmin_shapes, "packed": run_packed_shapes,
            "argmin2": run_argmin2_shapes,
-           "packed3": run_packed3_shapes}[kind]
+           "packed3": run_packed3_shapes,
+           "pertile": run_pertile_shapes}[kind]
     got = run(match, [tuple(s) for s in shapes])
     arrays = {}
     for key, (idx, val, *_) in got.items():
@@ -894,6 +1081,7 @@ def phase_kernels(parent=None):
     phase_argmin_kernel(rows)
     phase_argmin_levels(parent)
     phase_argmin2_levels(parent)
+    phase_pertile_levels(parent)
     phase_packed3_levels(parent)
     phase_packed_kernel(rows, parent)
     phase_packed3_kernels(rows)
@@ -1248,20 +1436,18 @@ def phase_bf16_db_kernels(rows):
         return (torch.mm(qk[:m], dbt, out_dtype=torch.float32)
                 + torch.mm(qk[m:], dbt, out_dtype=torch.float32))
 
-    # the function's work at its own width F = 68 (the kernel rounds its
-    # lanes up to 80): hi and lo passes of F products per (query, row)
-    base_bytes = 2 * npad * f + 4 * npad + 2 * 2 * m * f
-    flops = 2 * 2 * m * npad * f
-
     k_ms = cuda_time_ms(lambda: match.pertile_champions(
         q, dbp, dbnh, tile, True, k_used), reps=20, flush=flush)
     p_ms = cuda_time_ms(lambda: match.pertile_champions_plain(
         q, dbp, dbnh, tile, True, k_used), reps=3, flush=flush)
     l_ms = cuda_time_ms(lambda: (library_dots() - dbnh).view(
         m, ntiles, tile).max(dim=2), reps=10, flush=flush)
-    b = bound(base_bytes + 8 * m * ntiles, flops, PEAK_BF16_FLOP_S)
+    # the function's work at its own width F = 68 (the kernel rounds its
+    # lanes up to 80): hi and lo passes of F products per (query, row)
+    b = pertile_bound(m, npad, f, ntiles)
     rows["pertile_champions"] = kernel_row(
-        "pertile_champions", "tile_champions.cu", 300, terr, k_ms, p_ms, l_ms, b)
+        "pertile_champions", "pertile_champions.cu", 300, terr, k_ms, p_ms,
+        l_ms, b)
     say("kernels", kernel="pertile_champions", q_split=True, m=m,
         npad=npad, tile=tile, f=f, k_used=k_used, max_abs_err=terr,
         picks_differing_in_band=tdiff, ms=k_ms, plain_ms=p_ms,
@@ -1820,14 +2006,15 @@ def main() -> None:
                          "registers, shared memory and spills")
     ap.add_argument("--parent", metavar="DIR",
                     help="with the kernels phase: run the argmin_l2, "
-                         "argmin2_l2, packed3_best and packed_best of the "
-                         "checkout in DIR (e.g. the parent commit, unpacked "
-                         "by git archive) on their level shapes too; "
-                         "argmin_l2's picks and scores must be the same "
-                         "bits, argmin2_l2's (i1, i2) and packed3_best's "
-                         "picks must be >= 99.9%% equal, and the equal "
-                         "picks and val bits of argmin2_l2, packed3_best "
-                         "and packed_best are counted")
+                         "argmin2_l2, pertile_champions, packed3_best and "
+                         "packed_best of the checkout in DIR (e.g. the "
+                         "parent commit, unpacked by git archive) on their "
+                         "level shapes too; argmin_l2's picks and scores "
+                         "must be the same bits, argmin2_l2's (i1, i2), "
+                         "pertile_champions' and packed3_best's picks must "
+                         "be >= 99.9%% equal, and the equal picks and val "
+                         "bits of argmin2_l2, pertile_champions, "
+                         "packed3_best and packed_best are counted")
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)

@@ -25,7 +25,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed2k_best",
-                  "packed3_best", "packed_best", "tile_champions", "argmin2")
+                  "packed3_best", "packed_best", "tile_champions", "argmin2",
+                  "pertile_champions")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -72,6 +73,13 @@ _SIGNATURES = {
         #  tile_n, n_chunks, out_val, out_idx, device, stream)
         "ia_tile_champions": [_VOIDP] * 5 + [_INT] * 8
                              + [_VOIDP] * 2 + [_INT, _VOIDP],
+    },
+    "pertile_champions": {
+        # (q, qf32, qk, db, dbnh, m, n, k, k_used, q_split, tile_n,
+        #  consumers, bm, stages, tiles_per_chunk, smem, n_chunks, parts,
+        #  part_val, part_idx, out_val, out_idx, device, stream)
+        "ia_pertile_champions": [_VOIDP, _INT] + [_VOIDP] * 3 + [_INT] * 13
+                                + [_VOIDP] * 4 + [_INT, _VOIDP],
     },
     "argmin2": {
         # (q, db, dbn, m, n, k, k_used, q_split, consumers, bm, stages,

@@ -1,9 +1,9 @@
 // The first-design bf16 tensor-core scan template (sm_90a, mma.sync),
 // the core of the champion scans not yet on the Hopper core
-// (hopper_scan.cuh, which serves packed2k, packed3 up to 256 lanes and
-// argmin2): packed_best.cu (the four superseded packed forms, and packed3
-// past 256 lanes), tile_champions.cu (packed_champions,
-// pertile_champions) and argmin_bf16.cu each instantiate it and add their
+// (hopper_scan.cuh, which serves packed2k, packed3 up to 256 lanes,
+// argmin2 and pertile_champions): packed_best.cu (the four superseded
+// packed forms, and packed3 past 256 lanes), tile_champions.cu
+// (packed_champions) and argmin_bf16.cu each instantiate it and add their
 // C entry.
 //
 // Replaces the family of Pallas kernels in

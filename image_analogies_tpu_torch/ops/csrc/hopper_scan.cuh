@@ -1,13 +1,14 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
-// with a producer warp.  Three instances use it: packed2k_best.cu (one pass,
+// with a producer warp.  Four instances use it: packed2k_best.cu (one pass,
 // the norm in W's lanes, the global champion: EpiBest), argmin2.cu (the
 // hi/lo query blocks folded, the fp32 norms in the ring, the lexicographic
-// top-2: EpiTop2) and packed3_best.cu (exact_hi2: two folded query sets
+// top-2: EpiTop2), packed3_best.cu (exact_hi2: two folded query sets
 // against W1 and a third against a second weight stream W2 (TWO), the
-// norms in the ring, the global champion of dots - norm: EpiBestSub).  The
-// other instances of bf16_scan.cuh (the superseded packed forms,
-// tile_champions, argmin_bf16) are to move here; pertile_champions needs
-// only a per-tile epilogue on top of FOLD and the norm ring.
+// norms in the ring, the global champion of dots - norm: EpiBestSub) and
+// pertile_champions.cu (scan_rescue: FOLD or one query set, the norms in
+// the ring, one champion of dots - norm per scan tile, written in place:
+// EpiTile).  The other instances of bf16_scan.cuh (the superseded packed
+// forms, packed_champions, argmin_bf16) are to move here.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -50,10 +51,13 @@
 // - Registers: 12 consumer warps + 1 producer warp = 416 threads; ptxas
 //   gives each at most 128.  packed2k's instances take 58-96, argmin2's
 //   (64 accumulators at 128-row tiles) 96-128 with no spills, packed3's
-//   93-128 (its 240- and 256-lane instances spill 12-16 bytes), so the
+//   93-128 (its 240- and 256-lane instances spill 12-16 bytes),
+//   pertile's 95-128 (128 at every 128-row instance; some unfolded 176-
+//   240-lane and folded 304-384-lane ones spill 4-44 bytes), so the
 //   epilogues hold no score arrays and a second accumulator set (to
-//   overlap a tile's epilogue with the next chain) does not fit; the producer is one warp, not a warpgroup, so
-//   `setmaxnreg` has little to move.
+//   overlap a tile's epilogue with the next chain) does not fit; the
+//   producer is one warp, not a warpgroup, so `setmaxnreg` has little to
+//   move.
 //
 // The wgmma accumulator of m64nNk16 puts, in each warp's 16 rows, rows g
 // and g+8 and columns 2 tig, 2 tig + 1 of every 8-column block in one
@@ -106,6 +110,7 @@ struct HopperArgs {
   int* idx;
   float* val2;          // EpiTop2: second place
   int* idx2;
+  int tile_sub;         // EpiTile: DB tiles an output tile
 };
 
 // resident query sets of a warpgroup: one, a folded second, a third
@@ -297,15 +302,17 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
 // rows g and g+8 (tile<MASK, FIRST, N>: N DB rows a tile; with MASK only
 // the columns c < lim, DB rows below N, count; FIRST marks a block's first
 // tile), reduces the four threads of a row group, and writes one partial
-// per (chunk, row).  An epilogue with norms (kNorms) reads the norms of
-// columns 8 j + 2 tig and 8 j + 2 tig + 1 from the stage (ns, at 8 tig
-// bytes in) or, for the ragged last tile, from global memory (norm).
+// per (chunk, row), or with kTile one champion per (output tile, row).
+// An epilogue with norms (kNorms) reads the norms of columns 8 j + 2 tig
+// and 8 j + 2 tig + 1 from the stage (ns, at 8 tig bytes in) or, for the
+// ragged last tile, from global memory (norm).
 
 // the global champion of scores that carry their norm in W's lanes
 // (packed2k): the maximum of the dots, lowest index on ties
 struct EpiBest {
   static constexpr bool kNorms = false;
   static constexpr bool kWide = false;  // 64-row tiles always
+  static constexpr bool kTile = false;  // one write per (chunk, row)
   float bv0 = -INFINITY, bv1 = -INFINITY;
   int bi0 = INT_MAX, bi1 = INT_MAX;
 
@@ -384,6 +391,7 @@ struct EpiBest {
 struct EpiTop2 {
   static constexpr bool kNorms = true;
   static constexpr bool kWide = true;  // 128-row tiles where they fit
+  static constexpr bool kTile = false;
   float v0 = -INFINITY, w0 = -INFINITY, v1 = -INFINITY, w1 = -INFINITY;
   int i0 = INT_MAX, j0 = INT_MAX, i1 = INT_MAX, j1 = INT_MAX;
   float t0 = -INFINITY, t1 = -INFINITY;  // the rows' thresholds
@@ -585,6 +593,27 @@ struct EpiBestSub : EpiBest {
   }
 };
 
+// One champion of score = dots - norm per output tile of a.tile_sub DB
+// tiles (pertile_champions: a scan tile, or a part of one that a merge
+// folds), by EpiBestSub's max-first fold.  The kernel flushes it after the
+// DB tile that ends an output tile -- the quad reduce, then the write to
+// row t / tile_sub of the output -- and resets it to (-inf, the next
+// output tile's first row), so a tile of padding rows only (-inf scores,
+// which a strict `>` never takes) keeps (-inf, its first row), as
+// `jnp.argmax` over -inf gives.  Chunks are whole output tiles, so no
+// write is left at a chunk's end.  WIDE: 128-row DB tiles up to k_used =
+// 256 (`tile_rows`), for output tiles of a multiple of 128 rows; else 64.
+template <bool WIDE>
+struct EpiTile : EpiBestSub {
+  static constexpr bool kWide = WIDE;
+  static constexpr bool kTile = true;
+
+  __device__ __forceinline__ void reset(int row) {
+    bv0 = bv1 = -INFINITY;
+    bi0 = bi1 = row;
+  }
+};
+
 // a position in the ring: stage and the parity of its current phase
 struct Ring {
   int stage;
@@ -703,6 +732,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
     Epi ep;
+    if constexpr (Epi::kTile) ep.reset(t_begin * BN);
     mbar_wait(qfull, 0);
     Ring r{0, 0};
     for (int t = t_begin; t < t_end; ++t) {
@@ -747,10 +777,21 @@ __global__ void __launch_bounds__(THREADS, 1)
         __syncwarp();
         if (lane == 0) mbar_arrive(empty);
       }
+      if constexpr (Epi::kTile) {
+        // the last DB tile of an output tile: its champions, in place
+        if ((t + 1) % a.tile_sub == 0) {
+          ep.reduce_quad();
+          if (tig == 0)
+            ep.write(a, (size_t)(t / a.tile_sub) * a.m, r0, r1, q_end);
+          ep.reset((t + 1) * BN);
+        }
+      }
     }
-    // the four threads of a row group hold disjoint columns
-    ep.reduce_quad();
-    if (tig == 0) ep.write(a, (size_t)blockIdx.y * a.m, r0, r1, q_end);
+    if constexpr (!Epi::kTile) {
+      // the four threads of a row group hold disjoint columns
+      ep.reduce_quad();
+      if (tig == 0) ep.write(a, (size_t)blockIdx.y * a.m, r0, r1, q_end);
+    }
   }
   // the warps of a warpgroup with no row of this tile have nothing to do
 }

@@ -1,21 +1,16 @@
-// Per-tile champion scans: instances of the bf16 scan template
-// (bf16_scan.cuh) with the per-tile epilogue, one C entry for both TPU
-// kernels that keep a champion per DB tile.
+// Per-tile champion scans: instances of the first-design bf16 scan
+// template (bf16_scan.cuh) with the per-tile epilogue.  On the card only
+// `packed_champions` runs here; `pertile_champions` (scan_rescue's scan)
+// runs pertile_champions.cu on the Hopper core, and the entry's one-stream
+// form (the scan_rescue scan of the first design) is kept for the same
+// C interface.
 //
-// Replaces, in image_analogies_tpu/ops/pallas_match.py:
-// - `_packed_kernel` (entry `pallas_packed_champions`, wrappers
-//   `packed2_champions` / `packed3_champions`): two streams,
-//   qa.W1 [+ qa_fold.W1] + qb.W2 - dbnh.  The product sets and the bound are
-//   those of packed_best.cu's packed2 / packed3 forms; the JAX tests use
-//   this entry as the witness that the in-kernel champion equals per-tile
-//   champions plus a select.
-// - `_pertile_kernel` (entry `pallas_pertile_champions`, wrapper
-//   `pertile_champions_queries`), the scan of the scan_rescue anchor: one
-//   stream, q.db - dbnh over the bf16 centered DB; with q_split the query
-//   block is (2m, K), hi rows then lo rows, folded.  At level 0 of
-//   npr_1024 (q_split, 704 query rows, Npad 1,048,576, F = 68 lanes):
-//   2*704*N*68 bf16 operations, ~0.10 ms at 989 TFLOP/s, against ~0.04 ms
-//   to stream the DB's 68 lanes — operations-bound.
+// Replaces, in image_analogies_tpu/ops/pallas_match.py, `_packed_kernel`
+// (entry `pallas_packed_champions`, wrappers `packed2_champions` /
+// `packed3_champions`): two streams, qa.W1 [+ qa_fold.W1] + qb.W2 - dbnh.
+// The product sets and the bound are those of packed_best.cu's packed2 /
+// packed3 forms; the JAX tests use this entry as the witness that the
+// in-kernel champion equals per-tile champions plus a select.
 //
 // Per query row m and DB tile t of `tile_n` rows: (max, argmax) written
 // tile-major to (ntiles, m).  Ties go to the first row of the tile; an

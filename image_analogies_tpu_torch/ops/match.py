@@ -18,12 +18,12 @@
 - ``packed_champions``: the same packed passes, one champion per DB tile
   (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
 - ``pertile_champions``: per DB tile, the champion of ``q.db - dbnh`` over
-  the bf16 centered DB (replaces ``_pertile_kernel``; the same C entry in
-  ``csrc/tile_champions.cu``, one stream).
+  the bf16 centered DB (replaces ``_pertile_kernel``;
+  ``csrc/pertile_champions.cu``).
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The packed2k, packed3 and argmin2 scans run on the Hopper core
+The packed2k, packed3, pertile and argmin2 scans run on the Hopper core
 ``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); the other bf16
 kernels are instances of the template ``csrc/bf16_scan.cuh``.  Every
 kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
@@ -302,14 +302,15 @@ _PACKED_FORMS = {
 
 
 # launch geometry of the Hopper core csrc/hopper_scan.cuh (packed2k_best.cu,
-# argmin2.cu and packed3_best.cu), whose entries take the plan and only
-# refuse one outside these limits: one to three consumer warpgroups of 64
-# query rows a block, each holding its query sets (one; two folded; three
-# with a second weight stream), DB tiles of 64 rows (argmin2 up to k_used
-# = 256: 128, the kernel's ``tile_rows``), rows cut into 32-lane boxes (64
-# bytes a row), a ring of at most 8 stages, each one DB tile of every
-# weight stream (with the norms in the ring, 4 bytes a tile row), and the
-# dynamic shared memory a block may take (one block per SM)
+# argmin2.cu, packed3_best.cu and pertile_champions.cu), whose entries take
+# the plan and only refuse one outside these limits: one to three consumer
+# warpgroups of 64 query rows a block, each holding its query sets (one;
+# two folded; three with a second weight stream), DB tiles of 64 rows
+# (argmin2 and pertile up to k_used = 256: 128, the kernel's
+# ``tile_rows``), rows cut into 32-lane boxes (64 bytes a row), a ring of
+# at most 8 stages, each one DB tile of every weight stream (with the norms
+# in the ring, 4 bytes a tile row), and the dynamic shared memory a block
+# may take (one block per SM)
 _P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a packed2k tile
 _P2K_CONSUMERS = (3, 2)  # the most first
 _A2_CONSUMERS = (3, 2, 1)  # argmin2: one where folded queries are wide
@@ -423,6 +424,67 @@ def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
     return _hopper_plan("argmin2", m, n, sm_count, k_used, _A2_CONSUMERS,
                         qsets=2 if fold else 1, norms=True,
                         rows=_argmin2_rows(k_used))
+
+
+class PertilePlan(NamedTuple):
+    consumers: int  # consumer warpgroups a block
+    bm: int  # query rows a block (<= 64 consumers)
+    stages: int  # ring depth
+    tiles_per_chunk: int  # DB tiles a block: whole output tiles
+    n_chunks: int  # grid y: DB chunks
+    q_tiles: int  # grid x: query tiles of bm rows
+    smem: int  # dynamic shared memory of a block
+    rows: int  # DB rows a tile
+    parts: int  # output tiles a scan tile (1: each champion in place)
+
+
+# the fewest DB tiles a part of a split scan tile keeps
+_PT_MIN_PART = 2
+
+
+def _pertile_rows(tile_n: int, k_used: int) -> int:
+    """DB rows of a pertile tile (the kernel's ``tile_rows`` of its
+    ``EpiTile`` instance): 128 where they cut the scan tile evenly and
+    k_used <= 256, else 64."""
+    return 128 if tile_n % 128 == 0 and k_used <= 256 else 64
+
+
+def _pertile_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool,
+                  tile_n: int, parts: Optional[int] = None) -> PertilePlan:
+    """Launch plan of the pertile scan for M queries against N DB rows cut
+    into scan tiles of ``tile_n`` rows: ``_hopper_plan``'s warpgroups, query
+    tiles and ring (norms in the ring; with ``fold`` each warpgroup holds
+    its hi and its lo query rows; tiles of ``_pertile_rows`` rows), and
+    chunks of whole scan tiles, about one block per SM for each query tile,
+    so every (scan tile, query row) is written by one block.  Where the
+    scan tiles are too few to fill the card that way, each is cut into
+    ``parts`` (a power of two) output tiles of at least ``_PT_MIN_PART``
+    DB tiles, one block each, whose champions a merge folds; ``parts``
+    given (a divisor of the scan tile's DB tiles) overrides that rule."""
+    if tile_n < 64 or tile_n % 64 or n % tile_n:
+        raise ValueError(f"pertile_champions plan: tile_n={tile_n} must be a "
+                         f"multiple of 64 dividing n={n}")
+    rows = _pertile_rows(tile_n, k_used)
+    base = _hopper_plan("pertile_champions", m, n, sm_count, k_used,
+                        _A2_CONSUMERS, qsets=2 if fold else 1, norms=True,
+                        rows=rows)
+    sub = tile_n // rows  # DB tiles a scan tile
+    ntiles = n // tile_n
+    room = max(1, sm_count // base.q_tiles)  # blocks of one query tile
+    if parts is None:
+        parts = 1
+        while (sub % (2 * parts) == 0
+               and sub // (2 * parts) >= _PT_MIN_PART
+               and ntiles * 2 * parts <= room):
+            parts *= 2
+    elif parts < 1 or sub % parts:
+        raise ValueError(f"pertile_champions plan: {parts} parts of a scan "
+                         f"tile of {sub} DB tiles")
+    units = ntiles * parts
+    per = -(-units // room)  # output tiles a block
+    return PertilePlan(base.consumers, base.bm, base.stages,
+                       per * (sub // parts), -(-units // per), base.q_tiles,
+                       base.smem, rows, parts)
 
 
 def _packed3_route(k_used: int) -> str:
@@ -710,35 +772,13 @@ def _tile_champions(scores: torch.Tensor, tile_n: int):
 
 
 def _check_tile(name: str, tile_n: int, npad: int) -> int:
-    """The tile snapped to a divisor of ``npad``; the CUDA per-tile scan
-    needs it to be a multiple of its 64-row shared-memory tile."""
+    """The tile snapped to a divisor of ``npad``; the CUDA per-tile scans
+    need it to be a multiple of their 64-row DB tile."""
     tile_n = _snap_tile(tile_n, npad)
     if tile_n % 64:
         raise ValueError(f"{name}: the CUDA scan needs a tile of a multiple "
                          f"of 64 rows dividing {npad}; got {tile_n}")
     return tile_n
-
-
-def _tile_scan(name, qa, qb, w1, w2, dbnh, m, tile_n, k_used, fold_a):
-    """Launch the per-tile CUDA scan (one stream when ``w2`` is None) for
-    checked card operands; count the launch under ``name``."""
-    n, k = w1.shape
-    tile_n = _check_tile(name, tile_n, n)
-    ntiles = n // tile_n
-    dev = _device_index(qa)
-    lib = _build.load("tile_champions")
-    vals = torch.empty((ntiles, m), dtype=torch.float32, device=qa.device)
-    idx = torch.empty((ntiles, m), dtype=torch.int32, device=qa.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    n_chunks = _chunks(ntiles, (m + 127) // 128, dev)
-    err = lib.ia_tile_champions(
-        qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), dbnh.data_ptr(), m,
-        n, k, k_used, int(fold_a), int(w2 is not None), tile_n, n_chunks,
-        vals.data_ptr(), idx.data_ptr(), dev,
-        torch.cuda.current_stream(qa.device).cuda_stream)
-    _build.check(lib, err, f"{name} launch")
-    LAUNCHES[name] += 1
-    return vals, idx
 
 
 def packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n: int,
@@ -765,8 +805,23 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
         return packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n, k_used,
                                       fold_a)
     _check_cuda("packed_champions", qa=qa, qb=qb, w1=w1, w2=w2, dbnh=dbnh)
-    return _tile_scan("packed_champions", qa, qb, w1, w2, dbnh, qb.shape[0],
-                      tile_n, k_used, fold_a)
+    # the first-design per-tile scan, csrc/tile_champions.cu
+    m = qb.shape[0]
+    n, k = w1.shape
+    tile_n = _check_tile("packed_champions", tile_n, n)
+    ntiles = n // tile_n
+    dev = _device_index(qa)
+    lib = _build.load("tile_champions")
+    vals = torch.empty((ntiles, m), dtype=torch.float32, device=qa.device)
+    idx = torch.empty((ntiles, m), dtype=torch.int32, device=qa.device)
+    err = lib.ia_tile_champions(
+        qa.data_ptr(), qb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        dbnh.data_ptr(), m, n, k, k_used, int(fold_a), 1, tile_n,
+        _chunks(ntiles, (m + 127) // 128, dev), vals.data_ptr(),
+        idx.data_ptr(), dev, torch.cuda.current_stream(qa.device).cuda_stream)
+    _build.check(lib, err, "packed_champions launch")
+    LAUNCHES["packed_champions"] += 1
+    return vals, idx
 
 
 def packed2_champions(q1, q2, w1, w2, dbnh, tile_n: int):
@@ -842,14 +897,57 @@ def pertile_champions(q: torch.Tensor, dbp: torch.Tensor,
     ``k_used`` (0: Fp) are zero in ``q`` and skipped.  Returns tile-major
     (vals (ntiles, M) fp32, idx (ntiles, M) int32 global rows); padding
     rows carry dbnh = +inf, so an all-padding tile gives -inf at its first
-    row."""
+    row.  On the card it runs ``csrc/pertile_champions.cu`` on the Hopper
+    core (``wgmma`` on a TMA ring, the norms in the ring, each scan tile's
+    champion written in place; launch plan ``_pertile_plan``)."""
     k_used = _check_bf16_scan("pertile_champions", q, dbp, dbnh, k_used)
     if _on_cpu(q, dbp, dbnh):
         return pertile_champions_plain(q, dbp, dbnh, tile_n, q_split, k_used)
-    qk = _scan_queries(q, q_split).contiguous()
-    _check_cuda("pertile_champions", q=qk, dbp=dbp, dbnh=dbnh)
-    return _tile_scan("pertile_champions", qk, None, dbp, None, dbnh,
-                      q.shape[0], tile_n, k_used, q_split)
+    # fp32 queries: the C entry writes their bf16 query block
+    q = (q.float() if q_split or q.dtype != torch.bfloat16 else q
+         ).contiguous()
+    _check_cuda("pertile_champions", q=q, dbp=dbp, dbnh=dbnh)
+    m, n = q.shape[0], dbp.shape[0]
+    tile_n = _check_tile("pertile_champions", tile_n, n)
+    plan = _pertile_plan(m, n, _sm_count(_device_index(q)), k_used,
+                         q_split, tile_n)
+    return _pertile_launch(q, dbp, dbnh, tile_n, k_used, q_split, plan)
+
+
+def _pertile_launch(q, dbp, dbnh, tile_n, k_used, q_split,
+                    plan: PertilePlan):
+    """One call of ``csrc/pertile_champions.cu`` on checked card operands
+    by ``plan``: ``q`` (M, Fp) fp32, whose bf16 query block
+    (``_scan_queries``: hi/lo rows with ``q_split``) the entry writes
+    first, or that block itself in bf16 ((2M, Fp) with ``q_split``).
+    Returns (vals, idx), (n / tile_n, M) each."""
+    n, k = dbp.shape
+    qf32 = q.dtype == torch.float32
+    m = q.shape[0] if qf32 or not q_split else q.shape[0] // 2
+    ntiles = n // tile_n
+    dev = q.device
+    qk = (torch.empty(((2 if q_split else 1) * m, k), dtype=torch.bfloat16,
+                      device=dev) if qf32 else None)
+    vals = torch.empty((ntiles, m), dtype=torch.float32, device=dev)
+    idx = torch.empty((ntiles, m), dtype=torch.int32, device=dev)
+    part_val = part_idx = None
+    if plan.parts > 1:
+        part_val = torch.empty((ntiles * plan.parts, m), dtype=torch.float32,
+                               device=dev)
+        part_idx = torch.empty((ntiles * plan.parts, m), dtype=torch.int32,
+                               device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.load("pertile_champions")
+    err = lib.ia_pertile_champions(
+        q.data_ptr(), int(qf32), ptr(qk), dbp.data_ptr(), dbnh.data_ptr(), m,
+        n, k, k_used, int(q_split), tile_n, plan.consumers, plan.bm,
+        plan.stages, plan.tiles_per_chunk, plan.smem, plan.n_chunks,
+        plan.parts, ptr(part_val), ptr(part_idx), vals.data_ptr(),
+        idx.data_ptr(), _device_index(q),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "pertile_champions launch")
+    LAUNCHES["pertile_champions"] += 1
+    return vals, idx
 
 
 def _pad_lanes(queries: torch.Tensor, fp: int) -> torch.Tensor:

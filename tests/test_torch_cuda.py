@@ -348,6 +348,85 @@ def test_cuda_pertile_matches_plain(q_split, n, npad, tile):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_split", [False, True])
+@pytest.mark.parametrize("m,n,npad,tile,f,fp", [
+    # the widest wavefront segment of each of npr_1024's five levels at its
+    # scan tile (``scan_tile_rows``), the last 100 rows padding: 256 scan
+    # tiles in place at level 0, 16-64 split in parts at levels 1-3, 16 in
+    # place at level 4
+    (352, 1048476, 1048576, 4096, 68, 128),
+    (176, 262044, 262144, 4096, 68, 128),
+    (88, 65436, 65536, 4096, 68, 128), (48, 16284, 16384, 1024, 68, 128),
+    (24, 3996, 4096, 256, 68, 128),
+    # the shapes of test_cuda_pertile_matches_plain (the 64-row tile takes
+    # the 64-row DB tiles)
+    (45, 1000, 1024, 256, 68, 128), (45, 700, 1024, 128, 68, 128),
+    (45, 200, 256, 64, 68, 128),
+    # all-padding scan tiles: the last three (in place) and the last of 16
+    # split in 8 parts, whose merge keeps (-inf, the tile's first row)
+    (45, 600, 1024, 128, 68, 128), (88, 60000, 65536, 4096, 68, 128),
+    # 256 lanes: 128-row DB tiles, and 64-row ones at a 192-row scan tile;
+    # past 256 lanes (the wide bf16 scans' lanes) 64-row tiles, one
+    # consumer warpgroup folded at 512
+    (70, 3000, 3072, 1024, 256, 256), (70, 3000, 3072, 192, 250, 256),
+    (45, 1000, 1024, 256, 300, 384), (45, 1000, 1024, 256, 450, 512)])
+def test_cuda_pertile_hopper_matches_plain(q_split, m, n, npad, tile, f, fp):
+    """pertile_champions on the Hopper core (pertile_champions.cu) against
+    its plain version on the card: one launch a call, finite champions
+    within 1e-4 of plain and their picks equal outside the 1e-4 band (the
+    tolerance of the other pertile card tests), every all-padding tile
+    -inf at its first row, duplicate rows in one thread and across threads
+    go to the lower index in their tile, the pair across DB chunks each win
+    their own tile, the same bits split in parts or not and whether the C
+    entry or ``_scan_queries`` makes the bf16 query block, and ten
+    repeated calls give the same bits."""
+    dev = _card()
+    q, dbp, dbn = (t.to(dev) for t in argmin2_case(m, n, npad, f, fp))
+    dbnh = 0.5 * dbn
+    k_used = (f + 15) // 16 * 16
+    match.reset_launch_counts()
+    vals, idx = match.pertile_champions(q, dbp, dbnh, tile, q_split, k_used)
+    assert match.LAUNCHES["pertile_champions"] == 1
+    for _ in range(10):
+        again = match.pertile_champions(q, dbp, dbnh, tile, q_split, k_used)
+        assert torch.equal(again[1], idx) and torch.equal(
+            again[0].view(torch.int32), vals.view(torch.int32))
+    plan = match._pertile_plan(m, npad, match._sm_count(
+        match._device_index(q)), k_used, q_split, tile)
+    whole = match._pertile_plan(m, npad, match._sm_count(
+        match._device_index(q)), k_used, q_split, tile, parts=1)
+    # the same bits whatever the split, and from the bf16 query block made
+    # by the wrapper's plain split (``_scan_queries``) as from the entry's
+    qk = match._scan_queries(q, q_split).contiguous()
+    for other in {plan, whole}:
+        got = match._pertile_launch(q, dbp, dbnh, tile, k_used, q_split,
+                                    other)
+        assert torch.equal(got[1], idx) and torch.equal(
+            got[0].view(torch.int32), vals.view(torch.int32))
+    got = match._pertile_launch(qk, dbp, dbnh, tile, k_used, q_split, plan)
+    assert torch.equal(got[1], idx) and torch.equal(
+        got[0].view(torch.int32), vals.view(torch.int32))
+    rv, ri = (t.cpu() for t in match.pertile_champions_plain(
+        q, dbp, dbnh, tile, q_split, k_used))
+    vals, idx = vals.cpu(), idx.cpu()
+    finite = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(vals), finite)
+    _assert_band("pertile", idx[finite], vals[finite], ri[finite],
+                 rv[finite], atol=1e-4, band=1e-4)
+    first = torch.arange(0, npad, tile, dtype=torch.int32)[:, None]
+    pad = ~finite
+    assert bool((vals[pad] == float("-inf")).all())
+    assert torch.equal(idx[pad], first.expand_as(idx)[pad])
+    assert bool(pad.any()) == (npad - n >= tile)
+    assert bool(((idx >= first) & (idx < first + tile)).all())
+    assert int(idx[finite].max()) < n
+    # queries 0, 1, 2 equal rows 2 (twin 10), 3 (twin 5) and 1 (twin
+    # n - 1, in the last real tile)
+    assert [int(idx[0, r]) for r in range(3)] == [2, 3, 1]
+    assert int(idx[(n - 1) // tile, 2]) == n - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_split", [False, True])
 @pytest.mark.parametrize("n,npad", [(1000, 1024), (700, 1088), (1, 256)])
 def test_cuda_argmin2_matches_plain(q_split, n, npad):
     dev = _card()

@@ -226,6 +226,97 @@ def test_argmin2_plan_covers_every_tile_once(n, sm_count, fold):
         match._argmin2_plan(8, n, sm_count, 100, fold)  # not a multiple of 16
 
 
+@pytest.mark.parametrize("n", [4096, 65536, 1048576])
+@pytest.mark.parametrize("tile_n", [64, 128, 256, 1024, 4096])
+@pytest.mark.parametrize("sm_count", [132, 1])
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("k_used", [80, 256, 272, 512])
+def test_pertile_plan_covers_every_tile_once(n, tile_n, sm_count, fold,
+                                             k_used):
+    """The pertile kernel's launch plan, M = 1..400: DB tiles of 128 rows
+    where the scan tile is a multiple of 128 rows and k_used <= 256, else
+    64; chunks of whole output tiles (a scan tile, or one of its ``parts``,
+    a power of two of at least 2 DB tiles, only where the scan tiles alone
+    leave SMs idle), so every DB tile is covered by exactly one block and
+    every (scan tile, query row) written once, none of them empty; the
+    query tiles and the ring as ``_hopper_plan`` (norms in the ring, hi/lo
+    rows resident with ``fold``), the block's shared memory within the
+    card's 232,448 bytes; and the grid about one block per SM."""
+    qsets = 2 if fold else 1
+    rows = 128 if tile_n % 128 == 0 and k_used <= 256 else 64
+    sub = tile_n // rows
+    ntiles = n // tile_n
+    tiles = n // rows
+    nbox = -(-k_used // 32)
+    smem = lambda st, c: (1024 + c * qsets * nbox * 4096
+                          + st * (nbox * rows * 64 + 4 * rows))
+    for m in (1, 2, 24, 48, 63, 64, 65, 88, 128, 176, 192, 193, 344, 352,
+              400):
+        plan = match._pertile_plan(m, n, sm_count, k_used, fold, tile_n)
+        assert plan.rows == rows == match._pertile_rows(tile_n, k_used)
+        parts, per = plan.parts, plan.tiles_per_chunk
+        unit = sub // parts  # DB tiles an output tile
+        assert parts >= 1 and parts & (parts - 1) == 0 and sub % parts == 0
+        assert parts == 1 or unit >= match._PT_MIN_PART
+        # whole output tiles a chunk; the chunks cover every DB tile once
+        assert per >= unit and per % unit == 0
+        assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+        covered = [0] * tiles
+        for chunk in range(plan.n_chunks):
+            for t in range(chunk * per, min(tiles, (chunk + 1) * per)):
+                covered[t] += 1
+        assert covered == [1] * tiles
+        # every output tile (scan tile part) written by one block
+        writers = {}
+        for chunk in range(plan.n_chunks):
+            for t in range(chunk * per, min(tiles, (chunk + 1) * per)):
+                if (t + 1) % unit == 0:
+                    writers[t // unit] = writers.get(t // unit, 0) + 1
+        assert writers == {u: 1 for u in range(ntiles * parts)}
+        c, st = plan.consumers, plan.stages
+        assert plan.smem == smem(st, c) and plan.smem + 1024 <= 232448
+        assert 1 <= st <= 8
+        assert st == 8 or smem(st + 1, c) > 232448 - 1024
+        bm = plan.bm
+        assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+        assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+        room = max(1, sm_count // plan.q_tiles)
+        assert plan.n_chunks <= max(room, ntiles)
+        # split only where the whole scan tiles leave SMs idle, and then no
+        # further than the card holds
+        if parts > 1:
+            assert ntiles < room and ntiles * parts <= room
+        else:
+            assert (ntiles * 2 > room or sub % 2
+                    or sub // 2 < match._PT_MIN_PART)
+        # parts forced: whole scan tiles, or the rule's own choice
+        whole = match._pertile_plan(m, n, sm_count, k_used, fold, tile_n,
+                                    parts=1)
+        assert whole.parts == 1 and whole.tiles_per_chunk % sub == 0
+        assert whole[:3] == plan[:3]
+        assert plan == match._pertile_plan(m, n, sm_count, k_used, fold,
+                                           tile_n, parts=parts)
+    # the headline (scan_rescue at level 0 of npr_1024: M = 352 as hi/lo
+    # rows, N = 2^20, 80 lanes, scan tile 4,096): two query tiles of 176
+    # rows on three warpgroups, a ring of 6 stages of 128 DB rows, 64
+    # chunks of 4 scan tiles (128 DB tiles), each champion in place; level
+    # 2's widest segment (M = 88, N = 65,536: 16 scan tiles) in 8 parts of
+    # 4 DB tiles; the other levels' widest: level 1 in 2 parts, level 3 in
+    # 4 of 2 DB tiles, level 4 (scan tiles of 2 DB tiles) in place
+    assert match._pertile_plan(352, 1048576, 132, 80, True, 4096) == (
+        3, 176, 6, 128, 64, 2, 225280, 128, 1)
+    assert match._pertile_plan(88, 65536, 132, 80, True, 4096)[3:] == (
+        4, 128, 1, 225280, 128, 8)
+    assert [match._pertile_plan(m_, n_, 132, 80, True, t_).parts
+            for m_, n_, t_ in ((176, 262144, 4096), (48, 16384, 1024),
+                               (24, 4096, 256))] == [2, 4, 1]
+    for bad in (32, 96):  # below 64 rows; not dividing N
+        with pytest.raises(ValueError):
+            match._pertile_plan(8, n, sm_count, k_used, fold, bad)
+    with pytest.raises(ValueError):  # parts not dividing the scan tile
+        match._pertile_plan(8, n, sm_count, k_used, fold, tile_n, 3 * sub)
+
+
 @pytest.mark.parametrize("n", [64, 99, 4096, 4097, 65536, 262144, 1048000,
                                1048576])
 @pytest.mark.parametrize("sm_count", [132, 114])
