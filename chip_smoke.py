@@ -34,8 +34,9 @@ and carried on):
                 ``packed3_best`` (exact_hi2's three-pass scan, 2L = 110 of
                 128 lanes) too; packed3 also once at the RGB width (256
                 lanes) at M = 352, N = 2^20, and past 256 lanes (the width
-                rule's packed_best.cu) at a small shape and at M = 352, N =
-                2^20 (2L = 288 and 384).  With ``--parent DIR`` also the
+                rule's packed3w_best.cu, its launch plan printed) at a small
+                shape and at M = 352, N = 2^20 (2L = 288, 296, 384 and
+                414).  With ``--parent DIR`` also the
                 five level-phase kernels of the checkout in DIR on the same
                 inputs (a child process each): argmin_l2's (idx, val) must
                 be the same bits, argmin2_l2's (i1, i2), pertile's and
@@ -77,7 +78,9 @@ and carried on):
 10. card_vs_cpu — exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2
                 (3 levels) on the card and on the CPU, exact_hi2 and
                 scan_rescue on RGB sources (``color_mode="source_rgb"``:
-                exact_hi2 scans 256 lanes in three passes), then batched at
+                exact_hi2 scans 256 lanes in three passes), exact_hi2 on
+                RGB sources at patch 7 (64^2, 2 levels: 414 and 342 lanes,
+                packed3w_best.cu at every wavefront step), then batched at
                 96^2 and rowwise at 64^2 against a CPU run of the same bf16
                 approximate match (the kernel's plain version) and exact at
                 48^2 against the CPU's fp32 scan: source maps differ on < 2%
@@ -126,13 +129,19 @@ PACKED_LEVELS = (0, 1)  # the packed2k scan's levels (1024^2, 512^2)
 # level 0 of the new modes: the bf16 centered DB (F = 68 of Fp = 128) and
 # the packed3 arrays (2L = 110 of Kp = 128)
 SCAN_SHAPE = dict(m=352, npad=1048576, f=68, fp=128, lw=55)
-# packed3 at the RGB width (exact_hi2 on RGB and source_rgb sources: 2L =
-# 256 of Kp = 256) and past the Hopper kernel's 256 lanes: 2L = 300 of 384
-# at a small shape, and 2L = 288 and 384 of 384 at the level-0 headline
+# packed3 at the RGB width (exact_hi2 on RGB and source_rgb sources at
+# patch 5: 2L = 256 of Kp = 256) and past 256 lanes (packed3w_best.cu): 2L
+# = 300 of 384 at a small shape, and at the level-0 headline 2L = 288, 296
+# (L = 148: the video preset's temporal block on RGB sources), 384 and 414
+# (L = 207: super_resolution's patch 7 on RGB sources, the shape of the
+# kernel's row in the table)
 P3_RGB_SHAPE = dict(m=352, npad=1048576, lw=128)
 P3_WIDE_SHAPE = dict(m=64, npad=65536, lw=150)
 P3_PAST256_SHAPES = (dict(m=352, npad=1048576, lw=144),
-                     dict(m=352, npad=1048576, lw=192))
+                     dict(m=352, npad=1048576, lw=148),
+                     dict(m=352, npad=1048576, lw=192),
+                     dict(m=352, npad=1048576, lw=207))
+P3W_ROW_LW = 207
 FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
 # level 0 of batched npr_1024: one 1024-pixel scan row against the bf16
 # rows-above DB (F = 68 of Fp = 128)
@@ -826,8 +835,9 @@ def packed3_cases(match, shapes, lw=55):
     exact_hi2 level build makes it (``pack_w12``: W1 = [d1|d2], W2 =
     [d3|d1], 2L = 110 of Kp = 128 lanes at L = 55, half norms): live-dim
     rows uniform in [0, 0.2), the last npad / 1024 rows (at least 64)
-    padding with +inf half norms, row ``hi`` a copy of row ``lo`` in
-    another DB chunk (12,345 and 900,000 at N = 2^20, scaled with N); M
+    padding with +inf half norms, row ``hi`` a copy of row ``lo`` (its
+    half norm too) in another DB chunk (12,345 and 900,000 at N = 2^20,
+    scaled with N); M
     queries near seeded DB rows, centered by the DB's shift and split in
     three bf16 parts (``_packed3_rows``), query 0 equal to row lo.  Torch
     and the imported tree's match module only: the --parent child builds
@@ -853,6 +863,9 @@ def packed3_cases(match, shapes, lw=55):
             live = torch.arange(lw_s, device=dev)
             shift, half_norm = packed_shift_and_halfnorm(x, live)
             w1, w2, dbnh = pack_w12(x, shift, half_norm, live, npad)
+            # the card's row sums may round a copied row's half norm apart
+            # from its source's (seen at L = 207): make the copy exact
+            dbnh[hi] = dbnh[lo]
             db = ((npad, lw_s), x, shift, w1, w2, dbnh, n_real, lo)
         _, x, shift, w1, w2, dbnh, n_real, lo = db
         gen = torch.Generator(device=dev).manual_seed(m)
@@ -924,8 +937,9 @@ def check_packed3(name, match, qa, qb, w1, w2, dbnh, k_used, n_real, lo):
     match.reset_launch_counts()
     idx, val = match.packed_best(qa, w1, k_used, **kw)
     torch.cuda.synchronize()
-    if match.LAUNCHES["packed3_best"] != 1:
-        fail(f"{name}: {match.LAUNCHES['packed3_best']} launches")
+    route = match._packed3_route(k_used)
+    if match.LAUNCHES[route] != 1 or sum(match.LAUNCHES.values()) != 1:
+        fail(f"{name}: launches {match.LAUNCHES}, expected one {route}")
     scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, True)
     ref_idx, ref_val = match._first_max(scores)
     second = torch.topk(scores, 2, dim=1).values[:, 1]
@@ -938,7 +952,7 @@ def check_packed3(name, match, qa, qb, w1, w2, dbnh, k_used, n_real, lo):
     return idx, val, err, ndiff
 
 
-def phase_packed3_levels(parent):
+def phase_packed3_levels(rows, parent):
     """packed3_best (exact_hi2's scan: [q1|q1].W1 + [q2|q2].W1 +
     [q1|q3].W2 - dbnh, 2L = 110 of 128 lanes) at every wavefront segment
     shape of npr_1024's five levels (exact_hi2 runs it at all of them), each
@@ -947,9 +961,10 @@ def phase_packed3_levels(parent):
     beside the ``3 mm + max`` yardstick and the bound; device ms weighted by
     each segment's steps, per level and in all.  Then the RGB width (2L =
     256 of 256 lanes) once at M = 352, N = 2^20, and the width rule's
-    packed_best.cu past 256 lanes (2L = 300) at M = 64, N = 65,536 and (2L
-    = 288 and 384 of 384) at M = 352, N = 2^20, each held against plain and
-    timed beside it.  With ``parent``: that tree's packed3 on
+    packed3w_best.cu past 256 lanes (2L = 300) at M = 64, N = 65,536 and (2L
+    = 288, 296, 384 and 414) at M = 352, N = 2^20, each held against plain
+    and timed beside it, with its launch plan; the 2L = 414 shape is
+    packed3w_best's row in ``rows``.  With ``parent``: that tree's packed3 on
     the same inputs at every one of these shapes (a child process), its ms
     and the counts of equal picks and equal val bits; fewer than 99.9%
     equal picks at a shape fails."""
@@ -1001,6 +1016,13 @@ def phase_packed3_levels(parent):
         if lw_s != lw:
             seg["plain_ms"] = cuda_time_ms(lambda: match.packed_best_plain(
                 qa, w1, k_used, **kw), reps=3, flush=flush)
+            if route == "packed3w_best":
+                seg["plan"] = match._packed3w_plan(
+                    m, npad, match._sm_count(0), k_used)._asdict()
+                if lw_s == P3W_ROW_LW:
+                    rows[route] = kernel_row(
+                        route, "packed3w_best.cu", 523, err, k_ms,
+                        seg["plain_ms"], l_ms, b)
             say("kernels", kernel="packed3_best", route=route, npad=npad,
                 width=2 * lw_s, kp=w1.shape[1], k_used=k_used,
                 bound_by=b[1], **seg)
@@ -1082,7 +1104,7 @@ def phase_kernels(parent=None):
     phase_argmin_levels(parent)
     phase_argmin2_levels(parent)
     phase_pertile_levels(parent)
-    phase_packed3_levels(parent)
+    phase_packed3_levels(rows, parent)
     phase_packed_kernel(rows, parent)
     phase_packed3_kernels(rows)
     phase_bf16_db_kernels(rows)
@@ -1910,14 +1932,18 @@ def phase_gate():
 
 def phase_card_vs_cpu():
     """exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2 (3 levels) on
-    the card and on the CPU, exact_hi2 and scan_rescue on RGB sources; then
+    the card and on the CPU, exact_hi2 and scan_rescue on RGB sources;
+    exact_hi2 on RGB sources at patch 7 (64^2, 2 levels: 2L = 414 and 342
+    lanes, packed3w_best.cu at every wavefront step); then
     batched (96^2) and rowwise (64^2) against a CPU run of the same bf16
     approximate match (the kernel's plain version, through the level's
-    approx_fn), and exact (48^2) against the CPU's fp32 scan."""
+    approx_fn), and exact (48^2) against the CPU's fp32 scan.  Returns the
+    launch counts of the patch-7 card run."""
     import numpy as np
 
     from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
     from image_analogies_tpu_torch.backends.cuda import CudaMatcher
+    from image_analogies_tpu_torch.ops import match
     from image_analogies_tpu_torch.utils.assets import make_structured
     from image_analogies_tpu_torch.utils.ssim import ssim
 
@@ -1925,15 +1951,27 @@ def phase_card_vs_cpu():
     gray = make_structured(96, 7)
     rgb = tuple(np.stack([x, x * x, 1 - x], -1).astype(np.float32)
                 for x in gray)
+    rgb64 = tuple(np.ascontiguousarray(x[16:80, 16:80]) for x in rgb)
     cases = [(dict(match_mode=mode), gray) for mode in NEW_MODES] + [
         (dict(match_mode=mode, color_mode="source_rgb"), rgb)
         for mode in ("exact_hi2", "scan_rescue")] + [
+        (dict(match_mode="exact_hi2", color_mode="source_rgb", patch_size=7,
+              levels=2), rgb64)] + [
         (dict(strategy=strategy), make_structured(size, 7))
         for strategy, size in (("batched", 96), ("rowwise", 64),
                                ("exact", 48))]
+    wide = None
     for kw, (a, ap, b) in cases:
-        params = AnalogyParams(levels=3, kappa=5.0, **kw)
+        params = AnalogyParams(**{"levels": 3, "kappa": 5.0, **kw})
+        match.reset_launch_counts()
         gpu = create_image_analogy(a, ap, b, params)
+        if kw.get("patch_size") == 7:
+            wide = dict(match.LAUNCHES)
+            want = sum(expected_launches(params, a.shape[0]).values())
+            if wide["packed3w_best"] != want or wide["packed3_best"]:
+                fail(f"card_vs_cpu: {kw} launched "
+                     f"{ {k: v for k, v in wide.items() if v} }, expected "
+                     f"packed3w_best once per wavefront step ({want})")
         cpu = create_image_analogy(a, ap, b, params, backend=CudaMatcher(
             params, "cpu", bf16_approx=params.strategy in ("batched",
                                                            "rowwise")))
@@ -1945,6 +1983,7 @@ def phase_card_vs_cpu():
                 and np.isfinite(gpu.bp).all()):
             fail(f"card_vs_cpu: {kw} differs from its CPU run (source maps "
                  f"{diff:.4f}, SSIM {s:.4f})")
+    return wide
 
 
 def phase_profile(a, ap, b, params, phase="profile"):
@@ -2076,14 +2115,16 @@ def main() -> None:
     if "gate" in phases:
         phase_gate()
     if "card_vs_cpu" in phases:
-        phase_card_vs_cpu()
+        path_launches["card_vs_cpu"] = phase_card_vs_cpu()
     if not set(PHASES) <= set(phases):
         return
-    # each kernel's launches from the run of its path; packed_champions
+    # each kernel's launches from the run of its path (packed3w_best:
+    # card_vs_cpu's exact_hi2 on RGB sources at patch 7); packed_champions
     # (the witness of packed_best) and the four superseded packed forms are
     # on no path, so 0
     for path, names in (("main", ("argmin_l2", "packed_best")),
                         ("exact_hi2", ("packed3_best",)),
+                        ("card_vs_cpu", ("packed3w_best",)),
                         ("rescue", ("pertile_champions",)),
                         ("two_pass", ("argmin2_l2",)),
                         ("batched", ("argmin_l2_bf16",))):

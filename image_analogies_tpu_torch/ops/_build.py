@@ -25,8 +25,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed2k_best",
-                  "packed3_best", "packed_best", "tile_champions", "argmin2",
-                  "pertile_champions")
+                  "packed3_best", "packed3w_best", "packed_best",
+                  "tile_champions", "argmin2", "pertile_champions")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -60,6 +60,11 @@ _SIGNATURES = {
         #  out_val, device, stream)
         "ia_packed3_best": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4
                            + [_INT, _VOIDP],
+    },
+    "packed3w_best": {
+        # ia_packed3_best's arguments (k_used past 256)
+        "ia_packed3w_best": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4
+                            + [_INT, _VOIDP],
     },
     "packed_best": {
         # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,

@@ -7,8 +7,10 @@
 // norms in the ring, the global champion of dots - norm: EpiBestSub) and
 // pertile_champions.cu (scan_rescue: FOLD or one query set, the norms in
 // the ring, one champion of dots - norm per scan tile, written in place:
-// EpiTile).  The other instances of bf16_scan.cuh (the superseded packed
-// forms, packed_champions, argmin_bf16) are to move here.
+// EpiTile).  packed3w_best.cu (packed3 past 256 lanes) has a kernel of its
+// own, built from the helpers and the EpiBestSub epilogue here.  The other
+// instances of bf16_scan.cuh (the superseded packed forms,
+// packed_champions, argmin_bf16) are to move here.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -123,8 +125,9 @@ __host__ __device__ constexpr int query_sets(bool fold, bool two) {
 // query rows of its consumer warpgroups (`qsets` blocks each), the ring of
 // `bn`-row tiles of `streams` weight arrays and, with norms, each stage's
 // fp32 norms
-inline int smem_bytes(int nbox, int stages, int consumers, int qsets,
-                      int streams, bool norms, int bn) {
+__host__ __device__ constexpr int smem_bytes(int nbox, int stages,
+                                            int consumers, int qsets,
+                                            int streams, bool norms, int bn) {
   return SMEM_ALIGN + consumers * qsets * nbox * QBOX_BYTES +
          stages * (streams * nbox * bn * BOX * 2 + (norms ? bn * 4 : 0));
 }

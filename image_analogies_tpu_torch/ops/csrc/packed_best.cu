@@ -1,17 +1,12 @@
 // Global-champion instances of the bf16 scan template (bf16_scan.cuh).
 //
 // Replaces: image_analogies_tpu/ops/pallas_match.py `_packed_best_kernel`
-// (entry `pallas_packed_best`) in four of its six forms and the packed3
-// form past 256 lanes; packed2k (the main path's scan: no fold, one stream,
-// the norm in W's lanes) is packed2k_best.cu and packed3 up to 256 lanes
-// packed3_best.cu, both on the Hopper core (hopper_scan.cuh):
+// (entry `pallas_packed_best`) in four of its six forms; packed2k (the main
+// path's scan: no fold, one stream, the norm in W's lanes) is
+// packed2k_best.cu, packed3 (exact_hi2) is packed3_best.cu up to 256 lanes
+// and packed3w_best.cu past them, all on Hopper kernels:
 //
 //   form       FOLD  TWO  norm        product set (score maximised)
-//   packed3    yes   yes  - dbnh      [q1|q1].W1 + [q2|q2].W1 + [q1|q3].W2
-//                                     (exact_hi2: the six bf16_6x products;
-//                                     here k_used > 256 only: three query
-//                                     sets at those widths leave the Hopper
-//                                     core no room for a ring stage)
 //   packed2    no    yes  - dbnh      [q1|q1].W1 + [q2|q1].W2
 //   packed1w   yes   no   - dbnh      [q1|q1].W1 + [q2|0].W1
 //   packed2wn  no    yes  in W lanes  [q1|q1|1].W1n + [q2|q1|0].W2
@@ -38,27 +33,6 @@ int launch_best(int k, const ScanArgs& a, int n_chunks, int* out_idx,
   return cudaGetLastError();
 }
 
-// packed3 past 256 lanes (k_used > 256 needs K >= 384): the query
-// fragments are re-read from L2 per DB tile (bf16_scan.cuh)
-int launch_packed3(int k, const ScanArgs& a, int n_chunks, int* out_idx,
-                   float* out_val, cudaStream_t s) {
-  int e;
-  switch (k) {
-    case 384:
-      e = launch_scan<24, true, true, NORM_SUB, EPI_BEST>(a, n_chunks, s);
-      break;
-    case 512:
-      e = launch_scan<32, true, true, NORM_SUB, EPI_BEST>(a, n_chunks, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  if (e != cudaSuccess) return e;
-  best_merge_kernel<<<a.m, 32, 0, s>>>(a.val, a.idx, a.m, n_chunks, out_idx,
-                                       out_val);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -69,8 +43,9 @@ extern "C" {
 // multiple of 16) are skipped.  part_val/part_idx (n_chunks, m) scratch;
 // out_idx/out_val (m,).  Launches on `stream`, returns cudaGetLastError().
 // The packed2k form (fold_a = 0, two_streams = 0, norm_in_w = 1) is not
-// taken: its entry is ia_packed2k_best; nor is packed3 at k_used <= 256,
-// whose entry is ia_packed3_best.
+// taken: its entry is ia_packed2k_best; nor is packed3 (fold_a = 1,
+// two_streams = 1, norm_in_w = 0), whose entries are ia_packed3_best and
+// ia_packed3w_best.
 int ia_packed_best(const void* qa, const void* qb, const void* w1,
                    const void* w2, const void* dbnh, int m, int n, int k,
                    int k_used, int fold_a, int two_streams, int norm_in_w,
@@ -96,9 +71,6 @@ int ia_packed_best(const void* qa, const void* qb, const void* w1,
   const int form = (fold_a ? 4 : 0) | (two_streams ? 2 : 0) |
                    (norm_in_w ? 1 : 0);
   switch (form) {
-    case 6:  // packed3, k_used > 256
-      if (k_used <= 256) return cudaErrorInvalidValue;
-      return launch_packed3(k, a, n_chunks, out_idx, out_val, s);
     case 2:  // packed2
       return launch_best<false, true, NORM_SUB>(k, a, n_chunks, out_idx,
                                                 out_val, s);

@@ -12,8 +12,8 @@
   lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
   ``packed_best`` itself is the main path's ``packed2k`` form,
   ``csrc/packed2k_best.cu``; ``packed3_best`` (exact_hi2) is
-  ``csrc/packed3_best.cu`` up to 256 lanes and ``csrc/packed_best.cu`` past
-  them (``_packed3_route``); ``packed2_best``, ``packed1w_best``,
+  ``csrc/packed3_best.cu`` up to 256 lanes and ``csrc/packed3w_best.cu``
+  past them (``_packed3_route``); ``packed2_best``, ``packed1w_best``,
   ``packed2wn_best`` and ``packed1wn_best`` are ``csrc/packed_best.cu``).
 - ``packed_champions``: the same packed passes, one champion per DB tile
   (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
@@ -24,14 +24,16 @@
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
 The packed2k, packed3, pertile and argmin2 scans run on the Hopper core
-``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); the other bf16
-kernels are instances of the template ``csrc/bf16_scan.cuh``.  Every
-kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
+``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring), packed3 past 256
+lanes on its own kernel beside it (query sets as register operands); the
+other bf16 kernels are instances of the template ``csrc/bf16_scan.cuh``.
+Every kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches, one key per kernel entry and packed
-form (one per wrapper call that launched), so a run can show that its path
-went through the kernels.
+form (one per wrapper call that launched; the packed3 form past 256 lanes
+counts as ``packed3w_best``), so a run can show that its path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -46,9 +48,9 @@ from image_analogies_tpu_torch.ops import _build
 # launches of each CUDA kernel entry since the last reset (plain-version
 # calls on CPU tensors do not count)
 LAUNCHES = {"argmin_l2": 0, "argmin_l2_bf16": 0, "packed_best": 0,
-            "packed3_best": 0, "packed2_best": 0, "packed1w_best": 0,
-            "packed2wn_best": 0, "packed1wn_best": 0, "packed_champions": 0,
-            "pertile_champions": 0, "argmin2_l2": 0}
+            "packed3_best": 0, "packed3w_best": 0, "packed2_best": 0,
+            "packed1w_best": 0, "packed2wn_best": 0, "packed1wn_best": 0,
+            "packed_champions": 0, "pertile_champions": 0, "argmin2_l2": 0}
 
 # score given to padding rows by the norm-in-W scheme: far below any real
 # score, finite (an inf lane would split to hi=-inf, lo=NaN)
@@ -488,13 +490,14 @@ def _pertile_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool,
 
 
 def _packed3_route(k_used: int) -> str:
-    """The library that runs the packed3 form at ``k_used`` lanes, by
-    width alone: ``packed3_best`` (csrc/packed3_best.cu on the Hopper core)
-    up to 256 lanes; past them a warpgroup's three resident query sets
-    (147,456 bytes at 384 lanes) leave no room for one ring stage of both
-    weight streams, so ``packed_best`` (csrc/packed_best.cu, which re-reads
-    the query fragments from L2 per DB tile)."""
-    return "packed3_best" if k_used <= _P3_MAX_LANES else "packed_best"
+    """The library (and launch-count key) that runs the packed3 form at
+    ``k_used`` lanes, by width alone: ``packed3_best``
+    (csrc/packed3_best.cu, the Hopper core) up to 256 lanes; past them a
+    warpgroup's three resident query sets (147,456 bytes at 384 lanes)
+    leave the core no room for one ring stage of both weight streams, so
+    ``packed3w_best`` (csrc/packed3w_best.cu, which holds one or two query
+    sets in registers; plan ``_packed3w_plan``)."""
+    return "packed3_best" if k_used <= _P3_MAX_LANES else "packed3w_best"
 
 
 def _packed3_plan(m: int, n: int, sm_count: int, k_used: int
@@ -509,6 +512,58 @@ def _packed3_plan(m: int, n: int, sm_count: int, k_used: int
                          f"kernel's {_P3_MAX_LANES} lanes")
     return _hopper_plan("packed3", m, n, sm_count, k_used, _P3_CONSUMERS,
                         qsets=3, norms=True, streams=2)
+
+
+# csrc/packed3w_best.cu: k_used in (256, 512]; up to 26 k steps (416
+# lanes) two query sets a warpgroup sit in registers and a block runs up
+# to two consumer warpgroups, past them one set and one warpgroup (the
+# kernel's ``reg_sets`` / ``max_consumers``)
+_P3W_MAX_LANES = 512
+_P3W_REG2_MAX_KSTEPS = 26
+
+
+class Packed3wPlan(NamedTuple):
+    consumers: int  # consumer warpgroups a block
+    bm: int  # query rows a block (<= 64 consumers)
+    stages: int  # ring depth
+    tiles_per_chunk: int  # DB tiles per block
+    n_chunks: int  # grid y: DB chunks
+    q_tiles: int  # grid x: query tiles of bm rows
+    smem: int  # dynamic shared memory of a block
+    rows: int  # DB rows a tile
+    reg_sets: int  # query sets a warpgroup holds in registers
+
+
+def _packed3w_layout(k_used: int) -> Tuple[int, int, int]:
+    """(query sets in registers, most consumer warpgroups, DB rows a tile)
+    of the packed3w instance at ``k_used`` lanes (the kernel's
+    ``reg_sets``, ``max_consumers`` and ``w_tile_rows``): two sets and two
+    warpgroups up to 26 k steps, else one and one; 64-row tiles where a
+    ring of two such stages fits beside the shared-memory sets of the most
+    warpgroups, else 32."""
+    reg = 2 if k_used // 16 <= _P3W_REG2_MAX_KSTEPS else 1
+    cmax = 2 if reg == 2 else 1
+    rows = 64 if _hopper_smem(k_used, 2, cmax, 3 - reg, True, 64,
+                              2) <= _P2K_SMEM else 32
+    return reg, cmax, rows
+
+
+def _packed3w_plan(m: int, n: int, sm_count: int, k_used: int
+                   ) -> Packed3wPlan:
+    """Launch plan of the packed3 scan past 256 lanes (``_hopper_plan``
+    over ``_packed3w_layout``): 3 - reg_sets query sets a warpgroup in
+    shared memory, a ring stage of one W1 and one W2 tile and their norms;
+    two consumer warpgroups where the instance runs two and a ring of two
+    stages fits, else one.  Past 448 lanes one set of 64 rows leaves room
+    for a single 32-row stage only."""
+    if not _P3_MAX_LANES < k_used <= _P3W_MAX_LANES:
+        raise ValueError(f"packed3w: k_used={k_used} is outside the "
+                         f"kernel's ({_P3_MAX_LANES}, {_P3W_MAX_LANES}]")
+    reg, cmax, rows = _packed3w_layout(k_used)
+    base = _hopper_plan("packed3w", m, n, sm_count, k_used,
+                        tuple(range(cmax, 0, -1)), qsets=3 - reg,
+                        norms=True, rows=rows, streams=2)
+    return Packed3wPlan(*base, rows=rows, reg_sets=reg)
 
 
 def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
@@ -599,8 +654,9 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     is exact_hi2's ``packed3`` form (``packed3_best``), which the width
     rule ``_packed3_route`` sends to ``csrc/packed3_best.cu`` (the same
     core with a second weight stream, plan ``_packed3_plan``) up to
-    ``k_used`` = 256 and to ``csrc/packed_best.cu`` past it; its kernel
-    reads ``qa`` and ``qb`` as one (3M, K) tensor, without a copy where
+    ``k_used`` = 256 and to ``csrc/packed3w_best.cu`` (plan
+    ``_packed3w_plan``) past it; both kernels
+    read ``qa`` and ``qb`` as one (3M, K) tensor, without a copy where
     ``qb`` lies right after ``qa`` (``_packed3_rows`` builds them so).  The
     other four combinations the JAX package names are the ``*_best``
     wrappers below (``csrc/packed_best.cu``).  K in {128, 256, 384, 512};
@@ -624,13 +680,13 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     n = w1.shape[0]
     dev = _device_index(qa)
     stream = torch.cuda.current_stream(qa.device).cuda_stream
-    hopper3 = (form == "packed3_best"
-               and _packed3_route(k_used) == "packed3_best")
+    route = _packed3_route(k_used) if form == "packed3_best" else None
     if form == "packed_best":
         plan = _packed2k_plan(m, n, _sm_count(dev), k_used)
         n_chunks = plan.n_chunks
-    elif hopper3:
-        plan = _packed3_plan(m, n, _sm_count(dev), k_used)
+    elif route is not None:
+        plan = (_packed3_plan if route == "packed3_best"
+                else _packed3w_plan)(m, n, _sm_count(dev), k_used)
         n_chunks = plan.n_chunks
     else:
         n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
@@ -647,13 +703,13 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
             qa.data_ptr(), w1.data_ptr(), m, n, k, k_used, plan.consumers,
             plan.bm, plan.stages, plan.tiles_per_chunk, plan.smem, n_chunks,
             *outs)
-    elif hopper3:
-        lib = _build.load("packed3_best")
+    elif route is not None:
+        lib = _build.load(route)
         # the kernel's one (3M, K) query operand: qb right after qa
         adjacent = (qb.data_ptr()
                     == qa.data_ptr() + qa.numel() * qa.element_size())
         q = qa if adjacent else torch.cat([qa, qb])
-        err = lib.ia_packed3_best(
+        err = getattr(lib, f"ia_{route}")(
             q.data_ptr(), w1.data_ptr(), w2.data_ptr(), dbnh.data_ptr(), m,
             n, k, k_used, plan.consumers, plan.bm, plan.stages,
             plan.tiles_per_chunk, plan.smem, n_chunks, *outs)
@@ -664,8 +720,8 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
             qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), ptr(dbnh), m, n,
             k, k_used, int(fold_a), int(w2 is not None), int(dbnh is None),
             n_chunks, *outs)
-    _build.check(lib, err, f"{form} launch")
-    LAUNCHES[form] += 1
+    _build.check(lib, err, f"{route or form} launch")
+    LAUNCHES[route or form] += 1
     return out_idx, out_val
 
 

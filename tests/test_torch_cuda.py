@@ -523,21 +523,25 @@ def test_cuda_argmin2_hopper_matches_plain(q_split, m, n, npad, f, fp):
         assert bool((i2 == n).all())
 
 
-def packed3_case(m, n, npad, l=55, seed=7):
+_P3_DUPS = ((2, 10), (3, 5), (1, -1))
+
+
+def packed3_case(m, n, npad, l=55, seed=7, dups=_P3_DUPS):
     """Seeded packed3 operands as the exact_hi2 level build makes them
     (``pack_w12``: W1 = [d1|d2], W2 = [d3|d1] of 2L rounded up to 128
     lanes, half norms with +inf on rows [n, npad)), on the CPU: live-dim
-    rows with exact duplicate pairs 2 and 10 (one thread's columns of a
-    tile), 3 and 5 (two threads') and 1 and n - 1 (different DB chunks once
-    n spans chunks); queries centered by the DB's shift and split in three
-    bf16 parts, queries 0, 1 and 2 equal to rows 2, 3 and 1.  Returns (q1,
-    q2, q3, w1, w2, dbnh)."""
+    rows with exact duplicate pairs (``dups``; -1 is row n - 1), by default
+    2 and 10 (one thread's columns of a tile), 3 and 5 (two threads') and 1
+    and n - 1 (different DB chunks once n spans chunks); queries centered
+    by the DB's shift and split in three bf16 parts, query i equal to the
+    lower row of pair i (rows 2, 3 and 1 by default).  Returns (q1, q2,
+    q3, w1, w2, dbnh)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((n, l), generator=g) * 0.1
     q = torch.randn((m, l), generator=g) * 0.1
-    for lo, hi in ((2, 10), (3, 5), (1, n - 1)):
-        x[hi] = x[lo]
-    for row, src in enumerate((2, 3, 1)[:m]):
+    for lo, hi in dups:
+        x[hi % n] = x[lo]
+    for row, (src, _) in enumerate(dups[:m]):
         q[row] = x[src]
     live = torch.arange(l)
     shift, half_norm = packed_shift_and_halfnorm(x, live)
@@ -593,7 +597,8 @@ def test_cuda_packed3_hopper_matches_plain(m, n, npad, l):
 @pytest.mark.parametrize("m,l", [(70, 150), (3, 200)])
 def test_cuda_packed3_wide_route_matches_plain(m, l):
     """Past 256 lanes (2L = 300 and 400 of 384 and 512) the width rule
-    sends packed3 to packed_best.cu: one launch a call, picks equal to the
+    sends packed3 to packed3w_best.cu: one launch a call (counted as
+    ``packed3w_best``), picks equal to the
     plain version's outside the band.  Scores within 4e-5: at these widths
     the tensor cores' fp32 accumulation over 3 x 19-25 k steps differs from
     the plain fp32 product by up to 2.8e-5 (scores ~1;
@@ -604,10 +609,11 @@ def test_cuda_packed3_wide_route_matches_plain(m, l):
     q1, q2, q3, w1, w2, dbnh = (t.to(dev) for t in packed3_case(
         m, 1000, 1088, l))
     k_used = (2 * l + 15) // 16 * 16
-    assert match._packed3_route(k_used) == "packed_best"
+    assert match._packed3_route(k_used) == "packed3w_best"
     match.reset_launch_counts()
     idx, val = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
-    assert match.LAUNCHES["packed3_best"] == 1
+    assert match.LAUNCHES["packed3w_best"] == 1
+    assert match.LAUNCHES["packed3_best"] == 0
     qa, qb = (t.clone() for t in match._packed3_rows(q1, q2, q3,
                                                       w1.shape[1]))
     ref_i, ref_v = match.packed_best_plain(qa, w1, k_used, qb=qb, w2=w2,
@@ -628,13 +634,108 @@ def test_cuda_packed3_wide_route_matches_plain(m, l):
             got[1].view(torch.int32), want[1].view(torch.int32))
 
 
+# duplicate pairs across a 32-row and a 64-row DB-tile boundary, within
+# one 32-row tile, and far apart (different DB chunks at the larger N)
+_P3W_DUPS = ((2, 10), (31, 32), (63, 64), (40, 100), (1, -1))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,atol", [(55, 1e-5), (128, 1e-5), (150, 4e-5),
-                                    (200, 4e-5)])
+@pytest.mark.parametrize("m,n,npad,l", [
+    (m, n, npad, l)
+    # 2L = 296 (the video preset's block on RGB sources: Kp 384), 300, 400
+    # and 414 (super_resolution on RGB sources: Kp 512), two query sets in
+    # registers and two warpgroups; 440 (one set, one warpgroup) and 500
+    # (a single ring stage)
+    for l in (148, 150, 200, 207, 220, 250)
+    # one query, a warpgroup's edge, two warpgroups' edge, two query tiles
+    for m in (5, 64, 129, 300)
+    # N ragged (the box past N reads zeros, the last tile's norms come from
+    # global memory), an all-padding last tile, and many chunks with an
+    # all-padding last chunk
+    for n, npad in ((1000, 1000), (1000, 1100), (69000, 72000))])
+def test_cuda_packed3w_matches_plain(m, n, npad, l):
+    """packed3 past 256 lanes (packed3w_best.cu) against its plain version
+    on the card: one launch a call, scores within 4e-5 (the tensor cores'
+    fp32 sum over 3 x 19-32 k steps, ``test_cuda_packed3_scores_against_
+    float64``), picks equal outside that band; exact ties inside a 32-row
+    DB tile, across 32- and 64-row tile boundaries and across DB chunks go
+    to the lowest index; padding rows never win; ten repeated calls give
+    the same bits."""
+    dev = _card()
+    q1, q2, q3, w1, w2, dbnh = (t.to(dev) for t in packed3_case(
+        m, n, npad, l, dups=_P3W_DUPS))
+    k_used = (2 * l + 15) // 16 * 16
+    assert match._packed3_route(k_used) == "packed3w_best"
+    plan = match._packed3w_plan(
+        m, npad, match._sm_count(match._device_index(w1)), k_used)
+    if n > 10000:  # rows 1 and n - 1 in different blocks, a padding chunk
+        chunk = plan.tiles_per_chunk * plan.rows
+        assert 1 // chunk != (n - 1) // chunk
+        assert (plan.n_chunks - 1) * chunk >= n
+    match.reset_launch_counts()
+    idx, val = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
+    assert match.LAUNCHES["packed3w_best"] == 1
+    assert sum(match.LAUNCHES.values()) == 1
+    qa, qb = match._packed3_rows(q1, q2, q3, w1.shape[1])
+    ref_i, ref_v = match.packed_best_plain(qa, w1, k_used, qb=qb, w2=w2,
+                                           dbnh=dbnh, fold_a=True)
+    _assert_band("packed3w_best", idx.cpu(), val.cpu(), ref_i.cpu(),
+                 ref_v.cpu(), atol=4e-5, band=4e-5)
+    want = [lo for lo, _ in _P3W_DUPS][:m]
+    assert [int(i) for i in idx[:len(want)]] == want
+    assert int(idx.max()) < n
+    for _ in range(10):
+        again_i, again_v = match.packed3_best(q1, q2, q3, w1, w2, dbnh)
+        assert torch.equal(again_i, idx)
+        assert torch.equal(again_v.view(torch.int32), val.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_packed3w_refuses_what_it_does_not_take():
+    """The C entry of packed3w_best.cu refuses k_used at or below 256 or
+    past 512, K outside {384, 512}, and a plan outside its limits (two
+    warpgroups past 416 lanes, where the instance runs one); the wrapper
+    refuses K past 512 before any launch."""
+    dev = _card()
+    lib = match._build.load("packed3w_best")
+    m, n = 8, 256
+    q = torch.zeros((3 * m, 512), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((n, 512), dtype=torch.bfloat16, device=dev)
+    dbnh = torch.zeros((n,), device=dev)
+    part_val, out_val = (torch.empty((n, m), device=dev) for _ in range(2))
+    part_idx, out_idx = (torch.empty((n, m), dtype=torch.int32, device=dev)
+                         for _ in range(2))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(k, k_used, consumers=None):
+        plan = match._packed3w_plan(m, n, 132, max(272, min(k_used, 512)))
+        return lib.ia_packed3w_best(
+            q.data_ptr(), w.data_ptr(), w.data_ptr(), dbnh.data_ptr(), m, n,
+            k, k_used, consumers or plan.consumers, plan.bm, plan.stages,
+            plan.tiles_per_chunk, plan.smem, plan.n_chunks,
+            part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
+            out_val.data_ptr(), match._device_index(q), stream)
+
+    assert call(512, 416) == 0 and call(512, 512) == 0
+    torch.cuda.synchronize()
+    for k, k_used in ((512, 256), (512, 528), (256, 272), (640, 416),
+                      (384, 400)):
+        assert call(k, k_used) != 0, (k, k_used)
+    assert call(512, 448, consumers=2) != 0
+    with pytest.raises(ValueError):
+        match.packed_best(q[:2 * m], torch.zeros((n, 640),
+                                                 dtype=torch.bfloat16,
+                                                 device=dev), 528,
+                          qb=q[2 * m:], w2=w, dbnh=dbnh, fold_a=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,atol", [(55, 1e-5), (128, 1e-5), (148, 4e-5),
+                                    (150, 4e-5), (200, 4e-5), (207, 4e-5)])
 def test_cuda_packed3_scores_against_float64(l, atol):
     """The packed3 scores of both routes (the Hopper core up to 256 lanes,
-    packed_best.cu past them) against a float64 sum of the same six bf16
-    products: the tensor cores' fp32 accumulation over 3 x 7-25 k steps
+    packed3w_best.cu past them) against a float64 sum of the same six bf16
+    products: the tensor cores' fp32 accumulation over 3 x 7-26 k steps
     strays by up to ``atol`` (scores ~1), further than the plain fp32
     product, which stays within 1e-6 -- so the plain version is the
     reference the kernels are held to within these tolerances."""

@@ -6,15 +6,21 @@ NumPy-seeded inputs go to both.  tests/test_torch_cuda.py holds the CUDA
 kernels against the same plain versions on the card.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from image_analogies_tpu.config import PRESETS as JAX_PRESETS
+from image_analogies_tpu.ops import features as jfeatures
 from image_analogies_tpu.ops import pallas_match as pm
+from image_analogies_tpu_torch import PRESETS
 from image_analogies_tpu_torch.backends.cuda import pack_wk
 from image_analogies_tpu_torch.ops import match
+from image_analogies_tpu_torch.ops.features import spec_for_level
 from tests.test_torch_cuda import argmin_inputs, packed_inputs, query_rows
 from tests.test_torch_wavefront import one_torch_thread  # noqa: F401
 
@@ -362,14 +368,96 @@ def test_packed3_plan_headline_and_route():
     """The headline packed3 plan (exact_hi2 at level 0 of npr_1024: M =
     352, N = 2^20, 2L = 110 lanes used as 112, 132 SMs) is pinned; at 256
     lanes (RGB sources) one warpgroup keeps a ring of two stages; the width
-    rule sends every k_used up to 256 to the Hopper kernel and the wider
-    ones to packed_best.cu."""
+    rule sends every k_used up to 256 to the Hopper core and the wider
+    ones to packed3w_best.cu."""
     assert match._packed3_plan(352, 1048576, 132, 112) == (
         3, 176, 2, 249, 66, 2, 214528)
     assert match._packed3_plan(352, 1048576, 132, 256)[:4] == (1, 59, 2, 745)
     for k_used in range(16, 513, 16):
         assert match._packed3_route(k_used) == (
-            "packed3_best" if k_used <= 256 else "packed_best")
+            "packed3_best" if k_used <= 256 else "packed3w_best")
+
+
+def test_packed3w_plan_headline():
+    """The packed3 plans past 256 lanes at M = 352, N = 2^20 on 132 SMs are
+    pinned: at 304 lanes (the video preset's block on RGB sources), 384 and
+    416 (super_resolution on RGB sources) two sets a warpgroup in registers
+    and two warpgroups a block (three query tiles of 118 rows), 32-row DB
+    tiles in a ring of three or two stages; at 512 one set and one
+    warpgroup (six query tiles), a single 32-row stage."""
+    plan = lambda k: tuple(match._packed3w_plan(352, 1048576, 132, k))
+    assert plan(304) == (2, 118, 3, 745, 44, 3, 206208, 32, 2)
+    assert plan(384) == (2, 118, 2, 745, 44, 3, 197888, 32, 2)
+    assert plan(416) == (2, 118, 2, 745, 44, 3, 214272, 32, 2)
+    assert plan(512) == (1, 59, 1, 1490, 22, 6, 197760, 32, 1)
+    for k_used in (256, 528):  # the Hopper core's widths; past 512
+        with pytest.raises(ValueError):
+            match._packed3w_plan(352, 1048576, 132, k_used)
+
+
+@pytest.mark.parametrize("k_used", range(272, 513, 16))
+@pytest.mark.parametrize("n", [64, 99, 65536, 1048000, 1048576])
+def test_packed3w_plan_fits_every_width(k_used, n):
+    """At every k_used past 256 (272 to 512 in steps of 16) and M = 1..400
+    on 132 and 114 SMs: the block's shared memory (1 KiB of slack, 3 -
+    reg_sets query sets of 4 KiB a 32-lane box per warpgroup, a ring whose
+    stages hold a W1 and a W2 tile and 4 bytes of norms a tile row) stays
+    within the card's 232,448 - 1,024 bytes with the deepest ring that
+    fits; the ring keeps two stages or more up to 448 lanes, and past 448
+    (one query set of 64 rows in shared memory beside 32-row tiles of
+    480-512 bytes a stream) takes a single stage; two sets in registers
+    and two warpgroups up to 416 lanes (26 k steps), one past them; 64-row
+    DB tiles at 272 and 288 lanes, 32-row ones above; the DB chunks cover
+    every tile exactly once and none is empty; the query tiles hold every
+    query, as even as they come; the grid about one block per SM."""
+    nbox = -(-k_used // 32)
+    reg, cmax, rows = match._packed3w_layout(k_used)
+    assert (reg, cmax) == ((2, 2) if k_used <= 416 else (1, 1))
+    assert rows == (64 if k_used <= 288 else 32)
+    smem = lambda st, c: (1024 + c * (3 - reg) * nbox * 4096
+                          + st * (2 * nbox * rows * 64 + 4 * rows))
+    tiles = -(-n // rows)
+    for sm_count in (132, 114):
+        for m in (*range(1, 401, 9), 64, 128, 129, 352):
+            plan = match._packed3w_plan(m, n, sm_count, k_used)
+            assert (plan.rows, plan.reg_sets) == (rows, reg)
+            c, st = plan.consumers, plan.stages
+            assert c == cmax
+            assert plan.smem == smem(st, c) <= 232448 - 1024
+            assert st == 8 or smem(st + 1, c) > 232448 - 1024
+            assert st >= 2 if k_used <= 448 else st == 1
+            per = plan.tiles_per_chunk
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            bm = plan.bm
+            assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+            assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+            assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                       plan.q_tiles)
+
+
+@pytest.mark.parametrize("preset,temporal,width", [
+    ("super_resolution", False, 207), ("video", True, 148)])
+def test_rgb_presets_reach_packed3w(preset, temporal, width):
+    """exact_hi2 on RGB sources (``color_mode="source_rgb"``, three source
+    channels) scans 2L lanes at level 0: L = 207 at super_resolution's
+    patch 7, L = 148 at the video preset's patch 5 with the temporal block
+    (the port's own ``spec_for_level``, live query dims as the JAX
+    package's ``query_live_mask``); both widths go to packed3w_best.cu, on
+    Kp = 512 and 384 lanes."""
+    params = dataclasses.replace(PRESETS[preset], match_mode="exact_hi2",
+                                 color_mode="source_rgb")
+    spec = spec_for_level(params, 0, params.levels, 3, temporal=temporal)
+    live = int(spec.query_live_mask().sum())
+    jspec = jfeatures.spec_for_level(
+        dataclasses.replace(JAX_PRESETS[preset], match_mode="exact_hi2",
+                            color_mode="source_rgb"), 0, params.levels, 3,
+        temporal=temporal)
+    assert live == width == int(np.asarray(jspec.query_live_mask()).sum())
+    k_used = (2 * live + 15) // 16 * 16
+    assert match._packed3_route(k_used) == "packed3w_best"
+    assert max(-(-2 * live // 128) * 128, 128) == (512 if live > 192
+                                                   else 384)
+    match._packed3w_plan(352, 1048576, 132, k_used)
 
 
 def test_packed3_rows_are_one_tensor():

@@ -114,6 +114,26 @@ def _run_form(form, c, tile=256):
     return got, want
 
 
+@pytest.mark.parametrize("l", [148, 207])
+@pytest.mark.parametrize("m,n,npad", [(13, 1000, 1024), (5, 700, 768)])
+def test_packed3_past_256_lanes_matches_pallas(l, m, n, npad):
+    """packed3_best past 256 lanes, where the card runs packed3w_best.cu:
+    2L = 296 of Kp = 384 (L = 148, the video preset's block on RGB
+    sources) and 2L = 414 of Kp = 512 (L = 207, super_resolution on RGB
+    sources), against the JAX kernel in interpret mode: the same picks,
+    values within the stated 1e-5."""
+    c = _packed_case(m=m, l=l, n=n, npad=npad)
+    assert c["kp"] == (384 if l == 148 else 512)
+    assert match._packed3_route(match._lanes(l)) == "packed3w_best"
+    before = dict(match.LAUNCHES)
+    (idx, val), (ref_i, ref_v) = _run_form("packed3_best", c)
+    assert match.LAUNCHES == before  # CPU tensors: plain version only
+    np.testing.assert_array_equal(idx.numpy(), _np(ref_i))
+    np.testing.assert_allclose(val.numpy(), _np(ref_v), **TOL)
+    assert int(idx[2]) == 3  # the duplicate pair: lowest index
+    assert int(idx.max()) < n  # padding rows never win
+
+
 @pytest.mark.parametrize("form", ["packed_best", "packed3_best",
                                   "packed2_best", "packed1w_best",
                                   "packed2wn_best", "packed1wn_best"])
