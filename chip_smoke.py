@@ -37,15 +37,19 @@ and carried on):
                 rule's packed3w_best.cu, its launch plan printed) at a small
                 shape and at M = 352, N = 2^20 (2L = 288, 296, 384 and
                 414).  With ``--parent DIR`` also the
-                five level-phase kernels of the checkout in DIR on the same
+                six level-phase kernels of the checkout in DIR on the same
                 inputs (a child process each): argmin_l2's (idx, val) must
                 be the same bits, argmin2_l2's (i1, i2), pertile's and
                 packed3_best's picks >= 99.9% equal; equal picks and val
                 bits of argmin2_l2, pertile_champions, packed3_best and
                 packed_best are counted.
                 ``argmin_l2_bf16`` (the batched/rowwise approximate match)
-                at level 0 of batched npr_1024: M = 1024 queries against
-                1,048,576 bf16 rows.  The four superseded packed forms are
+                at each of batched npr_1024's five levels (one scan row of
+                M = 1024 >> l queries against the level's bf16 rows-above
+                DB; level 0, M = 1024 against 1,048,576 rows, is its row in
+                the table), launches and weighted ms per level and in all;
+                with ``--parent`` its picks >= 99.9% equal to the parent's,
+                equal picks and val bits counted.  The four superseded packed forms are
                 checked and timed at a smaller shape (M = 64, N = 65,536),
                 with launches 0 in the table: they are on no path.
 3. main       — ``create_image_analogy`` with ``PRESETS["npr_1024"]`` on the
@@ -88,7 +92,7 @@ and carried on):
 
 ``--phases main,profile`` adds one more warm run under torch.profiler
 (device time by kernel, device busy share); ``--phases batched_profile``
-profiles one warm batched run at 256^2 (3 levels) the same way; ``--ptxas``
+profiles one warm batched run at 1024^2 (5 levels) the same way; ``--ptxas``
 prints each kernel's registers, shared memory and spills.
 
 Then the kernel table as one JSON line (each kernel's launches from the run
@@ -143,9 +147,6 @@ P3_PAST256_SHAPES = (dict(m=352, npad=1048576, lw=144),
                      dict(m=352, npad=1048576, lw=207))
 P3W_ROW_LW = 207
 FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
-# level 0 of batched npr_1024: one 1024-pixel scan row against the bf16
-# rows-above DB (F = 68 of Fp = 128)
-BATCHED_SHAPE = dict(m=1024, npad=1048576, f=68, fp=128)
 
 # the kernel (launch-count key) each resolved anchor mode runs
 ANCHOR_KERNEL = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed_best",
@@ -483,43 +484,47 @@ def phase_argmin_levels(parent):
 
 
 def argmin2_cases(shapes, f=68, fp=128,
-                  pad=lambda npad: max(64, npad >> 10)):
+                  pad=lambda npad: max(64, npad >> 10), center=True):
     """Yield (level, npad, m, steps, q, dbp, dbn, n_real, lo, hi) for each
-    (level, npad, m, steps), one DB per N at a time, built on the card as
-    the two_pass level builds it: the bf16 centered DB of rows uniform in
-    [0, 0.2) (F = 68 of Fp = 128 lanes), full fp32 norms of the unrounded
-    rows, the last ``pad(npad)`` rows (by default npad / 1024, at least 64)
-    padding with +inf norms, row ``hi`` a copy of row ``lo`` in another DB
-    chunk (12,345 and 900,000 at N = 2^20, scaled with N); M queries near
-    seeded DB rows, query 0 equal to the bf16 row lo.  Torch only: the
-    --parent child builds the same operands for the other tree's kernel."""
+    (level, npad, m, steps[, F]), one DB per N at a time, built on the card
+    as the two_pass level builds it: the bf16 centered DB of rows uniform
+    in [0, 0.2) (F = the shape's own or ``f`` of Fp = 128 lanes), full
+    fp32 norms of the unrounded rows, the last ``pad(npad)`` rows (by
+    default npad / 1024, at least 64) padding with +inf norms, row ``hi`` a
+    copy of row ``lo`` in another DB chunk (12,345 and 900,000 at N = 2^20,
+    scaled with N); M queries near seeded DB rows, query 0 equal to the
+    bf16 row lo.  Without ``center`` the rows are not centered, as the
+    batched level builds its scan copy (``pad_bf16_uncentered``).  Torch
+    only: the --parent child builds the same operands for the other tree's
+    kernel."""
     import torch
 
     dev = torch.device("cuda", 0)
     db = None
-    for level, npad, m, steps in shapes:
-        if db is None or db[0] != npad:
+    for level, npad, m, steps, *width in shapes:
+        fs = width[0] if width else f
+        if db is None or db[0] != (npad, fs):
             db = None
             torch.cuda.empty_cache()
             n_real = npad - pad(npad)
             lo, hi = 12345 * npad >> 20, 900000 * npad >> 20
             gen = torch.Generator(device=dev).manual_seed(31)
-            x = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
+            x = torch.rand((n_real, fs), generator=gen, device=dev) * 0.2
             x[hi] = x[lo]  # duplicate rows: ties go to the lowest index
-            xc = x - x.mean(dim=0)[None, :]
+            xc = x - x.mean(dim=0)[None, :] if center else x
             del x
             dbp = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
-            dbp[:n_real, :f] = xc.to(torch.bfloat16)
+            dbp[:n_real, :fs] = xc.to(torch.bfloat16)
             dbn = torch.full((npad,), float("inf"), device=dev)
             dbn[:n_real] = (xc * xc).sum(dim=1)
-            db = (npad, xc, dbp, dbn, n_real, lo, hi)
+            db = ((npad, fs), xc, dbp, dbn, n_real, lo, hi)
         _, xc, dbp, dbn, n_real, lo, hi = db
         gen = torch.Generator(device=dev).manual_seed(m)
         q = torch.zeros((m, fp), device=dev)
-        q[:, :f] = xc[torch.randint(0, n_real, (m,), generator=gen,
-                                    device=dev)] \
-            + torch.randn((m, f), generator=gen, device=dev) * 0.02
-        q[0, :f] = dbp[lo, :f].float()
+        q[:, :fs] = xc[torch.randint(0, n_real, (m,), generator=gen,
+                                     device=dev)] \
+            + torch.randn((m, fs), generator=gen, device=dev) * 0.02
+        q[0, :fs] = dbp[lo, :fs].float()
         yield level, npad, m, steps, q, dbp, dbn, n_real, lo, hi
 
 
@@ -1053,9 +1058,8 @@ def phase_packed3_levels(rows, parent):
 def parent_bits(kind, parent, shapes):
     """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
     "argmin2": argmin2_l2, "packed3": packed_best's packed3 form,
-    "pertile": pertile_champions) of the checkout in ``parent`` on the
-    same seeded
-    operands, in a child process built from that tree's sources:
+    "pertile": pertile_champions, "argmin_bf16": argmin_l2_bf16) of the
+    checkout in ``parent`` on the same seeded operands, in a child process built from that tree's sources:
     ({"idx/<npad>/<m>": ..., "val/<npad>/<m>": ...}, {"<npad>/<m>": device
     ms})."""
     import numpy as np
@@ -1089,7 +1093,8 @@ def bits_child(kind, root, out, shapes):
     run = {"argmin": run_argmin_shapes, "packed": run_packed_shapes,
            "argmin2": run_argmin2_shapes,
            "packed3": run_packed3_shapes,
-           "pertile": run_pertile_shapes}[kind]
+           "pertile": run_pertile_shapes,
+           "argmin_bf16": run_argmin_bf16_shapes}[kind]
     got = run(match, [tuple(s) for s in shapes])
     arrays = {}
     for key, (idx, val, *_) in got.items():
@@ -1108,7 +1113,7 @@ def phase_kernels(parent=None):
     phase_packed_kernel(rows, parent)
     phase_packed3_kernels(rows)
     phase_bf16_db_kernels(rows)
-    phase_argmin_bf16_kernel(rows)
+    phase_argmin_bf16_levels(rows, parent)
     phase_packed_forms(rows)
     return rows
 
@@ -1494,64 +1499,141 @@ def phase_bf16_db_kernels(rows):
     torch.cuda.empty_cache()
 
 
-def phase_argmin_bf16_kernel(rows):
-    """argmin_l2_bf16 (the batched/rowwise approximate match) at level 0 of
-    batched npr_1024: M = 1024 queries (one scan row), the bf16 rows-above
-    DB of Npad = 1,048,576 rows (the last 5,000 padding), F = 68 of
-    Fp = 128 lanes, with a duplicate row pair in different chunks."""
+def batched_level_shapes():
+    """[(level, npad, m, rows, F)]: the approximate match of batched
+    npr_1024 on the 1024^2 inputs, level by level as the level build makes
+    it: one scan row of M = w pixels a launch, ``rows`` = h launches,
+    against the rows-above DB of h w rows padded to a multiple of
+    ``PAD_TILE`` (``pad_bf16_uncentered``), F the level's feature width
+    (``spec_for_level``, a luminance source: no coarse block at the
+    coarsest level)."""
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.backends.cuda import PAD_TILE
+    from image_analogies_tpu_torch.ops.features import spec_for_level
+
+    params = PRESETS["npr_1024"]
+    out, h = [], 1024
+    for level in range(params.levels):
+        f = spec_for_level(params, level, params.levels, 1).total
+        out.append((level, -(-h * h // PAD_TILE) * PAD_TILE, h, h, f))
+        h = (h + 1) // 2
+    return out
+
+
+def run_argmin_bf16_shapes(match, shapes):
+    """``match.argmin_l2_bf16`` (the F used lanes rounded up to 16) on the
+    seeded operands of each (level, npad, m, rows, F) (``argmin2_cases``,
+    uncentered): {"npad/m": (idx, val, device ms)}, timed from a cold L2."""
+    import torch
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for shape, (_, npad, m, _, q, dbp, dbn, *_) in zip(
+            shapes, argmin2_cases(shapes, center=False)):
+        k_used = (shape[4] + 15) // 16 * 16
+        idx, val = match.argmin_l2_bf16(q, dbp, dbn, k_used)
+        ms = cuda_time_ms(lambda: match.argmin_l2_bf16(q, dbp, dbn, k_used),
+                          reps=20, flush=flush)
+        out[f"{npad}/{m}"] = (idx.cpu().numpy(), val.cpu().numpy(), ms)
+    return out
+
+
+def argmin_bf16_bound(m, npad, f):
+    """Bound of one argmin_l2_bf16 call at the function's own width F: the
+    fp32 queries, the F used DB lanes and the norms read once, (idx, val)
+    written once; one pass of 2 M N F bf16 operations."""
+    return bound(4 * m * f + 2 * npad * f + 4 * npad + 8 * m,
+                 2 * m * npad * f, PEAK_BF16_FLOP_S)
+
+
+def phase_argmin_bf16_levels(rows, parent):
+    """argmin_l2_bf16 (the batched/rowwise approximate match) at each level
+    of batched npr_1024 (``batched_level_shapes``: M = 1024 >> l queries,
+    one scan row, against the level's rows-above DB, the last npad / 1024
+    rows padding); level 0 (M = 1,024, N = 2^20, F = 68 of 128 lanes) is
+    the headline and the kernel's row in the table.  Held against its
+    plain version (scores within PACKED_ATOL, picks equal outside
+    SCORE_BAND, the duplicate and padding rules), timed from a cold L2
+    beside the bf16 ``mm`` + ``min`` yardstick and the bound; each level's
+    launches are its scan rows, its weighted ms the launches times the ms,
+    and the weight of the gap the sum over levels of launches x (ms -
+    bound).  With ``parent``: that tree's argmin_l2_bf16 on the same inputs
+    (a child process), its ms and the counts of equal picks and val bits;
+    fewer than 99.9% equal picks at a level fails."""
+    import numpy as np
     import torch
 
     from image_analogies_tpu_torch.ops import match
 
-    dev = torch.device("cuda", 0)
-    s = BATCHED_SHAPE
-    m, npad, f, fp = s["m"], s["npad"], s["f"], s["fp"]
-    n_real = npad - 5000
-    k_used = (f + 15) // 16 * 16
-    gen = torch.Generator(device=dev).manual_seed(29)
-    db = torch.rand((n_real, f), generator=gen, device=dev) * 0.2
-    db[900000] = db[12345]
-    dbp = torch.zeros((npad, fp), dtype=torch.bfloat16, device=dev)
-    dbp[:n_real, :f] = db.to(torch.bfloat16)
-    dbn = torch.full((npad,), float("inf"), device=dev)
-    dbn[:n_real] = (db * db).sum(dim=1)
-    q = torch.zeros((m, fp), device=dev)
-    q[:, :f] = db[torch.randint(0, n_real, (m,), generator=gen, device=dev)] \
-        + torch.randn((m, f), generator=gen, device=dev) * 0.02
-    q[0, :f] = db[12345]
-    del db
-    flush = flusher(dev)
-
-    idx, val = match.argmin_l2_bf16(q, dbp, dbn, k_used)
-    torch.cuda.synchronize()
-    qk = match._scan_queries(q, False)
-    second = torch.topk(dbn[None, :] - 2.0 * match._dots(qk, dbp, k_used), 2,
-                        dim=1, largest=False).values[:, 1]
-    ref_idx, ref_val = match.argmin_l2_bf16_plain(q, dbp, dbn, k_used)
-    err, ndiff = check_picks("argmin_l2_bf16", idx, val, ref_idx, ref_val,
-                             second, PACKED_ATOL)
-    if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
-        fail(f"argmin_l2_bf16: duplicate/padding rule broken (idx[0]="
-             f"{int(idx[0])}, max {int(idx.max())})")
-    dbt = dbp.T
-    k_ms = cuda_time_ms(lambda: match.argmin_l2_bf16(q, dbp, dbn, k_used),
-                        reps=20, flush=flush)
-    p_ms = cuda_time_ms(lambda: match.argmin_l2_bf16_plain(
-        q, dbp, dbn, k_used), reps=3, flush=flush)
-    l_ms = cuda_time_ms(lambda: (dbn[None, :] - 2.0 * torch.mm(
-        qk, dbt, out_dtype=torch.float32)).min(dim=1), reps=10, flush=flush)
-    # the function's work at its own width F = 68 (the kernel rounds its
-    # lanes up to 80): one pass of F products per (query, row)
-    b = bound(2 * npad * f + 4 * npad + 2 * m * f + 8 * m,
-              2 * m * npad * f, PEAK_BF16_FLOP_S)
-    rows["argmin_l2_bf16"] = kernel_row("argmin_l2_bf16", "argmin_bf16.cu",
-                                        51, err, k_ms, p_ms, l_ms, b)
-    say("kernels", kernel="argmin_l2_bf16", m=m, npad=npad, f=f,
-        k_used=k_used, max_abs_err=err, picks_differing_in_band=ndiff,
-        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0],
-        bound_by=b[1])
-    del q, qk, dbp, dbt, dbn, second
+    shapes = batched_level_shapes()
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("argmin_bf16", parent, shapes)
+    flush = flusher(torch.device("cuda", 0))
+    keys = ["ms", "bound_ms", "library_ms"] + (["parent_ms"] if theirs
+                                               else [])
+    total = dict.fromkeys(keys, 0.0)
+    for (level, npad, m, launches, f), case in zip(
+            shapes, argmin2_cases(shapes, center=False)):
+        q, dbp, dbn, n_real, lo = case[4:9]
+        name = f"argmin_l2_bf16 level {level} M={m}"
+        k_used = (f + 15) // 16 * 16
+        match.reset_launch_counts()
+        idx, val = match.argmin_l2_bf16(q, dbp, dbn, k_used)
+        torch.cuda.synchronize()
+        if match.LAUNCHES["argmin_l2_bf16"] != 1:
+            fail(f"{name}: {match.LAUNCHES['argmin_l2_bf16']} launches")
+        qk = match._scan_queries(q, False)
+        dbt = dbp.T
+        second = torch.topk(dbn[None, :] - 2.0 * match._dots(qk, dbp, k_used),
+                            2, dim=1, largest=False).values[:, 1]
+        ref_idx, ref_val = match.argmin_l2_bf16_plain(q, dbp, dbn, k_used)
+        err, ndiff = check_picks(name, idx, val, ref_idx, ref_val, second,
+                                 PACKED_ATOL)
+        del second, ref_idx, ref_val
+        if int(idx[0]) != lo or int(idx.max()) >= n_real:
+            fail(f"{name}: duplicate/padding rule broken (idx[0]="
+                 f"{int(idx[0])}, max {int(idx.max())})")
+        k_ms = cuda_time_ms(lambda: match.argmin_l2_bf16(q, dbp, dbn,
+                                                         k_used),
+                            reps=20, flush=flush)
+        p_ms = cuda_time_ms(lambda: match.argmin_l2_bf16_plain(
+            q, dbp, dbn, k_used), reps=3, flush=flush)
+        l_ms = cuda_time_ms(lambda: (dbn[None, :] - 2.0 * torch.mm(
+            qk, dbt, out_dtype=torch.float32)).min(dim=1), reps=10,
+            flush=flush)
+        b = argmin_bf16_bound(m, npad, f)
+        seg = dict(level=level, m=m, npad=npad, f=f, k_used=k_used,
+                   launches=launches, ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=b[0], bound_by=b[1],
+                   bound_share=b[0] / k_ms, max_abs_err=err,
+                   picks_differing_in_band=ndiff)
+        if theirs is not None:
+            key = f"{npad}/{m}"
+            ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+            picks = int((ti == idx.cpu().numpy()).sum())
+            seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                       val_bits_equal_parent=int(
+                           (tv.view(np.int32)
+                            == val.cpu().numpy().view(np.int32)).sum()))
+            if picks < 0.999 * m:
+                say("kernels", kernel="argmin_l2_bf16", **seg)
+                fail(f"{name}: {picks} of {m} picks equal to {parent}'s "
+                     "kernel, fewer than 99.9%")
+        for k in keys:
+            total[k] += launches * seg[k]
+        say("kernels", kernel="argmin_l2_bf16", **seg,
+            **{f"weighted_{k}": launches * seg[k] for k in keys})
+        if level == 0:
+            rows["argmin_l2_bf16"] = kernel_row(
+                "argmin_l2_bf16", "argmin_bf16.cu", 51, err, k_ms, p_ms,
+                l_ms, b)
+        del q, qk, dbp, dbt, dbn, case, idx, val
     torch.cuda.empty_cache()
+    say("kernels", kernel="argmin_l2_bf16", levels=[sh[0] for sh in shapes],
+        launches=sum(sh[3] for sh in shapes),
+        weighted_gap_ms=total["ms"] - total["bound_ms"],
+        **{f"weighted_{k}": v for k, v in total.items()})
 
 
 def phase_packed_forms(rows):
@@ -2039,21 +2121,22 @@ def main() -> None:
                     + " (default), or with 'profile': one more warm run of "
                       "the main path under torch.profiler, or "
                       "'batched_profile': a profiled warm batched run at "
-                      "256^2")
+                      "1024^2")
     ap.add_argument("--ptxas", action="store_true",
                     help="rebuild with -Xptxas -v and print each kernel's "
                          "registers, shared memory and spills")
     ap.add_argument("--parent", metavar="DIR",
                     help="with the kernels phase: run the argmin_l2, "
-                         "argmin2_l2, pertile_champions, packed3_best and "
-                         "packed_best of the checkout in DIR (e.g. the "
-                         "parent commit, unpacked by git archive) on their "
-                         "level shapes too; argmin_l2's picks and scores "
-                         "must be the same bits, argmin2_l2's (i1, i2), "
-                         "pertile_champions' and packed3_best's picks must "
-                         "be >= 99.9%% equal, and the equal picks and val "
-                         "bits of argmin2_l2, pertile_champions, "
-                         "packed3_best and packed_best are counted")
+                         "argmin2_l2, pertile_champions, packed3_best, "
+                         "packed_best and argmin_l2_bf16 of the checkout in "
+                         "DIR (e.g. the parent commit, unpacked by git "
+                         "archive) on their level shapes too; argmin_l2's "
+                         "picks and scores must be the same bits, "
+                         "argmin2_l2's (i1, i2), pertile_champions', "
+                         "packed3_best's and argmin_l2_bf16's picks must be "
+                         ">= 99.9%% equal, and the equal picks and val bits "
+                         "of argmin2_l2, pertile_champions, packed3_best, "
+                         "packed_best and argmin_l2_bf16 are counted")
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
@@ -2082,7 +2165,7 @@ def main() -> None:
     rows = phase_kernels(args.parent) if "kernels" in phases else None
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue",
-            "two_pass", "batched"} & set(phases):
+            "two_pass", "batched", "batched_profile"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -2104,14 +2187,11 @@ def main() -> None:
         path_launches["batched"] = phase_batched(a, ap_, b)
     if "batched_profile" in phases:
         from image_analogies_tpu_torch import PRESETS
-        from image_analogies_tpu_torch.utils.assets import make_structured
 
-        small = make_structured(256, 7)
-        bparams = dataclasses.replace(PRESETS["npr_1024"], strategy="batched",
-                                      levels=3)
-        run_path("batched_profile", bparams, *small, runs=("cold",),
+        bparams = dataclasses.replace(PRESETS["npr_1024"], strategy="batched")
+        run_path("batched_profile", bparams, a, ap_, b, runs=("cold",),
                  keep_levels=False)
-        phase_profile(*small, bparams, phase="batched_profile")
+        phase_profile(a, ap_, b, bparams, phase="batched_profile")
     if "gate" in phases:
         phase_gate()
     if "card_vs_cpu" in phases:

@@ -42,10 +42,11 @@ _SIGNATURES = {
                         + [_INT, _VOIDP],
     },
     "argmin_bf16": {
-        # (q, db, dbn, m, n, k, k_used, n_chunks, part_val, part_idx,
-        #  out_idx, out_val, device, stream)
-        "ia_argmin_l2_bf16": [_VOIDP] * 3 + [_INT] * 5 + [_VOIDP] * 4
-                             + [_INT, _VOIDP],
+        # (q, qf32, qk, db, dbn, m, n, k, k_used, consumers, bm, stages,
+        #  tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx,
+        #  out_val, device, stream)
+        "ia_argmin_l2_bf16": [_VOIDP, _INT] + [_VOIDP] * 3 + [_INT] * 10
+                             + [_VOIDP] * 4 + [_INT, _VOIDP],
     },
     "packed2k_best": {
         # (qa, wk, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,

@@ -1,17 +1,16 @@
 // The first-design bf16 tensor-core scan template (sm_90a, mma.sync),
 // the core of the champion scans not yet on the Hopper core
-// (hopper_scan.cuh, which serves packed2k, packed3 up to 256 lanes,
-// argmin2 and pertile_champions): packed_best.cu (the four superseded
-// packed forms, and packed3 past 256 lanes), tile_champions.cu
-// (packed_champions) and argmin_bf16.cu each instantiate it and add their
-// C entry.
+// (hopper_scan.cuh, which serves packed2k, packed3, argmin2,
+// pertile_champions and argmin_bf16): packed_best.cu (the four superseded
+// packed forms) and tile_champions.cu (packed_champions) each instantiate
+// it and add their C entry.
 //
 // Replaces the family of Pallas kernels in
 // image_analogies_tpu/ops/pallas_match.py that score bf16 query rows
 // against a bf16 DB with fp32 accumulation and keep a champion:
 // `_packed_best_kernel` (global champion, its forms but packed2k),
-// `_packed_kernel` and `_pertile_kernel` (one champion per DB tile) and
-// `_argmin_kernel`'s bf16 form.  They differ along three compile-time axes:
+// `_packed_kernel` and `_pertile_kernel` (one champion per DB tile).  They
+// differ along three compile-time axes:
 //
 // - passes: one to three (query row block, weight stream) pairs summed into
 //   ONE fp32 accumulator — pass 0 is qa rows [0, m) against W1; with FOLD,
@@ -19,9 +18,8 @@
 //   qb rows [0, m) against W2.  The TPU sums the folded blocks after
 //   separate accumulations; one accumulator is another fp32 order, covered
 //   by the callers' stated tolerances.
-// - norm term: NORM_IN_W (the -||d||^2/2 term rides W's lanes), NORM_SUB
-//   (score = dots - dbnh[n]) or NORM_L2 (score = dbn[n] - 2 dots, MINIMISED;
-//   scanned internally as its exact negation 2 dots - dbn and negated back).
+// - norm term: NORM_IN_W (the -||d||^2/2 term rides W's lanes) or NORM_SUB
+//   (score = dots - dbnh[n]).
 // - epilogue: EPI_BEST (global champion: per-chunk partials + a
 //   lexicographic merge), EPI_TILE (one champion per `tile_n` rows, written
 //   tile-major (ntiles, m)).  Every comparison is the lexicographic
@@ -76,7 +74,7 @@ constexpr int MAX_FRAG_STEPS = 32;
 // shared memory a block may opt into on sm_90 (227 KiB)
 constexpr int SMEM_MAX = 232448;
 
-enum Norm { NORM_IN_W = 0, NORM_SUB = 1, NORM_L2 = 2 };
+enum Norm { NORM_IN_W = 0, NORM_SUB = 1 };
 enum Epi { EPI_BEST = 0, EPI_TILE = 1 };
 
 struct ScanArgs {
@@ -84,7 +82,7 @@ struct ScanArgs {
   const __nv_bfloat16* qb;  // (m, k) against w2 (TWO only)
   const __nv_bfloat16* w1;  // (n, k)
   const __nv_bfloat16* w2;  // (n, k) (TWO only)
-  const float* norm;        // (n,): dbnh (NORM_SUB) or dbn (NORM_L2)
+  const float* norm;        // (n,): dbnh (NORM_SUB)
   int m, n, ksteps_used;
   int tiles_per_chunk;  // BN-row tiles per block
   int tile_sub;         // EPI_TILE: BN-row tiles per output tile
@@ -173,8 +171,6 @@ __device__ __forceinline__ float score(float dots, const float* norm,
                                        int gn) {
   if constexpr (NORM == NORM_SUB) {
     return dots - __ldg(norm + gn);
-  } else if constexpr (NORM == NORM_L2) {
-    return 2.0f * dots - __ldg(norm + gn);  // exact negation of dbn - 2 dots
   } else {
     return dots;
   }

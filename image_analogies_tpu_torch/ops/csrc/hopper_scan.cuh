@@ -1,16 +1,18 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
-// with a producer warp.  Four instances use it: packed2k_best.cu (one pass,
+// with a producer warp.  Five instances use it: packed2k_best.cu (one pass,
 // the norm in W's lanes, the global champion: EpiBest), argmin2.cu (the
 // hi/lo query blocks folded, the fp32 norms in the ring, the lexicographic
 // top-2: EpiTop2), packed3_best.cu (exact_hi2: two folded query sets
 // against W1 and a third against a second weight stream W2 (TWO), the
-// norms in the ring, the global champion of dots - norm: EpiBestSub) and
+// norms in the ring, the global champion of dots - norm: EpiBestSub),
 // pertile_champions.cu (scan_rescue: FOLD or one query set, the norms in
 // the ring, one champion of dots - norm per scan tile, written in place:
-// EpiTile).  packed3w_best.cu (packed3 past 256 lanes) has a kernel of its
-// own, built from the helpers and the EpiBestSub epilogue here.  The other
-// instances of bf16_scan.cuh (the superseded packed forms,
-// packed_champions, argmin_bf16) are to move here.
+// EpiTile) and argmin_bf16.cu (batched and rowwise: one query set, the
+// norms in the ring, the global champion of 2 dots - norm: EpiBestL2).
+// packed3w_best.cu (packed3 past 256 lanes) has a kernel of its own, built
+// from the helpers and the EpiBestSub epilogue here.  The other instances
+// of bf16_scan.cuh (the superseded packed forms, packed_champions) are to
+// move here.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -55,7 +57,8 @@
 //   (64 accumulators at 128-row tiles) 96-128 with no spills, packed3's
 //   93-128 (its 240- and 256-lane instances spill 12-16 bytes),
 //   pertile's 95-128 (128 at every 128-row instance; some unfolded 176-
-//   240-lane and folded 304-384-lane ones spill 4-44 bytes), so the
+//   240-lane and folded 304-384-lane ones spill 4-44 bytes),
+//   argmin_bf16's 115-128 (two instances spill 8 bytes), so the
 //   epilogues hold no score arrays and a second accumulator set (to
 //   overlap a tile's epilogue with the next chain) does not fit; the
 //   producer is one warp, not a warpgroup, so `setmaxnreg` has little to
@@ -531,20 +534,35 @@ struct EpiTop2 {
   }
 };
 
-// The global champion of score = dots - norm (packed3: the norms of the
-// stage, or of global memory for the ragged last tile): the maximum, lowest
-// index on ties, in fp32 with the single subtract of the first design
-// (bf16_scan.cuh NORM_SUB).  A row's scores of a tile cost one subtract and
-// one max each; only a tile maximum that beats the running best looks up
-// its lowest column (recomputing the scores, the same fp32 values), which
-// after the first few tiles is rare.  A padding row (+inf norm) scores
-// -inf, which a strict `>` never takes, so a thread, and a chunk, that saw
-// only padding keeps (-inf, INT_MAX) and loses every lexicographic merge to
-// a real row.  The state, the quad reduce and the write are EpiBest's; the
-// tiles are EpiBest's 64 rows too (128-row ones leave room for three query
-// sets only on two warpgroups: three query tiles at M = 352).
-struct EpiBestSub : EpiBest {
+// The global champion of score = S dots - norm, S = 1 (packed3: dots -
+// dbnh, EpiBestSub) or 2 (argmin_bf16: 2 dots - dbn, the exact negation of
+// the L2 score dbn - 2 dots, EpiBestL2; its merge negates back), with the
+// norms of the stage, or of global memory for the ragged last tile: the
+// maximum, lowest index on ties, in fp32 with one subtract: the score bits
+// of the first design's instances (2 dots is exact, so a fused
+// multiply-add gives the same value).  A row's scores of a tile cost one subtract and one max each;
+// only a tile maximum that beats the running best looks up its lowest
+// column (recomputing the scores, the same fp32 values), which after the
+// first few tiles is rare.  A padding row (+inf norm) scores -inf, which a
+// strict `>` never takes, so a thread, and a chunk, that saw only padding
+// keeps (-inf, INT_MAX) and loses every lexicographic merge to a real row.
+// The state, the quad reduce and the write are EpiBest's.  WIDE: 128-row
+// tiles up to k_used = 256 (`tile_rows`); packed3 keeps 64 (128-row ones
+// leave room for three query sets only on two warpgroups: three query
+// tiles at M = 352).
+template <int S, bool WIDE>
+struct EpiBestNorm : EpiBest {
+  static_assert(S == 1 || S == 2, "score = dots - norm or 2 dots - norm");
   static constexpr bool kNorms = true;
+  static constexpr bool kWide = WIDE;
+
+  __device__ __forceinline__ static float score(float d, float n) {
+    if constexpr (S == 1) {
+      return d - n;
+    } else {
+      return 2.0f * d - n;
+    }
+  }
 
   // the lowest column of this thread's row (r = 0: row g; r = 2: row
   // g + 8) whose score is s
@@ -560,7 +578,8 @@ struct EpiBestSub : EpiBest {
 #pragma unroll
       for (int e = 1; e >= 0; --e) {
         const int c = 8 * j + e;
-        if ((!MASK || c < lim) && d[4 * j + r + e] - (e ? n.y : n.x) == s)
+        if ((!MASK || c < lim) &&
+            score(d[4 * j + r + e], e ? n.y : n.x) == s)
           col = c;
       }
     }
@@ -580,8 +599,8 @@ struct EpiBestSub : EpiBest {
         const int c = 8 * j + e;
         const float nc = e ? n.y : n.x;
         if (!MASK || c < lim) {
-          tv0 = fmaxf(tv0, d[4 * j + e] - nc);
-          tv1 = fmaxf(tv1, d[4 * j + 2 + e] - nc);
+          tv0 = fmaxf(tv0, score(d[4 * j + e], nc));
+          tv1 = fmaxf(tv1, score(d[4 * j + 2 + e], nc));
         }
       }
     }
@@ -595,6 +614,9 @@ struct EpiBestSub : EpiBest {
     }
   }
 };
+
+using EpiBestSub = EpiBestNorm<1, false>;
+using EpiBestL2 = EpiBestNorm<2, true>;
 
 // One champion of score = dots - norm per output tile of a.tile_sub DB
 // tiles (pertile_champions: a scan tile, or a part of one that a merge
@@ -886,6 +908,39 @@ int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
     return launch_scan_k<FOLD, TWO, Epi, KMAX, KSTEPS + 1>(
         ksteps, q, w, w2, k, a, n_chunks, s);
   }
+}
+
+// The bf16 query block of fp32 queries q (m, k), written by the C entries
+// of the scans that take fp32 queries (one launch in place of a wrapper's
+// cast): with split (q_split) the hi rows (the truncated bf16, by bit
+// mask: exact) then the lo rows (the residual, exact in fp32, rounded to
+// nearest), (2m, k); else q rounded to nearest, (m, k) -- the bits of
+// ops/match.py `_scan_queries`
+__global__ void scan_queries_kernel(const float* __restrict__ q, int m, int k,
+                                    int split,
+                                    __nv_bfloat16* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t total = (size_t)m * k;
+  if (e >= total) return;
+  const float x = q[e];
+  if (split) {
+    const float hi = __uint_as_float(__float_as_uint(x) & 0xffff0000u);
+    out[e] = __float2bfloat16_rn(hi);
+    out[total + e] = __float2bfloat16_rn(x - hi);
+  } else {
+    out[e] = __float2bfloat16_rn(x);
+  }
+}
+
+// scan_queries_kernel over q (m, k) into out on stream s; returns the
+// first CUDA error
+inline int write_scan_queries(const float* q, int m, int k, int split,
+                              __nv_bfloat16* out, cudaStream_t s) {
+  const int threads = 256;
+  const size_t total = (size_t)m * k;
+  scan_queries_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
+                        0, s>>>(q, m, k, split, out);
+  return cudaGetLastError();
 }
 
 }  // namespace ia_hopper

@@ -38,26 +38,6 @@ using ia_scan::fold;
 
 namespace {
 
-// the bf16 query block of fp32 queries q (m, k): with split (q_split) the
-// hi rows (the truncated bf16, by bit mask: exact) then the lo rows (the
-// residual, exact in fp32, rounded to nearest), (2m, k); else q rounded
-// to nearest, (m, k) -- the bits of ops/match.py `_scan_queries`
-__global__ void scan_queries_kernel(const float* __restrict__ q, int m, int k,
-                                    int split,
-                                    __nv_bfloat16* __restrict__ out) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t total = (size_t)m * k;
-  if (e >= total) return;
-  const float x = q[e];
-  if (split) {
-    const float hi = __uint_as_float(__float_as_uint(x) & 0xffff0000u);
-    out[e] = __float2bfloat16_rn(hi);
-    out[total + e] = __float2bfloat16_rn(x - hi);
-  } else {
-    out[e] = __float2bfloat16_rn(x);
-  }
-}
-
 // one thread per (scan tile, query row): the lexicographic maximum of the
 // scan tile's `parts` partial champions (part-major: (tiles parts, m))
 __global__ void pertile_merge_kernel(const float* __restrict__ part_val,
@@ -153,13 +133,8 @@ int ia_pertile_champions(const void* q, int qf32, void* qk, const void* db,
   a.tile_sub = sub / parts;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (qf32) {
-    const int threads = 256;
-    const size_t total = (size_t)m * k;
-    scan_queries_kernel<<<(unsigned)((total + threads - 1) / threads),
-                          threads, 0, s>>>(static_cast<const float*>(q), m, k,
-                                           q_split,
-                                           static_cast<__nv_bfloat16*>(qk));
-    e = cudaGetLastError();
+    e = write_scan_queries(static_cast<const float*>(q), m, k, q_split,
+                           static_cast<__nv_bfloat16*>(qk), s);
     if (e != cudaSuccess) return e;
     q = qk;
   }

@@ -23,10 +23,14 @@
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The packed2k, packed3, pertile and argmin2 scans run on the Hopper core
-``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring), packed3 past 256
-lanes on its own kernel beside it (query sets as register operands); the
-other bf16 kernels are instances of the template ``csrc/bf16_scan.cuh``.
+The bf16 scans on a path -- packed2k, packed3 up to 256 lanes, pertile,
+argmin2 and argmin_l2_bf16 -- run on the Hopper core
+``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); packed3 past 256
+lanes runs its own kernel beside it (query sets as register operands); the
+fp32 ``argmin_l2`` has a kernel of its own (``csrc/argmin_l2.cu``).  The
+two bf16 kernels on no path, the four superseded packed forms and
+``packed_champions``, are instances of the first-design template
+``csrc/bf16_scan.cuh`` (``mma.sync``).
 Every kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.
@@ -1038,6 +1042,22 @@ def argmin_l2_bf16_plain(q, dbp, dbn, k_used: int = 0):
     return idx.to(torch.int32), s.gather(1, idx[:, None])[:, 0]
 
 
+def _argmin_bf16_plan(m: int, n: int, sm_count: int, k_used: int
+                      ) -> Packed2kPlan:
+    """Launch plan of the argmin_l2_bf16 scan (``_hopper_plan``): one
+    query set a warpgroup, the norms in the ring, tiles of
+    ``_argmin2_rows`` rows (128 up to k_used = 256, else 64); three
+    consumer warpgroups where a ring of two stages fits beside their
+    queries, else two, else one.  At level 0 of batched npr_1024 (M =
+    1,024, N = 2^20, 80 lanes, 132 SMs): six query tiles of 171 rows, so
+    each DB tile is read six times from L2 (1.2 GB from L2 to the SMs),
+    against eight of 128 rows (1.6 GB) that would waste none of a block's
+    192; the fewest tiles win."""
+    return _hopper_plan("argmin_l2_bf16", m, n, sm_count, k_used,
+                        _A2_CONSUMERS, qsets=1, norms=True,
+                        rows=_argmin2_rows(k_used))
+
+
 def argmin_l2_bf16(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
                    k_used: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per query row m: (idx, score) = the lexicographic minimum over DB
@@ -1045,31 +1065,41 @@ def argmin_l2_bf16(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
     accumulation, lowest index on ties — what the JAX package's
     ``pallas_argmin_l2(..., bf16=True)`` computes.
 
-    ``q`` (M, Fp) fp32, rounded to bf16 here (or already bf16); ``dbp``
-    (Npad, Fp) bf16 rows, rounded from fp32; ``dbn`` (Npad,) fp32 norms of
-    the UNROUNDED rows, +inf on padding rows, which never win.  Lanes at
-    and past ``k_used`` (0: Fp) are zero in ``q`` and skipped.  The caller
-    adds ||q||^2.  Returns (idx (M,) int32, score (M,) fp32)."""
+    ``q`` (M, Fp) fp32, rounded to bf16 to nearest (or already bf16);
+    ``dbp`` (Npad, Fp) bf16 rows, rounded from fp32; ``dbn`` (Npad,) fp32
+    norms of the UNROUNDED rows, +inf on padding rows, which never win.
+    Lanes at and past ``k_used`` (0: Fp) are zero in ``q`` and skipped.
+    The caller adds ||q||^2.  Returns (idx (M,) int32, score (M,) fp32).
+    On the card it runs ``csrc/argmin_bf16.cu`` on the Hopper core
+    (``wgmma`` on a TMA ring, the norms in the ring; launch plan
+    ``_argmin_bf16_plan``), whose entry rounds fp32 queries itself."""
     k_used = _check_bf16_scan("argmin_l2_bf16", q, dbp, dbn, k_used)
     if _on_cpu(q, dbp, dbn):
         return argmin_l2_bf16_plain(q, dbp, dbn, k_used)
-    qk = _scan_queries(q, False).contiguous()
-    _check_cuda("argmin_l2_bf16", q=qk, dbp=dbp, dbn=dbn)
+    # fp32 queries: the C entry writes their bf16 query block
+    q = (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
+    _check_cuda("argmin_l2_bf16", q=q, dbp=dbp, dbn=dbn)
     m, fp = q.shape
     n = dbp.shape[0]
-    dev = _device_index(qk)
+    dev = _device_index(q)
+    plan = _argmin_bf16_plan(m, n, _sm_count(dev), k_used)
+    qf32 = q.dtype == torch.float32
+    qk = (torch.empty((m, fp), dtype=torch.bfloat16, device=q.device)
+          if qf32 else None)
+    part_val = torch.empty((plan.n_chunks, m), dtype=torch.float32,
+                           device=q.device)
+    part_idx = torch.empty((plan.n_chunks, m), dtype=torch.int32,
+                           device=q.device)
+    out_idx = torch.empty((m,), dtype=torch.int32, device=q.device)
+    out_val = torch.empty((m,), dtype=torch.float32, device=q.device)
     lib = _build.load("argmin_bf16")
-    n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
-    part_val = torch.empty((n_chunks, m), dtype=torch.float32,
-                           device=qk.device)
-    part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=qk.device)
-    out_idx = torch.empty((m,), dtype=torch.int32, device=qk.device)
-    out_val = torch.empty((m,), dtype=torch.float32, device=qk.device)
     err = lib.ia_argmin_l2_bf16(
-        qk.data_ptr(), dbp.data_ptr(), dbn.data_ptr(), m, n, fp, k_used,
-        n_chunks, part_val.data_ptr(), part_idx.data_ptr(),
-        out_idx.data_ptr(), out_val.data_ptr(), dev,
-        torch.cuda.current_stream(qk.device).cuda_stream)
+        q.data_ptr(), int(qf32), None if qk is None else qk.data_ptr(),
+        dbp.data_ptr(), dbn.data_ptr(), m, n, fp, k_used, plan.consumers,
+        plan.bm, plan.stages, plan.tiles_per_chunk, plan.smem, plan.n_chunks,
+        part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
+        out_val.data_ptr(), dev,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "argmin_l2_bf16 launch")
     LAUNCHES["argmin_l2_bf16"] += 1
     return out_idx, out_val

@@ -843,6 +843,85 @@ def test_cuda_argmin_l2_bf16_matches_plain(m, n, npad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,npad,f,fp", [
+    # batched npr_1024's five levels (one scan row of 1024 >> l pixels; F =
+    # 50 at level 4, which has no coarse block), N cut to at most 65,536
+    # rows, the last 100 padding
+    (1024, 65436, 65536, 68, 128), (512, 65436, 65536, 68, 128),
+    (256, 65436, 65536, 68, 128), (128, 16284, 16384, 68, 128),
+    (64, 3996, 4096, 50, 128),
+    # k_used 16, 80, 256 (the widest 128-row tiles), 272 and 512 (64-row
+    # tiles; two and one consumer warpgroups)
+    (45, 5000, 5120, 13, 128), (45, 5000, 5120, 68, 128),
+    (45, 5000, 5120, 250, 256), (45, 5000, 5120, 270, 384),
+    (45, 5000, 5120, 500, 512),
+    # M at the warpgroup and query-tile edges: one row, a warpgroup's 64
+    # either side, 171 (a level-0 tile), six tiles of 171
+    (1, 5000, 5120, 68, 128), (63, 5000, 5120, 68, 128),
+    (65, 5000, 5120, 68, 128), (171, 5000, 5120, 68, 128),
+    (1024, 5000, 5120, 68, 128),
+    # ragged last tiles (N not a multiple of 128, or of 64 past 256 lanes;
+    # their norms read from global memory), and DB chunks of padding rows
+    # only (3,000 real rows of 65,536: 122 of 128 chunks), which keep
+    # (-inf, INT_MAX) and lose every merge
+    (45, 1000, 1000, 68, 128), (200, 3001, 3041, 300, 384),
+    (45, 3000, 65536, 68, 128)])
+def test_cuda_argmin_l2_bf16_hopper_matches_plain(m, n, npad, f, fp):
+    """argmin_l2_bf16 on the Hopper core against its plain version on the
+    card: scores within 1e-4, picks equal outside the 1e-4 band; duplicate
+    rows in one thread's columns, across threads and across DB chunks go
+    to the lower index, padding rows never win; repeated calls with the
+    fp32 queries (rounded by the entry) and with their bf16 rounding give
+    the same bits."""
+    dev = _card()
+    q, dbp, dbn = (t.to(dev) for t in argmin2_case(m, n, npad, f, fp))
+    k_used = (f + 15) // 16 * 16
+    plan = match._argmin_bf16_plan(
+        m, npad, match._sm_count(match._device_index(q)), k_used)
+    if npad == 65536 and n == 3000:  # chunks past the real rows
+        rows = plan.tiles_per_chunk * (128 if k_used <= 256 else 64)
+        assert (plan.n_chunks - 1) * rows >= n
+    match.reset_launch_counts()
+    idx, val = match.argmin_l2_bf16(q, dbp, dbn, k_used)
+    assert match.LAUNCHES["argmin_l2_bf16"] == 1
+    for qq in (q, q.to(torch.bfloat16), q, q.to(torch.bfloat16)):
+        again = match.argmin_l2_bf16(qq, dbp, dbn, k_used)
+        assert torch.equal(again[0], idx)
+        assert torch.equal(again[1].view(torch.int32), val.view(torch.int32))
+    ref_i, ref_v = match.argmin_l2_bf16_plain(q, dbp, dbn, k_used)
+    idx, val, ref_i, ref_v = (t.cpu() for t in (idx, val, ref_i, ref_v))
+    _assert_band("argmin_l2_bf16", idx, val, ref_i, ref_v, atol=1e-4,
+                 band=1e-4)
+    assert int(idx.max()) < n
+    assert [int(i) for i in idx[:3]] == [2, 3, 1][:m]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,fp", [(68, 128), (250, 256), (500, 512)])
+def test_cuda_argmin_l2_bf16_scores_against_float64(f, fp):
+    """The argmin_l2_bf16 scores at the kernel's picks against a float64
+    sum of the same bf16 products (dbn - 2 q.db, scores near -1): the
+    tensor cores' fp32 accumulation over 5-32 k steps stays within 1e-5,
+    and so does the plain fp32 product; the picks score within 1e-5 of the
+    float64 minimum."""
+    dev = _card()
+    q, dbp, dbn = argmin2_case(200, 3001, 3041, f, fp)
+    # scaled by powers of two (exact): norms near 1
+    q, dbp, dbn = q / 8, (dbp.float() / 8).to(torch.bfloat16), dbn / 64
+    k_used = (f + 15) // 16 * 16
+    idx, val = (t.cpu() for t in match.argmin_l2_bf16(
+        *(t.to(dev) for t in (q, dbp, dbn)), k_used))
+    ref_i, ref_v = (t.cpu() for t in match.argmin_l2_bf16_plain(
+        *(t.to(dev) for t in (q, dbp, dbn)), k_used))
+    qb = q.to(torch.bfloat16)[:, :k_used].double()
+    exact = dbn.double()[None, :] - 2.0 * (qb @ dbp[:, :k_used].double().T)
+    at = lambda i: exact.gather(1, i.long()[:, None])[:, 0]
+    assert float((val.double() - at(idx)).abs().max()) <= 1e-5
+    assert float((ref_v.double() - at(ref_i)).abs().max()) <= 1e-5
+    assert float((at(idx) - exact.min(dim=1).values).max()) <= 1e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("strategy,size", [("batched", 48), ("rowwise", 48),
                                            ("exact", 32)])
 def test_cuda_strategies_match_cpu_run(strategy, size):

@@ -232,6 +232,121 @@ def test_argmin2_plan_covers_every_tile_once(n, sm_count, fold):
         match._argmin2_plan(8, n, sm_count, 100, fold)  # not a multiple of 16
 
 
+def _bf16_scan_smem(k_used, stages, consumers):
+    """The argmin_l2_bf16 block's shared memory (one query set, the norms
+    in the ring): 1 KiB of slack, 4 KiB a 32-lane query box a warpgroup,
+    and a stage of DB tiles of 128 rows up to k_used = 256, else 64."""
+    rows = 128 if k_used <= 256 else 64
+    nbox = -(-k_used // 32)
+    return (1024 + consumers * nbox * 4096
+            + stages * (nbox * rows * 64 + 4 * rows))
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 128, 4096, 4097, 16384, 65536,
+                               262144, 1048000, 1048576])
+@pytest.mark.parametrize("sm_count", [132, 114, 1])
+def test_argmin_bf16_plan_covers_every_tile_once(n, sm_count):
+    """The argmin_l2_bf16 kernel's launch plan, M = 1..1,100 and k_used
+    16..512: DB tiles of 128 rows up to k_used = 256, else 64; the DB
+    chunks cover every tile exactly once and none is empty; the query
+    tiles of at most 64 rows a warpgroup hold every query, as even as they
+    come, none empty; the block's shared memory within the card's 232,448
+    bytes, the most consumer warpgroups (3, 2, 1) that keep a ring of two
+    stages, the ring the deepest that fits; and the grid about one block
+    per SM."""
+    limit = 232448 - 1024
+    for k_used in (16, 64, 80, 112, 256, 272, 368, 464, 512):
+        rows = 128 if k_used <= 256 else 64
+        tiles = -(-n // rows)
+        smem = lambda st, c: _bf16_scan_smem(k_used, st, c)
+        for m in (*range(1, 400, 7), 64, 65, 128, 171, 192, 193, 512, 1024,
+                  1100):
+            plan = match._argmin_bf16_plan(m, n, sm_count, k_used)
+            per = plan.tiles_per_chunk
+            assert per >= 1
+            assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+            covered = [0] * tiles
+            for chunk in range(plan.n_chunks):
+                for t in range(chunk * per, min(tiles, (chunk + 1) * per)):
+                    covered[t] += 1
+            assert covered == [1] * tiles
+            c, st = plan.consumers, plan.stages
+            assert plan.smem == smem(st, c) <= limit
+            assert 1 <= st <= 8 and (st == 8 or smem(st + 1, c) > limit)
+            assert c == next(cc for cc in (3, 2, 1) if smem(2, cc) <= limit)
+            bm = plan.bm
+            assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+            assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+            assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                       plan.q_tiles)
+    with pytest.raises(ValueError):
+        match._argmin_bf16_plan(8, n, sm_count, 100)  # not a multiple of 16
+
+
+def test_argmin_bf16_plan_headline_and_levels():
+    """The argmin_l2_bf16 plans of batched npr_1024's five levels on 132
+    SMs are pinned: level 0 (one 1,024-pixel scan row against N = 2^20 at
+    80 lanes) six query tiles of 171 rows on three warpgroups, a ring of
+    7 stages of 128 DB rows, 22 chunks of 373 tiles (132 blocks); levels
+    1-3 three, two and one query tiles; level 4 (F = 50: 64 lanes) one
+    tile of 64 rows, 8 stages, one DB tile a block."""
+    plan = lambda m, n, k: tuple(match._argmin_bf16_plan(m, n, 132, k))
+    assert plan(1024, 1048576, 80) == (3, 171, 7, 373, 22, 6, 213504)
+    assert plan(512, 262144, 80) == (3, 171, 7, 47, 44, 3, 213504)
+    assert plan(256, 65536, 80) == (3, 128, 7, 8, 64, 2, 213504)
+    assert plan(128, 16384, 80) == (3, 128, 7, 1, 128, 1, 213504)
+    assert plan(64, 4096, 64) == (3, 64, 8, 1, 32, 1, 160768)
+
+
+@pytest.mark.parametrize("k_used", range(16, 513, 16))
+def test_argmin_bf16_plan_fits_every_width(k_used):
+    """At every k_used the wrapper takes (16 to 512 in steps of 16) a plan
+    exists whose block fits the card's shared memory with a ring of two
+    stages or more: three warpgroups up to 352 lanes, two to 448, one past
+    them (one query set of 64 rows beside 64-row tiles of 1 KiB)."""
+    for m, n in ((1, 64), (1024, 1048576), (513, 99)):
+        plan = match._argmin_bf16_plan(m, n, 132, k_used)
+        assert plan.smem == _bf16_scan_smem(k_used, plan.stages,
+                                            plan.consumers)
+        assert plan.smem <= 232448 - 1024 and plan.stages >= 2
+        assert plan.consumers == (3 if k_used <= 352 else
+                                  2 if k_used <= 448 else 1)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k_used,fp", [(80, 128), (16, 128), (256, 256),
+                                       (272, 384)])
+def test_argmin_l2_bf16_cpu_runs_the_plain_version(qdtype, k_used, fp):
+    """On CPU tensors ``argmin_l2_bf16`` is its plain version and counts no
+    launch: fp32 queries are rounded to bf16 to nearest (as the card's
+    entry rounds them), so they give the bf16 queries' picks and scores;
+    duplicate rows go to the lower index and padding rows never win."""
+    rng = np.random.default_rng(k_used + fp)
+    n, npad, f = 300, 320, k_used - 5
+    db = np.zeros((npad, fp), np.float32)
+    db[:n, :f] = rng.standard_normal((n, f)).astype(np.float32)
+    db[250] = db[7]
+    dbp = torch.from_numpy(db).to(torch.bfloat16)
+    dbn = torch.full((npad,), float("inf"))
+    dbn[:n] = torch.from_numpy((db[:n] ** 2).sum(1))
+    q = torch.zeros((9, fp))
+    q[:, :f] = torch.from_numpy(rng.standard_normal((9, f)).astype(
+        np.float32))
+    q[0] = dbp[7].float()
+    match.reset_launch_counts()
+    idx, val = match.argmin_l2_bf16(q.to(qdtype), dbp, dbn, k_used)
+    assert sum(match.LAUNCHES.values()) == 0
+    ref_i, ref_v = match.argmin_l2_bf16_plain(q.to(torch.bfloat16), dbp, dbn,
+                                              k_used)
+    assert torch.equal(idx, ref_i) and torch.equal(val, ref_v)
+    assert idx.dtype == torch.int32 and int(idx[0]) == 7
+    assert int(idx.max()) < n
+    # the plain version's own scores: dbn - 2 q.db over k_used lanes
+    s = dbn[None, :] - 2.0 * (q.to(torch.bfloat16).float()[:, :k_used]
+                              @ dbp[:, :k_used].float().T)
+    assert torch.equal(idx.long(), torch.argmin(s, dim=1))
+
+
 @pytest.mark.parametrize("n", [4096, 65536, 1048576])
 @pytest.mark.parametrize("tile_n", [64, 128, 256, 1024, 4096])
 @pytest.mark.parametrize("sm_count", [132, 1])
