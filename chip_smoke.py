@@ -49,9 +49,15 @@ and carried on):
                 DB; level 0, M = 1024 against 1,048,576 rows, is its row in
                 the table), launches and weighted ms per level and in all;
                 with ``--parent`` its picks >= 99.9% equal to the parent's,
-                equal picks and val bits counted.  The four superseded packed forms are
-                checked and timed at a smaller shape (M = 64, N = 65,536),
-                with launches 0 in the table: they are on no path.
+                equal picks and val bits counted.  ``packed_champions``
+                (the per-tile witness of packed3, on no path) at M = 352,
+                N = 2^20, tile 4,096: folded at 2L = 110 (its row in the
+                table) and 414 (past 256 lanes: packed3w_best.cu), and
+                unfolded at 110.  The four superseded packed forms (on no
+                path) at M = 64, N = 65,536 (their rows in the table) and
+                at M = 352, N = 2^20.  Both have launches 0 in the table;
+                with ``--parent`` their picks >= 99.9% equal to the
+                parent's, equal picks and val bits counted.
 3. main       — ``create_image_analogy`` with ``PRESETS["npr_1024"]`` on the
                 1024^2 structured inputs of the cached oracle, cold then
                 warm: per-level scan and build ms, wall-clock, kernel launch
@@ -146,7 +152,10 @@ P3_PAST256_SHAPES = (dict(m=352, npad=1048576, lw=144),
                      dict(m=352, npad=1048576, lw=192),
                      dict(m=352, npad=1048576, lw=207))
 P3W_ROW_LW = 207
-FORMS_SHAPE = dict(m=64, npad=65536, lw=55)  # the superseded packed forms
+# the superseded packed forms: the row in the table (M = 64, N = 65,536),
+# then the shape of the other packed rows (M = 352, N = 2^20), L = 55
+FORMS_SHAPES = (dict(m=64, npad=65536), dict(m=352, npad=1048576))
+FORMS_LW = 55
 
 # the kernel (launch-count key) each resolved anchor mode runs
 ANCHOR_KERNEL = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed_best",
@@ -163,6 +172,9 @@ NEW_MODES = ("exact_hi2", "scan_rescue", "scan_rescue_1p", "two_pass",
 ARGMIN_ATOL = 1e-5
 PACKED_ATOL = 1e-5
 SCORE_BAND = 2e-5
+# past 256 lanes the tensor cores' fp32 sum strays further from the exact
+# one (tests/test_torch_cuda.py test_cuda_packed3_scores_against_float64)
+P3W_ATOL = 4e-5
 
 SSIM_MIN = 0.98
 UNEXPLAINED_MAX = 1e-4
@@ -914,6 +926,17 @@ def packed3_bound(m, npad, width, tiles=1):
                  PEAK_BF16_FLOP_S)
 
 
+def packed2_bound(m, npad, width, tiles=1):
+    """Bound of one two-stream, two-set packed call (packed2's passes) at
+    the function's own width 2L: both weight arrays' 2L lanes, the half
+    norms and the two query sets read once, (idx, val) written once per
+    query (and DB tile: ``tiles``); two passes of 2 M N 2L bf16
+    operations."""
+    return bound(2 * 2 * npad * width + 4 * npad + 2 * 2 * m * width
+                 + 8 * m * tiles, 2 * 2 * m * npad * width,
+                 PEAK_BF16_FLOP_S)
+
+
 def packed3_library(qa, qb, w1, w2, dbnh, m):
     """The yardstick of packed3: three bf16 ``mm``s into fp32, minus the
     half norms, then ``max``."""
@@ -1058,10 +1081,12 @@ def phase_packed3_levels(rows, parent):
 def parent_bits(kind, parent, shapes):
     """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
     "argmin2": argmin2_l2, "packed3": packed_best's packed3 form,
-    "pertile": pertile_champions, "argmin_bf16": argmin_l2_bf16) of the
-    checkout in ``parent`` on the same seeded operands, in a child process built from that tree's sources:
-    ({"idx/<npad>/<m>": ..., "val/<npad>/<m>": ...}, {"<npad>/<m>": device
-    ms})."""
+    "pertile": pertile_champions, "argmin_bf16": argmin_l2_bf16, "forms":
+    the four superseded packed forms, "champions": packed_champions) of the
+    checkout in ``parent`` on the same seeded operands, in a child process
+    built from that tree's sources: ({"idx/<key>": ..., "val/<key>": ...},
+    {"<key>": device ms}), the keys those of the kind's ``run_*_shapes``
+    ("<npad>/<m>" for most)."""
     import numpy as np
 
     out = os.path.join(HERE, "image_analogies_tpu_torch", "_build",
@@ -1094,7 +1119,9 @@ def bits_child(kind, root, out, shapes):
            "argmin2": run_argmin2_shapes,
            "packed3": run_packed3_shapes,
            "pertile": run_pertile_shapes,
-           "argmin_bf16": run_argmin_bf16_shapes}[kind]
+           "argmin_bf16": run_argmin_bf16_shapes,
+           "forms": run_forms_shapes,
+           "champions": run_champions_shapes}[kind]
     got = run(match, [tuple(s) for s in shapes])
     arrays = {}
     for key, (idx, val, *_) in got.items():
@@ -1111,10 +1138,10 @@ def phase_kernels(parent=None):
     phase_pertile_levels(parent)
     phase_packed3_levels(rows, parent)
     phase_packed_kernel(rows, parent)
-    phase_packed3_kernels(rows)
+    phase_packed3_kernels(rows, parent)
     phase_bf16_db_kernels(rows)
     phase_argmin_bf16_levels(rows, parent)
-    phase_packed_forms(rows)
+    phase_packed_forms(rows, parent)
     return rows
 
 
@@ -1293,104 +1320,207 @@ def phase_packed_kernel(rows, parent):
         bound_by=rows["packed_best"]["bound_by"])
 
 
-def phase_packed3_kernels(rows):
-    """packed3_best (exact_hi2's scan) and packed_champions (its per-tile
-    witness) at level 0 of npr_1024: M = 352 queries as 704 + 352 rows of
-    three passes, Npad = 1,048,576, 2L = 110 of 128 lanes."""
+# the per-tile champions' shapes (L, folded) at M = 352, N = 2^20, tile
+# 4,096: packed3_champions at 2L = 110 (the kernel's row in the table) and
+# at 414 lanes (folded past 256 lanes: packed3w_best.cu), packed2_champions
+# (unfolded) at 110
+CHAMPION_SHAPES = ((55, 1), (207, 1), (55, 0))
+
+
+def champion_case(match, lw=55):
+    """Seeded packed3 operands at level 0 of npr_1024 (M = 352, N = 2^20,
+    2L = 2 ``lw`` lanes), built as the exact_hi2 level build makes them
+    (``pack_w12``): live-dim rows uniform in [0, 0.2), the last 5,000 rows
+    padding (the last scan tile all padding), row 900,000 a copy of row
+    12,345 (its half norm too); queries centered by the DB's shift and split
+    in three bf16 parts (``_packed3_rows``), query 0 equal to row 12,345.
+    Returns (qa, qb, w1, w2, dbnh, k_used, tile, n_real).  Torch and the
+    imported tree's match module only: the --parent child builds the same
+    operands for the other tree's kernel."""
     import torch
 
     from image_analogies_tpu_torch.backends.cuda import (
         pack_w12, packed_shift_and_halfnorm, scan_tile_rows)
-    from image_analogies_tpu_torch.ops import match
 
     dev = torch.device("cuda", 0)
-    s = SCAN_SHAPE
-    m, npad, lw = s["m"], s["npad"], s["lw"]
-    n_real = npad - 5000  # the last tile is all padding rows
-    tile = scan_tile_rows(npad)
-    ntiles = npad // tile
+    m, npad = SCAN_SHAPE["m"], SCAN_SHAPE["npad"]
+    n_real = npad - 5000
     gen = torch.Generator(device=dev).manual_seed(17)
     x = torch.rand((n_real, lw), generator=gen, device=dev) * 0.2
     x[900000] = x[12345]  # duplicate rows in different chunks and tiles
     live = torch.arange(lw, device=dev)
     shift, half_norm = packed_shift_and_halfnorm(x, live)
     w1, w2, dbnh = pack_w12(x, shift, half_norm, live, npad)
+    dbnh[900000] = dbnh[12345]
     qv = torch.rand((m, lw), generator=gen, device=dev) * 0.2 - shift
     qv[0] = x[12345] - shift
     del x
-    g1, g2, gr = match.bf16_split3(qv)
-    q1, q2, q3 = (t.to(torch.bfloat16) for t in (g1, g2, gr))
+    q1, q2, q3 = (t.to(torch.bfloat16) for t in match.bf16_split3(qv))
     qa, qb = match._packed3_rows(q1, q2, q3, w1.shape[1])
-    k_used = match._lanes(lw)
-    kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+    return (qa, qb, w1, w2, dbnh, (2 * lw + 15) // 16 * 16,
+            scan_tile_rows(npad), n_real)
+
+
+def champion_operands(qa, qb, fold):
+    """(qa, qb) of the champion scan: folded the packed3 rows; unfolded the
+    rows [q1|q1] and [q1|q3] (qa's first block and qb), one tensor."""
+    import torch
+
+    if fold:
+        return qa, qb
+    m = qb.shape[0]
+    q = torch.cat([qa[:m], qb])
+    return q[:m], q[m:]
+
+
+def run_champions_shapes(match, shapes):
+    """``match.packed_champions`` on the seeded operands of each (L,
+    folded) (``champion_case``): {"L/fold": (idx, vals, device ms)}, tile-
+    major (ntiles, M), timed from a cold L2."""
+    import torch
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for lw, fold in shapes:
+        qa, qb, w1, w2, dbnh, k_used, tile, _ = champion_case(match, lw)
+        qa, qb = champion_operands(qa, qb, fold)
+        call = lambda: match.packed_champions(qa, qb, w1, w2, dbnh, tile,
+                                              k_used, fold_a=bool(fold))
+        vals, idx = call()
+        ms = cuda_time_ms(call, reps=20, flush=flush)
+        out[f"{lw}/{fold}"] = (idx.cpu().numpy(), vals.cpu().numpy(), ms)
+        del qa, qb, w1, w2, dbnh
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_packed3_kernels(rows, parent):
+    """packed3_best (exact_hi2's scan) and packed_champions (its per-tile
+    witness) at level 0 of npr_1024: M = 352 queries as 704 + 352 rows of
+    three passes, Npad = 1,048,576, 2L = 110 of 128 lanes; then the
+    champions at each of ``CHAMPION_SHAPES`` (folded past 256 lanes the
+    width rule's packed3w_best.cu), each held against its plain version
+    (the duplicate rows' tiles, the all-padding last tile), timed beside
+    the per-tile yardstick and the bound; 2L = 110 folded is the kernel's
+    row.  With ``parent``: that tree's packed_champions on the same inputs
+    (a child process), its ms and the counts of equal picks and val bits
+    over the (tile, query) champions; fewer than 99.9% equal picks fails."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    dev = torch.device("cuda", 0)
+    m, npad = SCAN_SHAPE["m"], SCAN_SHAPE["npad"]
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("champions", parent,
+                                        list(CHAMPION_SHAPES))
     flush = flusher(dev)
+    for lw, fold in CHAMPION_SHAPES:
+        qa, qb, w1, w2, dbnh, k_used, tile, n_real = champion_case(match, lw)
+        ntiles = npad // tile
+        # the function's work at its own width 2L (the kernel rounds its
+        # lanes up to a multiple of 16): 3 (folded) or 2 passes of 2L
+        # products per (query, row)
+        width = 2 * lw
+        if (lw, fold) == (55, 1):
+            kw = dict(qb=qb, w2=w2, dbnh=dbnh, fold_a=True)
+            idx, val = match.packed_best(qa, w1, k_used, **kw)
+            torch.cuda.synchronize()
+            scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh,
+                                                True)
+            ref_idx, ref_val = match._first_max(scores)
+            second = torch.topk(scores, 2, dim=1).values[:, 1]
+            del scores
+            err, ndiff = check_picks("packed3_best", idx, val, ref_idx,
+                                     ref_val, second, PACKED_ATOL)
+            if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
+                fail(f"packed3_best: duplicate/padding rule broken (idx[0]="
+                     f"{int(idx[0])}, max {int(idx.max())})")
+            b = packed3_bound(m, npad, width)
+            k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used,
+                                                          **kw),
+                                reps=20, flush=flush)
+            p_ms = cuda_time_ms(lambda: match.packed_best_plain(
+                qa, w1, k_used, **kw), reps=3, flush=flush)
+            l_ms = cuda_time_ms(packed3_library(qa, qb, w1, w2, dbnh, m),
+                                reps=10, flush=flush)
+            rows["packed3_best"] = kernel_row(
+                "packed3_best", "packed3_best.cu", 523, err, k_ms, p_ms,
+                l_ms, b)
+            say("kernels", kernel="packed3_best", m=m, npad=npad,
+                width=width, k_used=k_used, max_abs_err=err,
+                picks_differing_in_band=ndiff, ms=k_ms, plain_ms=p_ms,
+                library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+        qa, qb = champion_operands(qa, qb, fold)
+        name = f"packed_champions L={lw} fold={fold}"
+        route = match._champions_route(k_used, bool(fold))
+        call = lambda: match.packed_champions(qa, qb, w1, w2, dbnh, tile,
+                                              k_used, fold_a=bool(fold))
+        match.reset_launch_counts()
+        vals, tidx = call()
+        torch.cuda.synchronize()
+        if match.LAUNCHES["packed_champions"] != 1 or sum(
+                match.LAUNCHES.values()) != 1:
+            fail(f"{name}: launches {match.LAUNCHES}")
+        scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh,
+                                            bool(fold))
+        ref_tv, ref_ti = match._tile_champions(scores, tile)
+        second_t = torch.topk(scores.view(m, ntiles, tile), 2,
+                              dim=2).values[..., 1].T
+        del scores
+        atol = PACKED_ATOL if k_used <= 256 else P3W_ATOL
+        terr, tdiff = check_tiles(name, vals, tidx, ref_tv, ref_ti, second_t,
+                                  atol)
+        del ref_tv, ref_ti, second_t
+        if (int(tidx[12345 // tile, 0]), int(tidx[900000 // tile, 0])) != (
+                12345, 900000) or not bool(torch.isneginf(vals[-1]).all()):
+            fail(f"{name}: duplicate/all-padding tile rule broken")
+        k_ms = cuda_time_ms(call, reps=20, flush=flush)
+        p_ms = cuda_time_ms(lambda: match.packed_champions_plain(
+            qa, qb, w1, w2, dbnh, tile, k_used, fold_a=bool(fold)), reps=3,
+            flush=flush)
+        w1t, w2t = w1.T, w2.T
 
-    idx, val = match.packed_best(qa, w1, k_used, **kw)
-    vals, tidx = match.packed_champions(qa, qb, w1, w2, dbnh, tile, k_used,
-                                        fold_a=True)
-    torch.cuda.synchronize()
-    scores = match._packed_scores_plain(qa, w1, k_used, qb, w2, dbnh, True)
-    ref_idx, ref_val = match._first_max(scores)
-    second = torch.topk(scores, 2, dim=1).values[:, 1]
-    ref_tv, ref_ti = match._tile_champions(scores, tile)
-    second_t = torch.topk(scores.view(m, ntiles, tile), 2,
-                          dim=2).values[..., 1].T
-    del scores
-    err, ndiff = check_picks("packed3_best", idx, val, ref_idx, ref_val,
-                             second, PACKED_ATOL)
-    if int(idx[0]) != 12345 or int(idx.max()) >= n_real:
-        fail(f"packed3_best: duplicate/padding rule broken (idx[0]="
-             f"{int(idx[0])}, max {int(idx.max())})")
-    terr, tdiff = check_tiles("packed_champions", vals, tidx, ref_tv,
-                              ref_ti, second_t, PACKED_ATOL)
-    if (int(tidx[12345 // tile, 0]), int(tidx[900000 // tile, 0])) != (
-            12345, 900000) or not bool(torch.isneginf(vals[-1]).all()):
-        fail("packed_champions: duplicate/all-padding tile rule broken")
+        def library():
+            mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
+            d = mm(qa[:m], w1t)
+            if fold:
+                d += mm(qa[m:], w1t)
+            d += mm(qb, w2t)
+            return (d - dbnh).view(m, ntiles, tile).max(dim=2)
 
-    w1t, w2t = w1.T, w2.T
-
-    def library_dots():
-        d = torch.mm(qa[:m], w1t, out_dtype=torch.float32)
-        d += torch.mm(qa[m:], w1t, out_dtype=torch.float32)
-        d += torch.mm(qb, w2t, out_dtype=torch.float32)
-        return d - dbnh
-
-    # the function's work at its own width 2L = 110 (the kernel rounds its
-    # lanes up to 112): three passes of 2L products per (query, row)
-    width = 2 * lw
-    b = packed3_bound(m, npad, width)
-    k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
-                        reps=20, flush=flush)
-    p_ms = cuda_time_ms(lambda: match.packed_best_plain(qa, w1, k_used,
-                                                        **kw),
-                        reps=3, flush=flush)
-    l_ms = cuda_time_ms(packed3_library(qa, qb, w1, w2, dbnh, m), reps=10,
-                        flush=flush)
-    rows["packed3_best"] = kernel_row("packed3_best", "packed3_best.cu",
-                                      523, err, k_ms, p_ms, l_ms, b)
-    say("kernels", kernel="packed3_best", m=m, npad=npad, width=width,
-        k_used=k_used,
-        max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
-        plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
-
-    k_ms = cuda_time_ms(lambda: match.packed_champions(
-        qa, qb, w1, w2, dbnh, tile, k_used, fold_a=True), reps=20,
-        flush=flush)
-    p_ms = cuda_time_ms(lambda: match.packed_champions_plain(
-        qa, qb, w1, w2, dbnh, tile, k_used, fold_a=True), reps=3,
-        flush=flush)
-    l_ms = cuda_time_ms(lambda: library_dots().view(m, ntiles, tile).max(
-        dim=2), reps=10, flush=flush)
-    b = packed3_bound(m, npad, width, ntiles)
-    rows["packed_champions"] = kernel_row(
-        "packed_champions", "tile_champions.cu", 426, terr, k_ms, p_ms,
-        l_ms, b)
-    say("kernels", kernel="packed_champions", m=m, npad=npad, tile=tile,
-        width=width, k_used=k_used, max_abs_err=terr, picks_differing_in_band=tdiff,
-        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0],
-        bound_by=b[1])
-    del w1, w2, w1t, w2t, qa, qb, dbnh
-    torch.cuda.empty_cache()
+        l_ms = cuda_time_ms(library, reps=10, flush=flush)
+        b = (packed3_bound(m, npad, width, ntiles) if fold
+             else packed2_bound(m, npad, width, ntiles))
+        seg = dict(route=route, m=m, npad=npad, tile=tile, width=width,
+                   passes=3 if fold else 2, k_used=k_used, max_abs_err=terr,
+                   picks_differing_in_band=tdiff, ms=k_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=b[0], bound_by=b[1],
+                   bound_share=b[0] / k_ms,
+                   plan=match._champions_plan(m, npad, match._sm_count(0),
+                                              k_used, bool(fold),
+                                              tile)._asdict())
+        if theirs is not None:
+            key = f"{lw}/{fold}"
+            ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+            picks = int((ti == tidx.cpu().numpy()).sum())
+            seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                       val_bits_equal_parent=int(
+                           (tv.view(np.int32) == vals.cpu().numpy().view(
+                               np.int32)).sum()), champions=ti.size)
+            if picks < 0.999 * ti.size:
+                say("kernels", kernel="packed_champions", **seg)
+                fail(f"{name}: {picks} of {ti.size} picks equal to "
+                     f"{parent}'s kernel, fewer than 99.9%")
+        if (lw, fold) == (55, 1):
+            rows["packed_champions"] = kernel_row(
+                "packed_champions", "tile_champions.cu", 426, terr, k_ms,
+                p_ms, l_ms, b)
+        say("kernels", kernel="packed_champions", **seg)
+        del qa, qb, w1, w2, w1t, w2t, dbnh, vals, tidx
+        torch.cuda.empty_cache()
 
 
 def phase_bf16_db_kernels(rows):
@@ -1636,128 +1766,203 @@ def phase_argmin_bf16_levels(rows, parent):
         **{f"weighted_{k}": v for k, v in total.items()})
 
 
-def phase_packed_forms(rows):
-    """The four superseded packed forms (instances of packed_best.cu) on
-    the card against their plain versions (run on the CPU copies), at a
-    smaller shape (M = 64, N = 65,536); then, on the card, the kernel, its
-    plain version and the library yardstick timed on the operands each
-    form's wrapper builds, and the bound at the form's own width (its
-    product set: 4L, 3L, 4L + 3 or 3L + 3 lanes)."""
+def forms_operands(match, m, npad, lw=FORMS_LW):
+    """Each superseded packed form's ``packed_best`` operands as its wrapper
+    in ops/match.py builds them, on the card: {form: (qa, w1, k_used,
+    keywords, lanes of the function's product set (4L, 3L, 4L + 3 or 3L +
+    3), weight lanes it reads, its line in pallas_match.py)}, qa and qb of
+    the two-stream forms adjacent rows of one tensor.  Seeded live-dim rows
+    uniform in [0, 0.2), the last npad / 1024 (at least 100) rows padding,
+    row 60,000 N / 65,536 a copy of row 345 (another DB chunk); M queries,
+    query 0 equal to row 345, centered by the DB's shift and split in bf16
+    parts.  Returns (operands, the real rows, 345).  Torch and the imported
+    tree's match module only: the --parent child builds the same operands
+    for the other tree's kernels."""
     import torch
 
     from image_analogies_tpu_torch.backends.cuda import (
         packed_shift_and_halfnorm)
-    from image_analogies_tpu_torch.ops import match
 
-    s = FORMS_SHAPE
-    m, npad, lw = s["m"], s["npad"], s["lw"]
-    n_real = npad - 100
-    gen = torch.Generator().manual_seed(23)
-    x = torch.rand((n_real, lw), generator=gen) * 0.2
-    x[60000] = x[345]
-    shift, half_norm = packed_shift_and_halfnorm(x, torch.arange(lw))
-    d1, d2, d3 = (t.to(torch.bfloat16) for t in match.bf16_split3(x - shift))
-    qv = torch.rand((m, lw), generator=gen) * 0.2 - shift
-    qv[0] = x[345] - shift
-    q1, q2 = (t.to(torch.bfloat16) for t in match.bf16_split3(qv)[:2])
-    dbnh = torch.full((npad,), float("inf"))
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    n_real = npad - max(100, npad >> 10)
+    lo, hi = 345, 60000 * npad >> 16
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = torch.rand((n_real, lw), generator=gen, device=dev) * 0.2
+    x[hi] = x[lo]  # duplicate rows: ties go to the lowest index
+    shift, half_norm = packed_shift_and_halfnorm(
+        x, torch.arange(lw, device=dev))
+    d1, d2, d3 = (t.to(bf16) for t in match.bf16_split3(x - shift))
+    qv = torch.rand((m, lw), generator=gen, device=dev) * 0.2 - shift
+    qv[0] = x[lo] - shift
+    del x
+    q1, q2 = (t.to(bf16) for t in match.bf16_split3(qv)[:2])
+    dbnh = torch.full((npad,), float("inf"), device=dev)
     dbnh[:n_real] = half_norm
+    kp = 128
 
-    def pack(a, b):
-        w = torch.zeros((npad, 128), dtype=torch.bfloat16)
-        w[:n_real, :lw], w[:n_real, lw:2 * lw] = a, b
+    def pack(left, right):
+        w = torch.zeros((npad, kp), dtype=bf16, device=dev)
+        w[:n_real, :lw], w[:n_real, lw:2 * lw] = left, right
         return w
 
+    def two(qa, qb):  # qa's rows then qb's, one tensor
+        q = torch.cat([qa, qb])
+        return q[:m], q[m:]
+
+    pair = lambda left, right: match._pack_rows(left, right, kp)
     w12, w13 = pack(d1, d2), pack(d1, d3)
     w12n = match.add_norm_lanes(pack(d1, d2), dbnh, lw)
-    forms = {
-        "packed2_best": lambda c: match.packed2_best(
-            c(q1), c(q2), c(w12), c(w13), c(dbnh)),
-        "packed1w_best": lambda c: match.packed1w_best(
-            c(q1), c(q2), c(w12), c(dbnh)),
-        "packed2wn_best": lambda c: match.packed2wn_best(
-            c(q1), c(q2), c(w12n), c(w13)),
-        "packed1wn_best": lambda c: match.packed1wn_best(
-            c(q1), c(q2), c(w12n)),
+    qn = pair(q1, q1)
+    qn[:, 2 * lw:2 * lw + 3] = 1.0
+    qa2, qb2 = two(pair(q1, q1), pair(q2, q1))
+    qa2n, qb2n = two(qn, pair(q2, q1))
+    ops = {
+        "packed2_best": (qa2, w12, match._lanes(lw),
+                         dict(qb=qb2, w2=w13, dbnh=dbnh), 4 * lw, 4 * lw,
+                         656),
+        "packed1w_best": (torch.cat([pair(q1, q1),
+                                     pair(q2, torch.zeros_like(q2))]),
+                          w12, match._lanes(lw),
+                          dict(dbnh=dbnh, fold_a=True), 3 * lw, 2 * lw, 673),
+        "packed2wn_best": (qa2n, w12n, match._lanes(lw, norm=True),
+                           dict(qb=qb2n, w2=w13), 4 * lw + 3, 4 * lw + 3,
+                           781),
+        "packed1wn_best": (match.norm_query_rows(q1, q2, kp), w12n,
+                           match._lanes(lw, norm=True), dict(fold_a=True),
+                           3 * lw + 3, 2 * lw + 3, 819),
     }
-    errs, picks = {}, {}
-    match.reset_launch_counts()
-    for name, call in forms.items():
-        idx, val = (t.cpu() for t in call(lambda t: t.cuda()))
-        picks[name] = idx
-        ref_idx, ref_val = call(lambda t: t)
-        errs[name] = float((val - ref_val).abs().max())
-        if not errs[name] <= PACKED_ATOL:
-            fail(f"{name}: max |score - plain| {errs[name]:.3g}")
-        # a pick may differ only where it scores within the band of the
-        # plain version's best
-        if bool(((idx != ref_idx) & ((val - ref_val).abs()
-                                     > SCORE_BAND)).any()):
-            fail(f"{name}: picks differ outside the {SCORE_BAND} band")
-        if int(idx[0]) != 345 or int(idx.max()) >= n_real:
-            fail(f"{name}: duplicate/padding rule broken")
-        if match.LAUNCHES[name] != 1:
-            fail(f"{name}: {match.LAUNCHES[name]} launches, expected 1")
+    wrapped = {  # each form through its wrapper, for the check that the
+        # operands above are the wrapper's
+        "packed2_best": lambda: match.packed2_best(q1, q2, w12, w13, dbnh),
+        "packed1w_best": lambda: match.packed1w_best(q1, q2, w12, dbnh),
+        "packed2wn_best": lambda: match.packed2wn_best(q1, q2, w12n, w13),
+        "packed1wn_best": lambda: match.packed1wn_best(q1, q2, w12n),
+    }
+    return ops, wrapped, n_real, lo
 
-    # each form's packed_best operands, as its wrapper in ops/match.py
-    # builds them, on the card: (qa, w1, k_used, keywords, lanes of the
-    # function's product set, weight lanes it reads, its line in
-    # pallas_match.py)
-    c = {k: v.cuda() for k, v in dict(q1=q1, q2=q2, w12=w12, w13=w13,
-                                      w12n=w12n, dbnh=dbnh).items()}
-    kp = 128
-    pair = lambda a, b: match._pack_rows(a, b, kp)
-    qa_n = pair(c["q1"], c["q1"])
-    qa_n[:, 2 * lw:2 * lw + 3] = 1.0
-    operands = {
-        "packed2_best": (pair(c["q1"], c["q1"]), c["w12"], match._lanes(lw),
-                         dict(qb=pair(c["q2"], c["q1"]), w2=c["w13"],
-                              dbnh=c["dbnh"]), 4 * lw, 4 * lw, 656),
-        "packed1w_best": (torch.cat([pair(c["q1"], c["q1"]),
-                                     pair(c["q2"], torch.zeros_like(
-                                         c["q2"]))]),
-                          c["w12"], match._lanes(lw),
-                          dict(dbnh=c["dbnh"], fold_a=True), 3 * lw, 2 * lw,
-                          673),
-        "packed2wn_best": (qa_n, c["w12n"], match._lanes(lw, norm=True),
-                           dict(qb=pair(c["q2"], c["q1"]), w2=c["w13"]),
-                           4 * lw + 3, 4 * lw + 3, 781),
-        "packed1wn_best": (match.norm_query_rows(c["q1"], c["q2"], kp),
-                           c["w12n"], match._lanes(lw, norm=True),
-                           dict(fold_a=True), 3 * lw + 3, 2 * lw + 3, 819),
-    }
+
+def run_forms_shapes(match, shapes):
+    """Each superseded form's ``match.packed_best`` on the seeded operands
+    of each (m, npad) (``forms_operands``): {"form/npad/m": (idx, val,
+    device ms)}, timed from a cold L2."""
+    import torch
+
     flush = flusher(torch.device("cuda", 0))
-    for name, (qa, w1, k_used, kw, width, w_lanes, line) in \
-            operands.items():
-        idx, _ = match.packed_best(qa, w1, k_used, **kw)
-        if not torch.equal(idx.cpu(), picks[name]):
-            fail(f"{name}: the timed operands are not the wrapper's")
-        w1t = w1.T
-        w2t = kw["w2"].T if "w2" in kw else None
+    out = {}
+    for m, npad in shapes:
+        ops = forms_operands(match, m, npad)[0]
+        for form, (qa, w1, k_used, kw, *_) in ops.items():
+            idx, val = match.packed_best(qa, w1, k_used, **kw)
+            ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
+                              reps=20, flush=flush)
+            out[f"{form}/{npad}/{m}"] = (idx.cpu().numpy(),
+                                         val.cpu().numpy(), ms)
+        del ops
+        torch.cuda.empty_cache()
+    return out
 
-        def library(qa=qa, w1t=w1t, w2t=w2t, kw=kw):
-            mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
-            d = (mm(qa[:m], w1t) + mm(qa[m:], w1t) if kw.get("fold_a")
-                 else mm(qa, w1t))
-            if w2t is not None:
-                d = d + mm(kw["qb"], w2t)
-            return (d - kw["dbnh"] if "dbnh" in kw else d).max(dim=1)
 
-        k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used, **kw),
-                            reps=20, flush=flush)
-        p_ms = cuda_time_ms(lambda: match.packed_best_plain(
-            qa, w1, k_used, **kw), reps=5, flush=flush)
-        l_ms = cuda_time_ms(library, reps=10, flush=flush)
-        # inputs read once (the weight lanes, the half norms unless they
-        # ride W1, q1 and q2), outputs written once
-        b = bound(2 * npad * w_lanes + (4 * npad if "dbnh" in kw else 0)
-                  + 2 * 2 * m * lw + 8 * m, 2 * m * npad * width,
-                  PEAK_BF16_FLOP_S)
-        rows[name] = kernel_row(name, "packed_best.cu", line, errs[name],
-                                k_ms, p_ms, l_ms, b)
-        say("kernels", kernel=name, m=m, npad=npad, width=width,
-            k_used=k_used, max_abs_err=errs[name], ms=k_ms,
-            plain_ms=p_ms, library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+def phase_packed_forms(rows, parent):
+    """The four superseded packed forms (packed2_best.cu, packed1w_best.cu,
+    packed2wn_best.cu and packed1wn_best.cu on the Hopper core) at each of
+    ``FORMS_SHAPES`` on the operands each form's wrapper builds
+    (``forms_operands``): one launch a call, held against the plain version
+    (at the small shape on CPU copies, the wrapper's CPU path; at M = 352,
+    N = 2^20 on the card), the duplicate and padding rules; the kernel,
+    its plain version and the ``mm``s + ``max`` yardstick timed, the bound
+    at the form's own width (its product set: 4L, 3L, 4L + 3 or 3L + 3
+    lanes).  The small shape is each form's row in the table.  With
+    ``parent``: that tree's forms on the same inputs (a child process), its
+    ms and the counts of equal picks and val bits; fewer than 99.9% equal
+    picks fails."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    shapes = [(s["m"], s["npad"]) for s in FORMS_SHAPES]
+    theirs = None
+    if parent:
+        theirs, parent_ms = parent_bits("forms", parent, shapes)
+    flush = flusher(torch.device("cuda", 0))
+    for i, (m, npad) in enumerate(shapes):
+        ops, wrapped, n_real, lo = forms_operands(match, m, npad)
+        for form, (qa, w1, k_used, kw, width, w_lanes, line) in ops.items():
+            name = f"{form} M={m} N={npad}"
+            match.reset_launch_counts()
+            idx, val = match.packed_best(qa, w1, k_used, **kw)
+            torch.cuda.synchronize()
+            if match.LAUNCHES[form] != 1 or sum(match.LAUNCHES.values()) != 1:
+                fail(f"{name}: launches {match.LAUNCHES}, expected one")
+            if not torch.equal(wrapped[form]()[0], idx):
+                fail(f"{name}: the timed operands are not the wrapper's")
+            # the plain version: at the small shape on the CPU copies (the
+            # wrapper's CPU path), else on the card
+            plain = [t.cpu() if i == 0 else t for t in (qa, w1)]
+            pkw = {k: (v.cpu() if i == 0 and torch.is_tensor(v) else v)
+                   for k, v in kw.items()}
+            scores = match._packed_scores_plain(
+                plain[0], plain[1], k_used, pkw.get("qb"), pkw.get("w2"),
+                pkw.get("dbnh"), pkw.get("fold_a", False))
+            ref_idx, ref_val = match._first_max(scores)
+            second = torch.topk(scores, 2, dim=1).values[:, 1]
+            del scores
+            err, ndiff = check_picks(
+                name, idx.to(ref_idx.device), val.to(ref_idx.device),
+                ref_idx, ref_val, second, PACKED_ATOL)
+            del ref_idx, ref_val, second
+            if int(idx[0]) != lo or int(idx.max()) >= n_real:
+                fail(f"{name}: duplicate/padding rule broken (idx[0]="
+                     f"{int(idx[0])}, max {int(idx.max())})")
+            w1t = w1.T
+            w2t = kw["w2"].T if "w2" in kw else None
+
+            def library(qa=qa, w1t=w1t, w2t=w2t, kw=kw):
+                mm = lambda a, b: torch.mm(a, b, out_dtype=torch.float32)
+                d = (mm(qa[:m], w1t) + mm(qa[m:], w1t) if kw.get("fold_a")
+                     else mm(qa, w1t))
+                if w2t is not None:
+                    d = d + mm(kw["qb"], w2t)
+                return (d - kw["dbnh"] if "dbnh" in kw else d).max(dim=1)
+
+            k_ms = cuda_time_ms(lambda: match.packed_best(qa, w1, k_used,
+                                                          **kw),
+                                reps=20, flush=flush)
+            p_ms = cuda_time_ms(lambda: match.packed_best_plain(
+                qa, w1, k_used, **kw), reps=5 if i == 0 else 3, flush=flush)
+            l_ms = cuda_time_ms(library, reps=10, flush=flush)
+            # inputs read once (the weight lanes, the half norms unless they
+            # ride W1, q1 and q2), outputs written once
+            b = bound(2 * npad * w_lanes + (4 * npad if "dbnh" in kw else 0)
+                      + 2 * 2 * m * FORMS_LW + 8 * m, 2 * m * npad * width,
+                      PEAK_BF16_FLOP_S)
+            seg = dict(m=m, npad=npad, width=width, k_used=k_used,
+                       max_abs_err=err, picks_differing_in_band=ndiff,
+                       ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=b[0], bound_by=b[1], bound_share=b[0] / k_ms,
+                       plan=match._packed_form_plan(
+                           form, m, npad, match._sm_count(0),
+                           k_used)._asdict())
+            if theirs is not None:
+                key = f"{form}/{npad}/{m}"
+                ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+                picks = int((ti == idx.cpu().numpy()).sum())
+                seg.update(parent_ms=parent_ms[key], picks_equal_parent=picks,
+                           val_bits_equal_parent=int(
+                               (tv.view(np.int32) == val.cpu().numpy().view(
+                                   np.int32)).sum()))
+                if picks < 0.999 * m:
+                    say("kernels", kernel=form, **seg)
+                    fail(f"{name}: {picks} of {m} picks equal to {parent}'s "
+                         "kernel, fewer than 99.9%")
+            if i == 0:
+                rows[form] = kernel_row(form, f"{form}.cu", line, err, k_ms,
+                                        p_ms, l_ms, b)
+            say("kernels", kernel=form, **seg)
+            del w1t, w2t, idx, val
+        del ops, wrapped
+        torch.cuda.empty_cache()
 
 
 def expected_launches(params, size: int, modes=None):
@@ -2128,15 +2333,14 @@ def main() -> None:
     ap.add_argument("--parent", metavar="DIR",
                     help="with the kernels phase: run the argmin_l2, "
                          "argmin2_l2, pertile_champions, packed3_best, "
-                         "packed_best and argmin_l2_bf16 of the checkout in "
-                         "DIR (e.g. the parent commit, unpacked by git "
-                         "archive) on their level shapes too; argmin_l2's "
-                         "picks and scores must be the same bits, "
-                         "argmin2_l2's (i1, i2), pertile_champions', "
-                         "packed3_best's and argmin_l2_bf16's picks must be "
-                         ">= 99.9%% equal, and the equal picks and val bits "
-                         "of argmin2_l2, pertile_champions, packed3_best, "
-                         "packed_best and argmin_l2_bf16 are counted")
+                         "packed_best, argmin_l2_bf16, packed_champions and "
+                         "the four superseded packed forms of the checkout "
+                         "in DIR (e.g. the parent commit, unpacked by git "
+                         "archive) on their shapes too; argmin_l2's picks "
+                         "and scores must be the same bits, the others' "
+                         "picks (argmin2_l2's (i1, i2)) >= 99.9%% equal but "
+                         "packed_best's, and the equal picks and val bits "
+                         "of all but argmin_l2 are counted")
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
@@ -2201,7 +2405,7 @@ def main() -> None:
     # each kernel's launches from the run of its path (packed3w_best:
     # card_vs_cpu's exact_hi2 on RGB sources at patch 7); packed_champions
     # (the witness of packed_best) and the four superseded packed forms are
-    # on no path, so 0
+    # on no path, so 0 (kernel_row's)
     for path, names in (("main", ("argmin_l2", "packed_best")),
                         ("exact_hi2", ("packed3_best",)),
                         ("card_vs_cpu", ("packed3w_best",)),

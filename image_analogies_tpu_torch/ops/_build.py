@@ -24,14 +24,26 @@ from typing import Dict, Iterable, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+# the four superseded packed forms have a source each (32 instances a
+# form), so that no one nvcc runs far longer than the others
+PACKED_FORMS = ("packed2_best", "packed1w_best", "packed2wn_best",
+                "packed1wn_best")
 KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed2k_best",
-                  "packed3_best", "packed3w_best", "packed_best",
+                  "packed3_best", "packed3w_best", *PACKED_FORMS,
                   "tile_champions", "argmin2", "pertile_champions")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
+# (q, w1, w2, dbnh, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
+#  smem, n_chunks, part_val, part_idx, out_idx, out_val, device, stream):
+# the global-champion packed scans but packed2k
+_BEST = [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4 + [_INT, _VOIDP]
+# (q, w1, w2, dbnh, m, n, k, k_used, fold, tile_n, consumers, bm, stages,
+#  tiles_per_chunk, smem, n_chunks, out_val, out_idx, device, stream): the
+# per-tile champions of the packed passes
+_TILES = [_VOIDP] * 4 + [_INT] * 12 + [_VOIDP] * 2 + [_INT, _VOIDP]
 # C signatures: every pointer and the stream as void*, sizes as int
 _SIGNATURES = {
     "argmin_l2": {
@@ -55,31 +67,12 @@ _SIGNATURES = {
         "ia_packed2k_best": [_VOIDP] * 2 + [_INT] * 10 + [_VOIDP] * 4
                             + [_INT, _VOIDP],
     },
-    "packed3_best": {
-        # (q, w1, w2, dbnh, m, n, k, k_used, consumers, bm, stages,
-        #  tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx,
-        #  out_val, device, stream)
-        "ia_packed3_best": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4
-                           + [_INT, _VOIDP],
-    },
-    "packed3w_best": {
-        # ia_packed3_best's arguments (k_used past 256)
-        "ia_packed3w_best": [_VOIDP] * 4 + [_INT] * 10 + [_VOIDP] * 4
-                            + [_INT, _VOIDP],
-    },
-    "packed_best": {
-        # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,
-        #  norm_in_w, n_chunks, part_val, part_idx, out_idx, out_val,
-        #  device, stream)
-        "ia_packed_best": [_VOIDP] * 5 + [_INT] * 8
-                          + [_VOIDP] * 4 + [_INT, _VOIDP],
-    },
-    "tile_champions": {
-        # (qa, qb, w1, w2, dbnh, m, n, k, k_used, fold_a, two_streams,
-        #  tile_n, n_chunks, out_val, out_idx, device, stream)
-        "ia_tile_champions": [_VOIDP] * 5 + [_INT] * 8
-                             + [_VOIDP] * 2 + [_INT, _VOIDP],
-    },
+    "packed3_best": {"ia_packed3_best": _BEST},
+    # packed3 past 256 lanes, and its per-tile champions
+    "packed3w_best": {"ia_packed3w_best": _BEST,
+                      "ia_packed3w_champions": _TILES},
+    **{form: {f"ia_{form}": _BEST} for form in PACKED_FORMS},
+    "tile_champions": {"ia_tile_champions": _TILES},
     "pertile_champions": {
         # (q, qf32, qk, db, dbnh, m, n, k, k_used, q_split, tile_n,
         #  consumers, bm, stages, tiles_per_chunk, smem, n_chunks, parts,
@@ -127,9 +120,10 @@ def library_path(name: str) -> str:
 def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
           ) -> Dict[str, Tuple[float, str]]:
     """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Returns {name: (seconds, compiler
-    diagnostics)}; with ``ptxas_info`` the diagnostics include each
-    kernel's registers, shared memory and spills.  Raises on any failure."""
+    per source, all started together.  Returns {name: (seconds from the
+    common start to that source's end, compiler diagnostics)}; with
+    ``ptxas_info`` the diagnostics include each kernel's registers, shared
+    memory and spills.  Raises on any failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -140,19 +134,31 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
         tmp = f"{out}.{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
                "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
+        # the diagnostics go to a file, so that a process is never held up
+        # by a full pipe while the others are awaited
+        log = open(f"{tmp}.log", "w+")
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, tmp, out)
+    t0 = time.perf_counter()
     done = {}
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, out)
-        done[name] = (secs, log)
+    while procs:
+        for name, (proc, log, tmp, out) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            secs = time.perf_counter() - t0
+            del procs[name]
+            log.seek(0)
+            text = log.read()
+            log.close()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+                continue
+            os.replace(tmp, out)
+            done[name] = (secs, text)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return done

@@ -13,7 +13,7 @@
 // with a single real row the second place is (+inf, the lowest padding
 // row).  With q_split the query block is (2m, K) hi rows then lo rows,
 // folded: each DB tile's hi k steps, then its lo k steps, into one fp32
-// accumulator (the order of the bf16_scan.cuh instance this replaced).
+// accumulator (the order of the first design, which this replaced).
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at level 0 of npr_1024
 // (M = 352 as 704 hi/lo rows, N = 1,048,576, 80 of 128 lanes used): 2 x

@@ -15,7 +15,7 @@
 // order (init `_IDX_INF` = 2^31-1, so a chunk of padding rows only, which
 // keeps (-inf, INT_MAX), loses to every real row) and negates back.  A
 // tile's k16 steps run in order into one fp32 accumulator and the score is
-// one 2 d - n, as in the bf16_scan.cuh instance this replaced.
+// one 2 d - n, as in the first design, which this replaced.
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at level 0 of batched
 // npr_1024 (M = 1024 queries, N = 1,048,576 rows, F = 68 live lanes of

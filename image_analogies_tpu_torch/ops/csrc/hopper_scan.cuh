@@ -1,18 +1,25 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
-// with a producer warp.  Five instances use it: packed2k_best.cu (one pass,
-// the norm in W's lanes, the global champion: EpiBest), argmin2.cu (the
-// hi/lo query blocks folded, the fp32 norms in the ring, the lexicographic
-// top-2: EpiTop2), packed3_best.cu (exact_hi2: two folded query sets
-// against W1 and a third against a second weight stream W2 (TWO), the
-// norms in the ring, the global champion of dots - norm: EpiBestSub),
-// pertile_champions.cu (scan_rescue: FOLD or one query set, the norms in
-// the ring, one champion of dots - norm per scan tile, written in place:
-// EpiTile) and argmin_bf16.cu (batched and rowwise: one query set, the
-// norms in the ring, the global champion of 2 dots - norm: EpiBestL2).
-// packed3w_best.cu (packed3 past 256 lanes) has a kernel of its own, built
-// from the helpers and the EpiBestSub epilogue here.  The other instances
-// of bf16_scan.cuh (the superseded packed forms, packed_champions) are to
-// move here.
+// with a producer warp.  Every bf16 scan of the port is an instance of it:
+// - packed2k_best.cu (the main path: one pass, the norm in W's lanes, the
+//   global champion: EpiBest);
+// - argmin2.cu (two_pass: the hi/lo query blocks folded, the fp32 norms in
+//   the ring, the lexicographic top-2: EpiTop2);
+// - packed3_best.cu (exact_hi2 up to 256 lanes: two folded query sets
+//   against W1 and a third against a second weight stream W2 (TWO), the
+//   norms in the ring, the global champion of dots - norm: EpiBestSub);
+// - pertile_champions.cu (scan_rescue: FOLD or one query set, the norms in
+//   the ring, one champion of dots - norm per scan tile, written in place:
+//   EpiTile);
+// - argmin_bf16.cu (batched and rowwise: one query set, the norms in the
+//   ring, the global champion of 2 dots - norm: EpiBestL2);
+// - the four packed forms the main path superseded, one source each
+//   (packed2_best.cu: TWO, EpiBestSub; packed1w_best.cu: FOLD, EpiBestSub;
+//   packed2wn_best.cu: TWO, the norm in W's lanes, EpiBest;
+//   packed1wn_best.cu: FOLD, EpiBest; entries by `scan_best`);
+// - tile_champions.cu (packed_champions: TWO, with or without FOLD, one
+//   champion of dots - norm per output tile: EpiTile).
+// packed3w_best.cu (packed3 and its per-tile champions past 256 lanes) has
+// a kernel of its own, built from the helpers and epilogues here.
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -52,6 +59,11 @@
 //   would read 64-lane boxes, 512 bytes a row, +14% bytes.  A k_used that
 //   is an odd multiple of 16 reads 16 unused lanes in its last box and
 //   skips them in the product.
+// - Shared memory: a warpgroup's resident query sets and at least one
+//   ring stage must fit in a block's 227 KiB.  Two query sets beside a
+//   stage of both weight streams leave no room for 64-row tiles past 448
+//   lanes (the packed2 forms and the unfolded champions at 464-512), so
+//   those instances take 32-row tiles (m64n32k16), `tile_rows`.
 // - Registers: 12 consumer warps + 1 producer warp = 416 threads; ptxas
 //   gives each at most 128.  packed2k's instances take 58-96, argmin2's
 //   (64 accumulators at 128-row tiles) 96-128 with no spills, packed3's
@@ -66,18 +78,95 @@
 //
 // The wgmma accumulator of m64nNk16 puts, in each warp's 16 rows, rows g
 // and g+8 and columns 2 tig, 2 tig + 1 of every 8-column block in one
-// thread (g = lane / 4, tig = lane % 4) -- the mma.sync layout -- so the
-// fold and the quad reduce are bf16_scan.cuh's.  Within a thread the
-// columns arrive in increasing DB row order, so a strict `>` keeps the
-// lowest row of equal scores; the quad reduce and the merge use the full
-// lexicographic (score, lowest index) rule.  Rows past N (the TMA box past
+// thread (g = lane / 4, tig = lane % 4) -- the mma.sync layout.  Within a
+// thread the columns arrive in increasing DB row order, so a strict `>`
+// keeps the lowest row of equal scores; the quad reduce and the merge use
+// the full lexicographic (score, lowest index) rule.  Rows past N (the TMA box past
 // the tensor's end reads zeros, which would score 0) are masked.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
 
-#include "bf16_scan.cuh"
+// The helpers every scan's entry and merge share: the lexicographic
+// (score, lowest index) rule, the merge of per-chunk partials and the
+// argument checks.
+namespace ia_scan {
+
+__device__ __forceinline__ bool lex_better(float va, int ia, float vb,
+                                           int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+__device__ __forceinline__ void fold(float& bv, int& bi, float v, int i) {
+  if (lex_better(v, i, bv, bi)) {
+    bv = v;
+    bi = i;
+  }
+}
+
+// insert (v, i) into the sorted pair (v1, i1) > (v2, i2); keys are distinct
+// (the top-2 merge of argmin2.cu and EpiTop2)
+__device__ __forceinline__ void fold2(float& v1, int& i1, float& v2, int& i2,
+                                      float v, int i) {
+  if (lex_better(v, i, v1, i1)) {
+    v2 = v1;
+    i2 = i1;
+    v1 = v;
+    i1 = i;
+  } else if (lex_better(v, i, v2, i2)) {
+    v2 = v;
+    i2 = i;
+  }
+}
+
+// one warp per query: lexicographic maximum over the chunks' partials
+__global__ void best_merge_kernel(const float* __restrict__ part_val,
+                                  const int* __restrict__ part_idx, int m,
+                                  int n_chunks, int* __restrict__ out_idx,
+                                  float* __restrict__ out_val) {
+  const int gm = blockIdx.x, lane = threadIdx.x;
+  float v = -INFINITY;
+  int id = INT_MAX;
+  for (int c = lane; c < n_chunks; c += 32)
+    fold(v, id, part_val[(size_t)c * m + gm], part_idx[(size_t)c * m + gm]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, id, off);
+    fold(v, id, ov, oi);
+  }
+  if (lane == 0) {
+    out_idx[gm] = id;
+    out_val[gm] = v;
+  }
+}
+
+inline int use_device(int device) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != device) return cudaSetDevice(device);
+  return cudaSuccess;
+}
+
+// the argument checks every entry makes: K in {128, 256, 384, 512},
+// k_used a multiple of 16 in (0, K]
+inline bool shape_ok(int m, int n, int k, int k_used, int n_chunks) {
+  return m > 0 && n > 0 && n_chunks > 0 && k_used > 0 && k_used <= k &&
+         k_used % 16 == 0 && k % 128 == 0 && k <= 512;
+}
+
+}  // namespace ia_scan
+
+extern "C" const char* ia_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
 
 namespace ia_hopper {
 
@@ -92,15 +181,6 @@ constexpr int SMEM_ALIGN = 1024;                 // the swizzle's repeat
 // dynamic shared memory a block may take: 227 KiB less room for the
 // static barriers
 constexpr int SMEM_DYN_MAX = 232448 - 1024;
-
-// DB rows a tile (a ring stage): 128 for an epilogue that takes them
-// (kWide) up to k_used = 256, else 64.  A tile's wgmma chain is 2 KSTEPS
-// (folded) dependent steps into one accumulator; at 64 rows a step's
-// latency, not the tensor cores, sets the pace, and m64n128k16 does twice
-// the work a step.  Past 256 lanes the 128-row stages leave no room.
-__host__ __device__ constexpr int tile_rows(bool wide, int ksteps) {
-  return wide && ksteps <= 16 ? 128 : 64;
-}
 
 struct HopperArgs {
   int m, n;
@@ -133,6 +213,31 @@ __host__ __device__ constexpr int smem_bytes(int nbox, int stages,
                                             int streams, bool norms, int bn) {
   return SMEM_ALIGN + consumers * qsets * nbox * QBOX_BYTES +
          stages * (streams * nbox * bn * BOX * 2 + (norms ? bn * 4 : 0));
+}
+
+// DB rows a tile (a ring stage): 128 for an epilogue that takes them
+// (kWide) up to k_used = 256.  A tile's wgmma chain is 2 KSTEPS (folded)
+// dependent steps into one accumulator; at 64 rows a step's latency, not
+// the tensor cores, sets the pace, and m64n128k16 does twice the work a
+// step.  Past 256 lanes the 128-row stages leave no room.  Else 64 where
+// one stage of 64-row tiles of `streams` weight arrays fits beside one
+// warpgroup's `qsets` query sets, and 32 where it does not (two sets and
+// two streams past 448 lanes).
+__host__ __device__ constexpr int tile_rows(bool wide, int ksteps,
+                                            int qsets = 1, int streams = 1,
+                                            bool norms = false) {
+  return wide && ksteps <= 16 ? 128
+         : smem_bytes((ksteps + 1) / 2, 1, 1, qsets, streams, norms, 64) <=
+                 SMEM_DYN_MAX
+             ? 64
+             : 32;
+}
+
+// the DB rows of a tile of the instance <FOLD, TWO, Epi> at ksteps k steps
+template <bool FOLD, bool TWO, class Epi>
+__host__ __device__ constexpr int scan_rows(int ksteps) {
+  return tile_rows(Epi::kWide, ksteps, query_sets(FOLD, TWO), TWO ? 2 : 1,
+                   Epi::kNorms);
 }
 
 // the checks every C entry makes of a launch plan
@@ -293,14 +398,35 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B^T over one k step, m64n32k16, both operands K-major in shared
+// memory
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // the wgmma of a tile of N DB rows
 template <int N>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
                                           uint64_t db, int scale_d) {
   if constexpr (N == 128) {
     wgmma_m64n128k16(d, da, db, scale_d);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_m64n64k16(d, da, db, scale_d);
+  } else {
+    wgmma_m64n32k16(d, da, db, scale_d);
   }
 }
 
@@ -314,10 +440,11 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
 // ragged last tile, from global memory (norm).
 
 // the global champion of scores that carry their norm in W's lanes
-// (packed2k): the maximum of the dots, lowest index on ties
+// (packed2k, packed2wn, packed1wn): the maximum of the dots, lowest index
+// on ties
 struct EpiBest {
   static constexpr bool kNorms = false;
-  static constexpr bool kWide = false;  // 64-row tiles always
+  static constexpr bool kWide = false;  // 64- or 32-row tiles (tile_rows)
   static constexpr bool kTile = false;  // one write per (chunk, row)
   float bv0 = -INFINITY, bv1 = -INFINITY;
   int bi0 = INT_MAX, bi1 = INT_MAX;
@@ -534,14 +661,14 @@ struct EpiTop2 {
   }
 };
 
-// The global champion of score = S dots - norm, S = 1 (packed3: dots -
-// dbnh, EpiBestSub) or 2 (argmin_bf16: 2 dots - dbn, the exact negation of
-// the L2 score dbn - 2 dots, EpiBestL2; its merge negates back), with the
-// norms of the stage, or of global memory for the ragged last tile: the
-// maximum, lowest index on ties, in fp32 with one subtract: the score bits
-// of the first design's instances (2 dots is exact, so a fused
-// multiply-add gives the same value).  A row's scores of a tile cost one subtract and one max each;
-// only a tile maximum that beats the running best looks up its lowest
+// The global champion of score = S dots - norm, S = 1 (packed3, packed2,
+// packed1w: dots - dbnh, EpiBestSub) or 2 (argmin_bf16: 2 dots - dbn, the
+// exact negation of the L2 score dbn - 2 dots, EpiBestL2; its merge
+// negates back), with the norms of the stage, or of global memory for the
+// ragged last tile: the maximum, lowest index on ties, in fp32 with one
+// subtract: the score bits of the first design's instances (2 dots is
+// exact, so a fused multiply-add gives the same value).  A row's scores of
+// a tile cost one subtract and one max each; only a tile maximum that beats the running best looks up its lowest
 // column (recomputing the scores, the same fp32 values), which after the
 // first few tiles is rare.  A padding row (+inf norm) scores -inf, which a
 // strict `>` never takes, so a thread, and a chunk, that saw only padding
@@ -620,14 +747,16 @@ using EpiBestL2 = EpiBestNorm<2, true>;
 
 // One champion of score = dots - norm per output tile of a.tile_sub DB
 // tiles (pertile_champions: a scan tile, or a part of one that a merge
-// folds), by EpiBestSub's max-first fold.  The kernel flushes it after the
+// folds; packed_champions: a DB tile of tile_n rows), by EpiBestSub's
+// max-first fold.  The kernel flushes it after the
 // DB tile that ends an output tile -- the quad reduce, then the write to
 // row t / tile_sub of the output -- and resets it to (-inf, the next
 // output tile's first row), so a tile of padding rows only (-inf scores,
 // which a strict `>` never takes) keeps (-inf, its first row), as
 // `jnp.argmax` over -inf gives.  Chunks are whole output tiles, so no
 // write is left at a chunk's end.  WIDE: 128-row DB tiles up to k_used =
-// 256 (`tile_rows`), for output tiles of a multiple of 128 rows; else 64.
+// 256 (`tile_rows`), for output tiles of a multiple of 128 rows; else 64
+// (32 for two query sets and two streams past 448 lanes).
 template <bool WIDE>
 struct EpiTile : EpiBestSub {
   static constexpr bool kWide = WIDE;
@@ -660,8 +789,9 @@ struct Ring {
 // with FOLD (2m, k), hi rows then lo rows, each DB tile running the hi
 // chain, then the lo chain, into one accumulator; with TWO a last block
 // against the second weight stream (wmap2), whose tile rides the stage
-// after the first's boxes.  k16 steps run in the order of bf16_scan.cuh:
-// pass, then k step.  A tile has tile_rows(Epi::kWide, KSTEPS) DB rows.
+// after the first's boxes.  k16 steps run pass, then k step, in order (the
+// first design's mma.sync order, whose bits the instances kept).  A tile
+// has scan_rows<FOLD, TWO, Epi>(KSTEPS) DB rows.
 template <int KSTEPS, bool FOLD, bool TWO, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     scan_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -669,7 +799,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                 const __grid_constant__ CUtensorMap wmap2, HopperArgs a) {
   // resident query blocks a warpgroup
   constexpr int QSETS = query_sets(FOLD, TWO);
-  constexpr int BN = tile_rows(Epi::kWide, KSTEPS);
+  constexpr int BN = scan_rows<FOLD, TWO, Epi>(KSTEPS);
   constexpr int WBOX_BYTES = BN * BOX * 2;  // a DB box of BN rows
   __shared__ __align__(8) uint64_t bars[2 * MAX_STAGES + 1];
   extern __shared__ unsigned char smem_raw[];
@@ -874,7 +1004,7 @@ inline int bf16_rows_map(CUtensorMap* map, const void* ptr, int rows, int k,
 template <int KSTEPS, bool FOLD, bool TWO, class Epi>
 int launch_scan(const void* q, const void* w, const void* w2, int k,
                 const HopperArgs& a, int n_chunks, cudaStream_t s) {
-  constexpr int BN = tile_rows(Epi::kWide, KSTEPS);
+  constexpr int BN = scan_rows<FOLD, TWO, Epi>(KSTEPS);
   CUtensorMap qmap, wmap, wmap2;
   int e = bf16_rows_map(&qmap, q, query_sets(FOLD, TWO) * a.m, k, WG_ROWS);
   if (e != cudaSuccess) return e;
@@ -908,6 +1038,53 @@ int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
     return launch_scan_k<FOLD, TWO, Epi, KMAX, KSTEPS + 1>(
         ksteps, q, w, w2, k, a, n_chunks, s);
   }
+}
+
+// The C entry of a global-champion instance: q (query_sets(FOLD, TWO) m,
+// k), w (and w2 with TWO) (n, k) bf16, norm (n,) fp32 (with Epi::kNorms),
+// all contiguous and 16-byte aligned; K in {128, 256, 384, 512}, k_used a
+// multiple of 16 up to 16 KMAX, lanes at and past it skipped.  The launch
+// plan (consumers .. n_chunks) comes from ops/match.py; the entry only
+// refuses one outside the instance's limits.  Scans into the partials
+// part_val/part_idx (n_chunks, m), then best_merge_kernel folds them into
+// out_idx/out_val (m,) by the lexicographic rule.  Launches on `stream`,
+// returns the first CUDA error.
+template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS>
+int scan_best(const void* q, const void* w, const void* w2, const void* norm,
+              int m, int n, int k, int k_used, int consumers, int bm,
+              int stages, int tiles_per_chunk, int smem, int n_chunks,
+              float* part_val, int* part_idx, int* out_idx, float* out_val,
+              int device, void* stream) {
+  const int ksteps = k_used / 16;
+  const int nbox = (k_used + BOX - 1) / BOX;
+  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) || ksteps > KMAX ||
+      (TWO && w2 == nullptr) || (Epi::kNorms && norm == nullptr) ||
+      !plan_ok(n, scan_rows<FOLD, TWO, Epi>(ksteps), nbox, consumers, bm,
+               stages, tiles_per_chunk, smem, n_chunks,
+               query_sets(FOLD, TWO), TWO ? 2 : 1, Epi::kNorms)) {
+    return cudaErrorInvalidValue;
+  }
+  int e = ia_scan::use_device(device);
+  if (e != cudaSuccess) return e;
+  HopperArgs a{};
+  a.m = m;
+  a.n = n;
+  a.consumers = consumers;
+  a.bm = bm;
+  a.nbox = nbox;
+  a.stages = stages;
+  a.tiles_per_chunk = tiles_per_chunk;
+  a.smem = smem;
+  a.norm = static_cast<const float*>(norm);
+  a.val = part_val;
+  a.idx = part_idx;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = launch_scan_k<FOLD, TWO, Epi, KMAX>(ksteps, q, w, w2, k, a, n_chunks,
+                                          s);
+  if (e != cudaSuccess) return e;
+  ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
+                                              n_chunks, out_idx, out_val);
+  return cudaGetLastError();
 }
 
 // The bf16 query block of fp32 queries q (m, k), written by the C entries

@@ -1,0 +1,49 @@
+// The packed2 form of the packed scan on the Hopper core (hopper_scan.cuh):
+// two query sets against two weight streams, the half norms in the ring.
+//
+// Replaces: image_analogies_tpu/ops/pallas_match.py:523 `_packed_best_kernel`
+// (entry `pallas_packed_best` :582) in its form `packed2_best` (:656), which
+// the main path's packed2k superseded: on no path.  Per query row m: the
+// lexicographic (score, lowest index) maximum over DB rows n < N of
+//
+//   qa[m].W1[n] + qb[m].W2[n] - dbnh[n]
+//
+// over the first k_used lanes, bf16 operands, fp32 accumulation, with qa =
+// [q1|q1] and qb = [q2|q1] (one (2M, K) tensor), W1 = [d1|d2] and W2 =
+// [d1|d3]: q1.d1 + q1.d2 + q2.d1 + q1.d3, 4L lanes of products.  Padding rows
+// carry dbnh = +inf and never win.
+//
+// Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at M = 352, N = 1,048,576, L
+// = 55: two passes of 2 M N 2L products = 164 us, against 138 us to stream
+// both weight arrays' 2L lanes and the half norms once: operations bound it.
+// The design is the core's: both query sets resident in shared memory, a
+// producer warp's TMA ring, a tile's k16 steps in order within each pass into
+// one fp32 accumulator (the first design's order, so its val bits), the
+// max-first champion (EpiBestSub) and per-chunk partials that
+// best_merge_kernel reduces by the same rule; 64-row DB tiles, 32-row ones
+// past 448 lanes (two query sets beside a stage of both streams leave no room
+// for 64).
+
+#include "hopper_scan.cuh"
+
+extern "C" {
+
+// q (2m, k) rows qa then qb, w1/w2 (n, k) bf16, dbnh (n,) fp32 half norms
+// (+inf on padding rows); all contiguous and 16-byte aligned; k in {128, 256,
+// 384, 512}; lanes at and past k_used (a multiple of 16) are skipped.  The
+// launch plan (consumers, bm, stages, tiles_per_chunk, smem, n_chunks) comes
+// from ops/match.py `_packed_form_plan`; part_val/part_idx (n_chunks, m)
+// scratch; out_idx/out_val (m,).  Launches on `stream`, returns the first CUDA
+// error (ia_hopper::scan_best).
+int ia_packed2_best(const void* q, const void* w1, const void* w2,
+                    const void* dbnh, int m, int n, int k, int k_used,
+                    int consumers, int bm, int stages, int tiles_per_chunk,
+                    int smem, int n_chunks, float* part_val, int* part_idx,
+                    int* out_idx, float* out_val, int device, void* stream) {
+  return ia_hopper::scan_best<false, true, ia_hopper::EpiBestSub>(
+      q, w1, w2, dbnh, m, n, k, k_used, consumers, bm, stages,
+      tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx, out_val,
+      device, stream);
+}
+
+}  // extern "C"

@@ -7,8 +7,9 @@
 // qa[m, :k_used] . wk[n, :k_used], bf16 operands, fp32 accumulation, with
 // qa rows [q1|q1|1 1 1|q2|q1|0] and wk rows [d1|d2|n1 n2 n3|d1|d3|0]: the
 // product set q1.d1 + q1.d2 + q2.d1 + q1.d3 - |d|^2/2, the norm riding
-// three bf16 lanes.  The other five forms stay on bf16_scan.cuh
-// (packed_best.cu).
+// three bf16 lanes.  The other forms are packed3_best.cu (and
+// packed3w_best.cu past 256 lanes) and, on no path, packed2_best.cu,
+// packed1w_best.cu, packed2wn_best.cu and packed1wn_best.cu.
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s): at level 0 (N =
 // 1,048,576, 223 used lanes) the DB alone is 140 us of bytes; the products
@@ -37,36 +38,11 @@ int ia_packed2k_best(const void* qa, const void* wk, int m, int n, int k,
                      int tiles_per_chunk, int smem, int n_chunks,
                      float* part_val, int* part_idx, int* out_idx,
                      float* out_val, int device, void* stream) {
-  using namespace ia_hopper;
-  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks)) {
-    return cudaErrorInvalidValue;
-  }
-  const int nbox = (k_used + BOX - 1) / BOX;
-  if (consumers < 2 || !plan_ok(n, tile_rows(false, k_used / 16), nbox,
-                                consumers, bm, stages, tiles_per_chunk, smem,
-                                n_chunks, 1, 1, false)) {
-    return cudaErrorInvalidValue;
-  }
-  int e = ia_scan::use_device(device);
-  if (e != cudaSuccess) return e;
-  HopperArgs a{};
-  a.m = m;
-  a.n = n;
-  a.consumers = consumers;
-  a.bm = bm;
-  a.nbox = nbox;
-  a.stages = stages;
-  a.tiles_per_chunk = tiles_per_chunk;
-  a.smem = smem;
-  a.val = part_val;
-  a.idx = part_idx;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_scan_k<false, false, EpiBest>(k_used / 16, qa, wk, nullptr, k, a,
-                                           n_chunks, s);
-  if (e != cudaSuccess) return e;
-  ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
-                                              n_chunks, out_idx, out_val);
-  return cudaGetLastError();
+  if (consumers < 2) return cudaErrorInvalidValue;
+  return ia_hopper::scan_best<false, false, ia_hopper::EpiBest>(
+      qa, wk, nullptr, nullptr, m, n, k, k_used, consumers, bm, stages,
+      tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx, out_val,
+      device, stream);
 }
 
 }  // extern "C"

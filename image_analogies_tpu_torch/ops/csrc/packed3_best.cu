@@ -13,7 +13,7 @@
 // [d1|d2], W2 = [d3|d1]: the six products of exact_hi2's bf16_6x set.
 // Padding rows carry dbnh = +inf and never win.  Past 256 lanes three
 // resident query sets leave no room for one ring stage of both streams:
-// those widths stay on packed_best.cu (ops/match.py `_packed3_route`).
+// those widths are packed3w_best.cu's (ops/match.py `_packed3_route`).
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at level 0 of npr_1024
 // (M = 352, N = 1,048,576, 2L = 110 of 128 lanes): three passes of 2 x 352
@@ -23,8 +23,8 @@
 // the W2 tile (four 32-lane boxes each, 512 bytes a row) and the tile's
 // fp32 norms; each consumer warpgroup keeps its three query sets resident
 // and runs a tile's chain, pass 0 and 1 against W1, pass 2 against W2, k16
-// steps in order within each pass (bf16_scan.cuh's order, so the first
-// design's val bits), into one accumulator; the epilogue subtracts the
+// steps in order within each pass (the first design's order, so its val
+// bits), into one accumulator; the epilogue subtracts the
 // stage's norms and keeps the champion (EpiBestSub).  Blocks write
 // per-chunk partials; best_merge_kernel reduces them by the same rule.
 
@@ -54,37 +54,10 @@ int ia_packed3_best(const void* q, const void* w1, const void* w2,
                     int tiles_per_chunk, int smem, int n_chunks,
                     float* part_val, int* part_idx, int* out_idx,
                     float* out_val, int device, void* stream) {
-  using namespace ia_hopper;
-  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) || k_used > 16 * KMAX) {
-    return cudaErrorInvalidValue;
-  }
-  const int nbox = (k_used + BOX - 1) / BOX;
-  if (!plan_ok(n, tile_rows(EpiBestSub::kWide, k_used / 16), nbox,
-               consumers, bm, stages, tiles_per_chunk, smem, n_chunks,
-               query_sets(true, true), 2, true)) {
-    return cudaErrorInvalidValue;
-  }
-  int e = ia_scan::use_device(device);
-  if (e != cudaSuccess) return e;
-  HopperArgs a{};
-  a.m = m;
-  a.n = n;
-  a.consumers = consumers;
-  a.bm = bm;
-  a.nbox = nbox;
-  a.stages = stages;
-  a.tiles_per_chunk = tiles_per_chunk;
-  a.smem = smem;
-  a.norm = static_cast<const float*>(dbnh);
-  a.val = part_val;
-  a.idx = part_idx;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_scan_k<true, true, EpiBestSub, KMAX>(k_used / 16, q, w1, w2, k,
-                                                 a, n_chunks, s);
-  if (e != cudaSuccess) return e;
-  ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
-                                              n_chunks, out_idx, out_val);
-  return cudaGetLastError();
+  return ia_hopper::scan_best<true, true, ia_hopper::EpiBestSub, KMAX>(
+      q, w1, w2, dbnh, m, n, k, k_used, consumers, bm, stages,
+      tiles_per_chunk, smem, n_chunks, part_val, part_idx, out_idx, out_val,
+      device, stream);
 }
 
 }  // extern "C"

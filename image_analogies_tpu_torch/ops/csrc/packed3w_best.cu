@@ -14,7 +14,12 @@
 // query rows [q1|q1], [q2|q2], [q1|q3] (one (3M, K) tensor) and W1 =
 // [d1|d2], W2 = [d3|d1]: the six products of exact_hi2's bf16_6x set.
 // Padding rows carry dbnh = +inf and never win.  Up to 256 lanes the form
-// is packed3_best.cu (ops/match.py `_packed3_route`).
+// is packed3_best.cu (ops/match.py `_packed3_route`).  The same kernel
+// with the per-tile epilogue (EpiTile) gives the per-tile champions of
+// these passes past 256 lanes (`_packed_kernel`, pallas_match.py:426, in
+// its wrapper `packed3_champions` :874; ops/match.py `_champions_route`):
+// per query row and DB tile of tile_n rows the (max, first argmax),
+// tile-major, an all-padding tile (-inf, its first row).
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at M = 352, N =
 // 1,048,576: three passes of 2 x 352 x N x 2L products, 0.66 ms at 2L =
@@ -46,11 +51,11 @@
 //   a per-tile base plus a constant offset a step, so the compiler does
 //   not hoist 3 KSTEPS 64-bit descriptors into the registers the sets need.
 // A tile's chain runs pass 0 and 1 against W1, pass 2 against W2, k16
-// steps in order within each pass (bf16_scan.cuh's order, as packed_best.cu
-// ran these widths before), into one accumulator; the epilogue subtracts
-// the stage's norms and keeps the champion (hopper_scan.cuh EpiBestSub).
-// Blocks write per-chunk partials; best_merge_kernel reduces them by the
-// same rule.
+// steps in order within each pass (the first design's order, as it ran
+// these widths before), into one accumulator; the epilogue subtracts the
+// stage's norms and keeps the champion (hopper_scan.cuh EpiBestSub: blocks
+// write per-chunk partials that best_merge_kernel reduces by the same
+// rule; or EpiTile, each output tile's champion written in place).
 
 #include "hopper_scan.cuh"
 
@@ -86,24 +91,6 @@ __host__ __device__ constexpr int w_tile_rows(int ksteps) {
                     3 - reg_sets(ksteps), 2, true, 64) <= SMEM_DYN_MAX
              ? 64
              : 32;
-}
-
-// d (+)= A B^T over one k step, m64n32k16, both operands in shared memory
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (+)= A B^T over one k step, m64n32k16, A from registers (the mma.sync
@@ -154,16 +141,6 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 64) {
-    wgmma_m64n64k16(d, da, db, scale_d);
-  } else {
-    wgmma_ss_n32(d, da, db, scale_d);
-  }
-}
-
-template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&qa)[4], uint64_t db,
                                          int scale_d) {
@@ -211,8 +188,11 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* wmap,
 // sets and the first a.stages DB tiles, then at the top of each tile the
 // tile a.stages - 1 ahead into the stage the previous tile freed: every
 // warpgroup released it a tile earlier, so the wait is short and the
-// warpgroups stay in step.
-template <int KSTEPS>
+// warpgroups stay in step.  Epi: EpiBestSub (one partial per (chunk, row))
+// or EpiTile<false> (one champion per (output tile of a.tile_sub DB tiles,
+// row), flushed after the output tile's last DB tile; chunks are whole
+// output tiles).
+template <int KSTEPS, class Epi>
 __global__ void __launch_bounds__(threads_of(KSTEPS), 1)
     packed3w_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap wmap,
@@ -304,7 +284,8 @@ __global__ void __launch_bounds__(threads_of(KSTEPS), 1)
   float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  EpiBestSub ep;
+  Epi ep;
+  if constexpr (Epi::kTile) ep.reset(t_begin * BN);
   mbar_wait(qfull, 0);
   Ring r{0, 0};   // the stage of tile t
   Ring rf{0, 0};  // the stage of tile t - 1, refilled at the top of tile t
@@ -347,10 +328,10 @@ __global__ void __launch_bounds__(threads_of(KSTEPS), 1)
     for (int p = RSETS; p < 3; ++p) {
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
-        wgmma_ss<BN>(acc,
-                     qd + ((p - RSETS) * QSET_BYTES + (ks >> 1) * QBOX_BYTES +
-                           (ks & 1) * 32) / 16,
-                     wdesc(p, ks), 1);
+        wgmma_k16<BN>(acc,
+                      qd + ((p - RSETS) * QSET_BYTES + (ks >> 1) * QBOX_BYTES +
+                            (ks & 1) * 32) / 16,
+                      wdesc(p, ks), 1);
         asm volatile("" : "+l"(wd), "+l"(qd));
       }
     }
@@ -369,13 +350,24 @@ __global__ void __launch_bounds__(threads_of(KSTEPS), 1)
     // the epilogue read the stage's norms: release it after them
     __syncwarp();
     if (lane == 0) mbar_arrive(empty);
+    if constexpr (Epi::kTile) {
+      // the last DB tile of an output tile: its champions, in place
+      if ((t + 1) % a.tile_sub == 0) {
+        ep.reduce_quad();
+        if (tig == 0)
+          ep.write(a, (size_t)(t / a.tile_sub) * a.m, r0, r1, q_end);
+        ep.reset((t + 1) * BN);
+      }
+    }
   }
-  // the four threads of a row group hold disjoint columns
-  ep.reduce_quad();
-  if (tig == 0) ep.write(a, (size_t)blockIdx.y * a.m, r0, r1, q_end);
+  if constexpr (!Epi::kTile) {
+    // the four threads of a row group hold disjoint columns
+    ep.reduce_quad();
+    if (tig == 0) ep.write(a, (size_t)blockIdx.y * a.m, r0, r1, q_end);
+  }
 }
 
-template <int KSTEPS>
+template <int KSTEPS, class Epi>
 int launch_w(const void* q, const void* w1, const void* w2, int k,
              const HopperArgs& a, int n_chunks, cudaStream_t s) {
   constexpr int BN = w_tile_rows(KSTEPS);
@@ -386,27 +378,56 @@ int launch_w(const void* q, const void* w1, const void* w2, int k,
   if (e != cudaSuccess) return e;
   e = bf16_rows_map(&wmap2, w2, a.n, k, BN);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(packed3w_kernel<KSTEPS>,
+  e = cudaFuncSetAttribute(packed3w_kernel<KSTEPS, Epi>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            a.smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.m + a.bm - 1) / a.bm, n_chunks);
-  packed3w_kernel<KSTEPS><<<grid, threads_of(KSTEPS), a.smem, s>>>(
+  packed3w_kernel<KSTEPS, Epi><<<grid, threads_of(KSTEPS), a.smem, s>>>(
       qmap, wmap, wmap2, static_cast<const __nv_bfloat16*>(q), k, a);
   return cudaGetLastError();
 }
 
 // launch_w of the instance with ksteps k steps (KMIN..KMAX)
-template <int KSTEPS = KMIN>
+template <class Epi, int KSTEPS = KMIN>
 int launch_w_k(int ksteps, const void* q, const void* w1, const void* w2,
                int k, const HopperArgs& a, int n_chunks, cudaStream_t s) {
   if constexpr (KSTEPS > KMAX) {
     return cudaErrorInvalidValue;
   } else {
     if (ksteps == KSTEPS)
-      return launch_w<KSTEPS>(q, w1, w2, k, a, n_chunks, s);
-    return launch_w_k<KSTEPS + 1>(ksteps, q, w1, w2, k, a, n_chunks, s);
+      return launch_w<KSTEPS, Epi>(q, w1, w2, k, a, n_chunks, s);
+    return launch_w_k<Epi, KSTEPS + 1>(ksteps, q, w1, w2, k, a, n_chunks, s);
   }
+}
+
+// The arguments of a launch plan, or false where the shape or the plan is
+// outside the kernel's limits (k in {384, 512}, k_used in (256, 512], at
+// most max_consumers warpgroups, the shared memory of the plan's ring)
+bool w_args(const void* dbnh, int m, int n, int k, int k_used, int consumers,
+            int bm, int stages, int tiles_per_chunk, int smem, int n_chunks,
+            HopperArgs* a) {
+  const int ksteps = k_used / 16;
+  const int nbox = (k_used + BOX - 1) / BOX;
+  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) ||
+      (k != 384 && k != 512) || ksteps < KMIN || ksteps > KMAX ||
+      consumers > max_consumers(ksteps) ||
+      !plan_ok(n, w_tile_rows(ksteps), nbox, consumers, bm, stages,
+               tiles_per_chunk, smem, n_chunks, 3 - reg_sets(ksteps), 2,
+               true)) {
+    return false;
+  }
+  *a = HopperArgs{};
+  a->m = m;
+  a->n = n;
+  a->consumers = consumers;
+  a->bm = bm;
+  a->nbox = nbox;
+  a->stages = stages;
+  a->tiles_per_chunk = tiles_per_chunk;
+  a->smem = smem;
+  a->norm = static_cast<const float*>(dbnh);
+  return true;
 }
 
 }  // namespace
@@ -429,39 +450,51 @@ int ia_packed3w_best(const void* q, const void* w1, const void* w2,
                      int smem, int n_chunks, float* part_val, int* part_idx,
                      int* out_idx, float* out_val, int device,
                      void* stream) {
-  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) ||
-      (k != 384 && k != 512) || k_used <= 16 * (KMIN - 1) ||
-      k_used > 16 * KMAX) {
-    return cudaErrorInvalidValue;
-  }
-  const int ksteps = k_used / 16;
-  const int nbox = (k_used + BOX - 1) / BOX;
-  if (consumers > max_consumers(ksteps) ||
-      !plan_ok(n, w_tile_rows(ksteps), nbox, consumers, bm, stages,
-               tiles_per_chunk, smem, n_chunks, 3 - reg_sets(ksteps), 2,
-               true)) {
+  HopperArgs a;
+  if (!w_args(dbnh, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
+              smem, n_chunks, &a)) {
     return cudaErrorInvalidValue;
   }
   int e = ia_scan::use_device(device);
   if (e != cudaSuccess) return e;
-  HopperArgs a{};
-  a.m = m;
-  a.n = n;
-  a.consumers = consumers;
-  a.bm = bm;
-  a.nbox = nbox;
-  a.stages = stages;
-  a.tiles_per_chunk = tiles_per_chunk;
-  a.smem = smem;
-  a.norm = static_cast<const float*>(dbnh);
   a.val = part_val;
   a.idx = part_idx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_w_k(ksteps, q, w1, w2, k, a, n_chunks, s);
+  e = launch_w_k<EpiBestSub>(k_used / 16, q, w1, w2, k, a, n_chunks, s);
   if (e != cudaSuccess) return e;
   ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
                                               n_chunks, out_idx, out_val);
   return cudaGetLastError();
+}
+
+// The per-tile champions of the same scan (packed3_champions past 256
+// lanes): ia_tile_champions' arguments (fold must be 1) with this kernel's
+// plan (ops/match.py `_champions_plan` over `_packed3w_plan`); n a
+// multiple of tile_n, tile_n a multiple of the DB tile (64 rows up to
+// k_used 288, else 32), tiles_per_chunk whole output tiles.  out_val/
+// out_idx (n / tile_n, m): per (tile, row) the (max, first argmax) of the
+// scores, an all-padding tile (-inf, its first row).
+int ia_packed3w_champions(const void* q, const void* w1, const void* w2,
+                          const void* dbnh, int m, int n, int k, int k_used,
+                          int fold, int tile_n, int consumers, int bm,
+                          int stages, int tiles_per_chunk, int smem,
+                          int n_chunks, float* out_val, int* out_idx,
+                          int device, void* stream) {
+  HopperArgs a;
+  const int bn = w_tile_rows(k_used / 16);
+  if (!fold || tile_n <= 0 || tile_n % bn != 0 || n % tile_n != 0 ||
+      tiles_per_chunk % (tile_n / bn) != 0 ||
+      !w_args(dbnh, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
+              smem, n_chunks, &a)) {
+    return cudaErrorInvalidValue;
+  }
+  int e = ia_scan::use_device(device);
+  if (e != cudaSuccess) return e;
+  a.val = out_val;
+  a.idx = out_idx;
+  a.tile_sub = tile_n / bn;
+  return launch_w_k<EpiTile<false>>(k_used / 16, q, w1, w2, k, a, n_chunks,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -13,8 +13,8 @@
 // = +inf, so an all-padding tile gives (-inf, its first row).  With
 // q_split the query block is (2m, K), hi rows then lo rows, folded: each DB
 // tile's hi k steps, then its lo k steps, into one fp32 accumulator (the
-// order of the bf16_scan.cuh instance this replaced, tile_champions.cu,
-// so the same scores bit for bit).
+// order of the first design, which this replaced, so the same scores bit
+// for bit).
 //
 // Bound on one H100 (989 TFLOP/s bf16, 3.35 TB/s) at level 0 of npr_1024
 // (M = 352 as 704 hi/lo rows, N = 1,048,576, F = 68 of 128 lanes, scan

@@ -14,23 +14,21 @@
   ``csrc/packed2k_best.cu``; ``packed3_best`` (exact_hi2) is
   ``csrc/packed3_best.cu`` up to 256 lanes and ``csrc/packed3w_best.cu``
   past them (``_packed3_route``); ``packed2_best``, ``packed1w_best``,
-  ``packed2wn_best`` and ``packed1wn_best`` are ``csrc/packed_best.cu``).
+  ``packed2wn_best`` and ``packed1wn_best`` are ``csrc/<form>.cu``).
 - ``packed_champions``: the same packed passes, one champion per DB tile
-  (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``).
+  (replaces ``_packed_kernel``; ``csrc/tile_champions.cu``, and folded
+  past 256 lanes ``csrc/packed3w_best.cu``: ``_champions_route``).
 - ``pertile_champions``: per DB tile, the champion of ``q.db - dbnh`` over
   the bf16 centered DB (replaces ``_pertile_kernel``;
   ``csrc/pertile_champions.cu``).
 - ``argmin2_l2``: the lexicographic top-2 of ``dbn - 2 q.db`` (replaces
   ``_argmin2_kernel``; ``csrc/argmin2.cu``).
 
-The bf16 scans on a path -- packed2k, packed3 up to 256 lanes, pertile,
-argmin2 and argmin_l2_bf16 -- run on the Hopper core
-``csrc/hopper_scan.cuh`` (``wgmma`` fed by a TMA ring); packed3 past 256
-lanes runs its own kernel beside it (query sets as register operands); the
-fp32 ``argmin_l2`` has a kernel of its own (``csrc/argmin_l2.cu``).  The
-two bf16 kernels on no path, the four superseded packed forms and
-``packed_champions``, are instances of the first-design template
-``csrc/bf16_scan.cuh`` (``mma.sync``).
+Every bf16 scan runs on the Hopper core ``csrc/hopper_scan.cuh``
+(``wgmma`` fed by a TMA ring), each with a launch plan over
+``_hopper_plan``; packed3 and its per-tile champions past 256 lanes run
+their own kernel beside it (query sets as register operands); the fp32
+``argmin_l2`` has a kernel of its own (``csrc/argmin_l2.cu``).
 Every kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.
@@ -124,13 +122,6 @@ def add_norm_lanes(wk: torch.Tensor, dbnh_row: torch.Tensor, l: int
 @functools.lru_cache(maxsize=8)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def _chunks(n_tiles: int, q_tiles: int, device_index: int) -> int:
-    """DB chunks per launch: about four blocks per SM in all, never more
-    chunks than DB tiles."""
-    target = 4 * _sm_count(device_index)
-    return max(1, min(n_tiles, target // max(q_tiles, 1)))
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -307,16 +298,16 @@ _PACKED_FORMS = {
 }
 
 
-# launch geometry of the Hopper core csrc/hopper_scan.cuh (packed2k_best.cu,
-# argmin2.cu, packed3_best.cu and pertile_champions.cu), whose entries take
-# the plan and only refuse one outside these limits: one to three consumer
-# warpgroups of 64 query rows a block, each holding its query sets (one;
-# two folded; three with a second weight stream), DB tiles of 64 rows
-# (argmin2 and pertile up to k_used = 256: 128, the kernel's
-# ``tile_rows``), rows cut into 32-lane boxes (64 bytes a row), a ring of
-# at most 8 stages, each one DB tile of every weight stream (with the norms
-# in the ring, 4 bytes a tile row), and the dynamic shared memory a block
-# may take (one block per SM)
+# launch geometry of the Hopper core csrc/hopper_scan.cuh, whose entries
+# take the plan and only refuse one outside these limits: one to three
+# consumer warpgroups of 64 query rows a block, each holding its query sets
+# (one; two folded or with a second weight stream; three with both), DB
+# tiles of 64 rows (argmin2, pertile and argmin_l2_bf16 up to k_used = 256:
+# 128; two query sets and two streams past 448 lanes: 32; the kernel's
+# ``tile_rows``, ``_core_rows``), rows cut into 32-lane boxes (64 bytes a
+# row), a ring of at most 8 stages, each one DB tile of every weight stream
+# (with the norms in the ring, 4 bytes a tile row), and the dynamic shared
+# memory a block may take (one block per SM)
 _P2K_ROWS = 64  # query rows of a warpgroup = DB rows of a packed2k tile
 _P2K_CONSUMERS = (3, 2)  # the most first
 _A2_CONSUMERS = (3, 2, 1)  # argmin2: one where folded queries are wide
@@ -362,6 +353,19 @@ def _hopper_stages(k_used: int, consumers: int, qsets: int = 1,
                                   rows, streams) > _P2K_SMEM:
         stages -= 1
     return stages
+
+
+def _core_rows(k_used: int, qsets: int, streams: int, norms: bool,
+               wide: bool = False) -> int:
+    """DB rows of a Hopper-core tile (the kernel's ``tile_rows``): 128 for
+    an epilogue that takes them (``wide``) up to k_used = 256; else 64 where
+    one ring stage of 64-row tiles of ``streams`` weight arrays fits beside
+    one warpgroup's ``qsets`` query sets, else 32 (two sets and two streams
+    past 448 lanes)."""
+    if wide and k_used <= 256:
+        return 128
+    return 64 if _hopper_smem(k_used, 1, 1, qsets, norms, 64,
+                              streams) <= _P2K_SMEM else 32
 
 
 def _argmin2_rows(k_used: int) -> int:
@@ -486,7 +490,18 @@ def _pertile_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool,
     elif parts < 1 or sub % parts:
         raise ValueError(f"pertile_champions plan: {parts} parts of a scan "
                          f"tile of {sub} DB tiles")
-    units = ntiles * parts
+    return _whole_tiles(base, n, sm_count, tile_n, rows, parts)
+
+
+def _whole_tiles(base, n: int, sm_count: int, tile_n: int, rows: int,
+                 parts: int = 1) -> PertilePlan:
+    """``base``'s warpgroups, query tiles and ring, with chunks of whole
+    output tiles: scan tiles of ``tile_n`` rows (``rows``-row DB tiles each)
+    cut in ``parts``, about one chunk per SM for each query tile, so every
+    (output tile, query row) is written by one block."""
+    sub = tile_n // rows  # DB tiles a scan tile
+    units = n // tile_n * parts
+    room = max(1, sm_count // base.q_tiles)  # blocks of one query tile
     per = -(-units // room)  # output tiles a block
     return PertilePlan(base.consumers, base.bm, base.stages,
                        per * (sub // parts), -(-units // per), base.q_tiles,
@@ -568,6 +583,23 @@ def _packed3w_plan(m: int, n: int, sm_count: int, k_used: int
                         tuple(range(cmax, 0, -1)), qsets=3 - reg,
                         norms=True, rows=rows, streams=2)
     return Packed3wPlan(*base, rows=rows, reg_sets=reg)
+
+
+def _packed_form_plan(form: str, m: int, n: int, sm_count: int,
+                      k_used: int) -> Packed2kPlan:
+    """Launch plan of one of the four superseded packed forms on the core
+    (``_hopper_plan``): two query sets a warpgroup (folded, or one against
+    each of two weight streams), the half norms in the ring unless the norm
+    rides W's lanes, tiles of ``_core_rows`` rows (32 for the two-stream
+    forms past 448 lanes); three consumer warpgroups where a ring of two
+    stages fits beside their queries, else two, else one."""
+    fold, two, norm_in_w = next(key for key, name in _PACKED_FORMS.items()
+                                if name == form)
+    streams = 2 if two else 1
+    return _hopper_plan(form, m, n, sm_count, k_used, _A2_CONSUMERS,
+                        qsets=2, norms=not norm_in_w,
+                        rows=_core_rows(k_used, 2, streams, not norm_in_w),
+                        streams=streams)
 
 
 def _dots(q: torch.Tensor, w: torch.Tensor, k_used: int) -> torch.Tensor:
@@ -659,13 +691,13 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     rule ``_packed3_route`` sends to ``csrc/packed3_best.cu`` (the same
     core with a second weight stream, plan ``_packed3_plan``) up to
     ``k_used`` = 256 and to ``csrc/packed3w_best.cu`` (plan
-    ``_packed3w_plan``) past it; both kernels
-    read ``qa`` and ``qb`` as one (3M, K) tensor, without a copy where
-    ``qb`` lies right after ``qa`` (``_packed3_rows`` builds them so).  The
-    other four combinations the JAX package names are the ``*_best``
-    wrappers below (``csrc/packed_best.cu``).  K in {128, 256, 384, 512};
-    lanes at and past ``k_used`` (a multiple of 16; 0 means K) must be
-    zero in the query rows, the kernel skips them.  Returns (idx (M,)
+    ``_packed3w_plan``) past it.  The other four combinations the JAX
+    package names are the ``*_best`` wrappers below, each on the core from
+    ``csrc/<form>.cu`` (plan ``_packed_form_plan``).  Every kernel but
+    packed2k's reads ``qa`` and ``qb`` as one query tensor, without a copy
+    where ``qb`` lies right after ``qa`` (``_query_operand``).  K in
+    {128, 256, 384, 512}; lanes at and past ``k_used`` (a multiple of 16;
+    0 means K) must be zero in the query rows, the kernel skips them.  Returns (idx (M,)
     int32, val (M,) fp32).
     """
     k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
@@ -684,49 +716,47 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     n = w1.shape[0]
     dev = _device_index(qa)
     stream = torch.cuda.current_stream(qa.device).cuda_stream
-    route = _packed3_route(k_used) if form == "packed3_best" else None
-    if form == "packed_best":
-        plan = _packed2k_plan(m, n, _sm_count(dev), k_used)
-        n_chunks = plan.n_chunks
-    elif route is not None:
-        plan = (_packed3_plan if route == "packed3_best"
-                else _packed3w_plan)(m, n, _sm_count(dev), k_used)
-        n_chunks = plan.n_chunks
-    else:
-        n_chunks = _chunks((n + 63) // 64, (m + 127) // 128, dev)
-    part_val = torch.empty((n_chunks, m), dtype=torch.float32,
+    route = _packed3_route(k_used) if form == "packed3_best" else form
+    sm = _sm_count(dev)
+    plan = (_packed2k_plan(m, n, sm, k_used) if form == "packed_best" else
+            _packed3_plan(m, n, sm, k_used) if route == "packed3_best" else
+            _packed3w_plan(m, n, sm, k_used) if route == "packed3w_best" else
+            _packed_form_plan(form, m, n, sm, k_used))
+    part_val = torch.empty((plan.n_chunks, m), dtype=torch.float32,
                            device=qa.device)
-    part_idx = torch.empty((n_chunks, m), dtype=torch.int32, device=qa.device)
+    part_idx = torch.empty((plan.n_chunks, m), dtype=torch.int32,
+                           device=qa.device)
     out_idx = torch.empty((m,), dtype=torch.int32, device=qa.device)
     out_val = torch.empty((m,), dtype=torch.float32, device=qa.device)
-    outs = (part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
-            out_val.data_ptr(), dev, stream)
+    geometry = (plan.consumers, plan.bm, plan.stages, plan.tiles_per_chunk,
+                plan.smem, plan.n_chunks, part_val.data_ptr(),
+                part_idx.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
+                dev, stream)
     if form == "packed_best":
         lib = _build.load("packed2k_best")
-        err = lib.ia_packed2k_best(
-            qa.data_ptr(), w1.data_ptr(), m, n, k, k_used, plan.consumers,
-            plan.bm, plan.stages, plan.tiles_per_chunk, plan.smem, n_chunks,
-            *outs)
-    elif route is not None:
-        lib = _build.load(route)
-        # the kernel's one (3M, K) query operand: qb right after qa
-        adjacent = (qb.data_ptr()
-                    == qa.data_ptr() + qa.numel() * qa.element_size())
-        q = qa if adjacent else torch.cat([qa, qb])
-        err = getattr(lib, f"ia_{route}")(
-            q.data_ptr(), w1.data_ptr(), w2.data_ptr(), dbnh.data_ptr(), m,
-            n, k, k_used, plan.consumers, plan.bm, plan.stages,
-            plan.tiles_per_chunk, plan.smem, n_chunks, *outs)
+        err = lib.ia_packed2k_best(qa.data_ptr(), w1.data_ptr(), m, n, k,
+                                   k_used, *geometry)
     else:
-        lib = _build.load("packed_best")
+        lib = _build.load(route)
         ptr = lambda t: None if t is None else t.data_ptr()
-        err = lib.ia_packed_best(
-            qa.data_ptr(), ptr(qb), w1.data_ptr(), ptr(w2), ptr(dbnh), m, n,
-            k, k_used, int(fold_a), int(w2 is not None), int(dbnh is None),
-            n_chunks, *outs)
-    _build.check(lib, err, f"{route or form} launch")
-    LAUNCHES[route or form] += 1
+        err = getattr(lib, f"ia_{route}")(
+            _query_operand(qa, qb).data_ptr(), w1.data_ptr(), ptr(w2),
+            ptr(dbnh), m, n, k, k_used, *geometry)
+    _build.check(lib, err, f"{route} launch")
+    LAUNCHES[route] += 1
     return out_idx, out_val
+
+
+def _query_operand(qa: torch.Tensor, qb: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+    """The card kernels' one query operand, qa's rows then qb's: qa itself
+    where there is no qb or qb lies right after it in memory (the kernels
+    read it by its pointer; the wrappers build their rows so,
+    ``_row_blocks``), else a copy of both."""
+    if qb is None or qb.data_ptr() == (qa.data_ptr()
+                                       + qa.numel() * qa.element_size()):
+        return qa
+    return torch.cat([qa, qb])
 
 
 def _pack_rows(left: torch.Tensor, right: torch.Tensor, kp: int
@@ -737,6 +767,18 @@ def _pack_rows(left: torch.Tensor, right: torch.Tensor, kp: int
     out[:, :l] = left
     out[:, l:2 * l] = right
     return out
+
+
+def _row_blocks(pairs, kp: int) -> torch.Tensor:
+    """One (len(pairs) M, kp) bf16 tensor of the row blocks ``[left | right
+    | 0]``, one block a (left, right) pair: the card kernels read a form's
+    query sets as one operand, so views of its blocks need no copy."""
+    m, l = pairs[0][0].shape
+    out = torch.zeros((len(pairs), m, kp), dtype=torch.bfloat16,
+                      device=pairs[0][0].device)
+    out[:, :, :l] = torch.stack([left for left, _ in pairs])
+    out[:, :, l:2 * l] = torch.stack([right for _, right in pairs])
+    return out.view(len(pairs) * m, kp)
 
 
 def norm_query_rows(q1: torch.Tensor, q2: torch.Tensor, kp: int
@@ -759,30 +801,27 @@ def packed2_best(q1, q2, w1, w2, dbnh):
     """Two-stream scan q1.d1 + q1.d2 + q2.d1 + q1.d3 - ||d||^2/2: rows
     [q1|q1].W1 + [q2|q1].W2 with W1 = [d1|d2], W2 = [d1|d3].  Returns
     (idx (M,), val (M,))."""
-    kp, l = w1.shape[1], q1.shape[1]
-    return packed_best(_pack_rows(q1, q1, kp), w1, _lanes(l),
-                       qb=_pack_rows(q2, q1, kp), w2=w2, dbnh=dbnh)
+    m, l = q1.shape
+    q = _row_blocks([(q1, q1), (q2, q1)], w1.shape[1])
+    return packed_best(q[:m], w1, _lanes(l), qb=q[m:], w2=w2, dbnh=dbnh)
 
 
 def packed1w_best(q1, q2, w1, dbnh):
     """Single-weight-stream scan q1.d1 + q1.d2 + q2.d1 - ||d||^2/2: folded
     rows [q1|q1] and [q2|0] against W1 = [d1|d2] (rejected for parity by
     the JAX package; kept with its test)."""
-    kp, l = w1.shape[1], q1.shape[1]
-    qa = torch.cat([_pack_rows(q1, q1, kp),
-                    _pack_rows(q2, torch.zeros_like(q2), kp)])
-    return packed_best(qa, w1, _lanes(l), dbnh=dbnh, fold_a=True)
+    qa = _row_blocks([(q1, q1), (q2, torch.zeros_like(q2))], w1.shape[1])
+    return packed_best(qa, w1, _lanes(q1.shape[1]), dbnh=dbnh, fold_a=True)
 
 
 def packed2wn_best(q1, q2, w1n, w2):
     """packed2's product set with the norm riding W1's lanes
     (``add_norm_lanes``): rows [q1|q1|1 1 1].W1n + [q2|q1|0].W2
     (superseded by ``packed_best``'s K-wide form; kept with its test)."""
-    kp, l = w1n.shape[1], q1.shape[1]
-    qa = _pack_rows(q1, q1, kp)
-    qa[:, 2 * l:2 * l + 3] = 1.0
-    return packed_best(qa, w1n, _lanes(l, norm=True),
-                       qb=_pack_rows(q2, q1, kp), w2=w2)
+    m, l = q1.shape
+    q = _row_blocks([(q1, q1), (q2, q1)], w1n.shape[1])
+    q[:m, 2 * l:2 * l + 3] = 1.0
+    return packed_best(q[:m], w1n, _lanes(l, norm=True), qb=q[m:], w2=w2)
 
 
 def packed1wn_best(q1, q2, w1n):
@@ -798,11 +837,8 @@ def _packed3_rows(q1, q2, q3, kp):
     """(qa, qb) of the packed3 scan: views of one (3M, kp) bf16 tensor
     with rows [q1|q1], [q2|q2] (qa, folded) and [q1|q3] (qb), built once so
     that the card kernel reads them as its one query operand."""
-    m, l = q1.shape
-    q = torch.zeros((3, m, kp), dtype=torch.bfloat16, device=q1.device)
-    q[:, :, :l] = torch.stack([q1, q2, q1])
-    q[:, :, l:2 * l] = torch.stack([q1, q2, q3])
-    q = q.view(3 * m, kp)
+    m = q1.shape[0]
+    q = _row_blocks([(q1, q1), (q2, q2), (q1, q3)], kp)
     return q[:2 * m], q[2 * m:]
 
 
@@ -833,12 +869,49 @@ def _tile_champions(scores: torch.Tensor, tile_n: int):
 
 def _check_tile(name: str, tile_n: int, npad: int) -> int:
     """The tile snapped to a divisor of ``npad``; the CUDA per-tile scans
-    need it to be a multiple of their 64-row DB tile."""
+    need it to be a multiple of 64 rows, which their DB tiles divide (32
+    or 64 rows; 128 only where they divide the tile)."""
     tile_n = _snap_tile(tile_n, npad)
     if tile_n % 64:
         raise ValueError(f"{name}: the CUDA scan needs a tile of a multiple "
                          f"of 64 rows dividing {npad}; got {tile_n}")
     return tile_n
+
+
+def _champions_route(k_used: int, fold: bool) -> str:
+    """The library that runs the per-tile champions at ``k_used`` lanes:
+    ``tile_champions`` (csrc/tile_champions.cu, the Hopper core) but folded
+    past 256 lanes, where three resident query sets leave the core no room
+    for a ring stage of both weight streams (as for packed3,
+    ``_packed3_route``): ``packed3w_best`` (its kernel with the per-tile
+    epilogue, entry ``ia_packed3w_champions``)."""
+    return ("packed3w_best" if fold and k_used > _P3_MAX_LANES
+            else "tile_champions")
+
+
+def _champions_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool,
+                    tile_n: int) -> PertilePlan:
+    """Launch plan of the per-tile champions (``_champions_route``): on the
+    core, packed3's layout (``_hopper_plan``: two or, folded, three query
+    sets a warpgroup, a ring stage of a W1 and a W2 tile and their norms,
+    tiles of ``_core_rows`` rows: 32 unfolded past 448 lanes); folded past
+    256 lanes ``_packed3w_plan``.  Chunks of whole output tiles of
+    ``tile_n`` rows (a multiple of 64 dividing N), about one chunk per SM
+    for each query tile (``_whole_tiles``), so each champion is written in
+    place by one block."""
+    if tile_n < 64 or tile_n % 64 or n % tile_n:
+        raise ValueError(f"packed_champions plan: tile_n={tile_n} must be a "
+                         f"multiple of 64 dividing n={n}")
+    if _champions_route(k_used, fold) == "packed3w_best":
+        base = _packed3w_plan(m, n, sm_count, k_used)
+        rows = base.rows
+    else:
+        qsets = 3 if fold else 2
+        rows = _core_rows(k_used, qsets, 2, True)
+        base = _hopper_plan("packed_champions", m, n, sm_count, k_used,
+                            _P3_CONSUMERS, qsets=qsets, norms=True,
+                            rows=rows, streams=2)
+    return _whole_tiles(base, n, sm_count, tile_n, rows)
 
 
 def packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n: int,
@@ -856,7 +929,10 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
     divisor of Npad): the (max, first argmax) of the two-stream packed
     passes  qa.W1 (+ folded block) + qb.W2 - dbnh.  Returns tile-major
     (vals (ntiles, M) fp32, idx (ntiles, M) int32 global rows); an
-    all-padding tile gives -inf at its first row."""
+    all-padding tile gives -inf at its first row.  On the card it runs
+    ``csrc/tile_champions.cu`` on the Hopper core, or folded past 256 lanes
+    ``csrc/packed3w_best.cu`` (``_champions_route``; launch plan
+    ``_champions_plan``), each output tile's champion written in place."""
     k_used = _check_packed("packed_champions", qa, w1, k_used, qb, w2, dbnh,
                            fold_a)
     if w2 is None or dbnh is None:
@@ -865,20 +941,24 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
         return packed_champions_plain(qa, qb, w1, w2, dbnh, tile_n, k_used,
                                       fold_a)
     _check_cuda("packed_champions", qa=qa, qb=qb, w1=w1, w2=w2, dbnh=dbnh)
-    # the first-design per-tile scan, csrc/tile_champions.cu
     m = qb.shape[0]
     n, k = w1.shape
     tile_n = _check_tile("packed_champions", tile_n, n)
     ntiles = n // tile_n
     dev = _device_index(qa)
-    lib = _build.load("tile_champions")
+    plan = _champions_plan(m, n, _sm_count(dev), k_used, fold_a, tile_n)
+    route = _champions_route(k_used, fold_a)
+    lib = _build.load(route)
+    entry = ("ia_tile_champions" if route == "tile_champions"
+             else "ia_packed3w_champions")
     vals = torch.empty((ntiles, m), dtype=torch.float32, device=qa.device)
     idx = torch.empty((ntiles, m), dtype=torch.int32, device=qa.device)
-    err = lib.ia_tile_champions(
-        qa.data_ptr(), qb.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        dbnh.data_ptr(), m, n, k, k_used, int(fold_a), 1, tile_n,
-        _chunks(ntiles, (m + 127) // 128, dev), vals.data_ptr(),
-        idx.data_ptr(), dev, torch.cuda.current_stream(qa.device).cuda_stream)
+    err = getattr(lib, entry)(
+        _query_operand(qa, qb).data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        dbnh.data_ptr(), m, n, k, k_used, int(fold_a), tile_n,
+        plan.consumers, plan.bm, plan.stages, plan.tiles_per_chunk,
+        plan.smem, plan.n_chunks, vals.data_ptr(), idx.data_ptr(), dev,
+        torch.cuda.current_stream(qa.device).cuda_stream)
     _build.check(lib, err, "packed_champions launch")
     LAUNCHES["packed_champions"] += 1
     return vals, idx
@@ -887,10 +967,10 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
 def packed2_champions(q1, q2, w1, w2, dbnh, tile_n: int):
     """Per-tile twin of ``packed2_best``: (vals (M, ntiles), idx (M,
     ntiles))."""
-    kp, l = w1.shape[1], q1.shape[1]
-    vals, idx = packed_champions(_pack_rows(q1, q1, kp),
-                                 _pack_rows(q2, q1, kp), w1, w2, dbnh,
-                                 tile_n, _lanes(l))
+    m, l = q1.shape
+    q = _row_blocks([(q1, q1), (q2, q1)], w1.shape[1])
+    vals, idx = packed_champions(q[:m], q[m:], w1, w2, dbnh, tile_n,
+                                 _lanes(l))
     return vals.T, idx.T
 
 

@@ -222,16 +222,16 @@ def _bf16(x):
 
 
 def scan_case(n=1000, npad=1024, m=21, l=55, f=68, seed=5, dev="cpu",
-              kp=128, fp=128):
+              kp=128, fp=128, dup=600):
     """Seeded operands of every bf16 scan entry on ``dev``: packed weights
     W1 = [d1|d2], W2 = [d3|d1] / [d1|d3] of ``kp`` lanes, the K-wide wk,
     half norms with +inf padding rows, the bf16 centered DB of ``fp`` lanes
     with full norms, and queries — with an exact duplicate pair (rows 3 and
-    600, or 2 and 5 in the bf16 DB) that query 2 (0) hits.  The bf16 DB
+    ``dup``, or 2 and 5 in the bf16 DB) that query 2 (0) hits.  The bf16 DB
     and its queries are scaled so their norms do not grow with ``f``."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((n, l), generator=g) * 0.1
-    x[600 % n] = x[3 % n]
+    x[dup % n] = x[3 % n]
     q = torch.randn((m, l), generator=g) * 0.1
     q[2] = x[3 % n]
     d1, d2, d3 = (_bf16(v) for v in match.bf16_split3(x))
@@ -255,8 +255,9 @@ def scan_case(n=1000, npad=1024, m=21, l=55, f=68, seed=5, dev="cpu",
     qf[:, :f] = torch.randn((m, f), generator=g) * scale
     qf[0, :f] = dbp[2 % n, :f].float()
     out = dict(q1=q1, q2=q2, q3=q3, w12=pack(d1, d2), w31=pack(d3, d1),
-               w13=pack(d1, d3), dbnh=dbnh, dbp=dbp, dbn=dbn, qf=qf,
-               w12n=match.add_norm_lanes(pack(d1, d2), dbnh, l))
+               w13=pack(d1, d3), dbnh=dbnh, dbp=dbp, dbn=dbn, qf=qf)
+    if 2 * l + 3 <= kp:  # room for the norm lanes
+        out["w12n"] = match.add_norm_lanes(pack(d1, d2), dbnh, l)
     return {k: v.to(dev) for k, v in out.items()}
 
 
@@ -764,9 +765,11 @@ def test_cuda_packed3_scores_against_float64(l, atol):
     ("packed2wn_best", 120, 256),  # 2 x 16: fragments in registers
 ])
 def test_cuda_wide_packed_forms_match_plain(form, l, kp):
-    """The template's instances past the register budget for the query
-    fragments, and with two 512-lane streams past the shared memory of two
-    buffers (exact_hi2 on RGB sources takes K = 256 with three passes)."""
+    """The core's instances at wide lanes: three passes of 256 lanes
+    (exact_hi2 on RGB sources, K = 256), two streams of 400 lanes of 512
+    (two query sets and a ring stage of both streams: 64-row tiles, one
+    warpgroup), one stream of 300 of 384, and the per-tile champions of
+    three passes at 256 lanes."""
     dev = _card()
     cpu = scan_case(n=1000, npad=1088, m=150, l=l, kp=kp)
     card = {k: v.to(dev) for k, v in cpu.items()}
@@ -998,3 +1001,114 @@ def test_cuda_bf16_scoring_gate_runs_on_the_card():
     want = "scan_rescue" if verdict["ok"] else "exact_hi"
     assert {st["match_mode"] for st in res.stats} == {want}
     gate.reset_bf16_gate()
+
+
+# the lane widths every superseded form and both champion forms take on the
+# card: one k step, the luminance width, 256 (the core's widest folded
+# champion), past it (the folded champions go to packed3w_best.cu), and
+# around 448, past which two query sets and two streams take 32-row tiles
+_EVERY_K = (16, 112, 256, 288, 400, 448, 464, 512)
+_NORM_FORMS = ("packed2wn_best", "packed1wn_best")
+
+
+def _form_lanes(form, k_used):
+    """(L, Kp) of a form whose packed lanes (2L, or 2L + 3 with the norm in
+    W's lanes) round up to ``k_used``."""
+    l = (k_used - 3) // 2 if form in _NORM_FORMS else k_used // 2
+    return l, -(-k_used // 128) * 128
+
+
+def _champions_call(three, c, tile):
+    if three:
+        return match.packed3_champions(c["q1"], c["q2"], c["q3"], c["w12"],
+                                       c["w31"], c["dbnh"], tile)
+    return match.packed2_champions(c["q1"], c["q2"], c["w12"], c["w13"],
+                                   c["dbnh"], tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed2_best", "packed1w_best",
+                                  "packed2wn_best", "packed1wn_best",
+                                  "packed2_champions", "packed3_champions"])
+@pytest.mark.parametrize("k_used", _EVERY_K)
+def test_cuda_packed_forms_every_width(form, k_used):
+    """Every superseded form and both champion forms on the Hopper core (the
+    folded champions past 256 lanes on packed3w_best.cu) at every lane
+    width class, against the plain version: one launch a call, scores
+    within 1e-5 (4e-5 past 256 lanes: the tensor cores' fp32 sum, as for
+    packed3w), picks equal outside that band.  N = 65,000 real rows of
+    69,632: the duplicate rows 3 and 40,000 in different DB chunks of the
+    global forms and different tiles of the champions (query 2 equals row
+    3), padding rows never win, and the champions' last tile of 4,096 rows
+    is all padding (-inf at its first row)."""
+    dev = _card()
+    l, kp = _form_lanes(form, k_used)
+    n, npad, dup = 65000, 69632, 40000
+    cpu = scan_case(n=n, npad=npad, m=70, l=l, kp=kp, dup=dup)
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    atol = 1e-5 if k_used <= 256 else 4e-5
+    match.reset_launch_counts()
+    if form.endswith("champions"):
+        three = form == "packed3_champions"
+        vals, idx = _champions_call(three, card, 4096)
+        assert match.LAUNCHES["packed_champions"] == 1
+        assert sum(match.LAUNCHES.values()) == 1
+        rv, ri = _champions_call(three, cpu, 4096)
+        finite = torch.isfinite(rv)
+        assert not bool(finite[:, -1].any())  # the all-padding tile
+        assert torch.equal(torch.isfinite(vals.cpu()), finite)
+        _assert_band(form, idx.cpu()[finite], vals.cpu()[finite],
+                     ri[finite], rv[finite], atol=atol, band=atol)
+        assert torch.equal(idx.cpu()[~finite], ri[~finite])
+        assert (int(idx[2, 0]), int(idx[2, dup // 4096])) == (3, dup)
+        return
+    plan = match._packed_form_plan(form, 70, npad, match._sm_count(
+        match._device_index(card["w12"])), k_used)
+    rows = plan.tiles_per_chunk * match._core_rows(
+        k_used, 2, 2 if form in ("packed2_best", "packed2wn_best") else 1,
+        form not in _NORM_FORMS)
+    assert 3 // rows != dup // rows  # the duplicates in different chunks
+    idx, val = _form_call(form, card)()
+    assert match.LAUNCHES[form] == 1 and sum(match.LAUNCHES.values()) == 1
+    ref_i, ref_v = _form_call(form, cpu)()
+    _assert_band(form, idx.cpu(), val.cpu(), ref_i, ref_v, atol=atol,
+                 band=atol)
+    assert int(idx[2]) == 3 and int(idx.max()) < n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["packed2_best", "packed1w_best",
+                                  "packed2wn_best", "packed1wn_best"])
+def test_cuda_packed_forms_scores_against_float64(form, monkeypatch):
+    """At 512 lanes (32 k steps a pass; 32-row DB tiles for the two-stream
+    forms) each form's scores against a float64 sum of the same bf16
+    products: the tensor cores' fp32 accumulation strays by at most 4e-5
+    (scores ~1), the bound the card tests hold these widths to."""
+    dev = _card()
+    l, kp = _form_lanes(form, 512)
+    c = scan_case(n=1000, npad=1088, m=70, l=l, kp=kp)
+    seen = {}
+    packed_best = match.packed_best
+
+    def spy(qa, w1, k_used=0, **kw):
+        seen.update(qa=qa, w1=w1, k_used=k_used, **kw)
+        return packed_best(qa, w1, k_used, **kw)
+
+    monkeypatch.setattr(match, "packed_best", spy)
+    idx, val = _form_call(form, {k: v.to(dev) for k, v in c.items()})()
+    k_used = seen["k_used"]
+    assert k_used == 512
+    f64 = lambda a, b: (a[:, :k_used].double().cpu()
+                        @ b[:, :k_used].double().cpu().T)
+    qa, w1 = seen["qa"], seen["w1"]
+    if seen.get("fold_a"):
+        exact = f64(qa[:70], w1) + f64(qa[70:], w1)
+    else:
+        exact = f64(qa, w1)
+    if seen.get("w2") is not None:
+        exact += f64(seen["qb"], seen["w2"])
+    if seen.get("dbnh") is not None:
+        exact -= seen["dbnh"].double().cpu()
+    got = exact.gather(1, idx.cpu().long()[:, None])[:, 0]
+    assert float((val.cpu().double() - got).abs().max()) <= 4e-5
+

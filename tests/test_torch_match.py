@@ -7,6 +7,8 @@ kernels against the same plain versions on the card.
 """
 
 import dataclasses
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +21,7 @@ from image_analogies_tpu.ops import features as jfeatures
 from image_analogies_tpu.ops import pallas_match as pm
 from image_analogies_tpu_torch import PRESETS
 from image_analogies_tpu_torch.backends.cuda import pack_wk
-from image_analogies_tpu_torch.ops import match
+from image_analogies_tpu_torch.ops import _build, match
 from image_analogies_tpu_torch.ops.features import spec_for_level
 from tests.test_torch_cuda import argmin_inputs, packed_inputs, query_rows
 from tests.test_torch_wavefront import one_torch_thread  # noqa: F401
@@ -573,6 +575,199 @@ def test_rgb_presets_reach_packed3w(preset, temporal, width):
     assert max(-(-2 * live // 128) * 128, 128) == (512 if live > 192
                                                    else 384)
     match._packed3w_plan(352, 1048576, 132, k_used)
+
+
+# query counts of the new plans' tests: one, every warpgroup edge, the
+# wavefront's widest batches, and past three query tiles of 192 rows
+_PLAN_MS = (1, 2, 63, 64, 65, 128, 129, 191, 192, 193, 344, 352, 400, 577,
+            1024, 1100)
+_SMEM_MAX = 232448 - 1024
+
+
+def _core_smem(k_used, stages, consumers, qsets, streams, norms, rows):
+    """The kernel's ``smem_bytes``: slack, the resident query sets, the
+    ring."""
+    nbox = -(-k_used // 32)
+    return (1024 + consumers * qsets * nbox * 4096
+            + stages * (streams * nbox * rows * 64 + (4 * rows if norms
+                                                      else 0)))
+
+
+def _assert_core_plan(plan, m, n, sm_count, k_used, qsets, streams, norms,
+                      rows, choices=(3, 2, 1)):
+    """The warpgroups, query tiles and ring of a Hopper-core plan: the most
+    consumer warpgroups of ``choices`` that keep a ring of two stages, else
+    the fewest; the deepest ring within the shared memory; the fewest,
+    evenest query tiles of at most 64 rows a warpgroup."""
+    c, st = plan.consumers, plan.stages
+    assert plan.smem == _core_smem(k_used, st, c, qsets, streams, norms,
+                                   rows) <= _SMEM_MAX
+    assert 1 <= st <= 8
+    assert st == 8 or _core_smem(k_used, st + 1, c, qsets, streams, norms,
+                                 rows) > _SMEM_MAX
+    two = [cc for cc in choices
+           if _core_smem(k_used, 2, cc, qsets, streams, norms,
+                         rows) <= _SMEM_MAX]
+    assert c == (two[0] if two else choices[-1])
+    bm = plan.bm
+    assert plan.q_tiles == -(-m // (64 * c)) == -(-m // bm)
+    assert bm <= 64 * c and (m - 1) // plan.q_tiles < bm
+
+
+@pytest.mark.parametrize("form", ["packed2_best", "packed1w_best",
+                                  "packed2wn_best", "packed1wn_best"])
+@pytest.mark.parametrize("sm_count", [132, 114, 1])
+def test_packed_form_plans_cover_every_tile_once(form, sm_count):
+    """The launch plan of each superseded packed form on the core, at every
+    k_used 16-512 and M 1-1,100: two query sets a warpgroup, the half
+    norms in the ring but for the norm-in-W forms, DB tiles of 64 rows, 32
+    for the two-stream forms past 448 lanes (two sets beside one 64-row
+    stage of both streams do not fit); the DB chunks cover every tile
+    exactly once, none empty; the warpgroups, query tiles and ring as
+    ``_hopper_plan`` chooses them within the card's shared memory; about
+    one block per SM."""
+    streams = 2 if form in ("packed2_best", "packed2wn_best") else 1
+    norms = form in ("packed2_best", "packed1w_best")
+    for k_used in range(16, 513, 16):
+        rows = match._core_rows(k_used, 2, streams, norms)
+        assert rows == (32 if streams == 2 and k_used > 448 else 64)
+        for n in (1, 63, 64, 4097, 65536, 1048576):
+            tiles = -(-n // rows)
+            for m in _PLAN_MS:
+                plan = match._packed_form_plan(form, m, n, sm_count, k_used)
+                per = plan.tiles_per_chunk
+                assert per >= 1
+                assert (plan.n_chunks - 1) * per < tiles <= (plan.n_chunks
+                                                             * per)
+                _assert_core_plan(plan, m, n, sm_count, k_used, 2, streams,
+                                  norms, rows)
+                assert plan.n_chunks * plan.q_tiles <= max(sm_count,
+                                                           plan.q_tiles)
+    with pytest.raises(ValueError):
+        match._packed_form_plan(form, 8, 4096, sm_count, 100)
+
+
+@pytest.mark.parametrize("fold", [False, True])
+@pytest.mark.parametrize("sm_count", [132, 114, 1])
+def test_champions_plan_covers_every_tile_once(fold, sm_count):
+    """The per-tile champions' launch plan at every k_used 16-512, M
+    1-1,100 and output tiles of 64 to 4,096 rows: on the core (folded up to
+    256 lanes) three or two query sets, a ring stage of both streams and
+    their norms, 64-row DB tiles (32 unfolded past 448 lanes); folded past
+    256 lanes packed3w_best.cu's layout (``_packed3w_plan``).  Chunks of
+    whole output tiles cover every DB tile exactly once, none empty, so
+    each (output tile, query row) is written by one block; about one block
+    per SM."""
+    for k_used in range(16, 513, 16):
+        wide = fold and k_used > 256
+        assert match._champions_route(k_used, fold) == (
+            "packed3w_best" if wide else "tile_champions")
+        rows = (match._packed3w_layout(k_used)[2] if wide
+                else match._core_rows(k_used, 3 if fold else 2, 2, True))
+        assert rows == (match._packed3w_layout(k_used)[2] if wide
+                        else 32 if k_used > 448 else 64)
+        for n, tile in ((64, 64), (4096, 256), (65536, 4096),
+                        (1048576, 4096), (69632, 4096)):
+            sub = tile // rows
+            tiles = n // rows
+            for m in _PLAN_MS:
+                plan = match._champions_plan(m, n, sm_count, k_used, fold,
+                                             tile)
+                per = plan.tiles_per_chunk
+                assert (plan.rows, plan.parts) == (rows, 1)
+                assert per >= sub and per % sub == 0
+                assert (plan.n_chunks - 1) * per < tiles <= (plan.n_chunks
+                                                             * per)
+                writers = {}
+                for chunk in range(plan.n_chunks):
+                    for t in range(chunk * per, min(tiles, (chunk + 1) * per)):
+                        if (t + 1) % sub == 0:
+                            writers[t // sub] = writers.get(t // sub, 0) + 1
+                assert writers == {u: 1 for u in range(n // tile)}
+                if wide:
+                    p3w = match._packed3w_plan(m, n, sm_count, k_used)
+                    keep = ("consumers", "bm", "stages", "q_tiles", "smem")
+                    assert [getattr(plan, f) for f in keep] == [
+                        getattr(p3w, f) for f in keep]
+                else:
+                    _assert_core_plan(plan, m, n, sm_count, k_used,
+                                      3 if fold else 2, 2, True, rows)
+                room = max(1, sm_count // plan.q_tiles)
+                assert plan.n_chunks <= max(room, n // tile)
+    with pytest.raises(ValueError):  # not a multiple of 64; not dividing N
+        match._champions_plan(8, 4096, sm_count, 112, fold, 96)
+    with pytest.raises(ValueError):
+        match._champions_plan(8, 4096, sm_count, 112, fold, 8192)
+
+
+def test_core_rows_change_only_two_sets_two_streams_past_448():
+    """The core's tile-row rule (the kernel's ``tile_rows``) gives 32 rows
+    only to two query sets against two weight streams past 448 lanes (the
+    packed2 forms and the unfolded champions), and at every width the rows
+    the existing instances run: packed2k 64; argmin2 and argmin_l2_bf16
+    (``_argmin2_rows``); pertile (``_pertile_rows``); packed3 64."""
+    for k_used in range(16, 513, 16):
+        for qsets, streams in ((1, 1), (2, 1), (2, 2), (3, 2)):
+            if qsets == 3 and k_used > 256:
+                continue  # packed3's widths past 256 are packed3w_best.cu's
+            for norms in (False, True):
+                assert match._core_rows(k_used, qsets, streams, norms) == (
+                    32 if (qsets, streams) == (2, 2) and k_used > 448
+                    else 64)
+        assert match._core_rows(k_used, 1, 1, False) == 64  # packed2k
+        for qsets in (1, 2):  # argmin2 unfolded / folded, argmin_l2_bf16
+            assert match._core_rows(k_used, qsets, 1, True, wide=True) == \
+                match._argmin2_rows(k_used)
+            for tile in (64, 128, 192, 4096):
+                assert match._core_rows(k_used, qsets, 1, True,
+                                        wide=tile % 128 == 0) == \
+                    match._pertile_rows(tile, k_used)
+
+
+def test_kernel_sources_are_the_hopper_core_and_their_entries():
+    """No kernel source includes the first-design template or issues its
+    ``mma.sync`` scan; every source is built and every built library's C
+    entries exist in its source with the argument kinds ctypes passes (a
+    pointer for each ``void*``, an int for each ``int``)."""
+    csrc = _build.CSRC_DIR
+    names = sorted(os.listdir(csrc))
+    assert "bf16_scan.cuh" not in names
+    for fname in names:
+        text = open(os.path.join(csrc, fname)).read()
+        assert "bf16_scan.cuh" not in text, fname
+        assert "mma.sync.aligned.m16n8k16" not in text, fname
+    assert sorted(f[:-3] for f in names if f.endswith(".cu")) == sorted(
+        _build.KERNEL_SOURCES)
+    for lib, entries in _build._SIGNATURES.items():
+        text = open(os.path.join(csrc, f"{lib}.cu")).read()
+        for fn, argtypes in entries.items():
+            found = re.search(r"\bint " + fn + r"\(([^)]*)\)", text)
+            assert found, (lib, fn)
+            params = [p.strip() for p in found.group(1).split(",")]
+            kinds = [_build._VOIDP if "*" in p else _build._INT
+                     for p in params]
+            assert kinds == argtypes, (lib, fn)
+
+
+def test_form_query_rows_need_no_copy():
+    """The two-stream forms' wrappers build qa and qb as adjacent blocks of
+    one tensor (``_row_blocks``), which the card kernels read as their one
+    query operand without a copy (``_query_operand``); apart, the operand
+    is their concatenation."""
+    g = torch.Generator().manual_seed(4)
+    q1, q2 = (torch.randn((6, 9), generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    q = match._row_blocks([(q1, q1), (q2, q1)], 128)
+    assert q.shape == (12, 128) and q.is_contiguous()
+    assert torch.equal(q.view(torch.int16), torch.cat([
+        match._pack_rows(q1, q1, 128),
+        match._pack_rows(q2, q1, 128)]).view(torch.int16))
+    qa, qb = q[:6], q[6:]
+    assert match._query_operand(qa, qb) is qa
+    assert match._query_operand(qa, None) is qa
+    apart = match._query_operand(qa, qb.clone())
+    assert apart.data_ptr() != qa.data_ptr()
+    assert torch.equal(apart.view(torch.int16), q.view(torch.int16))
 
 
 def test_packed3_rows_are_one_tensor():

@@ -183,6 +183,45 @@ def test_packed_champions_match_pallas(three, tile):
     assert (idx.numpy()[:, dead] == np.nonzero(dead)[0] * tile).all()
 
 
+@pytest.mark.parametrize("three,l", [(False, 232), (False, 256),
+                                     (True, 148), (True, 207)])
+def test_wide_champions_match_pallas(three, l):
+    """The per-tile champions at the widths where the card takes another
+    layout, against the JAX kernel in interpret mode: packed2_champions at
+    464 and 512 lanes (2L of Kp = 512; 32-row DB tiles on the core) and
+    packed3_champions past 256 lanes (2L = 296 of 384, 414 of 512;
+    packed3w_best.cu); three all-padding tiles (700 real rows of 1024).
+    The same picks, values within 2e-5 as the narrower cases."""
+    c = _packed_case(m=9, l=l, n=700, npad=1024, seed=5)
+    q1, q2, q3, npad, kp = (c[k] for k in ("q1", "q2", "q3", "npad", "kp"))
+    d1, d2, d3, dbnh = c["d1"], c["d2"], c["d3"], c["dbnh"]
+    k_used = match._lanes(l)
+    assert match._champions_route(k_used, three) == (
+        "packed3w_best" if three else "tile_champions")
+    assert three or match._core_rows(k_used, 2, 2, True) == 32
+    j = _to_jax
+    before = dict(match.LAUNCHES)
+    if three:
+        w1, w2 = _pack(d1, d2, npad, kp), _pack(d3, d1, npad, kp)
+        vals, idx = match.packed3_champions(q1, q2, q3, w1, w2, dbnh, 256)
+        rv, ri = pm.packed3_champions(j(q1), j(q2), j(q3), j(w1), j(w2),
+                                      j(dbnh)[None, :], tile_n=256,
+                                      interpret=True)
+    else:
+        w1, w2 = _pack(d1, d2, npad, kp), _pack(d1, d3, npad, kp)
+        vals, idx = match.packed2_champions(q1, q2, w1, w2, dbnh, 256)
+        rv, ri = pm.packed2_champions(j(q1), j(q2), j(w1), j(w2),
+                                      j(dbnh)[None, :], tile_n=256,
+                                      interpret=True)
+    assert match.LAUNCHES == before  # CPU tensors: plain version only
+    np.testing.assert_array_equal(idx.numpy(), _np(ri))
+    np.testing.assert_allclose(vals.numpy(), _np(rv), rtol=1e-5, atol=2e-5)
+    dead = np.arange(npad // 256) * 256 >= 700
+    assert np.isneginf(vals.numpy()[:, dead]).all()
+    assert (idx.numpy()[:, dead] == np.nonzero(dead)[0] * 256).all()
+    assert int(idx[2, 0]) == 3  # the duplicate pair (rows 3, 600): lowest
+
+
 @pytest.mark.parametrize("three", [False, True])
 def test_packed_best_is_champions_plus_select(three):
     """The witness: the global champion equals the per-tile champions
