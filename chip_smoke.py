@@ -95,6 +95,26 @@ and carried on):
                 approximate match (the kernel's plain version) and exact at
                 48^2 against the CPU's fp32 scan: source maps differ on < 2%
                 of pixels, SSIM >= 0.99.
+11. modes_small — the five golden configs (``examples/make_golden.py``)
+                at their sizes, on the port's rebuilt golden inputs, through
+                ``modes.*`` and ``video_analogy`` on the card and on the CPU
+                (card_vs_cpu's limits), then super_resolution on RGB
+                sources with ``source_rgb`` and exact_hi2_2p at 64^2 (832
+                and 688 lanes: packed2kw_best.cu).
+12. modes      — each application at 1024^2 (texture_by_numbers, the oil
+                filter, super_resolution, texture_synthesis), cold then
+                warm, and super_resolution on RGB sources once (packed2kw at
+                832 and 688 lanes): per-level mode, ms and coherence, wall,
+                peak memory, launches held to each level's wavefront steps
+                on the kernel its lane width routes to.
+13. video      — ``video_analogy`` with the video preset on three 512^2
+                frames: two_phase cold then warm, sequential once, each
+                frame's stats, ``flicker()`` and the launch counts.
+
+The kernels phase also runs packed_best at the widths the applications
+reach (M = 352, N = 2^20: 304-368 lanes on packed2k_best.cu, 608-1,040 on
+packed2kw_best.cu, its row in the table at 832 lanes, its launches from
+the modes phase's RGB run).
 
 ``--phases main,profile`` adds one more warm run under torch.profiler
 (device time by kernel, device busy share); ``--phases batched_profile``
@@ -119,7 +139,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
-          "two_pass", "batched", "gate", "card_vs_cpu")
+          "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
+          "modes", "video")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -152,6 +173,16 @@ P3_PAST256_SHAPES = (dict(m=352, npad=1048576, lw=144),
                      dict(m=352, npad=1048576, lw=192),
                      dict(m=352, npad=1048576, lw=207))
 P3W_ROW_LW = 207
+# packed2k at the widths the modes reach, M = 352 against N = 2^20 (4L + 3
+# lanes, rounded to 16): L = 73, 80, 87, 91 (super_resolution's coarsest
+# level 304, the video preset's temporal block 336, texture_by_numbers'
+# RGB labels 352, super_resolution 368: packed2k_best.cu) and past 512
+# lanes (packed2kw_best.cu) L = 148, 171, 207, 256 (RGB sources with
+# color_mode="source_rgb": the video preset's block 608, super_resolution
+# 688 and 832, with the temporal block 1,040); 832 lanes is the wide
+# instance's row in the table
+P2K_WIDTHS = (73, 80, 87, 91, 148, 171, 207, 256)
+P2KW_ROW_LW = 207
 # the superseded packed forms: the row in the table (M = 64, N = 65,536),
 # then the shape of the other packed rows (M = 352, N = 2^20), L = 55
 FORMS_SHAPES = (dict(m=64, npad=65536), dict(m=352, npad=1048576))
@@ -244,9 +275,10 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_picks(name, idx, val, ref_idx, ref_val, second, atol):
+def check_picks(name, idx, val, ref_idx, ref_val, second, atol,
+                band=SCORE_BAND):
     """Scores within ``atol``; picks equal except where the plain
-    version's best two scores are within SCORE_BAND."""
+    version's best two scores are within ``band`` (SCORE_BAND)."""
     import torch
 
     err = float((val - ref_val).abs().max())
@@ -254,10 +286,10 @@ def check_picks(name, idx, val, ref_idx, ref_val, second, atol):
         fail(f"{name}: max |score - plain| {err:.3g} > {atol}")
     diff = idx != ref_idx
     gap = (ref_val - second).abs()
-    bad = diff & (gap > SCORE_BAND)
+    bad = diff & (gap > band)
     if bool(bad.any()):
         fail(f"{name}: {int(bad.sum())} picks differ from the plain "
-             f"version outside the {SCORE_BAND} band")
+             f"version outside the {band} band")
     return err, int(diff.sum())
 
 
@@ -1080,6 +1112,7 @@ def phase_packed3_levels(rows, parent):
 
 def parent_bits(kind, parent, shapes):
     """The ``kind`` kernel ("argmin": argmin_l2, "packed": packed_best,
+    "packed_widths": packed_best at other lane widths,
     "argmin2": argmin2_l2, "packed3": packed_best's packed3 form,
     "pertile": pertile_champions, "argmin_bf16": argmin_l2_bf16, "forms":
     the four superseded packed forms, "champions": packed_champions) of the
@@ -1116,6 +1149,7 @@ def bits_child(kind, root, out, shapes):
     if not os.path.abspath(match.__file__).startswith(root + os.sep):
         fail(f"imported {match.__file__}, not the package under {root}")
     run = {"argmin": run_argmin_shapes, "packed": run_packed_shapes,
+           "packed_widths": run_packed_width_shapes,
            "argmin2": run_argmin2_shapes,
            "packed3": run_packed3_shapes,
            "pertile": run_pertile_shapes,
@@ -1138,6 +1172,7 @@ def phase_kernels(parent=None):
     phase_pertile_levels(parent)
     phase_packed3_levels(rows, parent)
     phase_packed_kernel(rows, parent)
+    phase_packed2k_widths(rows, parent)
     phase_packed3_kernels(rows, parent)
     phase_bf16_db_kernels(rows)
     phase_argmin_bf16_levels(rows, parent)
@@ -1164,6 +1199,9 @@ def packed_db(match, npad, lw=55, seed=13):
     x[hi] = x[lo]  # duplicate rows: ties go to the lowest index
     live = torch.arange(lw, device=dev)
     shift, half_norm = packed_shift_and_halfnorm(x, live)
+    # the row sums of two equal rows of odd length may round apart on the
+    # card (their alignments differ): the twin gets the same half norm
+    half_norm[hi] = half_norm[lo]
     wk, _ = pack_wk(x, shift, half_norm, live, npad)
     return wk, shift, x[lo].clone(), n_real, lo
 
@@ -1197,6 +1235,25 @@ def packed_cases(match, shapes, lw=55):
         _, wk, shift, x_lo, n_real, lo = db
         qa = packed_queries(match, m, shift, x_lo, wk.shape[1], lw)
         yield level, npad, m, steps, qa, wk, k_used, n_real, lo
+
+
+def run_packed_width_shapes(match, shapes):
+    """``match.packed_best`` on the seeded operands of each (lw, npad, m):
+    {"<lw>": (idx, val, device ms)}, timed from a cold L2 (the ``--parent``
+    child of the packed2k widths)."""
+    import torch
+
+    flush = flusher(torch.device("cuda", 0))
+    out = {}
+    for lw, npad, m in shapes:
+        for *_, qa, wk, k_used, _, _ in packed_cases(match, [(0, npad, m, 0)],
+                                                     lw):
+            idx, val = match.packed_best(qa, wk, k_used)
+            ms = cuda_time_ms(lambda: match.packed_best(qa, wk, k_used),
+                              reps=20, flush=flush)
+            out[str(lw)] = (idx.cpu().numpy(), val.cpu().numpy(), ms)
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_packed_shapes(match, shapes):
@@ -1318,6 +1375,89 @@ def phase_packed_kernel(rows, parent):
         k_used=(width + 15) // 16 * 16, **segs[-1][1],
         m344_ms=m344[0] if m344 else None,
         bound_by=rows["packed_best"]["bound_by"])
+
+
+def phase_packed2k_widths(rows, parent):
+    """packed_best (the packed2k form) at each of P2K_WIDTHS at M = 352, N
+    = 2^20: the width rule's kernel (packed2k_best.cu up to 512 lanes,
+    packed2kw_best.cu past them, its launch plan printed) held against its
+    plain version (scores within PACKED_ATOL and picks equal outside
+    SCORE_BAND up to 512 lanes; past them within P3W_ATOL, picks outside
+    that band: the tensor cores' fp32 sum over 38-65 k steps), the
+    duplicate and padding rules, timed from a cold L2 beside the
+    ``torch.mm(out_dtype=float32) + max`` yardstick, the plain version and
+    the bound.  The 832-lane shape is packed2kw_best's row in the table.
+    With ``parent``: that tree's packed_best at the widths it takes (up to
+    512 lanes), its ms and the counts of equal picks and val bits."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    npad, m = PACKED_SHAPE["npad"], PACKED_SHAPE["m"]
+    theirs = None
+    if parent:
+        mine = [[lw, npad, m] for lw in P2K_WIDTHS
+                if 4 * lw + 3 <= match._P2K_MAX_LANES]
+        theirs, parent_ms = parent_bits("packed_widths", parent, mine)
+    flush = flusher(torch.device("cuda", 0))
+    for lw in P2K_WIDTHS:
+        width = 4 * lw + 3
+        for *_, qa, wk, k_used, n_real, lo in packed_cases(
+                match, [(0, npad, m, 0)], lw):
+            route = match._packed2k_route(k_used)
+            wide = route == "packed2kw_best"
+            plan = (match._packed2kw_plan if wide else match._packed2k_plan)(
+                m, npad, match._sm_count(0), k_used)
+            name = f"{route} {k_used} lanes"
+            match.reset_launch_counts()
+            idx, val = match.packed_best(qa, wk, k_used)
+            torch.cuda.synchronize()
+            if match.LAUNCHES[route] != 1 or sum(match.LAUNCHES.values()) != 1:
+                fail(f"{name}: launches "
+                     f"{ {k: v for k, v in match.LAUNCHES.items() if v} }")
+            scores = match._packed_scores_plain(qa, wk, k_used, None, None,
+                                                None, False)
+            ref_idx, ref_val = match._first_max(scores)
+            second = torch.topk(scores, 2, dim=1).values[:, 1]
+            del scores
+            atol = P3W_ATOL if wide else PACKED_ATOL
+            err, ndiff = check_picks(name, idx, val, ref_idx, ref_val,
+                                     second, atol,
+                                     band=P3W_ATOL if wide else SCORE_BAND)
+            if int(idx[0]) != lo or int(idx.max()) >= n_real:
+                fail(f"{name}: duplicate/padding rule broken (idx[0]="
+                     f"{int(idx[0])}, max {int(idx.max())})")
+            k_ms = cuda_time_ms(lambda: match.packed_best(qa, wk, k_used),
+                                reps=20, flush=flush)
+            wkt = wk.T
+            l_ms = cuda_time_ms(
+                lambda: torch.mm(qa, wkt, out_dtype=torch.float32).max(dim=1),
+                reps=10, flush=flush)
+            p_ms = cuda_time_ms(lambda: match.packed_best_plain(
+                qa, wk, k_used), reps=3, flush=flush)
+            b = packed_bound(m, npad, width)
+            seg = dict(m=m, npad=npad, width=width, k_used=k_used,
+                       kp=int(wk.shape[1]), route=route,
+                       plan=dict(plan._asdict()), ms=k_ms, library_ms=l_ms,
+                       plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
+                       bound_share=b[0] / k_ms, max_abs_err=err,
+                       picks_differing_in_band=ndiff)
+            if theirs is not None and not wide:
+                ti, tv = theirs[f"idx/{lw}"], theirs[f"val/{lw}"]
+                seg.update(parent_ms=parent_ms[str(lw)],
+                           picks_equal_parent=int(
+                               (ti == idx.cpu().numpy()).sum()),
+                           val_bits_equal_parent=int(
+                               (tv.view(np.int32) == val.cpu().numpy().view(
+                                   np.int32)).sum()))
+            say("kernels", kernel="packed_best", **seg)
+            if lw == P2KW_ROW_LW:
+                rows["packed2kw_best"] = kernel_row(
+                    "packed2kw_best", "packed2kw_best.cu", 523, err, k_ms,
+                    p_ms, l_ms, b)
+            del qa, wk, wkt
+        torch.cuda.empty_cache()
 
 
 # the per-tile champions' shapes (L, folded) at M = 352, N = 2^20, tile
@@ -2273,6 +2413,254 @@ def phase_card_vs_cpu():
     return wide
 
 
+def want_launches(params, b_shape, stats, src_channels, temporal=False):
+    """Kernel launches of one wavefront ``create_image_analogy`` call from
+    its level stats: c(h-1)+w steps a level (B's plane at that level), each
+    on the kernel its resolved match mode runs at the level's lane width
+    (packed2k past 512 lanes: packed2kw_best; packed3 past 256:
+    packed3w_best)."""
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.ops.features import spec_for_level
+
+    levels = len(stats)
+    c = params.patch_size // 2 + 1
+    out = {}
+    for st in stats:
+        level, mode = st["level"], st["match_mode"]
+        hb, wb = b_shape
+        for _ in range(level):
+            hb, wb = (hb + 1) // 2, (wb + 1) // 2
+        spec = spec_for_level(params, level, levels, src_channels,
+                              temporal=temporal)
+        lw = int(spec.query_live_mask().sum())
+        if mode == "exact_hi2_2p":
+            key = match._packed2k_route((4 * lw + 3 + 15) // 16 * 16)
+        elif mode == "exact_hi2":
+            key = match._packed3_route((2 * lw + 15) // 16 * 16)
+        else:
+            key = ANCHOR_KERNEL[mode]
+        out[key] = out.get(key, 0) + c * (hb - 1) + wb
+    return out
+
+
+def want_video_launches(params, b_shape, stats):
+    """``want_launches`` summed over a clip's calls (its stats grouped by
+    frame and phase; the temporal block in phase 2 and in every sequential
+    frame but the first)."""
+    groups = {}
+    for st in stats:
+        groups.setdefault((st["phase"], st["frame"]), []).append(st)
+    out = {}
+    for (phase, frame), sts in groups.items():
+        temporal = phase == "phase2" or (phase == "seq" and frame > 0)
+        for k, v in want_launches(params, b_shape, sts, 1, temporal).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def run_app(phase, label, fn, want):
+    """One application run on the card: every launch count set to 0 just
+    before ``fn()`` and read just after, held to ``want(result)`` (each
+    kernel once per wavefront step of its levels, no other kernel); prints
+    each level's mode, scan ms and coherence ratio, the wall-clock and the
+    peak device memory.  Returns (result, launches, wall seconds)."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    match.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in match.LAUNCHES.items() if v}
+    expected = want(result)
+    levels = [dict(level=st["level"], mode=st.get("match_mode"),
+                   ms=st["ms"], coherence=st["coherence_ratio"],
+                   **{k: st[k] for k in ("frame", "phase") if k in st})
+              for st in result.stats]
+    say(phase, run=label, wall_s=wall, levels=levels, launches=launches,
+        expected_launches=expected,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if launches != {k: v for k, v in expected.items() if v}:
+        fail(f"{phase} {label}: launched {launches}, expected {expected} "
+             "(one per wavefront step of its levels)")
+    outs = result.frames if hasattr(result, "frames") else [result.bp]
+    if not all(bool(np.isfinite(x).all()) for x in outs):
+        fail(f"{phase} {label}: B' is not finite")
+    return result, launches, wall
+
+
+def golden_calls(assets):
+    """The five golden configs (``examples/make_golden.py``) as calls of the
+    port's entry points: {name: (call taking the params, the params, B's
+    shape, source channels, video)}."""
+    from image_analogies_tpu_torch import PRESETS, modes, video_analogy
+
+    P = lambda name, **extra: PRESETS[name].replace(**extra)
+    filt = (assets["filter_a"], assets["filter_ap"], assets["filter_b"])
+    frames = [assets[f"video_f{t}"] for t in range(3)]
+    return {
+        "tbn": (lambda p: modes.texture_by_numbers(
+            assets["tbn_labels_a"], assets["tbn_texture"],
+            assets["tbn_labels_b"], p), P("texture_by_numbers"),
+            assets["tbn_labels_b"].shape[:2], 3, False),
+        "oil": (lambda p: modes.artistic_filter(*filt, p), P("oil_filter"),
+                filt[2].shape, 1, False),
+        "superres": (lambda p: modes.super_resolution(
+            assets["sr_sharp"], assets["sr_low"], p),
+            P("super_resolution"), assets["sr_low"].shape, 1, False),
+        "npr": (lambda p: modes.artistic_filter(*filt, p), P("npr_1024"),
+                filt[2].shape, 1, False),
+        "video": (lambda p: video_analogy(
+            assets["video_filter_a"], assets["video_filter_ap"], frames, p,
+            scheme="two_phase"), P("video", levels=2), frames[0].shape, 1,
+            True),
+    }
+
+
+def rgb_superres_inputs(size, sharp_seeds=(11, 12, 13),
+                        low_seeds=(21, 22, 23)):
+    """RGB super-resolution inputs of side ``size``: three seeded
+    ``_texture`` stripe planes of the port's generator stacked as the sharp
+    exemplar, three more blurred twice as the low-res target."""
+    import numpy as np
+
+    from image_analogies_tpu_torch.ops.pyramid import blur_np
+    from image_analogies_tpu_torch.utils.assets import _texture
+
+    stack = lambda seeds: np.stack(
+        [_texture(size, size, np.random.default_rng(s), "stripes")
+         for s in seeds], -1)
+    return stack(sharp_seeds), blur_np(blur_np(stack(low_seeds)))
+
+
+def hold_card_to_cpu(phase, label, card, cpu):
+    """card_vs_cpu's limits: source maps differ on < 2% of pixels and SSIM
+    of the synthesized planes >= 0.99 (each frame of a clip)."""
+    import numpy as np
+
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    if hasattr(card, "frames_y"):
+        pairs = list(zip(card.source_maps, cpu.source_maps, card.frames_y,
+                         cpu.frames_y))
+    else:
+        pairs = [(card.source_map, cpu.source_map, card.bp_y, cpu.bp_y)]
+    diffs = [float((sg != sc).mean()) for sg, sc, _, _ in pairs]
+    ssims = [ssim(yg, yc) for _, _, yg, yc in pairs]
+    say(phase, run=label, source_map_differs=diffs, ssim=ssims)
+    if not (max(diffs) < CARD_CPU_MISMATCH_MAX
+            and min(ssims) >= CARD_CPU_SSIM_MIN):
+        fail(f"{phase} {label}: differs from its CPU run (source maps "
+             f"{diffs}, SSIM {ssims})")
+
+
+def phase_modes_small():
+    """The five golden configs at the golden sizes (64^2; video 3 x 32^2,
+    two levels) on inputs rebuilt by the port's ``utils/assets.py`` (8-bit
+    round trip included), through ``modes.*`` and ``video_analogy`` on the
+    card and on the CPU, held to card_vs_cpu's limits; then
+    super_resolution on RGB sources with ``color_mode="source_rgb"`` and
+    exact_hi2_2p at 64^2 (832 and 688 lanes: packed2kw_best.cu at every
+    wavefront step) against its CPU run."""
+    from image_analogies_tpu_torch import PRESETS, modes
+    from image_analogies_tpu_torch.utils.assets import make_golden_assets
+
+    assets = make_golden_assets()
+    for name, (call, params, shape, chans, video) in golden_calls(
+            assets).items():
+        want = ((lambda r: want_video_launches(params, shape, r.stats))
+                if video else
+                (lambda r: want_launches(params, shape, r.stats, chans)))
+        got, _, _ = run_app("modes_small", name, lambda: call(params), want)
+        hold_card_to_cpu("modes_small", name, got,
+                         call(params.replace(device="cpu")))
+    sharp, low = rgb_superres_inputs(64)
+    params = PRESETS["super_resolution"].replace(
+        color_mode="source_rgb", match_mode="exact_hi2_2p")
+    got, launches, _ = run_app(
+        "modes_small", "super_resolution_rgb",
+        lambda: modes.super_resolution(sharp, low, params),
+        lambda r: want_launches(params, low.shape[:2], r.stats, 3))
+    if set(launches) != {"packed2kw_best"}:
+        fail(f"modes_small: RGB super-resolution launched {launches}")
+    hold_card_to_cpu("modes_small", "super_resolution_rgb", got,
+                     modes.super_resolution(sharp, low,
+                                            params.replace(device="cpu")))
+
+
+def phase_modes(size=1024):
+    """Each application at 1024^2 with its preset's full feature width,
+    cold then warm (texture_by_numbers: one level, packed2k at 352 lanes;
+    artistic_filter with oil_filter; super_resolution: packed2k at 368
+    lanes at level 0 and 304 at level 1; texture_synthesis from a 1024^2
+    exemplar to a 1024^2 output), on ``utils/assets.make_all(1024, 0)``;
+    then super_resolution on RGB sources (``rgb_superres_inputs``) with
+    ``color_mode="source_rgb"`` once (packed2kw_best.cu at 832 lanes at
+    level 0 and 688 at level 1).  Returns the RGB run's launches."""
+    from image_analogies_tpu_torch import PRESETS, modes
+    from image_analogies_tpu_torch.utils.assets import make_all
+
+    t0 = time.perf_counter()
+    x = make_all(size, 0)
+    say("modes", inputs_s=time.perf_counter() - t0, size=size)
+    cases = {
+        "texture_by_numbers": (lambda p: modes.texture_by_numbers(
+            x["tbn_labels_a"], x["tbn_texture"], x["tbn_labels_b"], p),
+            PRESETS["texture_by_numbers"], 3),
+        "artistic_filter": (lambda p: modes.artistic_filter(
+            x["filter_a"], x["filter_ap"], x["filter_b"], p),
+            PRESETS["oil_filter"], 1),
+        "super_resolution": (lambda p: modes.super_resolution(
+            x["sr_sharp"], x["sr_low"], p), PRESETS["super_resolution"], 1),
+        "texture_synthesis": (lambda p: modes.texture_synthesis(
+            x["texture"], (size, size), p), PRESETS["texture_synthesis"], 1),
+    }
+    for name, (call, params, chans) in cases.items():
+        for label in ("cold", "warm"):
+            run_app("modes", f"{name} {label}", lambda: call(params),
+                    lambda r: want_launches(params, (size, size), r.stats,
+                                            chans))
+    del x
+    sharp, low = rgb_superres_inputs(size)
+    params = PRESETS["super_resolution"].replace(color_mode="source_rgb")
+    _, launches, _ = run_app(
+        "modes", "super_resolution_rgb",
+        lambda: modes.super_resolution(sharp, low, params),
+        lambda r: want_launches(params, (size, size), r.stats, 3))
+    if "packed2kw_best" not in launches:
+        fail(f"modes: RGB super-resolution launched {launches}")
+    return launches
+
+
+def phase_video(size=512):
+    """``video_analogy`` with ``PRESETS["video"]`` on three 512^2 frames
+    (``utils/assets.make_all(512, 0)``'s drifting blob and its filter
+    pair): level 0 (262,144 rows) runs packed2k, at 336 lanes where the
+    temporal block rides (phase 2, and every sequential frame but the
+    first) and at 224 lanes without it; levels 1-2 the fp32 argmin (F = 93
+    and, at the coarsest, 75 with the block).  two_phase cold then warm,
+    then sequential once: each frame's stats, ``flicker()`` and the launch
+    counts."""
+    from image_analogies_tpu_torch import PRESETS, video_analogy
+    from image_analogies_tpu_torch.utils.assets import make_all
+
+    x = make_all(size, 0)
+    frames = [x[f"video_f{t}"] for t in range(3)]
+    params = PRESETS["video"]
+    for scheme, label in (("two_phase", "cold"), ("two_phase", "warm"),
+                          ("sequential", "first")):
+        res, _, _ = run_app(
+            "video", f"{scheme} {label}",
+            lambda: video_analogy(x["filter_a"], x["filter_ap"], frames,
+                                  params, scheme=scheme),
+            lambda r: want_video_launches(params, frames[0].shape, r.stats))
+        say("video", run=f"{scheme} {label}", flicker=res.flicker())
+
+
 def phase_profile(a, ap, b, params, phase="profile"):
     """One more warm run under torch.profiler: device busy time by kernel
     name, and the busy share of the profiled wall-clock (the profiler adds
@@ -2400,13 +2788,21 @@ def main() -> None:
         phase_gate()
     if "card_vs_cpu" in phases:
         path_launches["card_vs_cpu"] = phase_card_vs_cpu()
+    if "modes_small" in phases:
+        phase_modes_small()
+    if "modes" in phases:
+        path_launches["modes"] = phase_modes()
+    if "video" in phases:
+        phase_video()
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:
-    # card_vs_cpu's exact_hi2 on RGB sources at patch 7); packed_champions
-    # (the witness of packed_best) and the four superseded packed forms are
-    # on no path, so 0 (kernel_row's)
+    # card_vs_cpu's exact_hi2 on RGB sources at patch 7; packed2kw_best:
+    # the modes phase's super_resolution on RGB sources at 1024^2);
+    # packed_champions (the witness of packed_best) and the four superseded
+    # packed forms are on no path, so 0 (kernel_row's)
     for path, names in (("main", ("argmin_l2", "packed_best")),
+                        ("modes", ("packed2kw_best",)),
                         ("exact_hi2", ("packed3_best",)),
                         ("card_vs_cpu", ("packed3w_best",)),
                         ("rescue", ("pertile_champions",)),

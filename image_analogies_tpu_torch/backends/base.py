@@ -23,7 +23,9 @@ class LevelJob:
     Planes are host NumPy float32 except ``b_filt_coarse``, the coarser
     level's synthesized B', which the level loop chains as a device tensor.
     ``level`` counts from the finest (0); ``*_coarse`` planes are None at
-    the coarsest level.
+    the coarsest level.  Video mode adds the temporal planes at this
+    level: ``a_temporal`` (the DB side, A') and ``b_temporal`` (the query
+    side, the previous output frame's pyramid), both None otherwise.
     """
 
     level: int
@@ -37,6 +39,8 @@ class LevelJob:
     a_filt_coarse: Optional[np.ndarray] = None
     b_src_coarse: Optional[np.ndarray] = None
     b_filt_coarse: Optional[Any] = None
+    a_temporal: Optional[np.ndarray] = None
+    b_temporal: Optional[np.ndarray] = None
 
     @property
     def a_shape(self) -> Tuple[int, int]:

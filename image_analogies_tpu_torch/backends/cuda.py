@@ -335,10 +335,15 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
                          a_filt_coarse, b_src, b_src_coarse, b_filt_coarse,
                          pad_mode: Optional[str] = "f32",
                          pad_tile: int = PAD_TILE,
-                         rowsafe: Optional[torch.Tensor] = None
+                         rowsafe: Optional[torch.Tensor] = None,
+                         a_temporal=None, b_temporal=None
                          ) -> Dict[str, Optional[torch.Tensor]]:
     """Torch counterpart of the JAX ``_prepare_level_arrays`` (no
-    bucketing).  ``rowsafe`` None is the wavefront (``pad_full=True``):
+    bucketing).  With the spec's temporal block, ``a_temporal`` (A' at this
+    level) fills it on the DB side and ``b_temporal`` (the previous output
+    frame at this level) on the query side; the block is static query
+    lanes, live in every packed layout (``FeatureSpec.query_live_mask``).
+    ``rowsafe`` None is the wavefront (``pad_full=True``):
     ``db_rowsafe`` aliases the full DB.  With ``rowsafe`` (the (nf,) mask
     of ``rowsafe_mask``; ``pad_full=False``) ``db_rowsafe`` is the DB with
     its fine_filt block times the mask, and the scan copy is built from it.
@@ -360,9 +365,9 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
                         "bf16_uncentered"):
         raise ValueError(f"unknown pad_mode {pad_mode!r}")
     db = build_features_torch(spec, a_src, a_filt, a_src_coarse,
-                              a_filt_coarse)
+                              a_filt_coarse, temporal_fine=a_temporal)
     static_q = build_features_torch(spec, b_src, None, b_src_coarse,
-                                    b_filt_coarse)
+                                    b_filt_coarse, temporal_fine=b_temporal)
     db_sqnorm = (db * db).sum(dim=1)
     if rowsafe is None:
         db_rowsafe, db_rowsafe_sqnorm = db, db_sqnorm
@@ -984,7 +989,9 @@ class CudaMatcher(Matcher):
             spec, self._t(job.a_src), self._t(job.a_filt),
             self._t(job.a_src_coarse), self._t(job.a_filt_coarse),
             self._t(job.b_src), self._t(job.b_src_coarse),
-            self._t(job.b_filt_coarse), pad_mode=pad_mode, rowsafe=rowsafe)
+            self._t(job.b_filt_coarse), pad_mode=pad_mode, rowsafe=rowsafe,
+            a_temporal=self._t(job.a_temporal),
+            b_temporal=self._t(job.b_temporal))
         fsl = spec.fine_filt_slice
         level = dict(
             db=arrs["db"], static_q=arrs["static_q"],

@@ -10,6 +10,7 @@ strategy and every match mode of the JAX package is ported.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
 
@@ -65,8 +66,11 @@ class AnalogyParams:
       anchor (the scan_rescue machinery), gated by a parity probe on first
       use per device (``backends/gate.py``): a verdict that is not fully
       tie-explained keeps the exact scan.
-    - ``temporal_weight``: the video term; single-image synthesis ignores it
-      (video is ROADMAP Queue 1 item 6).
+    - ``temporal_weight``: the weight of the video term, the previous
+      output frame's windows matched against A' windows
+      (``models/video.py``); it acts only where a previous frame is given
+      (``create_image_analogy(..., temporal_prev=...)``), so single-image
+      synthesis ignores it.
     - ``device``: where tensors live.  "cuda" (default) requires a card and
       never drops to the CPU; "cpu" runs every kernel's plain version.
     """
@@ -120,6 +124,10 @@ class AnalogyParams:
         if self.device not in ("cuda", "cpu") and not \
                 self.device.startswith("cuda:"):
             raise ValueError(f"unknown device {self.device!r}")
+
+    def replace(self, **kw) -> "AnalogyParams":
+        """A copy with the given fields changed (validated again)."""
+        return dataclasses.replace(self, **kw)
 
     def kappa_factor(self, level: int) -> float:
         """Coherence threshold multiplier at `level` (0 = finest):

@@ -5,9 +5,13 @@ delegating feature building and the level scan to ``CudaMatcher``.
 B' chains between levels as a device tensor; the host fetches once at the
 end (the finest plane together with every level's coherence count and,
 for the batched strategy, its refinement count).
+With ``temporal_prev`` (video mode, ``models/video.py``) the previous
+output frame's pyramid fills the temporal block of the queries and A' at
+each level fills it on the DB side; ``remap_anchor`` pins the luminance
+remap to another image (a clip's first frame).
 Pipelining/prefetch, buffer donation, checkpoints, retries and the
-watchdog, the exemplar catalog, chaos, observability and the temporal
-(video) term are not ported yet (ROADMAP Queue 1 items 5-10).
+watchdog, the exemplar catalog, chaos and observability are not ported yet
+(ROADMAP Queue 1 items 4 and 6-10).
 """
 
 from __future__ import annotations
@@ -65,12 +69,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _prep_planes(a, ap, b, params):
+def _prep_planes(a, ap, b, params, remap_anchor=None):
     """Build the src/filt planes per color mode.
 
     Returns (a_src, b_src, a_filt, ap_rgb, b_yiq): the matching planes
     ((H,W) or (H,W,C)), A' luminance (possibly remapped), A' as float RGB
-    (for source_rgb) and B in YIQ (None when B is grayscale)."""
+    (for source_rgb) and B in YIQ (None when B is grayscale).
+
+    ``remap_anchor``: an image whose luminance stats drive the Hertzmann
+    §3.4 remap instead of B's (video anchors every frame of a clip on its
+    first frame, so the A mapping stays the same across frames)."""
     a = color.as_float(np.asarray(a))
     ap = color.as_float(np.asarray(ap))
     b = color.as_float(np.asarray(b))
@@ -80,12 +88,18 @@ def _prep_planes(a, ap, b, params):
     a_filt = color.luminance(ap)
     b_yiq = color.rgb2yiq(b) if (b.ndim == 3 and b.shape[-1] == 3) else None
 
+    def remap_target(b_src):
+        if remap_anchor is None:
+            return b_src
+        return color.luminance(color.as_float(np.asarray(remap_anchor)))
+
     if params.color_mode == "yiq_transfer":
         a_src = color.luminance(a)
         b_src = b_yiq[..., 0] if b_yiq is not None else color.luminance(b)
         if params.remap_luminance:
             # ONE affine transform (A's stats -> B's) on both A and A'
-            a_src, a_filt = color.remap_pair(a_src, a_filt, b_src)
+            a_src, a_filt = color.remap_pair(a_src, a_filt,
+                                             remap_target(b_src))
     else:  # source_rgb: keep label/source channels as-is
         a_src = a
         b_src = b
@@ -95,7 +109,8 @@ def _prep_planes(a, ap, b, params):
             raise ValueError(
                 f"A ({a_nc}ch) and B ({b_nc}ch) must have matching channels")
         if params.remap_luminance and a_src.ndim == 2:
-            a_src, a_filt = color.remap_pair(a_src, a_filt, b_src)
+            a_src, a_filt = color.remap_pair(a_src, a_filt,
+                                             remap_target(b_src))
     return a_src, b_src, a_filt, ap, b_yiq
 
 
@@ -118,6 +133,8 @@ def create_image_analogy(
     device=None,
     keep_levels: bool = False,
     backend: Optional[CudaMatcher] = None,
+    temporal_prev: Optional[np.ndarray] = None,
+    remap_anchor: Optional[np.ndarray] = None,
 ) -> AnalogyResult:
     """Synthesize B' such that A : A' :: B : B' (Hertzmann §3).
 
@@ -126,11 +143,18 @@ def create_image_analogy(
     CPU.  ``keep_levels`` returns every level's (bp, s) for the tie-audit.
     ``backend`` replaces the matcher (as the JAX package's argument of the
     same name; ``device`` is then the matcher's).
+
+    ``temporal_prev`` is the previous output frame's synthesized luminance
+    (B'_{t-1}, B's shape) for video mode: with ``params.temporal_weight >
+    0`` its windows join the feature vector and are matched against A'
+    windows on the DB side.  ``remap_anchor`` pins the luminance remap to
+    another image's stats (``_prep_planes``).
     """
     if backend is None:
         backend = CudaMatcher(params, resolve_device(
             params.device if device is None else device))
-    a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(a, ap, b, params)
+    a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(
+        a, ap, b, params, remap_anchor=remap_anchor)
 
     min_shape = (min(a_src.shape[0], b_src.shape[0]),
                  min(a_src.shape[1], b_src.shape[1]))
@@ -139,6 +163,11 @@ def create_image_analogy(
     a_filt_pyr = build_pyramid_np(a_filt, levels)
     b_src_pyr = build_pyramid_np(b_src, levels)
     src_channels = 1 if a_src.ndim == 2 else a_src.shape[-1]
+    temporal = params.temporal_weight > 0 and temporal_prev is not None
+    # the DB side's temporal plane is A' (the remapped plane the features
+    # use); the query side's is the previous output frame's pyramid
+    b_temporal_pyr = (build_pyramid_np(
+        np.asarray(temporal_prev, np.float32), levels) if temporal else None)
 
     bp_pyr: List[Optional[torch.Tensor]] = [None] * levels
     s_pyr: List[Optional[torch.Tensor]] = [None] * levels
@@ -147,7 +176,8 @@ def create_image_analogy(
         coarse = level + 1 < levels
         job = LevelJob(
             level=level,
-            spec=spec_for_level(params, level, levels, src_channels),
+            spec=spec_for_level(params, level, levels, src_channels,
+                                temporal=temporal),
             kappa_mult=params.kappa_factor(level) ** 2,
             a_src=a_src_pyr[level],
             a_filt=a_filt_pyr[level],
@@ -156,6 +186,8 @@ def create_image_analogy(
             a_filt_coarse=a_filt_pyr[level + 1] if coarse else None,
             b_src_coarse=b_src_pyr[level + 1] if coarse else None,
             b_filt_coarse=bp_pyr[level + 1] if coarse else None,
+            a_temporal=a_filt_pyr[level] if temporal else None,
+            b_temporal=b_temporal_pyr[level] if temporal else None,
         )
         t0 = time.perf_counter()
         db = backend.build_features(job)

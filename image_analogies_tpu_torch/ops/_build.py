@@ -29,8 +29,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 PACKED_FORMS = ("packed2_best", "packed1w_best", "packed2wn_best",
                 "packed1wn_best")
 KERNEL_SOURCES = ("argmin_l2", "argmin_bf16", "packed2k_best",
-                  "packed3_best", "packed3w_best", *PACKED_FORMS,
-                  "tile_champions", "argmin2", "pertile_champions")
+                  "packed2kw_best", "packed3_best", "packed3w_best",
+                  *PACKED_FORMS, "tile_champions", "argmin2",
+                  "pertile_champions")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -60,13 +61,12 @@ _SIGNATURES = {
         "ia_argmin_l2_bf16": [_VOIDP, _INT] + [_VOIDP] * 3 + [_INT] * 10
                              + [_VOIDP] * 4 + [_INT, _VOIDP],
     },
-    "packed2k_best": {
-        # (qa, wk, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
-        #  smem, n_chunks, part_val, part_idx, out_idx, out_val, device,
-        #  stream)
-        "ia_packed2k_best": [_VOIDP] * 2 + [_INT] * 10 + [_VOIDP] * 4
-                            + [_INT, _VOIDP],
-    },
+    # (qa, wk, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
+    #  smem, n_chunks, part_val, part_idx, out_idx, out_val, device,
+    #  stream): packed2k, and past 512 lanes its wide instance
+    **{name: {f"ia_{name}": [_VOIDP] * 2 + [_INT] * 10 + [_VOIDP] * 4
+                            + [_INT, _VOIDP]}
+       for name in ("packed2k_best", "packed2kw_best")},
     "packed3_best": {"ia_packed3_best": _BEST},
     # packed3 past 256 lanes, and its per-tile champions
     "packed3w_best": {"ia_packed3w_best": _BEST,

@@ -1,7 +1,8 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
 // with a producer warp.  Every bf16 scan of the port is an instance of it:
 // - packed2k_best.cu (the main path: one pass, the norm in W's lanes, the
-//   global champion: EpiBest);
+//   global champion: EpiBest), and past 512 lanes packed2kw_best.cu (the
+//   same at 33-72 k steps, one consumer warpgroup);
 // - argmin2.cu (two_pass: the hi/lo query blocks folded, the fp32 norms in
 //   the ring, the lexicographic top-2: EpiTop2);
 // - packed3_best.cu (exact_hi2 up to 256 lanes: two folded query sets
@@ -155,11 +156,13 @@ inline int use_device(int device) {
   return cudaSuccess;
 }
 
-// the argument checks every entry makes: K in {128, 256, 384, 512},
-// k_used a multiple of 16 in (0, K]
-inline bool shape_ok(int m, int n, int k, int k_used, int n_chunks) {
+// the argument checks every entry makes: K a multiple of 128 up to kmax
+// (512 but for packed2kw_best.cu's 1,152), k_used a multiple of 16 in
+// (0, K]
+inline bool shape_ok(int m, int n, int k, int k_used, int n_chunks,
+                     int kmax = 512) {
   return m > 0 && n > 0 && n_chunks > 0 && k_used > 0 && k_used <= k &&
-         k_used % 16 == 0 && k % 128 == 0 && k <= 512;
+         k_used % 16 == 0 && k % 128 == 0 && k <= kmax;
 }
 
 }  // namespace ia_scan
@@ -1025,7 +1028,8 @@ int launch_scan(const void* q, const void* w, const void* w2, int k,
   return cudaGetLastError();
 }
 
-// launch_scan of the instance with ksteps = k_used / 16 k steps (1..KMAX)
+// launch_scan of the instance with ksteps = k_used / 16 k steps
+// (KSTEPS..KMAX)
 template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS,
           int KSTEPS = 1>
 int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
@@ -1042,14 +1046,16 @@ int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
 
 // The C entry of a global-champion instance: q (query_sets(FOLD, TWO) m,
 // k), w (and w2 with TWO) (n, k) bf16, norm (n,) fp32 (with Epi::kNorms),
-// all contiguous and 16-byte aligned; K in {128, 256, 384, 512}, k_used a
-// multiple of 16 up to 16 KMAX, lanes at and past it skipped.  The launch
+// all contiguous and 16-byte aligned; K a multiple of 128 up to 512 (up to
+// 16 KMAX past it), k_used a multiple of 16 in [16 KMIN, 16 KMAX], lanes
+// at and past it skipped.  The launch
 // plan (consumers .. n_chunks) comes from ops/match.py; the entry only
 // refuses one outside the instance's limits.  Scans into the partials
 // part_val/part_idx (n_chunks, m), then best_merge_kernel folds them into
 // out_idx/out_val (m,) by the lexicographic rule.  Launches on `stream`,
 // returns the first CUDA error.
-template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS>
+template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS,
+          int KMIN = 1>
 int scan_best(const void* q, const void* w, const void* w2, const void* norm,
               int m, int n, int k, int k_used, int consumers, int bm,
               int stages, int tiles_per_chunk, int smem, int n_chunks,
@@ -1057,7 +1063,9 @@ int scan_best(const void* q, const void* w, const void* w2, const void* norm,
               int device, void* stream) {
   const int ksteps = k_used / 16;
   const int nbox = (k_used + BOX - 1) / BOX;
-  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) || ksteps > KMAX ||
+  constexpr int kmax = 16 * KMAX > 512 ? 16 * KMAX : 512;
+  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks, kmax) ||
+      ksteps < KMIN || ksteps > KMAX ||
       (TWO && w2 == nullptr) || (Epi::kNorms && norm == nullptr) ||
       !plan_ok(n, scan_rows<FOLD, TWO, Epi>(ksteps), nbox, consumers, bm,
                stages, tiles_per_chunk, smem, n_chunks,
@@ -1079,8 +1087,8 @@ int scan_best(const void* q, const void* w, const void* w2, const void* norm,
   a.val = part_val;
   a.idx = part_idx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_scan_k<FOLD, TWO, Epi, KMAX>(ksteps, q, w, w2, k, a, n_chunks,
-                                          s);
+  e = launch_scan_k<FOLD, TWO, Epi, KMAX, KMIN>(ksteps, q, w, w2, k, a,
+                                                n_chunks, s);
   if (e != cudaSuccess) return e;
   ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
                                               n_chunks, out_idx, out_val);

@@ -11,7 +11,8 @@
   maximum of one to three bf16 passes with fp32 accumulation against the
   lane-packed DB (replaces ``_packed_best_kernel`` in all six forms:
   ``packed_best`` itself is the main path's ``packed2k`` form,
-  ``csrc/packed2k_best.cu``; ``packed3_best`` (exact_hi2) is
+  ``csrc/packed2k_best.cu`` up to 512 lanes and ``csrc/packed2kw_best.cu``
+  past them (``_packed2k_route``); ``packed3_best`` (exact_hi2) is
   ``csrc/packed3_best.cu`` up to 256 lanes and ``csrc/packed3w_best.cu``
   past them (``_packed3_route``); ``packed2_best``, ``packed1w_best``,
   ``packed2wn_best`` and ``packed1wn_best`` are ``csrc/<form>.cu``).
@@ -33,9 +34,10 @@ Every kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the hand-written kernel or
 raises — there is no fallback.
 ``LAUNCHES`` counts kernel launches, one key per kernel entry and packed
-form (one per wrapper call that launched; the packed3 form past 256 lanes
-counts as ``packed3w_best``), so a run can show that its path went through
-the kernels.
+form (one per wrapper call that launched; the packed2k form past 512 lanes
+counts as ``packed2kw_best``, the packed3 form past 256 lanes as
+``packed3w_best``), so a run can show that its path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ from image_analogies_tpu_torch.ops import _build
 # launches of each CUDA kernel entry since the last reset (plain-version
 # calls on CPU tensors do not count)
 LAUNCHES = {"argmin_l2": 0, "argmin_l2_bf16": 0, "packed_best": 0,
-            "packed3_best": 0, "packed3w_best": 0, "packed2_best": 0,
-            "packed1w_best": 0, "packed2wn_best": 0, "packed1wn_best": 0,
-            "packed_champions": 0, "pertile_champions": 0, "argmin2_l2": 0}
+            "packed2kw_best": 0, "packed3_best": 0, "packed3w_best": 0,
+            "packed2_best": 0, "packed1w_best": 0, "packed2wn_best": 0,
+            "packed1wn_best": 0, "packed_champions": 0,
+            "pertile_champions": 0, "argmin2_l2": 0}
 
 # score given to padding rows by the norm-in-W scheme: far below any real
 # score, finite (an inf lane would split to hi=-inf, lo=NaN)
@@ -423,6 +426,43 @@ def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
                         qsets=1, norms=False)
 
 
+# packed2k_best.cu takes k_used up to 512; past it packed2kw_best.cu, the
+# core's packed2k instance at 33-72 k steps (k_used up to 1,152: the
+# widest a preset reaches, RGB sources at patch 7 with the temporal block,
+# is 1,040) with one consumer warpgroup (``_packed2kw_plan``)
+_P2K_MAX_LANES = 512
+_P2KW_MAX_LANES = 1152
+
+
+def _packed2k_route(k_used: int) -> str:
+    """The library (and launch-count key) that runs the packed2k form at
+    ``k_used`` lanes, by width alone: ``packed_best`` (csrc/
+    packed2k_best.cu, two or three warpgroups, instances up to 32 k steps)
+    up to 512 lanes; past them ``packed2kw_best`` (csrc/packed2kw_best.cu,
+    instances of 33-72 k steps: one warpgroup, since two warpgroups'
+    resident query rows, 128 bytes a lane each, leave room for one ring
+    stage at most up to 576 lanes and for none from 592 on; tiles of
+    ``_core_rows`` rows, plan ``_packed2kw_plan``)."""
+    if k_used > _P2KW_MAX_LANES:
+        raise ValueError(f"packed2k: k_used={k_used} is past the widest "
+                         f"kernel's {_P2KW_MAX_LANES} lanes")
+    return "packed_best" if k_used <= _P2K_MAX_LANES else "packed2kw_best"
+
+
+def _packed2kw_plan(m: int, n: int, sm_count: int, k_used: int
+                    ) -> Packed2kPlan:
+    """Launch plan of the packed2k scan past 512 lanes (``_hopper_plan``):
+    one consumer warpgroup of one query set, DB tiles of ``_core_rows``
+    rows (64 up to 896 lanes, 32 past them) and the deepest ring that fits
+    beside it (two stages at 528-576 lanes, one from 592 on)."""
+    if not _P2K_MAX_LANES < k_used <= _P2KW_MAX_LANES:
+        raise ValueError(f"packed2kw: k_used={k_used} is outside the "
+                         f"kernel's ({_P2K_MAX_LANES}, {_P2KW_MAX_LANES}]")
+    return _hopper_plan("packed2kw", m, n, sm_count, k_used, (1,),
+                        qsets=1, norms=False,
+                        rows=_core_rows(k_used, 1, 1, False))
+
+
 def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
                   ) -> Packed2kPlan:
     """Launch plan of the argmin2 scan (``_hopper_plan``), its norms in the
@@ -633,9 +673,11 @@ def _check_packed(name, qa, w1, k_used, qb, w2, dbnh, fold_a) -> int:
     qm, k = qa.shape
     n = w1.shape[0]
     k_used = k if k_used == 0 else k_used
-    if k not in (128, 256, 384, 512) or k_used % 16 or not 0 < k_used <= k:
-        raise ValueError(f"{name}: K={k} must be 128/256/384/512 and "
-                         f"k_used={k_used} a multiple of 16 in (0, K]")
+    if (k % 128 or not 0 < k <= _P2KW_MAX_LANES or k_used % 16
+            or not 0 < k_used <= k):
+        raise ValueError(f"{name}: K={k} must be a multiple of 128 up to "
+                         f"{_P2KW_MAX_LANES} and k_used={k_used} a multiple "
+                         "of 16 in (0, K]")
     if qm == 0 or n == 0 or (fold_a and qm % 2):
         raise ValueError(f"{name}: qa has {qm} rows, w1 {n}")
     m = qm // 2 if fold_a else qm
@@ -686,18 +728,22 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     ``packed2k`` form: ``qa`` (M, K) rows ``[q1|q1|1 1 1|q2|q1|0]`` against
     ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py);
     on the card it runs ``csrc/packed2k_best.cu`` (``wgmma`` on a TMA ring,
-    launch plan ``_packed2k_plan``).  Folded, with both streams and dbnh it
-    is exact_hi2's ``packed3`` form (``packed3_best``), which the width
-    rule ``_packed3_route`` sends to ``csrc/packed3_best.cu`` (the same
+    launch plan ``_packed2k_plan``) up to ``k_used`` = 512 and
+    ``csrc/packed2kw_best.cu`` (the same core, plan ``_packed2kw_plan``)
+    past it, by the width rule ``_packed2k_route``.  Folded, with both
+    streams and dbnh it is exact_hi2's ``packed3`` form (``packed3_best``),
+    which the width rule ``_packed3_route`` sends to
+    ``csrc/packed3_best.cu`` (the same
     core with a second weight stream, plan ``_packed3_plan``) up to
     ``k_used`` = 256 and to ``csrc/packed3w_best.cu`` (plan
     ``_packed3w_plan``) past it.  The other four combinations the JAX
     package names are the ``*_best`` wrappers below, each on the core from
     ``csrc/<form>.cu`` (plan ``_packed_form_plan``).  Every kernel but
     packed2k's reads ``qa`` and ``qb`` as one query tensor, without a copy
-    where ``qb`` lies right after ``qa`` (``_query_operand``).  K in
-    {128, 256, 384, 512}; lanes at and past ``k_used`` (a multiple of 16;
-    0 means K) must be zero in the query rows, the kernel skips them.  Returns (idx (M,)
+    where ``qb`` lies right after ``qa`` (``_query_operand``).  K a
+    multiple of 128 up to 1,152 (each form's kernel refuses the widths past
+    its own); lanes at and past ``k_used`` (a multiple of 16; 0 means K)
+    must be zero in the query rows, the kernel skips them.  Returns (idx (M,)
     int32, val (M,) fp32).
     """
     k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
@@ -716,12 +762,15 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     n = w1.shape[0]
     dev = _device_index(qa)
     stream = torch.cuda.current_stream(qa.device).cuda_stream
-    route = _packed3_route(k_used) if form == "packed3_best" else form
+    route = (_packed3_route(k_used) if form == "packed3_best" else
+             _packed2k_route(k_used) if form == "packed_best" else form)
     sm = _sm_count(dev)
-    plan = (_packed2k_plan(m, n, sm, k_used) if form == "packed_best" else
-            _packed3_plan(m, n, sm, k_used) if route == "packed3_best" else
-            _packed3w_plan(m, n, sm, k_used) if route == "packed3w_best" else
-            _packed_form_plan(form, m, n, sm, k_used))
+    plan_fn = {"packed_best": _packed2k_plan,
+               "packed2kw_best": _packed2kw_plan,
+               "packed3_best": _packed3_plan,
+               "packed3w_best": _packed3w_plan}.get(route)
+    plan = (plan_fn(m, n, sm, k_used) if plan_fn is not None
+            else _packed_form_plan(form, m, n, sm, k_used))
     part_val = torch.empty((plan.n_chunks, m), dtype=torch.float32,
                            device=qa.device)
     part_idx = torch.empty((plan.n_chunks, m), dtype=torch.int32,
@@ -733,9 +782,11 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
                 part_idx.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
                 dev, stream)
     if form == "packed_best":
-        lib = _build.load("packed2k_best")
-        err = lib.ia_packed2k_best(qa.data_ptr(), w1.data_ptr(), m, n, k,
-                                   k_used, *geometry)
+        source = ("packed2k_best" if route == "packed_best"
+                  else "packed2kw_best")
+        lib = _build.load(source)
+        err = getattr(lib, f"ia_{source}")(qa.data_ptr(), w1.data_ptr(), m,
+                                           n, k, k_used, *geometry)
     else:
         lib = _build.load(route)
         ptr = lambda t: None if t is None else t.data_ptr()

@@ -188,6 +188,151 @@ def test_cuda_packed_best_other_lane_widths(l):
     torch.testing.assert_close(val, ref_v, rtol=0, atol=1e-5)
 
 
+def _packed2k_case(dev, m, l, n, npad, dup):
+    """Seeded packed2k operands on the card: (qa, wk, k_used).  The
+    duplicate row gets its twin's half norm: the card's row sums of two
+    equal rows of odd length may round apart (their alignments differ)."""
+    x, qv = packed_inputs(m=m, l=l, n=n, dup=dup)
+    xt = torch.from_numpy(x).to(dev)
+    half_norm = 0.5 * (xt * xt).sum(1)
+    half_norm[dup[1]] = half_norm[dup[0]]
+    wk, _ = pack_wk(xt, torch.zeros(l, device=dev), half_norm,
+                    torch.arange(l, device=dev), npad)
+    g1, g2, _ = match.bf16_split3(torch.from_numpy(qv).to(dev))
+    qa = query_rows(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+                    wk.shape[1])
+    return qa, wk, (4 * l + 3 + 15) // 16 * 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,npad,l", [
+    (m, n, npad, l)
+    # L = 148 (RGB sources with the temporal block: 608 lanes), 171 and
+    # 207 (super_resolution on RGB sources: 688 at its coarsest level, 832)
+    # and 256 (the same with the temporal block: 1,040, 32-row tiles)
+    for l in (148, 171, 207, 256)
+    # a few queries, two query tiles, the widest level-0 batch
+    for m in (5, 70, 352)
+    # N past a tile edge with an all-padding last tile, and many chunks
+    # with the duplicate rows in different ones
+    for n, npad in ((1000, 1100), (69000, 72000))])
+def test_cuda_packed2kw_matches_plain(m, n, npad, l):
+    """packed2k past 512 lanes (packed2kw_best.cu, by the width rule)
+    against its plain version on the card: one launch a call, scores within
+    4e-5 (the tensor cores' fp32 sum over 38-65 k steps), picks equal
+    outside that band; the duplicate rows go to the lower index; padding
+    rows and rows past N never win; ten repeated calls give the same
+    bits."""
+    dev = _card()
+    dup = (3, 600) if n <= 1000 else (3, n - 60)
+    qa, wk, k_used = _packed2k_case(dev, m, l, n, npad, dup)
+    assert match._packed2k_route(k_used) == "packed2kw_best"
+    plan = match._packed2kw_plan(m, npad, match._sm_count(
+        match._device_index(qa)), k_used)
+    if n > 10000:
+        chunk = plan.tiles_per_chunk * match._core_rows(k_used, 1, 1, False)
+        assert dup[0] // chunk != dup[1] // chunk
+        assert npad - n >= match._core_rows(k_used, 1, 1, False)
+    match.reset_launch_counts()
+    idx, val = match.packed_best(qa, wk, k_used)
+    assert match.LAUNCHES["packed2kw_best"] == 1
+    assert sum(match.LAUNCHES.values()) == 1
+    ref_i, ref_v = match.packed_best_plain(qa, wk, k_used)
+    _assert_band("packed2kw_best", idx.cpu(), val.cpu(), ref_i.cpu(),
+                 ref_v.cpu(), atol=4e-5, band=4e-5)
+    if m > 2:
+        assert int(idx[2]) == dup[0]
+    assert int(idx.max()) < n
+    for _ in range(10):
+        again_i, again_v = match.packed_best(qa, wk, k_used)
+        assert torch.equal(again_i, idx)
+        assert torch.equal(again_v.view(torch.int32), val.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [73, 80, 87, 91])
+@pytest.mark.parametrize("m", [176, 344])
+def test_cuda_packed2k_mode_widths_at_level_size(l, m):
+    """The packed2k kernel at the widths the modes reach (super_resolution
+    304 lanes at its coarsest level and 368 at level 0, the video preset's
+    temporal block 336, texture_by_numbers' RGB labels 352) at a 512^2
+    level's N = 2^18, against its plain version: scores within 1e-5, picks
+    equal outside 2e-5, the duplicate rows (in different chunks) to the
+    lower index, padding rows never win."""
+    dev = _card()
+    npad = 262144
+    n = npad - 1000
+    qa, wk, k_used = _packed2k_case(dev, m, l, n, npad, (3, n - 60))
+    assert k_used in (304, 336, 352, 368)
+    assert match._packed2k_route(k_used) == "packed_best"
+    match.reset_launch_counts()
+    idx, val = match.packed_best(qa, wk, k_used)
+    assert match.LAUNCHES["packed_best"] == 1
+    ref_i, ref_v = match.packed_best_plain(qa, wk, k_used)
+    _assert_band("packed_best", idx.cpu(), val.cpu(), ref_i.cpu(),
+                 ref_v.cpu(), atol=1e-5, band=2e-5)
+    assert int(idx[2]) == 3 and int(idx.max()) < n
+
+
+@pytest.mark.cuda
+def test_cuda_packed2kw_refuses_what_it_does_not_take():
+    """The C entry of packed2kw_best.cu refuses k_used at or below 512 or
+    past 1,152, K past 1,152, and a second consumer warpgroup; the wrapper
+    refuses K past 1,152 before any launch."""
+    dev = _card()
+    lib = match._build.load("packed2kw_best")
+    m, n = 8, 256
+    q = torch.zeros((m, 1152), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((n, 1152), dtype=torch.bfloat16, device=dev)
+    part_val, out_val = (torch.empty((n, m), device=dev) for _ in range(2))
+    part_idx, out_idx = (torch.empty((n, m), dtype=torch.int32, device=dev)
+                         for _ in range(2))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(k, k_used, consumers=None):
+        plan = match._packed2kw_plan(m, n, 132, max(528, min(k_used, 1152)))
+        return lib.ia_packed2kw_best(
+            q.data_ptr(), w.data_ptr(), m, n, k, k_used,
+            consumers or plan.consumers, plan.bm, plan.stages,
+            plan.tiles_per_chunk, plan.smem, plan.n_chunks,
+            part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
+            out_val.data_ptr(), match._device_index(q), stream)
+
+    assert call(1152, 528) == 0 and call(1152, 1040) == 0
+    torch.cuda.synchronize()
+    for k, k_used in ((1152, 512), (1152, 1168), (1280, 1040), (512, 528)):
+        assert call(k, k_used) != 0, (k, k_used)
+    assert call(1152, 528, consumers=2) != 0
+    with pytest.raises(ValueError):
+        match.packed_best(torch.zeros((m, 1280), dtype=torch.bfloat16,
+                                      device=dev),
+                          torch.zeros((n, 1280), dtype=torch.bfloat16,
+                                      device=dev), 1040)
+
+
+@pytest.mark.cuda
+def test_cuda_rgb_superres_runs_packed2kw_on_its_path():
+    """super_resolution on RGB sources with ``color_mode="source_rgb"`` and
+    exact_hi2_2p at 48^2 (two levels: 832 and 688 lanes) on the card:
+    packed2kw_best once per wavefront step, no other kernel, and the source
+    map within the card-vs-CPU limits of the CPU run."""
+    from image_analogies_tpu_torch import modes
+
+    _card()
+    gray = make_structured(48, 7)
+    sharp, low = (np.stack([x, x * x, 1 - x], -1).astype(np.float32)
+                  for x in (gray[1], gray[2]))
+    kw = dict(color_mode="source_rgb", match_mode="exact_hi2_2p")
+    match.reset_launch_counts()
+    card = modes.super_resolution(sharp, low, **kw)
+    steps = sum(4 * (h - 1) + h for h in (48, 24))
+    assert match.LAUNCHES["packed2kw_best"] == steps
+    assert sum(match.LAUNCHES.values()) == steps
+    cpu = modes.super_resolution(sharp, low, device="cpu", **kw)
+    assert float((card.source_map != cpu.source_map).mean()) < 0.02
+    assert ssim(card.bp_y, cpu.bp_y) >= 0.99
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_mixed_devices():
     dev = _card()

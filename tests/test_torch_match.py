@@ -7,6 +7,7 @@ kernels against the same plain versions on the card.
 """
 
 import dataclasses
+import functools
 import os
 import re
 
@@ -828,3 +829,146 @@ def test_wrappers_check_their_operands():
                           k_used=100)
     with pytest.raises(ValueError):
         match.packed_best(qa.float(), torch.zeros((8, 256)))
+
+
+# ------------------------------------------- packed2k past 512 lanes
+
+
+@pytest.mark.parametrize("l", [148, 171, 207, 240, 256, 280])
+def test_packed_plain_past_512_lanes_matches_pallas_interpret(l):
+    """The plain packed2k scan at K = 640-1,152 (L = 148: 608 used lanes,
+    RGB sources with the temporal block; 171 and 207: 688 and 832, RGB
+    super-resolution's two levels; 256: 1,040, the same with the temporal
+    block) against ``packed2k_best(interpret=True)`` on the same K-wide
+    weight array, padding and duplicate rows included.  The wrapper takes
+    these widths on the CPU (it used to refuse K past 512), and the
+    width rule sends them past 512 lanes to packed2kw_best.cu on the
+    card."""
+    x, q = packed_inputs(m=21, l=l, n=900, dup=(3, 700))
+    n, npad = x.shape[0], 1024
+    nrm = (x.astype(np.float32) ** 2).sum(1)
+    xt = torch.from_numpy(x)
+    wk, _ = pack_wk(xt, torch.zeros(l), torch.from_numpy(0.5 * nrm),
+                    torch.arange(l), npad)
+    kp = wk.shape[1]
+    k_used = (4 * l + 3 + 15) // 16 * 16
+    assert kp == -(-(4 * l + 3) // 128) * 128 and 640 <= kp <= 1152
+    assert match._packed2k_route(k_used) == "packed2kw_best"
+    g1, g2, _ = pm.bf16_split3(jnp.asarray(q))
+    q1, q2 = g1.astype(jnp.bfloat16), g2.astype(jnp.bfloat16)
+    wk_j = jnp.asarray(_bf16_bits(wk)).view(jnp.bfloat16)
+    ref_i, ref_v = pm.packed2k_best(q1, q2, wk_j, tile_n=256, interpret=True)
+    qa = query_rows(_bf16_bits_from_jax(q1), _bf16_bits_from_jax(q2), kp)
+    before = dict(match.LAUNCHES)
+    idx, val = match.packed_best(qa, wk, k_used)
+    assert match.LAUNCHES == before
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
+    np.testing.assert_allclose(val.numpy(), np.asarray(ref_v), rtol=0,
+                               atol=2e-6)
+    assert int(idx[2]) == 3 and idx.numpy().max() < n
+    ref_plain = match.packed_best_plain(qa, wk, k_used)
+    assert torch.equal(ref_plain[0], idx)
+
+
+@pytest.mark.parametrize("k_used", range(528, 1153, 16))
+@pytest.mark.parametrize("n", [64, 99, 65536, 1048000, 1048576])
+def test_packed2kw_plan_fits_every_width(k_used, n):
+    """The wide packed2k instance's launch plan at every width it takes
+    (M from 1 to 352, the widest level-0 batch): its tiles the kernel's
+    ``tile_rows`` (64 rows where one stage of them fits beside one
+    warpgroup's queries, else 32), one consumer warpgroup, a ring
+    that fits the card's shared memory, every DB tile in exactly one
+    chunk."""
+    rows = 64 if _core_smem(k_used, 1, 1, 1, 1, False, 64) <= _SMEM_MAX \
+        else 32
+    assert match._core_rows(k_used, 1, 1, False) == rows
+    assert rows == (64 if k_used <= 896 else 32)
+    tiles = -(-n // rows)
+    for m in (1, 59, 64, 65, 128, 344, 352):
+        plan = match._packed2kw_plan(m, n, 132, k_used)
+        assert plan.consumers == 1
+        assert plan.stages == (2 if k_used <= 576 else 1)
+        assert plan.smem == _core_smem(k_used, plan.stages, plan.consumers,
+                                       1, 1, False, rows) <= _SMEM_MAX
+        per = plan.tiles_per_chunk
+        assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
+        assert plan.q_tiles == -(-m // plan.bm)
+        assert plan.bm <= 64 * plan.consumers
+    with pytest.raises(ValueError):
+        match._packed2kw_plan(8, 4096, 132, 512)
+    with pytest.raises(ValueError):
+        match._packed2k_route(1168)
+    assert match._packed2k_route(512) == "packed_best"
+
+
+def _rgb_level_planes(seed, ha, wa, hb, wb):
+    rng = np.random.default_rng(seed)
+    u = lambda *s: rng.uniform(0, 1, s).astype(np.float32)
+    hac, wac, hbc, wbc = ((ha + 1) // 2, (wa + 1) // 2, (hb + 1) // 2,
+                          (wb + 1) // 2)
+    return dict(a_src=u(ha, wa, 3), a_filt=u(ha, wa),
+                a_src_coarse=u(hac, wac, 3), a_filt_coarse=u(hac, wac),
+                b_src=u(hb, wb, 3), b_src_coarse=u(hbc, wbc, 3),
+                b_filt_coarse=u(hbc, wbc))
+
+
+@pytest.mark.parametrize("has_coarse,kp", [(False, 768), (True, 896)])
+def test_rgb_patch7_packed2k_anchor_matches_jax(has_coarse, kp, monkeypatch):
+    """exact_hi2_2p on RGB ``source_rgb`` sources at super_resolution's
+    patch 7 (24^2; the coarsest level of two or one level: L = 171, K =
+    768; a finer level: L = 207, K = 896): the port's anchor on the
+    level state the JAX package built, against the JAX anchor with its
+    ``packed2k_best`` in interpret mode -- the same picks, the duplicate
+    row's lowest index.  The packed2k wrapper used to refuse K past 512
+    here (ValueError), where the JAX kernel takes any multiple of 128."""
+    from image_analogies_tpu.backends import tpu as jtpu
+    from image_analogies_tpu.backends.base import LevelJob as JLevelJob
+    from image_analogies_tpu.config import AnalogyParams as JParams
+    from image_analogies_tpu_torch.backends import cuda as tcuda
+    from image_analogies_tpu_torch.utils.state import level_db_from_numpy
+
+    monkeypatch.setattr(jtpu, "packed2k_best", functools.partial(
+        pm.packed2k_best, interpret=True))
+    ha = wa = hb = wb = 24
+    planes = _rgb_level_planes(5, ha, wa, hb, wb)
+    planes["a_src"][19, 20] = planes["a_src"][2, 3]  # a duplicate row pair
+    planes["a_filt"][19, 20] = planes["a_filt"][2, 3]
+    if not has_coarse:
+        for k in ("a_src_coarse", "a_filt_coarse", "b_src_coarse",
+                  "b_filt_coarse"):
+            planes[k] = None
+    jspec = jfeatures.FeatureSpec(fine_size=7, coarse_size=3,
+                                  has_coarse=has_coarse, src_channels=3)
+    off = jfeatures.window_offsets(7)
+    rowsafe = jnp.asarray((off[:, 0] < 0).astype(np.float32)
+                          * jfeatures.causal_mask(7))
+    j = {k: (None if v is None else jnp.asarray(v))
+         for k, v in planes.items()}
+    arrs = jtpu._prepare_level_arrays(
+        jspec, j["a_src"], j["a_filt"], j["a_src_coarse"],
+        j["a_filt_coarse"], None, j["b_src"], j["b_src_coarse"],
+        j["b_filt_coarse"], None, rowsafe, 256, True, "packed2", 0, 0)
+    arrs = {k: (None if v is None else np.array(v)) for k, v in arrs.items()}
+    assert arrs["db_pad"].shape[1] == kp
+    mode = "exact_hi2_2p"
+    jparams = JParams(backend="tpu", strategy="wavefront", match_mode=mode,
+                      patch_size=7, color_mode="source_rgb")
+    jjob = JLevelJob(level=0, spec=jspec, kappa_mult=4.0, **planes)
+    tmpl = jtpu.make_level_template(jparams, jjob, "wavefront", mode)
+    jdb = dataclasses.replace(tmpl, **{
+        k: (None if v is None else jnp.asarray(v)) for k, v in arrs.items()})
+    arrs.update(diag=[np.asarray(s) for s in tmpl.diag],
+                off=np.asarray(tmpl.off),
+                fine_sqrtw=np.asarray(tmpl.fine_sqrtw))
+    tdb = level_db_from_numpy(arrs, dict(
+        ha=ha, wa=wa, hb=hb, wb=wb, fine_start=tmpl.fine_start,
+        match_mode=mode), torch.device("cpu"))
+    rng = np.random.default_rng(1)
+    q = arrs["static_q"][rng.integers(0, hb * wb, 37)]
+    q = (q + rng.uniform(0, 0.05, q.shape)).astype(np.float32)
+    q[0] = arrs["db"][2 * wa + 3]
+    jp, _ = jtpu.make_anchor_fn(jdb)(jnp.asarray(q))
+    tp, td = tcuda.make_anchor_fn(tdb)(torch.from_numpy(q))
+    assert td is None
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    assert int(tp[0]) == 2 * wa + 3 and int(tp.max()) < ha * wa

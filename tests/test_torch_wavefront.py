@@ -148,6 +148,76 @@ def test_prepare_level_arrays_matches_jax(pad_mode):
     np.testing.assert_allclose(dl_got[:, lw], dl_want[:, lw], rtol=1e-6)
 
 
+@pytest.mark.parametrize("build", ["f32", "packed2", "packed", "rowsafe"])
+def test_prepare_level_arrays_temporal_matches_jax(build):
+    """The level build with the temporal block (video mode): A' at this
+    level on the DB side (``a_temporal``), the previous output frame on the
+    query side (``b_temporal``), for the wavefront's f32 and packed builds
+    and the rows-above build of the other strategies.  The elementwise
+    arrays are bit-equal to the JAX ``_prepare_level_arrays``'s; the
+    temporal lanes are static query lanes, live in the packed layouts and
+    gathered into ``db_live`` as the JAX arrays have them."""
+    kw = dict(fine_size=5, coarse_size=3, has_coarse=True, src_channels=1,
+              temporal_weight=1.5)
+    planes = _level_inputs(seed=8)
+    prev = np.random.default_rng(9).uniform(0, 1, planes["b_src"].shape)
+    temporal = dict(a_temporal=planes["a_filt"],
+                    b_temporal=prev.astype(np.float32))
+    jspec = jfeat.FeatureSpec(**kw)
+    off = jfeat.window_offsets(5)
+    rowsafe = (off[:, 0] < 0).astype(np.float32) * jfeat.causal_mask(5)
+    j = {k: jnp.asarray(v) for k, v in {**planes, **temporal}.items()}
+    pad_mode = "bf16_uncentered" if build == "rowsafe" else build
+    want = jtpu._prepare_level_arrays(
+        jspec, j["a_src"], j["a_filt"], j["a_src_coarse"], j["a_filt_coarse"],
+        j["a_temporal"], j["b_src"], j["b_src_coarse"], j["b_filt_coarse"],
+        j["b_temporal"], jnp.asarray(rowsafe), 256, build != "rowsafe",
+        "f32" if build == "rowsafe" else build, 0, 0)
+    want = {k: (None if v is None else np.array(v)) for k, v in want.items()}
+    t = {k: torch.from_numpy(v) for k, v in {**planes, **temporal}.items()}
+    got = tcuda.prepare_level_arrays(
+        tfeat.FeatureSpec(**kw), t["a_src"], t["a_filt"], t["a_src_coarse"],
+        t["a_filt_coarse"], t["b_src"], t["b_src_coarse"], t["b_filt_coarse"],
+        pad_mode=pad_mode,
+        rowsafe=torch.from_numpy(rowsafe) if build == "rowsafe" else None,
+        a_temporal=t["a_temporal"], b_temporal=t["b_temporal"])
+    tsl = tfeat.FeatureSpec(**kw).slices()[4]
+    assert tsl.stop == want["db"].shape[1] == 93 and tsl.stop - tsl.start == 25
+    for name in ("db", "static_q", "a_filt_flat", "db_rowsafe"):
+        assert np.array_equal(_bits(got[name].numpy()), _bits(want[name]))
+    # the temporal block is A' on the DB side, the previous frame on the
+    # query side, scaled by sqrt(temporal_weight * window weight)
+    sw = tfeat.FeatureSpec(**kw).sqrt_weights()[tsl]
+    assert np.array_equal(
+        got["static_q"][:, tsl].numpy(),
+        tfeat.extract_patches_np(temporal["b_temporal"], 5) * sw[None, :])
+    assert np.array_equal(
+        got["db"][:, tsl].numpy(),
+        tfeat.extract_patches_np(planes["a_filt"], 5) * sw[None, :])
+    n = want["db"].shape[0]
+    if build == "rowsafe":
+        assert not np.array_equal(want["db_rowsafe"], want["db"])
+        assert np.array_equal(got["db_rowsafe"][:, tsl].numpy(),
+                              want["db"][:, tsl])
+        assert torch.equal(got["db_pad"][:n, :93],
+                           got["db_rowsafe"].to(torch.bfloat16))
+        return
+    if build == "f32":
+        assert np.array_equal(_bits(got["db_pad"].numpy()),
+                              _bits(want["db_pad"]))
+        return
+    live = want["live_idx"]
+    assert np.array_equal(got["live_idx"].numpy(), live)
+    assert np.array_equal(live[-25:], np.arange(tsl.start, tsl.stop))
+    assert got["db_pad"].shape == want["db_pad"].shape
+    lw = live.size
+    dl_got, dl_want = got["db_live"].numpy(), want["db_live"]
+    assert np.array_equal(_bits(dl_got[:, :lw]), _bits(dl_want[:, :lw]))
+    np.testing.assert_allclose(dl_got[:, lw], dl_want[:, lw], rtol=1e-6)
+    np.testing.assert_allclose(got["feat_mean"].numpy(), want["feat_mean"],
+                               rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("h,w,c", [(20, 18, 3), (64, 64, 3), (31, 50, 4),
                                    (7, 5, 2)])
 def test_diag_schedule_is_the_jax_schedule(h, w, c):
