@@ -114,7 +114,10 @@ and carried on):
 The kernels phase also runs packed_best at the widths the applications
 reach (M = 352, N = 2^20: 304-368 lanes on packed2k_best.cu, 608-1,040 on
 packed2kw_best.cu, its row in the table at 832 lanes, its launches from
-the modes phase's RGB run).
+the modes phase's RGB run), and at 832 lanes at M = 64, 128 and 192 too
+(the query-tile sweep); with ``--parent`` the parent's packed_best at
+every one of these shapes, its ms and the counts of equal picks and val
+bits.
 
 ``--phases main,profile`` adds one more warm run under torch.profiler
 (device time by kernel, device busy share); ``--phases batched_profile``
@@ -131,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -183,6 +187,11 @@ P3W_ROW_LW = 207
 # instance's row in the table
 P2K_WIDTHS = (73, 80, 87, 91, 148, 171, 207, 256)
 P2KW_ROW_LW = 207
+# the query-tile sweep at the row's width: M = 64, 128 and 192 beside the
+# headline 352 (one to six query tiles of 64 rows), so that the kernel's
+# dependence on L2 -> SM traffic (each query tile re-reads the DB) stays
+# on record
+P2KW_SWEEP_M = (64, 128, 192)
 # the superseded packed forms: the row in the table (M = 64, N = 65,536),
 # then the shape of the other packed rows (M = 352, N = 2^20), L = 55
 FORMS_SHAPES = (dict(m=64, npad=65536), dict(m=352, npad=1048576))
@@ -1239,19 +1248,20 @@ def packed_cases(match, shapes, lw=55):
 
 def run_packed_width_shapes(match, shapes):
     """``match.packed_best`` on the seeded operands of each (lw, npad, m):
-    {"<lw>": (idx, val, device ms)}, timed from a cold L2 (the ``--parent``
-    child of the packed2k widths)."""
+    {"<lw>/<m>": (idx, val, device ms)}, timed from a cold L2 (the
+    ``--parent`` child of the packed2k widths); one DB per run of shapes
+    that share (lw, npad)."""
     import torch
 
     flush = flusher(torch.device("cuda", 0))
     out = {}
-    for lw, npad, m in shapes:
-        for *_, qa, wk, k_used, _, _ in packed_cases(match, [(0, npad, m, 0)],
-                                                     lw):
+    for (lw, npad), group in itertools.groupby(shapes, key=lambda s: s[:2]):
+        for _, _, m, _, qa, wk, k_used, _, _ in packed_cases(
+                match, [(0, npad, m, 0) for *_, m in group], lw):
             idx, val = match.packed_best(qa, wk, k_used)
             ms = cuda_time_ms(lambda: match.packed_best(qa, wk, k_used),
                               reps=20, flush=flush)
-            out[str(lw)] = (idx.cpu().numpy(), val.cpu().numpy(), ms)
+            out[f"{lw}/{m}"] = (idx.cpu().numpy(), val.cpu().numpy(), ms)
         torch.cuda.empty_cache()
     return out
 
@@ -1379,37 +1389,42 @@ def phase_packed_kernel(rows, parent):
 
 def phase_packed2k_widths(rows, parent):
     """packed_best (the packed2k form) at each of P2K_WIDTHS at M = 352, N
-    = 2^20: the width rule's kernel (packed2k_best.cu up to 512 lanes,
-    packed2kw_best.cu past them, its launch plan printed) held against its
-    plain version (scores within PACKED_ATOL and picks equal outside
-    SCORE_BAND up to 512 lanes; past them within P3W_ATOL, picks outside
-    that band: the tensor cores' fp32 sum over 38-65 k steps), the
+    = 2^20, and at P2KW_ROW_LW also at the query-tile sweep's M
+    (P2KW_SWEEP_M): the width rule's kernel (packed2k_best.cu up to 512
+    lanes, packed2kw_best.cu past them, its launch plan printed) held
+    against its plain version (scores within PACKED_ATOL and picks equal
+    outside SCORE_BAND up to 512 lanes; past them within P3W_ATOL, picks
+    outside that band: the tensor cores' fp32 sum over 38-65 k steps), the
     duplicate and padding rules, timed from a cold L2 beside the
     ``torch.mm(out_dtype=float32) + max`` yardstick, the plain version and
-    the bound.  The 832-lane shape is packed2kw_best's row in the table.
-    With ``parent``: that tree's packed_best at the widths it takes (up to
-    512 lanes), its ms and the counts of equal picks and val bits."""
+    the bound.  The 832-lane shape at M = 352 is packed2kw_best's row in
+    the table; a last line gives its ms at each M of the sweep.  With
+    ``parent``: that tree's packed_best on every shape, its ms and the
+    counts of equal picks and val bits."""
     import numpy as np
     import torch
 
     from image_analogies_tpu_torch.ops import match
 
-    npad, m = PACKED_SHAPE["npad"], PACKED_SHAPE["m"]
+    npad, m_row = PACKED_SHAPE["npad"], PACKED_SHAPE["m"]
+    cases = [(lw, (m_row, *P2KW_SWEEP_M) if lw == P2KW_ROW_LW else (m_row,))
+             for lw in P2K_WIDTHS]
     theirs = None
     if parent:
-        mine = [[lw, npad, m] for lw in P2K_WIDTHS
-                if 4 * lw + 3 <= match._P2K_MAX_LANES]
-        theirs, parent_ms = parent_bits("packed_widths", parent, mine)
+        theirs, parent_ms = parent_bits(
+            "packed_widths", parent,
+            [[lw, npad, m] for lw, ms in cases for m in ms])
     flush = flusher(torch.device("cuda", 0))
-    for lw in P2K_WIDTHS:
+    sweep = {}
+    for lw, ms in cases:
         width = 4 * lw + 3
-        for *_, qa, wk, k_used, n_real, lo in packed_cases(
-                match, [(0, npad, m, 0)], lw):
+        for _, _, m, _, qa, wk, k_used, n_real, lo in packed_cases(
+                match, [(0, npad, m, 0) for m in ms], lw):
             route = match._packed2k_route(k_used)
             wide = route == "packed2kw_best"
             plan = (match._packed2kw_plan if wide else match._packed2k_plan)(
                 m, npad, match._sm_count(0), k_used)
-            name = f"{route} {k_used} lanes"
+            name = f"{route} {k_used} lanes, M = {m}"
             match.reset_launch_counts()
             idx, val = match.packed_best(qa, wk, k_used)
             torch.cuda.synchronize()
@@ -1443,9 +1458,10 @@ def phase_packed2k_widths(rows, parent):
                        plain_ms=p_ms, bound_ms=b[0], bound_by=b[1],
                        bound_share=b[0] / k_ms, max_abs_err=err,
                        picks_differing_in_band=ndiff)
-            if theirs is not None and not wide:
-                ti, tv = theirs[f"idx/{lw}"], theirs[f"val/{lw}"]
-                seg.update(parent_ms=parent_ms[str(lw)],
+            if theirs is not None:
+                key = f"{lw}/{m}"
+                ti, tv = theirs[f"idx/{key}"], theirs[f"val/{key}"]
+                seg.update(parent_ms=parent_ms[key],
                            picks_equal_parent=int(
                                (ti == idx.cpu().numpy()).sum()),
                            val_bits_equal_parent=int(
@@ -1453,11 +1469,16 @@ def phase_packed2k_widths(rows, parent):
                                    np.int32)).sum()))
             say("kernels", kernel="packed_best", **seg)
             if lw == P2KW_ROW_LW:
-                rows["packed2kw_best"] = kernel_row(
-                    "packed2kw_best", "packed2kw_best.cu", 523, err, k_ms,
-                    p_ms, l_ms, b)
+                sweep[m] = {k: seg[k] for k in ("ms", "library_ms",
+                                                 "parent_ms") if k in seg}
+                if m == m_row:
+                    rows["packed2kw_best"] = kernel_row(
+                        "packed2kw_best", "packed2kw_best.cu", 523, err,
+                        k_ms, p_ms, l_ms, b)
             del qa, wk, wkt
         torch.cuda.empty_cache()
+    say("kernels", kernel="packed_best", query_tile_sweep=4 * P2KW_ROW_LW + 3,
+        npad=npad, by_m={str(m): sweep[m] for m in sorted(sweep)})
 
 
 # the per-tile champions' shapes (L, folded) at M = 352, N = 2^20, tile

@@ -63,10 +63,12 @@ _SIGNATURES = {
     },
     # (qa, wk, m, n, k, k_used, consumers, bm, stages, tiles_per_chunk,
     #  smem, n_chunks, part_val, part_idx, out_idx, out_val, device,
-    #  stream): packed2k, and past 512 lanes its wide instance
-    **{name: {f"ia_{name}": [_VOIDP] * 2 + [_INT] * 10 + [_VOIDP] * 4
-                            + [_INT, _VOIDP]}
-       for name in ("packed2k_best", "packed2kw_best")},
+    #  stream): packed2k
+    "packed2k_best": {"ia_packed2k_best": [_VOIDP] * 2 + [_INT] * 10
+                                          + [_VOIDP] * 4 + [_INT, _VOIDP]},
+    # the same with reg_ksteps after k_used: packed2k past 512 lanes
+    "packed2kw_best": {"ia_packed2kw_best": [_VOIDP] * 2 + [_INT] * 11
+                                            + [_VOIDP] * 4 + [_INT, _VOIDP]},
     "packed3_best": {"ia_packed3_best": _BEST},
     # packed3 past 256 lanes, and its per-tile champions
     "packed3w_best": {"ia_packed3w_best": _BEST,

@@ -1,8 +1,7 @@
 // The Hopper core of the bf16 scans (sm_90a): `wgmma` fed by a TMA ring
 // with a producer warp.  Every bf16 scan of the port is an instance of it:
 // - packed2k_best.cu (the main path: one pass, the norm in W's lanes, the
-//   global champion: EpiBest), and past 512 lanes packed2kw_best.cu (the
-//   same at 33-72 k steps, one consumer warpgroup);
+//   global champion: EpiBest);
 // - argmin2.cu (two_pass: the hi/lo query blocks folded, the fp32 norms in
 //   the ring, the lexicographic top-2: EpiTop2);
 // - packed3_best.cu (exact_hi2 up to 256 lanes: two folded query sets
@@ -19,8 +18,10 @@
 //   packed1wn_best.cu: FOLD, EpiBest; entries by `scan_best`);
 // - tile_champions.cu (packed_champions: TWO, with or without FOLD, one
 //   champion of dots - norm per output tile: EpiTile).
-// packed3w_best.cu (packed3 and its per-tile champions past 256 lanes) has
-// a kernel of its own, built from the helpers and epilogues here.
+// packed3w_best.cu (packed3 and its per-tile champions past 256 lanes) and
+// packed2kw_best.cu (packed2k past 512 lanes) have kernels of their own,
+// built from the helpers and epilogues here (their query rows partly in
+// registers as the wgmma A operand: wgmma_rs_n32).
 //
 // What bounds a scan on this card, and what the design does about it:
 // - Bytes: the DB streams once per call (level 0 of npr_1024: 1,048,576
@@ -430,6 +431,65 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
     wgmma_m64n64k16(d, da, db, scale_d);
   } else {
     wgmma_m64n32k16(d, da, db, scale_d);
+  }
+}
+
+// d (+)= A B^T over one k step, m64n32k16, A from registers (the mma.sync
+// A fragment of each warp's 16 rows), B in shared memory (packed3w_best.cu,
+// packed2kw_best.cu)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&qa)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(qa[0]), "r"(qa[1]), "r"(qa[2]), "r"(qa[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// the same, m64n64k16
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&qa)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, "
+      "0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(qa[0]), "r"(qa[1]), "r"(qa[2]), "r"(qa[3]), "l"(db),
+        "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&qa)[4], uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, qa, db, scale_d);
+  } else {
+    wgmma_rs_n32(d, qa, db, scale_d);
   }
 }
 
@@ -1028,8 +1088,7 @@ int launch_scan(const void* q, const void* w, const void* w2, int k,
   return cudaGetLastError();
 }
 
-// launch_scan of the instance with ksteps = k_used / 16 k steps
-// (KSTEPS..KMAX)
+// launch_scan of the instance with ksteps = k_used / 16 k steps (1..KMAX)
 template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS,
           int KSTEPS = 1>
 int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
@@ -1046,16 +1105,14 @@ int launch_scan_k(int ksteps, const void* q, const void* w, const void* w2,
 
 // The C entry of a global-champion instance: q (query_sets(FOLD, TWO) m,
 // k), w (and w2 with TWO) (n, k) bf16, norm (n,) fp32 (with Epi::kNorms),
-// all contiguous and 16-byte aligned; K a multiple of 128 up to 512 (up to
-// 16 KMAX past it), k_used a multiple of 16 in [16 KMIN, 16 KMAX], lanes
-// at and past it skipped.  The launch
+// all contiguous and 16-byte aligned; K in {128, 256, 384, 512}, k_used a
+// multiple of 16 up to 16 KMAX, lanes at and past it skipped.  The launch
 // plan (consumers .. n_chunks) comes from ops/match.py; the entry only
 // refuses one outside the instance's limits.  Scans into the partials
 // part_val/part_idx (n_chunks, m), then best_merge_kernel folds them into
 // out_idx/out_val (m,) by the lexicographic rule.  Launches on `stream`,
 // returns the first CUDA error.
-template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS,
-          int KMIN = 1>
+template <bool FOLD, bool TWO, class Epi, int KMAX = MAX_KSTEPS>
 int scan_best(const void* q, const void* w, const void* w2, const void* norm,
               int m, int n, int k, int k_used, int consumers, int bm,
               int stages, int tiles_per_chunk, int smem, int n_chunks,
@@ -1063,9 +1120,7 @@ int scan_best(const void* q, const void* w, const void* w2, const void* norm,
               int device, void* stream) {
   const int ksteps = k_used / 16;
   const int nbox = (k_used + BOX - 1) / BOX;
-  constexpr int kmax = 16 * KMAX > 512 ? 16 * KMAX : 512;
-  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks, kmax) ||
-      ksteps < KMIN || ksteps > KMAX ||
+  if (!ia_scan::shape_ok(m, n, k, k_used, n_chunks) || ksteps > KMAX ||
       (TWO && w2 == nullptr) || (Epi::kNorms && norm == nullptr) ||
       !plan_ok(n, scan_rows<FOLD, TWO, Epi>(ksteps), nbox, consumers, bm,
                stages, tiles_per_chunk, smem, n_chunks,
@@ -1087,8 +1142,8 @@ int scan_best(const void* q, const void* w, const void* w2, const void* norm,
   a.val = part_val;
   a.idx = part_idx;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch_scan_k<FOLD, TWO, Epi, KMAX, KMIN>(ksteps, q, w, w2, k, a,
-                                                n_chunks, s);
+  e = launch_scan_k<FOLD, TWO, Epi, KMAX>(ksteps, q, w, w2, k, a, n_chunks,
+                                          s);
   if (e != cudaSuccess) return e;
   ia_scan::best_merge_kernel<<<m, 32, 0, s>>>(part_val, part_idx, m,
                                               n_chunks, out_idx, out_val);

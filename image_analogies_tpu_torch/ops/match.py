@@ -27,8 +27,9 @@
 
 Every bf16 scan runs on the Hopper core ``csrc/hopper_scan.cuh``
 (``wgmma`` fed by a TMA ring), each with a launch plan over
-``_hopper_plan``; packed3 and its per-tile champions past 256 lanes run
-their own kernel beside it (query sets as register operands); the fp32
+``_hopper_plan``; packed3 and its per-tile champions past 256 lanes, and
+packed2k past 512 lanes, run their own kernels beside it (query rows
+partly as register operands); the fp32
 ``argmin_l2`` has a kernel of its own (``csrc/argmin_l2.cu``).
 Every kernel wrapper follows one contract: a CPU tensor runs the plain PyTorch
 version in this module; a CUDA tensor launches the hand-written kernel or
@@ -403,13 +404,24 @@ def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
     if not stages:
         raise ValueError(f"{name}: k_used={k_used} is too wide for the "
                          "kernel's shared memory")
+    bm, q_tiles, per, n_chunks = _hopper_grid(m, n, sm_count, consumers,
+                                              rows)
+    return Packed2kPlan(consumers, bm, stages, per, n_chunks, q_tiles,
+                        _hopper_smem(k_used, stages, consumers, qsets, norms,
+                                     rows, streams))
+
+
+def _hopper_grid(m: int, n: int, sm_count: int, consumers: int, rows: int
+                 ) -> Tuple[int, int, int, int]:
+    """(bm, q_tiles, tiles_per_chunk, n_chunks) of a Hopper scan: the
+    fewest query tiles of at most 64 rows a warpgroup, as even as they
+    come, and the ``rows``-row DB tiles cut into about one chunk per SM for
+    each query tile."""
     bm = -(-m // -(-m // (_P2K_ROWS * consumers)))
     q_tiles = -(-m // bm)
     tiles = -(-n // rows)
     per = -(-tiles // max(1, sm_count // q_tiles))
-    return Packed2kPlan(consumers, bm, stages, per, -(-tiles // per),
-                        q_tiles, _hopper_smem(k_used, stages, consumers,
-                                              qsets, norms, rows, streams))
+    return bm, q_tiles, per, -(-tiles // per)
 
 
 def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
@@ -426,12 +438,17 @@ def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
                         qsets=1, norms=False)
 
 
-# packed2k_best.cu takes k_used up to 512; past it packed2kw_best.cu, the
-# core's packed2k instance at 33-72 k steps (k_used up to 1,152: the
-# widest a preset reaches, RGB sources at patch 7 with the temporal block,
-# is 1,040) with one consumer warpgroup (``_packed2kw_plan``)
+# packed2k_best.cu takes k_used up to 512; past it packed2kw_best.cu, a
+# kernel of 33-72 k steps (k_used up to 1,152: the widest a preset
+# reaches, RGB sources at patch 7 with the temporal block, is 1,040) with
+# two consumer warpgroups, 32-row DB tiles and the first k steps of the
+# query rows in registers, at most 44 (the kernel's CONS, BN and REG_KMAX;
+# ``_packed2kw_layout``)
 _P2K_MAX_LANES = 512
 _P2KW_MAX_LANES = 1152
+_P2KW_CONSUMERS = 2
+_P2KW_ROWS = 32
+_P2KW_REG_KMAX = 44
 
 
 def _packed2k_route(k_used: int) -> str:
@@ -439,28 +456,75 @@ def _packed2k_route(k_used: int) -> str:
     ``k_used`` lanes, by width alone: ``packed_best`` (csrc/
     packed2k_best.cu, two or three warpgroups, instances up to 32 k steps)
     up to 512 lanes; past them ``packed2kw_best`` (csrc/packed2kw_best.cu,
-    instances of 33-72 k steps: one warpgroup, since two warpgroups'
-    resident query rows, 128 bytes a lane each, leave room for one ring
-    stage at most up to 576 lanes and for none from 592 on; tiles of
-    ``_core_rows`` rows, plan ``_packed2kw_plan``)."""
+    instances of 33-72 k steps: there two warpgroups' resident query rows,
+    128 bytes a lane each, would leave the core no room for a ring, so the
+    kernel holds their first k steps in registers; plan
+    ``_packed2kw_plan``)."""
     if k_used > _P2KW_MAX_LANES:
         raise ValueError(f"packed2k: k_used={k_used} is past the widest "
                          f"kernel's {_P2KW_MAX_LANES} lanes")
     return "packed_best" if k_used <= _P2K_MAX_LANES else "packed2kw_best"
 
 
+class Packed2kwPlan(NamedTuple):
+    consumers: int  # consumer warpgroups a block
+    bm: int  # query rows a block (<= 64 consumers)
+    stages: int  # ring depth
+    tiles_per_chunk: int  # DB tiles per block
+    n_chunks: int  # grid y: DB chunks
+    q_tiles: int  # grid x: query tiles of bm rows
+    smem: int  # dynamic shared memory of a block
+    rows: int  # DB rows a tile
+    reg_ksteps: int  # k steps of each query row held in registers
+
+
+def _packed2kw_smem(k_used: int, reg_ksteps: int, stages: int) -> int:
+    """Dynamic shared memory of a packed2kw block (the kernel's
+    ``w_smem``): 1 KiB of slack, the k steps past ``reg_ksteps`` of two
+    warpgroups' 64 query rows in 32-lane boxes of 4 KiB, and a ring of
+    ``stages`` 32-row DB tiles of ceil(k steps / 2) boxes."""
+    ksteps = k_used // 16
+    box_row = _P2K_BOX * 2
+    return (1024 + _P2KW_CONSUMERS * -(-(ksteps - reg_ksteps) // 2)
+            * _P2K_ROWS * box_row
+            + stages * -(-ksteps // 2) * _P2KW_ROWS * box_row)
+
+
+def _packed2kw_layout(k_used: int) -> Tuple[int, int, int]:
+    """(k steps of each query row in registers, consumer warpgroups, DB
+    rows a tile) of the packed2kw instance at ``k_used`` lanes (the
+    kernel's ``reg_ksteps``, CONS and BN): the fewest register k steps that
+    leave room for a ring of three stages, else of two, else of one,
+    within 44 (176 registers a thread)."""
+    ksteps = k_used // 16
+
+    def fewest(stages):
+        return next(r for r in range(ksteps + 1)
+                    if _packed2kw_smem(k_used, r, stages) <= _P2K_SMEM)
+
+    reg = next((r for r in (fewest(3), fewest(2)) if r <= _P2KW_REG_KMAX),
+               fewest(1))
+    return reg, _P2KW_CONSUMERS, _P2KW_ROWS
+
+
 def _packed2kw_plan(m: int, n: int, sm_count: int, k_used: int
-                    ) -> Packed2kPlan:
-    """Launch plan of the packed2k scan past 512 lanes (``_hopper_plan``):
-    one consumer warpgroup of one query set, DB tiles of ``_core_rows``
-    rows (64 up to 896 lanes, 32 past them) and the deepest ring that fits
-    beside it (two stages at 528-576 lanes, one from 592 on)."""
-    if not _P2K_MAX_LANES < k_used <= _P2KW_MAX_LANES:
+                    ) -> Packed2kwPlan:
+    """Launch plan of the packed2k scan past 512 lanes over
+    ``_packed2kw_layout``: two consumer warpgroups a block, the deepest
+    ring of 32-row tiles that fits beside their shared-memory k steps
+    (three stages up to 896 lanes, two up to 1,056, one past them), and
+    ``_hopper_grid``'s query tiles and chunks."""
+    if not _P2K_MAX_LANES < k_used <= _P2KW_MAX_LANES or k_used % 16:
         raise ValueError(f"packed2kw: k_used={k_used} is outside the "
                          f"kernel's ({_P2K_MAX_LANES}, {_P2KW_MAX_LANES}]")
-    return _hopper_plan("packed2kw", m, n, sm_count, k_used, (1,),
-                        qsets=1, norms=False,
-                        rows=_core_rows(k_used, 1, 1, False))
+    reg, consumers, rows = _packed2kw_layout(k_used)
+    stages = _P2K_MAX_STAGES
+    while _packed2kw_smem(k_used, reg, stages) > _P2K_SMEM:
+        stages -= 1
+    bm, q_tiles, per, n_chunks = _hopper_grid(m, n, sm_count, consumers,
+                                              rows)
+    return Packed2kwPlan(consumers, bm, stages, per, n_chunks, q_tiles,
+                         _packed2kw_smem(k_used, reg, stages), rows, reg)
 
 
 def _argmin2_plan(m: int, n: int, sm_count: int, k_used: int, fold: bool
@@ -729,10 +793,10 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     ``wk = [d1|d2|n1 n2 n3|d1|d3|0]`` (``pack_wk`` in backends/cuda.py);
     on the card it runs ``csrc/packed2k_best.cu`` (``wgmma`` on a TMA ring,
     launch plan ``_packed2k_plan``) up to ``k_used`` = 512 and
-    ``csrc/packed2kw_best.cu`` (the same core, plan ``_packed2kw_plan``)
-    past it, by the width rule ``_packed2k_route``.  Folded, with both
-    streams and dbnh it is exact_hi2's ``packed3`` form (``packed3_best``),
-    which the width rule ``_packed3_route`` sends to
+    ``csrc/packed2kw_best.cu`` (part of the query rows in registers, plan
+    ``_packed2kw_plan``) past it, by the width rule ``_packed2k_route``.
+    Folded, with both streams and dbnh it is exact_hi2's ``packed3`` form
+    (``packed3_best``), which the width rule ``_packed3_route`` sends to
     ``csrc/packed3_best.cu`` (the same
     core with a second weight stream, plan ``_packed3_plan``) up to
     ``k_used`` = 256 and to ``csrc/packed3w_best.cu`` (plan
@@ -781,12 +845,14 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
                 plan.smem, plan.n_chunks, part_val.data_ptr(),
                 part_idx.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
                 dev, stream)
-    if form == "packed_best":
-        source = ("packed2k_best" if route == "packed_best"
-                  else "packed2kw_best")
-        lib = _build.load(source)
-        err = getattr(lib, f"ia_{source}")(qa.data_ptr(), w1.data_ptr(), m,
-                                           n, k, k_used, *geometry)
+    if route == "packed_best":
+        lib = _build.load("packed2k_best")
+        err = lib.ia_packed2k_best(qa.data_ptr(), w1.data_ptr(), m, n, k,
+                                   k_used, *geometry)
+    elif route == "packed2kw_best":
+        lib = _build.load(route)
+        err = lib.ia_packed2kw_best(qa.data_ptr(), w1.data_ptr(), m, n, k,
+                                    k_used, plan.reg_ksteps, *geometry)
     else:
         lib = _build.load(route)
         ptr = lambda t: None if t is None else t.data_ptr()

@@ -211,10 +211,14 @@ def _packed2k_case(dev, m, l, n, npad, dup):
     # 207 (super_resolution on RGB sources: 688 at its coarsest level, 832)
     # and 256 (the same with the temporal block: 1,040, 32-row tiles)
     for l in (148, 171, 207, 256)
-    # a few queries, two query tiles, the widest level-0 batch
-    for m in (5, 70, 352)
-    # N past a tile edge with an all-padding last tile, and many chunks
-    # with the duplicate rows in different ones
+    # one query, a few; the second warpgroup of a block idle (63, 64), one
+    # row of it live (65), some (70), all but one (127) or all (128) of it
+    # live, a second query tile of one row (129); the widest level-0 batch
+    # (352: three query tiles of 118 rows)
+    for m in (1, 5, 63, 64, 65, 70, 127, 128, 129, 352)
+    # N past a 32-row tile edge (a ragged last tile) with padding rows in
+    # the last tiles, and many chunks with the duplicate rows in different
+    # ones and all-padding last tiles
     for n, npad in ((1000, 1100), (69000, 72000))])
 def test_cuda_packed2kw_matches_plain(m, n, npad, l):
     """packed2k past 512 lanes (packed2kw_best.cu, by the width rule)
@@ -229,10 +233,13 @@ def test_cuda_packed2kw_matches_plain(m, n, npad, l):
     assert match._packed2k_route(k_used) == "packed2kw_best"
     plan = match._packed2kw_plan(m, npad, match._sm_count(
         match._device_index(qa)), k_used)
+    assert (plan.consumers, plan.rows) == (2, 32)
     if n > 10000:
-        chunk = plan.tiles_per_chunk * match._core_rows(k_used, 1, 1, False)
+        chunk = plan.tiles_per_chunk * plan.rows
         assert dup[0] // chunk != dup[1] // chunk
-        assert npad - n >= match._core_rows(k_used, 1, 1, False)
+        assert npad - n >= plan.rows
+    else:
+        assert npad % plan.rows and npad - n >= plan.rows
     match.reset_launch_counts()
     idx, val = match.packed_best(qa, wk, k_used)
     assert match.LAUNCHES["packed2kw_best"] == 1
@@ -277,8 +284,9 @@ def test_cuda_packed2k_mode_widths_at_level_size(l, m):
 @pytest.mark.cuda
 def test_cuda_packed2kw_refuses_what_it_does_not_take():
     """The C entry of packed2kw_best.cu refuses k_used at or below 512 or
-    past 1,152, K past 1,152, and a second consumer warpgroup; the wrapper
-    refuses K past 1,152 before any launch."""
+    past 1,152, K past 1,152, a plan of one or three consumer warpgroups,
+    register k steps other than the kernel's rule, and shared memory short
+    of the plan's; the wrapper refuses K past 1,152 before any launch."""
     dev = _card()
     lib = match._build.load("packed2kw_best")
     m, n = 8, 256
@@ -289,20 +297,27 @@ def test_cuda_packed2kw_refuses_what_it_does_not_take():
                          for _ in range(2))
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def call(k, k_used, consumers=None):
+    def call(k, k_used, **change):
         plan = match._packed2kw_plan(m, n, 132, max(528, min(k_used, 1152)))
+        plan = plan._replace(**change)
         return lib.ia_packed2kw_best(
-            q.data_ptr(), w.data_ptr(), m, n, k, k_used,
-            consumers or plan.consumers, plan.bm, plan.stages,
-            plan.tiles_per_chunk, plan.smem, plan.n_chunks,
-            part_val.data_ptr(), part_idx.data_ptr(), out_idx.data_ptr(),
-            out_val.data_ptr(), match._device_index(q), stream)
+            q.data_ptr(), w.data_ptr(), m, n, k, k_used, plan.reg_ksteps,
+            plan.consumers, plan.bm, plan.stages, plan.tiles_per_chunk,
+            plan.smem, plan.n_chunks, part_val.data_ptr(),
+            part_idx.data_ptr(), out_idx.data_ptr(), out_val.data_ptr(),
+            match._device_index(q), stream)
 
     assert call(1152, 528) == 0 and call(1152, 1040) == 0
     torch.cuda.synchronize()
     for k, k_used in ((1152, 512), (1152, 1168), (1280, 1040), (512, 528)):
         assert call(k, k_used) != 0, (k, k_used)
-    assert call(1152, 528, consumers=2) != 0
+    reg = match._packed2kw_layout(832)[0]
+    assert call(1152, 832) == 0
+    for change in (dict(consumers=1), dict(consumers=3),
+                   dict(reg_ksteps=reg - 1), dict(reg_ksteps=reg + 1),
+                   dict(smem=match._packed2kw_smem(832, reg, 3) - 1024)):
+        assert call(1152, 832, **change) != 0, change
+    torch.cuda.synchronize()
     with pytest.raises(ValueError):
         match.packed_best(torch.zeros((m, 1280), dtype=torch.bfloat16,
                                       device=dev),

@@ -870,35 +870,88 @@ def test_packed_plain_past_512_lanes_matches_pallas_interpret(l):
     assert torch.equal(ref_plain[0], idx)
 
 
+def _p2kw_smem(ksteps, reg, stages):
+    """packed2kw_best.cu's ``w_smem``: slack, two warpgroups' 64 query rows
+    past the register k steps in 32-lane boxes of 4 KiB, and a ring of
+    32-row DB tiles of ceil(k steps / 2) boxes of 2 KiB."""
+    return (1024 + 2 * -(-(ksteps - reg) // 2) * 4096
+            + stages * -(-ksteps // 2) * 2048)
+
+
 @pytest.mark.parametrize("k_used", range(528, 1153, 16))
 @pytest.mark.parametrize("n", [64, 99, 65536, 1048000, 1048576])
 def test_packed2kw_plan_fits_every_width(k_used, n):
-    """The wide packed2k instance's launch plan at every width it takes
-    (M from 1 to 352, the widest level-0 batch): its tiles the kernel's
-    ``tile_rows`` (64 rows where one stage of them fits beside one
-    warpgroup's queries, else 32), one consumer warpgroup, a ring
-    that fits the card's shared memory, every DB tile in exactly one
-    chunk."""
-    rows = 64 if _core_smem(k_used, 1, 1, 1, 1, False, 64) <= _SMEM_MAX \
-        else 32
-    assert match._core_rows(k_used, 1, 1, False) == rows
-    assert rows == (64 if k_used <= 896 else 32)
+    """The wide packed2k kernel's launch plan at every width it takes (M
+    from 1 to 352, the widest level-0 batch): two consumer warpgroups of 64
+    query rows and 32-row DB tiles; R k steps of each query row in
+    registers, 4 R a thread beside 16 accumulators within 192 of the 255 a
+    thread may take, and R the fewest that leave room for the plan's ring
+    (up to three stages); the other k steps and the deepest ring that fits
+    within the card's 232,448 - 1,024 bytes of shared memory; at least two
+    stages at every width a preset reaches (608, 688, 832 and 1,040 lanes)
+    and three up to 896 lanes; every DB tile in exactly one chunk."""
+    ksteps = k_used // 16
+    reg, consumers, rows = match._packed2kw_layout(k_used)
+    assert (consumers, rows) == (2, 32)
+    assert 1 <= reg < ksteps and 4 * reg + 16 <= 192
     tiles = -(-n // rows)
-    for m in (1, 59, 64, 65, 128, 344, 352):
+    for m in (1, 59, 64, 65, 128, 129, 344, 352):
         plan = match._packed2kw_plan(m, n, 132, k_used)
-        assert plan.consumers == 1
-        assert plan.stages == (2 if k_used <= 576 else 1)
-        assert plan.smem == _core_smem(k_used, plan.stages, plan.consumers,
-                                       1, 1, False, rows) <= _SMEM_MAX
+        assert (plan.consumers, plan.rows, plan.reg_ksteps) == (2, 32, reg)
+        st = plan.stages
+        assert plan.smem == _p2kw_smem(ksteps, reg, st) <= _SMEM_MAX
+        assert st == 8 or _p2kw_smem(ksteps, reg, st + 1) > _SMEM_MAX
+        assert _p2kw_smem(ksteps, reg - 1, min(st, 3)) > _SMEM_MAX
+        assert st >= (3 if k_used <= 896 else 2 if k_used <= 1056 else 1)
+        if k_used in (608, 688, 832, 1040):
+            assert st >= 2
         per = plan.tiles_per_chunk
         assert (plan.n_chunks - 1) * per < tiles <= plan.n_chunks * per
-        assert plan.q_tiles == -(-m // plan.bm)
-        assert plan.bm <= 64 * plan.consumers
+        assert plan.q_tiles == -(-m // plan.bm) == -(-m // 128)
+        assert plan.bm <= 128 and (m - 1) // plan.q_tiles < plan.bm
     with pytest.raises(ValueError):
         match._packed2kw_plan(8, 4096, 132, 512)
     with pytest.raises(ValueError):
         match._packed2k_route(1168)
     assert match._packed2k_route(512) == "packed_best"
+
+
+def test_packed2kw_layout_is_the_kernels_rule():
+    """``_packed2kw_layout`` mirrors packed2kw_best.cu: its warpgroups, tile
+    rows, register limit and k-step range are the source's constexprs, and
+    at every k step count (33 to 72) its register k steps are the source's
+    ``reg_ksteps``, evaluated here from the source's own constants: the
+    fewest that leave room for a ring of three stages if within
+    REG_KMAX, else of two, else of one.  At the preset widths: 12 k steps
+    at 608 lanes, 21 at 688, 36 at 832 (three stages each), 43 at 1,040
+    (two)."""
+    text = open(os.path.join(_build.CSRC_DIR, "packed2kw_best.cu")).read()
+    const = {name: int(v) for name, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", text)}
+    assert (const["CONS"], const["BN"]) == (2, 32)
+    assert (16 * const["KMIN"], 16 * const["KMAX"]) == (
+        match._P2K_MAX_LANES + 16, match._P2KW_MAX_LANES)
+    assert re.search(r"min_reg\(ksteps, 3\) <= REG_KMAX", text)
+
+    def w_smem(ksteps, r, stages):
+        return (1024 + const["CONS"] * ((ksteps - r + 1) // 2) * 64 * 64
+                + stages * ((ksteps + 1) // 2) * const["BN"] * 64)
+
+    def min_reg(ksteps, stages):
+        r = 0
+        while r < ksteps and w_smem(ksteps, r, stages) > _SMEM_MAX:
+            r += 1
+        return r
+
+    for ksteps in range(const["KMIN"], const["KMAX"] + 1):
+        want = next((r for r in (min_reg(ksteps, 3), min_reg(ksteps, 2))
+                     if r <= const["REG_KMAX"]), min_reg(ksteps, 1))
+        assert match._packed2kw_layout(16 * ksteps) == (
+            want, const["CONS"], const["BN"]), ksteps
+    assert [match._packed2kw_layout(k)[0] for k in (608, 688, 832, 1040)] \
+        == [12, 21, 36, 43]
+    assert [match._packed2kw_plan(352, 1 << 20, 132, k).stages
+            for k in (608, 688, 832, 1040)] == [3, 3, 3, 2]
 
 
 def _rgb_level_planes(seed, ha, wa, hb, wb):
