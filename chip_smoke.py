@@ -62,7 +62,8 @@ and carried on):
                 1024^2 structured inputs of the cached oracle, cold then
                 warm: per-level scan and build ms, wall-clock, kernel launch
                 counts (each kernel launched once per wavefront step of its
-                levels, no other kernel launched).
+                levels, no other kernel launched) and a digest of the bits
+                (B' and the source map; each path phase prints one).
 4. oracle     — SSIM of B' and the tie-audit of all five levels' source maps
                 against ``bench_cache/oracle_1024_seed7.npz``; then one
                 main-path run on the seed-13 inputs, held to the same
@@ -110,6 +111,23 @@ and carried on):
 13. video      — ``video_analogy`` with the video preset on three 512^2
                 frames: two_phase cold then warm, sequential once, each
                 frame's stats, ``flicker()`` and the launch counts.
+14. driver     — the driver's surroundings on the main path (npr_1024 on
+                the 1024^2 oracle inputs, warm), a line a step: a clean
+                run (6,138 packed_best and 1,783 argmin_l2 launches, the
+                reference bits); pipelined runs (``level_sync=False``:
+                prefetch and donation on by auto, ``timing`` with 4
+                prepped and 4 donated levels, no prefetch error) with the
+                walls and peak memory of clean, pipelined, pipelined,
+                clean (recorded, not claimed); checkpoints, the JSONL log
+                and saved levels, a resume from level 0 (4,093 + 0
+                launches) and one past a damaged level 2 (quarantined,
+                4,093 + 1,021); a retry of an injected fault; the watchdog
+                abandoning level 4's first attempt (a spin kernel past the
+                deadline; its late launches counted apart); a profiled
+                256^2 run whose trace holds every argmin_l2 kernel; the
+                CLI's ``run`` with ``--checkpoint-dir --log-path
+                --no-level-sync`` as a subprocess.  Every run's bits must
+                be the clean run's.
 
 The kernels phase also runs packed_best at the widths the applications
 reach (M = 352, N = 2^20: 304-368 lanes on packed2k_best.cu, 608-1,040 on
@@ -144,7 +162,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video")
+          "modes", "video", "driver")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -2126,33 +2144,53 @@ def phase_packed_forms(rows, parent):
         torch.cuda.empty_cache()
 
 
-def expected_launches(params, size: int, modes=None):
-    """Kernel launches of a size x size run.  Wavefront: c(h-1)+w steps a
-    level, each on its level's anchor kernel (``modes``: the mode each
-    level ran, finest first; default the resolution of match_mode).
-    Batched and rowwise: one ``argmin_l2_bf16`` launch per scan row.
-    Exact: none."""
+def level_launches(params, size: int, modes=None):
+    """(kernel, launches) of each level of a size x size run, finest
+    first.  Wavefront: c(h-1)+w steps a level, each on its level's anchor
+    kernel (``modes``: the mode each level ran, finest first; default the
+    resolution of match_mode).  Batched and rowwise: one ``argmin_l2_bf16``
+    launch per scan row.  Exact: none (kernel None)."""
     from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
     from image_analogies_tpu_torch.ops.pyramid import num_feasible_levels
 
     levels = num_feasible_levels((size, size), params.levels,
                                  params.patch_size)
     c = params.patch_size // 2 + 1
-    out = {}
+    out = []
     h = size
     for level in range(levels):
         if params.strategy in ("batched", "rowwise"):
-            key, n = "argmin_l2_bf16", h
+            out.append(("argmin_l2_bf16", h))
         elif params.strategy in ("auto", "wavefront"):
             mode = (modes[level] if modes is not None
                     else resolve_match_mode(params.match_mode, h * h))
-            key, n = ANCHOR_KERNEL[mode], c * (h - 1) + h
+            out.append((ANCHOR_KERNEL[mode], c * (h - 1) + h))
         else:
-            key, n = None, 0
-        if key:
-            out[key] = out.get(key, 0) + n
+            out.append((None, 0))
         h = (h + 1) // 2
     return out
+
+
+def expected_launches(params, size: int, modes=None, levels=None):
+    """Kernel launches of a size x size run (``level_launches`` summed;
+    ``levels``: only those levels)."""
+    out = {}
+    for level, (key, n) in enumerate(level_launches(params, size, modes)):
+        if key and (levels is None or level in levels):
+            out[key] = out.get(key, 0) + n
+    return out
+
+
+def bits_digest(result) -> str:
+    """sha256 of a run's B' plane and source map: equal digests, equal
+    bits (compares runs of two trees, one process each)."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256(np.ascontiguousarray(result.bp_y, np.float32))
+    h.update(np.ascontiguousarray(result.source_map, np.int32))
+    return h.hexdigest()[:16]
 
 
 def run_path(phase, params, a, ap, b, runs=("first",), keep_levels=True,
@@ -2190,6 +2228,7 @@ def run_path(phase, params, a, ap, b, runs=("first",), keep_levels=True,
                                 for st in stats}
         say(phase, run=run, size=size, strategy=params.strategy,
             match_mode=params.match_mode, wall_s=wall,
+            bits=bits_digest(result),
             level_ms={st["level"]: st["ms"] for st in stats},
             level_build_ms={st["level"]: st["total_ms"] - st["ms"]
                             for st in stats},
@@ -2728,6 +2767,325 @@ def phase_profile(a, ap, b, params, phase="profile"):
         top={name[:60]: {"ms": ms, "n": n} for name, (ms, n) in top})
 
 
+def driver_run(label, params, a, ap, b, want=None, **kw):
+    """One ``create_image_analogy`` call of the driver phase: every launch
+    count set to 0 just before it and read just after (held to ``want``
+    when given), the peak device memory reset before it.  Returns (result,
+    launches, wall seconds, peak GiB)."""
+    import torch
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.ops import match
+
+    match.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = create_image_analogy(a, ap, b, params, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in match.LAUNCHES.items() if v}
+    if want is not None and launches != {k: v for k, v in want.items() if v}:
+        fail(f"driver {label}: launched {launches}, expected {want}")
+    return (result, launches, wall,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def same_bits(label, res, ref):
+    """B', the finest plane and the source map must be the reference's."""
+    import numpy as np
+
+    for name in ("bp", "bp_y", "source_map"):
+        if not np.array_equal(getattr(res, name), getattr(ref, name)):
+            fail(f"driver {label}: {name} differs from the clean run's")
+
+
+def read_log(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_driver(a, ap, b):
+    """The driver's surroundings on the main path (``PRESETS["npr_1024"]``
+    at 1024^2, warm): a clean run, pipelined runs, checkpoints with the log
+    and saved levels, then resume and a quarantined level, a retry, the
+    watchdog, a profile at 256^2 and the CLI with its new flags."""
+    import tempfile
+
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    params = PRESETS["npr_1024"]
+    want = expected_launches(params, a.shape[0])
+    driver_run("cold", params, a, ap, b, want)
+    # 1-2: clean and pipelined, in the order clean, pipelined, pipelined,
+    # clean (walls and peaks recorded, not claimed)
+    walls = []
+    ref = None
+    for label in ("clean", "pipelined", "pipelined", "clean"):
+        p = params.replace(level_sync=False) if label == "pipelined" \
+            else params
+        res, launches, wall, peak = driver_run(label, p, a, ap, b, want)
+        walls.append(dict(run=label, wall_s=wall, peak_mem_gib=peak))
+        if ref is None:
+            ref = res
+            say("driver", step="clean", launches=launches,
+                timing=res.timing,
+                level_ms={st["level"]: st["ms"] for st in res.stats})
+            continue
+        same_bits(label, res, ref)
+        if label == "pipelined":
+            t = res.timing
+            need = ("host_gap_ms", "prep_ms", "wait_ms", "host_hidden_ms")
+            lookahead = len(res.stats) - 1
+            if (t.get("prepped_levels") != lookahead
+                    or t.get("donated_levels") != lookahead
+                    or any(k not in t for k in need)):
+                fail(f"driver pipelined: timing {t}")
+            if t["prefetch_errors"]:
+                fail(f"driver pipelined: {t['prefetch_errors']:g} "
+                     "prefetches raised")
+            if not all("enqueue_ms" in st for st in res.stats):
+                fail("driver pipelined: a level without enqueue_ms")
+            say("driver", step="pipelined", launches=launches, timing=t,
+                level_enqueue_ms={st["level"]: st["enqueue_ms"]
+                                  for st in res.stats})
+    say("driver", step="walls", order=walls)
+    res, _, wall, peak = driver_run(
+        "undonated", params.replace(donate_buffers=False), a, ap, b, want)
+    same_bits("undonated", res, ref)
+    if "donated_levels" in res.timing:
+        fail(f"driver undonated: timing {res.timing}")
+    say("driver", step="undonated", wall_s=wall, peak_mem_gib=peak)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver_files(params, a, ap, b, ref, want, tmp)
+        driver_retry(params, a, ap, b, ref, want, tmp)
+        driver_watchdog(params, a, ap, b, ref, want, tmp)
+        driver_profile(tmp)
+        driver_cli(make_structured(256, 7), tmp)
+
+
+def driver_files(params, a, ap, b, ref, want, tmp):
+    """Step 3: checkpoints, the log and saved levels; a resume; a resume
+    past a damaged level 2 (quarantined and recomputed)."""
+    ck, lv = os.path.join(tmp, "ck"), os.path.join(tmp, "levels")
+    log = os.path.join(tmp, "run.jsonl")
+    size = a.shape[0]
+    levels = len(ref.stats)
+    coarse = list(range(levels - 1, 0, -1))  # what a resume from 0 loads
+    p = params.replace(checkpoint_dir=ck, log_path=log, save_levels_dir=lv)
+    res, launches, wall, _ = driver_run("checkpointed", p, a, ap, b, want)
+    same_bits("checkpointed", res, ref)
+    names = [f"level_{i:02d}" for i in range(levels)]
+    if sorted(os.listdir(ck)) != [n + ".npz" for n in names] or \
+            sorted(os.listdir(lv)) != [n + ".png" for n in names]:
+        fail(f"driver checkpointed: files {sorted(os.listdir(ck))}, "
+             f"{sorted(os.listdir(lv))}")
+    recs = read_log(log)
+    keys = ("level", "db_rows", "pixels", "coherence_ratio", "ms", "backend",
+            "ts")
+    if [r.get("level") for r in recs] != coarse + [0] or not all(
+            k in r for r in recs for k in keys):
+        fail(f"driver checkpointed: log records {recs}")
+    say("driver", step="checkpointed", wall_s=wall, launches=launches,
+        npz_bytes=sum(os.path.getsize(os.path.join(ck, f))
+                      for f in os.listdir(ck)))
+    # resume from level 0: every coarser level from disk, level 0 scanned
+    log2 = os.path.join(tmp, "resume.jsonl")
+    res, launches, wall, _ = driver_run(
+        "resumed", p.replace(resume_from_level=0, log_path=log2), a, ap, b,
+        expected_launches(params, size, levels=(0,)))
+    same_bits("resumed", res, ref)
+    resumed = [r["level"] for r in read_log(log2)
+               if r.get("event") == "resume_level"]
+    if resumed != coarse:
+        fail(f"driver resumed: resume_level records for {resumed}")
+    say("driver", step="resumed", wall_s=wall, launches=launches,
+        resumed=resumed)
+    # damage level 2's file: quarantined, level 2 recomputed
+    path = os.path.join(ck, "level_02.npz")
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 3)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    log3 = os.path.join(tmp, "quarantine.jsonl")
+    res, launches, wall, _ = driver_run(
+        "quarantined", p.replace(resume_from_level=0, log_path=log3),
+        a, ap, b, expected_launches(params, size, levels=(0, 2)))
+    same_bits("quarantined", res, ref)
+    recs = read_log(log3)
+    resumed = [r["level"] for r in recs if r.get("event") == "resume_level"]
+    quarantined = [r["path"] for r in recs
+                   if r.get("event") == "ckpt_quarantined"]
+    if (resumed != [lvl for lvl in coarse if lvl != 2]
+            or quarantined != [path]
+            or not os.path.exists(path + ".corrupt")):
+        fail(f"driver quarantined: resumed {resumed}, quarantined "
+             f"{quarantined}")
+    say("driver", step="quarantined", wall_s=wall, launches=launches,
+        resumed=resumed, quarantined=[os.path.basename(q)
+                                      for q in quarantined])
+
+
+def driver_retry(params, a, ap, b, ref, want, tmp):
+    """Step 4: an injected fault in the first level's first attempt."""
+    from image_analogies_tpu_torch.utils import failure
+
+    log = os.path.join(tmp, "retry.jsonl")
+    failure.inject_failures(1)
+    res, launches, wall, _ = driver_run(
+        "retry", params.replace(level_retries=1, log_path=log), a, ap, b,
+        want)
+    same_bits("retry", res, ref)
+    retries = [r for r in read_log(log) if r.get("event") == "level_retry"]
+    if len(retries) != 1 or retries[0]["error"] != "InjectedFailure":
+        fail(f"driver retry: level_retry records {retries}")
+    say("driver", step="retry", wall_s=wall, launches=launches,
+        level_retry=retries[0])
+
+
+def driver_watchdog(params, a, ap, b, ref, want, tmp):
+    """Step 5: the first attempt of the coarsest level (4) opens with a
+    spin kernel longer than the deadline; the watchdog abandons it and the retry, on a stream
+    of its own, gives the clean bits.  The abandoned attempt's launches
+    (those after the timeout apart) are counted by thread, beside the
+    retry's."""
+    import threading
+
+    import torch
+
+    from image_analogies_tpu_torch.backends import cuda as cuda_backend
+    from image_analogies_tpu_torch.ops import match
+
+    deadline = 10.0  # above any level's scan (level 0: ~3-6 s)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_s = 100_000_000 / (start.elapsed_time(end) / 1e3)
+    spin_s = deadline + 2.0
+    top = len(ref.stats) - 1  # the coarsest level, the first dispatched
+    key = level_launches(params, a.shape[0])[top][0]
+    mark = threading.local()  # set on the thread of the attempt to abandon
+    wedged = []
+    abandoned = []  # times of the abandoned attempt's launches
+    orig = cuda_backend.CudaMatcher.synthesize_level
+    kernel = getattr(cuda_backend, key)
+
+    def tally(*args, **kw):
+        if getattr(mark, "wedged", False):
+            abandoned.append(time.time())
+        return kernel(*args, **kw)
+
+    def spin_first(self, db, job):
+        if job.level == top and not wedged:
+            wedged.append(1)
+            mark.wedged = True
+            torch.cuda._sleep(int(spin_s * cycles_per_s))
+        return orig(self, db, job)
+
+    log = os.path.join(tmp, "watchdog.jsonl")
+    cuda_backend.CudaMatcher.synthesize_level = spin_first
+    setattr(cuda_backend, key, tally)
+    try:
+        res, _, wall, _ = driver_run(
+            "watchdog", params.replace(level_retries=1,
+                                       dispatch_timeout_s=deadline,
+                                       log_path=log), a, ap, b)
+        for t in threading.enumerate():  # the abandoned attempt runs on
+            if t.name == "ia-watchdog-body":
+                t.join(timeout=300)
+                if t.is_alive():
+                    fail("driver watchdog: the abandoned attempt never "
+                         "ended")
+        torch.cuda.synchronize()
+    finally:
+        cuda_backend.CudaMatcher.synthesize_level = orig
+        setattr(cuda_backend, key, kernel)
+    launches = {k: v for k, v in match.LAUNCHES.items() if v}
+    same_bits("watchdog", res, ref)
+    recs = read_log(log)
+    timeouts = [r for r in recs if r.get("event") == "watchdog_timeout"]
+    retries = [r for r in recs if r.get("event") == "level_retry"]
+    if (len(timeouts) != 1 or len(retries) != 1
+            or retries[0]["error"] != "WatchdogTimeout"
+            or timeouts[0]["level"] != top):
+        fail(f"driver watchdog: records {timeouts}, {retries}")
+    late = sum(ts > timeouts[0]["ts"] for ts in abandoned)
+    kept = dict(launches, **{key: launches[key] - len(abandoned)})
+    if kept != {k: v for k, v in want.items() if v}:
+        fail(f"driver watchdog: the run's launches {kept} (the abandoned "
+             f"attempt's {len(abandoned)} apart), expected {want}")
+    say("driver", step="watchdog", wall_s=wall, deadline_s=deadline,
+        spin_s=spin_s, launches_kept=kept,
+        abandoned_launches=len(abandoned), abandoned_after_timeout=late,
+        watchdog_timeout=timeouts[0], level_retry=retries[0])
+
+
+def driver_profile(tmp):
+    """Step 6: a profiled 256^2 run (every level below the crossover:
+    argmin_l2 at every level) writes a trace holding its kernels."""
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    a, ap, b = make_structured(256, 7)
+    prof = os.path.join(tmp, "prof")
+    params = PRESETS["npr_1024"].replace(profile_dir=prof)
+    t0 = time.perf_counter()
+    res, launches, _, _ = driver_run(
+        "profiled", params, a, ap, b, expected_launches(params, 256))
+    wall = time.perf_counter() - t0
+    traces = [f for f in os.listdir(prof) if f.endswith(".json")]
+    if len(traces) != 1:
+        fail(f"driver profile: trace files {traces}")
+    path = os.path.join(prof, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    argmin = sum("argmin_l2_kernel" in e.get("name", "") for e in kernels)
+    if argmin != launches["argmin_l2"]:
+        fail(f"driver profile: {argmin} argmin_l2 kernel events in the "
+             f"trace, {launches['argmin_l2']} launches")
+    say("driver", step="profile", size=256, levels=len(res.stats),
+        wall_s=wall, trace_bytes=os.path.getsize(path),
+        kernel_events=len(kernels), argmin_kernel_events=argmin,
+        launches=launches)
+
+
+def driver_cli(inputs, tmp):
+    """Step 7: the CLI's run with the new flags, as a subprocess."""
+    from image_analogies_tpu_torch.utils.imageio import save_image
+
+    paths = {}
+    for name, img in zip(("a", "ap", "b"), inputs):
+        paths[name] = os.path.join(tmp, f"cli_{name}.png")
+        save_image(paths[name], img)
+    out = os.path.join(tmp, "cli_out.png")
+    ck = os.path.join(tmp, "cli_ck")
+    log = os.path.join(tmp, "cli.jsonl")
+    cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", "run",
+           "--mode", "filter", "--a", paths["a"], "--ap", paths["ap"],
+           "--b", paths["b"], "--out", out, "--checkpoint-dir", ck,
+           "--log-path", log, "--no-level-sync"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"driver cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    npz = sorted(os.listdir(ck))
+    levels = [r["level"] for r in read_log(log)]
+    if not os.path.exists(out) or npz != [f"level_{i:02d}.npz"
+                                          for i in range(3)] \
+            or levels != [2, 1, 0]:
+        fail(f"driver cli: out {os.path.exists(out)}, checkpoints {npz}, "
+             f"log levels {levels}")
+    say("driver", step="cli", wall_s=wall, checkpoints=npz,
+        log_levels=levels)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2778,7 +3136,7 @@ def main() -> None:
     rows = phase_kernels(args.parent) if "kernels" in phases else None
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue",
-            "two_pass", "batched", "batched_profile"} & set(phases):
+            "two_pass", "batched", "batched_profile", "driver"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -2815,6 +3173,8 @@ def main() -> None:
         path_launches["modes"] = phase_modes()
     if "video" in phases:
         phase_video()
+    if "driver" in phases:
+        phase_driver(a, ap_, b)
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

@@ -41,6 +41,12 @@ class LevelJob:
     b_filt_coarse: Optional[Any] = None
     a_temporal: Optional[np.ndarray] = None
     b_temporal: Optional[np.ndarray] = None
+    # Donation consent, set by the driver (it alone knows whether anything
+    # still reads the chained planes: retries, keep_levels, checkpoints,
+    # saved levels).  The port's donation is the driver's: it drops the
+    # coarser level's plane and source map once this level has consumed
+    # them; no backend reuses a buffer in place.
+    donate: bool = False
 
     @property
     def a_shape(self) -> Tuple[int, int]:
@@ -69,3 +75,16 @@ class Matcher(abc.ABC):
         """Synthesize one level.  Returns (bp (H,W) float32, s (H,W) flat
         indices into A, stats) as device tensors; stats may defer device
         scalars under "_n_coh" for the single final fetch."""
+
+    def prefetch_level(self, job: LevelJob) -> None:
+        """Warm the caches of a FUTURE level (the pipelined driver calls
+        this from a helper thread while the level in flight is issued).
+        Only content- or shape-keyed caches may be filled — never the
+        level's results — so a prefetch that is skipped, fails or races
+        the dispatch changes timing and nothing else.  Default: nothing to
+        warm."""
+
+    def load_kernels(self, jobs) -> None:
+        """Build and load every kernel library the levels of ``jobs``
+        route to, before a watchdogged level loop: a first-use build must
+        not run under a dispatch deadline.  Default: no kernels."""

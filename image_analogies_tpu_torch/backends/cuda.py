@@ -39,6 +39,7 @@ stay device scalars until the single final fetch.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from image_analogies_tpu_torch.backends.base import LevelJob, Matcher
+from image_analogies_tpu_torch.ops import _build
 from image_analogies_tpu_torch.ops.features import (
     FeatureSpec,
     build_features_torch,
@@ -57,7 +59,10 @@ from image_analogies_tpu_torch.ops.features import (
 )
 from image_analogies_tpu_torch.backends import gate
 from image_analogies_tpu_torch.ops.match import (
+    _lanes,
     _lex_lt,
+    _packed2k_route,
+    _packed3_route,
     add_norm_lanes,
     argmin_l2,
     argmin_l2_plain,
@@ -68,6 +73,7 @@ from image_analogies_tpu_torch.ops.match import (
     prepadded_argmin2_queries,
     prepadded_argmin_queries,
 )
+from image_analogies_tpu_torch.utils import devcache
 
 _F32 = torch.float32
 
@@ -952,33 +958,105 @@ class CudaMatcher(Matcher):
                              "kernel; the fp32 form runs on the CPU only")
         self.bf16_approx = (self.device.type == "cuda" if bf16_approx is None
                             else bf16_approx)
+        self._prefetch_stream: Optional[torch.cuda.Stream] = None
 
     def _t(self, x) -> Optional[torch.Tensor]:
-        if x is None:
-            return None
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device, _F32)
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.device)
+        """A host plane (or a chained tensor) as fp32 on the matcher's
+        device, through the content-keyed upload cache."""
+        return devcache.device_put_cached(x, self.device)
+
+    @property
+    def _strategy(self) -> str:
+        """The resolved strategy ("auto" is the wavefront)."""
+        return ("wavefront" if self.params.strategy == "auto"
+                else self.params.strategy)
+
+    def _steer(self, job: LevelJob) -> Tuple[str, str]:
+        """(strategy, anchor mode) of a level, the JAX
+        ``TpuMatcher.build_features`` steering: match_mode resolved per
+        level, then bf16_scoring switches the wavefront to scan_rescue once
+        the parity gate allows it on this device (a refused verdict keeps
+        the exact scan)."""
+        strategy = self._strategy
+        mode = resolve_match_mode(self.params.match_mode,
+                                  job.a_shape[0] * job.a_shape[1])
+        if (strategy == "wavefront" and self.params.bf16_scoring
+                and gate.bf16_gate_allows(self.params, self.device)):
+            mode = "scan_rescue"
+        return strategy, mode
+
+    def _gather_maps(self, hb: int, wb: int, p: int):
+        """``gather_maps_device`` memoized by shape in the upload cache
+        (the JAX package's ``_gather_maps_device`` is cached the same
+        way), so a prefetch can build a level's maps ahead of it."""
+        return devcache.cached(("gather_maps", hb, wb, p, str(self.device)),
+                               lambda: gather_maps_device(hb, wb, p,
+                                                          self.device),
+                               self.device)
+
+    def kernel_libraries(self, job: LevelJob) -> Tuple[str, ...]:
+        """The CUDA libraries (``ops/_build.py`` names) a level's scan
+        launches on the card: its anchor mode's, or the approximate
+        match's, by the kernels' own width rules."""
+        if self.device.type != "cuda":
+            return ()
+        strategy, mode = self._steer(job)
+        if strategy != "wavefront":
+            return ("argmin_bf16",) if (strategy != "exact"
+                                         and self.bf16_approx) else ()
+        lw = int(job.spec.query_live_mask().sum())
+        if mode == "exact_hi2_2p":
+            route = _packed2k_route(_round_up(4 * lw + 3, 16))
+            return ("packed2k_best" if route == "packed_best" else route,)
+        if mode == "exact_hi2":
+            return (_packed3_route(_lanes(lw)),)
+        return ({"exact_hi": "argmin_l2", "scan_rescue": "pertile_champions",
+                 "scan_rescue_1p": "pertile_champions", "two_pass": "argmin2",
+                 "two_pass_1p": "argmin2"}[mode],)
+
+    def load_kernels(self, jobs) -> None:
+        names = sorted({n for job in jobs for n in self.kernel_libraries(job)})
+        if names:
+            _build.preload(names)
+
+    def prefetch_level(self, job: LevelJob) -> None:
+        """Warm a FUTURE level's caches on a helper thread (the pipelined
+        driver): its host planes into the upload cache, uploaded on a side
+        stream of this matcher's (a hit from the main stream waits on the
+        upload's event, ``utils/devcache.py``), and the wavefront's
+        anti-diagonal schedule, or the other strategies' gather maps.
+        ``build_features`` consults the same caches and recomputes on a
+        miss, so a prefetch changes timing, never results.
+        ``b_filt_coarse`` (the plane in flight) is never touched."""
+        if self.device.type == "cuda":
+            if self._prefetch_stream is None:
+                self._prefetch_stream = torch.cuda.Stream(self.device)
+            ctx = torch.cuda.stream(self._prefetch_stream)
+        else:
+            ctx = contextlib.nullcontext()
+        with ctx:
+            for plane in (job.a_src, job.a_filt, job.a_src_coarse,
+                          job.a_filt_coarse, job.a_temporal, job.b_src,
+                          job.b_src_coarse, job.b_temporal):
+                if isinstance(plane, np.ndarray):
+                    self._t(plane)
+            hb, wb = job.b_shape
+            p = job.spec.fine_size
+            if self._strategy == "wavefront":
+                _diag_schedule_np(hb, wb, p // 2 + 1)
+            else:
+                self._gather_maps(hb, wb, p)
 
     def build_features(self, job: LevelJob) -> LevelDB:
         spec = job.spec
         ha, wa = job.a_shape
         hb, wb = job.b_shape
-        strategy = ("wavefront" if self.params.strategy == "auto"
-                    else self.params.strategy)
-        # JAX TpuMatcher.build_features steering: match_mode resolved per
-        # level, then bf16_scoring switches the wavefront to scan_rescue
-        # once the parity gate allows it on this device (a refused verdict
-        # keeps the exact scan), then the pad mode of the resolved scan.
-        # The other strategies score the rows-above DB (pad_full=False);
-        # rowwise and batched scan its bf16 copy (``bf16_approx``).
-        mode = resolve_match_mode(self.params.match_mode, ha * wa)
+        # the pad mode of the resolved scan: the wavefront's anchor mode's;
+        # the other strategies score the rows-above DB (pad_full=False),
+        # rowwise and batched scan its bf16 copy (``bf16_approx``)
+        strategy, mode = self._steer(job)
         rowsafe = None
         if strategy == "wavefront":
-            if self.params.bf16_scoring and gate.bf16_gate_allows(
-                    self.params, self.device):
-                mode = "scan_rescue"
             pad_mode = PAD_MODES[mode]
         else:
             rowsafe = torch.from_numpy(rowsafe_mask(spec.fine_size)).to(
@@ -1015,8 +1093,7 @@ class CudaMatcher(Matcher):
                 diag=diag, scan_tile=(scan_tile_rows(arrs["db_pad"].shape[0])
                                       if pad_mode == "bf16" else 0),
                 **level)
-        flat_idx, valid, written = gather_maps_device(hb, wb, spec.fine_size,
-                                                      self.device)
+        flat_idx, valid, written = self._gather_maps(hb, wb, spec.fine_size)
         return LevelDB(
             diag=(), db_rowsafe=arrs["db_rowsafe"],
             db_rowsafe_sqnorm=arrs["db_rowsafe_sqnorm"], flat_idx=flat_idx,
@@ -1054,13 +1131,20 @@ class CudaMatcher(Matcher):
             run = _run_exact if db.strategy == "exact" else _run_rowwise
             bp, s, n_coh = run(db, job.kappa_mult)
         stats["_n_coh"] = n_coh
-        # one wait per level (never inside the step loop): per-level ms is
-        # the device's time, not the enqueue time
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - t0
-        stats["ms"] = dt * 1e3
-        stats["pixels_per_s"] = hb * wb / max(dt, 1e-9)
+        if self.params.level_sync or self.params.level_retries > 0:
+            # one wait per level (never inside the step loop): per-level
+            # ms is the device's time, not the enqueue time; retries need
+            # the wait too (a fault must surface inside the retry wrapper,
+            # not at the final fetch)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            dt = time.perf_counter() - t0
+            stats["ms"] = dt * 1e3
+            stats["pixels_per_s"] = hb * wb / max(dt, 1e-9)
+        else:
+            # only enqueued: the level's device work overlaps the host
+            # work of the next, and the time is named for what it is
+            stats["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
         return bp.reshape(hb, wb), s.reshape(hb, wb), stats
 
     def best_match(self, db: LevelDB, job: LevelJob, q: int,

@@ -68,11 +68,16 @@ def _bf16_probe_pair(n: int = 32
 
 def _probe_base_params(params, *, levels: int = 2):
     """The probe's hermetic EXACT baseline: the caller's params with the
-    scan forced to the exact wavefront defaults and the video term off (the
-    port's subset of the JAX package's ``_probe_base_params``)."""
+    scan forced to the exact wavefront defaults, the video term off and
+    every resilience and IO knob off, so a probe is a pure synthesis of the
+    probe pair that writes nothing of the caller's (the port's subset of
+    the JAX package's ``_probe_base_params``)."""
     return dataclasses.replace(
         params, levels=levels, strategy="wavefront", match_mode="auto",
-        bf16_scoring=False, temporal_weight=0.0)
+        bf16_scoring=False, temporal_weight=0.0, level_retries=0,
+        dispatch_timeout_s=0.0, level_sync=True, checkpoint_dir=None,
+        resume_from_level=None, profile_dir=None, log_path=None,
+        save_levels_dir=None, pipeline=False, donate_buffers=False)
 
 
 def _bf16_probe_verdict(params, device) -> Dict[str, Any]:

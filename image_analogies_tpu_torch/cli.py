@@ -13,8 +13,12 @@ Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
 versions of the kernels on the CPU.  Output paths (and sweep's and eval's
 JSON records) go to stdout, each level's stats to stderr as JSON lines.
-The engine flags are those whose fields the port has; ROADMAP lists the
-JAX package's others under the items that bring their fields.
+The engine flags are those whose fields the port has, the driver's
+surroundings included (``--no-level-sync``, ``--level-retries``,
+``--dispatch-timeout-s``, ``--checkpoint-dir``, ``--resume-from-level``,
+``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``);
+ROADMAP lists the JAX package's others under the items that bring their
+fields.
 """
 
 from __future__ import annotations
@@ -76,15 +80,53 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="disable luminance remapping")
     p.add_argument("--no-gaussian", action="store_true",
                    help="unweighted (flat) neighborhood distances")
+    p.add_argument("--no-level-sync", action="store_true",
+                   help="do not wait for each level's device work (one wait "
+                        "at the final fetch; per-level stats report "
+                        "enqueue_ms, and the next level's inputs are "
+                        "prefetched on a helper thread); --level-retries "
+                        "forces the wait back on")
+    p.add_argument("--level-retries", type=int, default=None,
+                   help="retry a level this many times on a transient "
+                        "fault (an injected fault, a watchdog timeout, a "
+                        "CUDA out-of-memory error)")
+    p.add_argument("--dispatch-timeout-s", type=float, default=None,
+                   help="watchdog deadline around each level's dispatch: a "
+                        "wedged level raises a transient WatchdogTimeout "
+                        "(recovered by --level-retries) instead of hanging "
+                        "the run; 0 = inline, no watchdog")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save each level's (B', source map) here")
+    p.add_argument("--resume-from-level", type=int, default=None,
+                   help="with --checkpoint-dir: load every level coarser "
+                        "than this one from its checkpoint")
+    p.add_argument("--log-path", default=None,
+                   help="append one JSON record per level (and the retry, "
+                        "watchdog and resume events) to this file")
+    p.add_argument("--save-levels", dest="save_levels_dir", default=None,
+                   metavar="DIR",
+                   help="write each level's B' plane as DIR/level_XX.png")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of each synthesis "
+                        "here")
+    p.add_argument("--devcache-bytes", type=int, default=None,
+                   help="device-upload cache byte budget "
+                        "(utils/devcache.py; IA_DEVCACHE_BYTES overrides)")
 
 
 def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
     kw = {"device": args.device}
     for name in ("levels", "kappa", "patch_size", "coarse_patch_size",
-                 "strategy", "match_mode", "refine_passes"):
+                 "strategy", "match_mode", "refine_passes", "level_retries",
+                 "dispatch_timeout_s", "checkpoint_dir", "resume_from_level",
+                 "log_path", "save_levels_dir", "profile_dir"):
         v = getattr(args, name)
         if v is not None:
             kw[name] = v
+    if args.devcache_bytes is not None:
+        kw["devcache_max_bytes"] = args.devcache_bytes
+    if args.no_level_sync:
+        kw["level_sync"] = False
     if args.no_remap:
         kw["remap_luminance"] = False
     if args.no_gaussian:

@@ -5,7 +5,12 @@ Only the fields the ported paths read are here.  Field names, defaults and
 validation mirror the JAX package so a params object reads the same in
 both; the backend seam becomes an explicit ``device`` ("cuda" by default —
 the port runs on the card unless the caller asks for the CPU).  Every
-strategy and every match mode of the JAX package is ported.
+strategy and every match mode of the JAX package is ported, and so are the
+driver's surroundings (``models/analogy.py``): ``level_retries``,
+``dispatch_timeout_s``, ``level_sync``, ``checkpoint_dir``,
+``resume_from_level``, ``profile_dir``, ``log_path``, ``save_levels_dir``,
+``devcache_max_bytes``, ``pipeline`` and ``donate_buffers``, with the JAX
+defaults and validation, and ``pipeline_active()``.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
+from typing import Optional
 
 # the JAX package's strategies ("auto" resolves to "wavefront")
 STRATEGIES = ("auto", "wavefront", "exact", "rowwise", "batched")
@@ -73,6 +79,35 @@ class AnalogyParams:
       synthesis ignores it.
     - ``device``: where tensors live.  "cuda" (default) requires a card and
       never drops to the CPU; "cpu" runs every kernel's plain version.
+
+    The driver's surroundings (``models/analogy.py``, ``utils/``):
+
+    - ``level_retries``: retry a level this many times on a transient
+      fault (``utils/failure.py`` says which CUDA faults are transient);
+      pair with ``checkpoint_dir`` so a restart loses at most one level.
+    - ``dispatch_timeout_s``: > 0 runs each level's dispatch under a
+      watchdog that raises the transient ``WatchdogTimeout`` past this
+      many seconds; 0 dispatches inline.
+    - ``level_sync``: True (default) waits for each level's device work,
+      so per-level ``ms`` / ``pixels_per_s`` are device times; False
+      only enqueues (per-level ``enqueue_ms``), one wait at the final
+      fetch.  ``level_retries > 0`` forces the wait.
+    - ``checkpoint_dir`` / ``resume_from_level``: save each level as a
+      sealed npz (``utils/checkpoint.py``); resume every level coarser
+      than ``resume_from_level`` from disk.
+    - ``profile_dir``: a ``torch.profiler`` trace of the run there.
+    - ``log_path``: one JSONL record per level (``utils/logging.py``).
+    - ``save_levels_dir``: each level's B' as ``level_XX.png``.
+    - ``devcache_max_bytes``: the upload cache's byte budget
+      (``utils/devcache.py``; None: 1 GiB; env IA_DEVCACHE_BYTES wins).
+    - ``pipeline``: prefetch the next level's inputs on a helper thread
+      and a side stream while the level in flight is issued; None (auto)
+      is on when ``level_sync`` is False; ``level_retries > 0`` forces it
+      off.
+    - ``donate_buffers``: drop each coarser level's plane and source map
+      once the next level has consumed them; None (auto) is on on the
+      card; retries, ``keep_levels``, checkpoints and saved levels force
+      it off.
     """
 
     levels: int = 3
@@ -89,6 +124,17 @@ class AnalogyParams:
     temporal_weight: float = 0.0
     bf16_scoring: bool = False
     device: str = "cuda"
+    level_retries: int = 0
+    dispatch_timeout_s: float = 0.0
+    level_sync: bool = True
+    checkpoint_dir: Optional[str] = None
+    resume_from_level: Optional[int] = None  # finest = 0
+    profile_dir: Optional[str] = None
+    log_path: Optional[str] = None
+    save_levels_dir: Optional[str] = None
+    devcache_max_bytes: Optional[int] = None
+    pipeline: Optional[bool] = None
+    donate_buffers: Optional[bool] = None
 
     def __post_init__(self):
         if self.levels < 1:
@@ -124,6 +170,24 @@ class AnalogyParams:
         if self.device not in ("cuda", "cpu") and not \
                 self.device.startswith("cuda:"):
             raise ValueError(f"unknown device {self.device!r}")
+        if self.level_retries < 0:
+            raise ValueError(
+                f"level_retries must be >= 0, got {self.level_retries}")
+        if self.devcache_max_bytes is not None and self.devcache_max_bytes < 1:
+            raise ValueError(
+                "devcache_max_bytes must be positive when set, got "
+                f"{self.devcache_max_bytes}")
+
+    def pipeline_active(self) -> bool:
+        """The resolved pipeline flag: an explicit setting wins, auto is on
+        exactly when dispatches are not waited for (``level_sync=False``),
+        and retries always force lock-step (a prefetch fault would surface
+        outside the retry wrapper)."""
+        if self.level_retries > 0:
+            return False
+        if self.pipeline is not None:
+            return self.pipeline
+        return not self.level_sync
 
     def replace(self, **kw) -> "AnalogyParams":
         """A copy with the given fields changed (validated again)."""

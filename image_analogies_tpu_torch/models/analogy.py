@@ -1,4 +1,4 @@
-"""The synthesis loop (counterpart of the JAX package's
+"""The synthesis driver (counterpart of the JAX package's
 ``models/analogy.py``): coarse-to-fine over pyramid levels on one device,
 delegating feature building and the level scan to ``CudaMatcher``.
 
@@ -9,14 +9,25 @@ With ``temporal_prev`` (video mode, ``models/video.py``) the previous
 output frame's pyramid fills the temporal block of the queries and A' at
 each level fills it on the DB side; ``remap_anchor`` pins the luminance
 remap to another image (a clip's first frame).
-Pipelining/prefetch, buffer donation, checkpoints, retries and the
-watchdog, the exemplar catalog, chaos and observability are not ported yet
-(ROADMAP Queue 1 items 4 and 6-10).
+
+Around the level loop, as in the JAX package (``AnalogyParams`` names the
+fields): ``AnalogyResult.timing``; the pipeline (the next level's planes
+uploaded and its schedule built on a helper thread and a side stream while
+the level in flight is issued) and donation (each coarser level's plane
+and source map dropped once consumed); per-level checkpoints and resume;
+level retries on transient faults, under a watchdog; a JSONL record per
+level; each level saved as a PNG; a ``torch.profiler`` trace; and the
+content-keyed upload cache (``utils/devcache.py``).  The exemplar catalog,
+chaos sites and the obs run scope (run manifest, counters, memory
+watermarks) are not ported yet (ROADMAP Queue 1 items 7-10).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -32,6 +43,10 @@ from image_analogies_tpu_torch.ops.pyramid import (
     build_pyramid_np,
     num_feasible_levels,
 )
+from image_analogies_tpu_torch.utils import checkpoint as ckpt
+from image_analogies_tpu_torch.utils import devcache, failure
+from image_analogies_tpu_torch.utils import logging as ialog
+from image_analogies_tpu_torch.utils.imageio import save_image
 
 
 @dataclass
@@ -45,6 +60,14 @@ class AnalogyResult:
     # with keep_levels=True: every level's (bp, s) as NumPy, finest first —
     # the layout the tie-audit (utils/parity.py) reads
     levels: Optional[List] = None
+    # the run's wall-clock accounting (ms), filled by the driver:
+    # host_gap_ms — host time between successive level dispatches;
+    # with the pipeline, prep_ms / wait_ms / host_hidden_ms — the prefetch
+    # thread's time, the time the driver blocked joining it, and their
+    # difference (host work hidden), prepped_levels and prefetch_errors
+    # (prefetches that raised: swallowed, the dispatch redoes their work);
+    # with donation, donated_levels
+    timing: Dict[str, float] = field(default_factory=dict)
 
     @property
     def source_map(self) -> np.ndarray:
@@ -125,6 +148,15 @@ def _finalize_stats(st: Dict[str, Any]) -> Dict[str, Any]:
     return st
 
 
+def _host(x, dtype) -> np.ndarray:
+    """A host copy of a level plane: a device tensor, or a NumPy array
+    (a level resumed from disk, or chained through host copies while
+    retries are armed)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy().astype(dtype)
+    return np.asarray(x, dtype)
+
+
 def create_image_analogy(
     a: np.ndarray,
     ap: np.ndarray,
@@ -153,6 +185,10 @@ def create_image_analogy(
     if backend is None:
         backend = CudaMatcher(params, resolve_device(
             params.device if device is None else device))
+    if params.devcache_max_bytes:
+        devcache.set_max_bytes(params.devcache_max_bytes)
+    dev = getattr(backend, "device", None)
+    on_card = dev is not None and torch.device(dev).type == "cuda"
     a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(
         a, ap, b, params, remap_anchor=remap_anchor)
 
@@ -168,13 +204,28 @@ def create_image_analogy(
     # use); the query side's is the previous output frame's pyramid
     b_temporal_pyr = (build_pyramid_np(
         np.asarray(temporal_prev, np.float32), levels) if temporal else None)
+    digest = ckpt.run_digest(params, a_src.shape[:2], b_src.shape[:2])
 
-    bp_pyr: List[Optional[torch.Tensor]] = [None] * levels
-    s_pyr: List[Optional[torch.Tensor]] = [None] * levels
-    stats: List[Dict[str, Any]] = []
-    for level in range(levels - 1, -1, -1):  # coarsest -> finest
+    # Donation drops each level's chained plane once the next level has
+    # consumed it, but only where nothing else reads it: retries rebuild
+    # from it, and keep_levels, checkpoints and saved levels read it, so
+    # each of them wins over donate_buffers=True.  Auto: on the card.
+    donate = False
+    if (params.level_retries == 0 and not keep_levels
+            and not params.checkpoint_dir and not params.save_levels_dir):
+        donate = (params.donate_buffers if params.donate_buffers is not None
+                  else on_card)
+    pipeline_on = params.pipeline_active()
+    timing: Dict[str, float] = {"host_gap_ms": 0.0}
+    if pipeline_on:
+        timing.update(prep_ms=0.0, wait_ms=0.0, host_hidden_ms=0.0,
+                      prepped_levels=0.0, prefetch_errors=0.0)
+    if donate:
+        timing["donated_levels"] = 0.0
+
+    def make_job(level: int, b_filt_coarse=None) -> LevelJob:
         coarse = level + 1 < levels
-        job = LevelJob(
+        return LevelJob(
             level=level,
             spec=spec_for_level(params, level, levels, src_channels,
                                 temporal=temporal),
@@ -185,35 +236,154 @@ def create_image_analogy(
             a_src_coarse=a_src_pyr[level + 1] if coarse else None,
             a_filt_coarse=a_filt_pyr[level + 1] if coarse else None,
             b_src_coarse=b_src_pyr[level + 1] if coarse else None,
-            b_filt_coarse=bp_pyr[level + 1] if coarse else None,
+            b_filt_coarse=b_filt_coarse,
             a_temporal=a_filt_pyr[level] if temporal else None,
             b_temporal=b_temporal_pyr[level] if temporal else None,
+            donate=donate,
         )
-        t0 = time.perf_counter()
-        db = backend.build_features(job)
-        bp, s, st = backend.synthesize_level(db, job)
-        del db
-        st["total_ms"] = (time.perf_counter() - t0) * 1e3
-        bp_pyr[level], s_pyr[level] = bp, s
-        stats.append(st)
 
-    # ONE host fetch for the finest B' plane and every level's device
-    # counts (counts <= 2^24 are exact in fp32)
+    def prefetch(job: LevelJob):
+        # cache warming only: a failure is logged, counted and swallowed —
+        # the dispatch redoes the work on a cold cache, changing timing,
+        # never results
+        t0 = time.perf_counter()
+        failed = False
+        try:
+            backend.prefetch_level(job)
+        except Exception:  # noqa: BLE001 - a boundary that must go on
+            ialog.logger.exception("prefetch of level %d failed", job.level)
+            failed = True
+        return (time.perf_counter() - t0) * 1e3, failed
+
+    if params.dispatch_timeout_s > 0:
+        # a first-use nvcc build (tens of seconds) must not run under a
+        # dispatch deadline: load every library the levels route to now
+        backend.load_kernels([make_job(lv) for lv in range(levels)])
+
+    prof = contextlib.nullcontext()
+    if params.profile_dir:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        prof = profile(
+            activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if on_card else []),
+            on_trace_ready=tensorboard_trace_handler(params.profile_dir))
+
+    bp_pyr: List[Any] = [None] * levels
+    s_pyr: List[Any] = [None] * levels
+    stats: List[Dict[str, Any]] = []
+    pool = None
+    pending = None  # the prefetch in flight
+    gap_t0 = None  # perf_counter when the previous dispatch returned
+    try:
+        with prof:
+            for level in range(levels - 1, -1, -1):  # coarsest -> finest
+                if pending is not None:
+                    # join the helper BEFORE this level touches the caches
+                    # it warmed
+                    twait = time.perf_counter()
+                    prep_ms, failed = pending.result()
+                    wait_ms = (time.perf_counter() - twait) * 1e3
+                    pending = None
+                    timing["prep_ms"] += prep_ms
+                    timing["wait_ms"] += wait_ms
+                    timing["host_hidden_ms"] += max(prep_ms - wait_ms, 0.0)
+                    timing["prepped_levels"] += 1.0
+                    timing["prefetch_errors"] += float(failed)
+                if (params.checkpoint_dir
+                        and params.resume_from_level is not None
+                        and level > params.resume_from_level):
+                    loaded = ckpt.load_level(params.checkpoint_dir, level,
+                                             digest=digest,
+                                             log_path=params.log_path)
+                    if loaded is not None:
+                        bp_pyr[level], s_pyr[level] = loaded
+                        ialog.emit({"event": "resume_level", "level": level},
+                                   params.log_path)
+                        continue
+                coarse = level + 1 < levels
+                job = make_job(level, bp_pyr[level + 1] if coarse else None)
+                if pipeline_on and level > 0:
+                    # the port's host issues a level's launches for the
+                    # whole of its scan, so the next level's prefetch runs
+                    # beside that from the start (the JAX driver starts it
+                    # after a dispatch that returns at once)
+                    if pool is None:
+                        pool = ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="ia-prefetch")
+                    pending = pool.submit(prefetch, make_job(level - 1))
+                t0 = time.perf_counter()
+                if gap_t0 is not None:
+                    timing["host_gap_ms"] += (t0 - gap_t0) * 1e3
+
+                def dispatch():
+                    # the watchdog wraps the whole dispatch INSIDE the retry
+                    # body: a wedged level raises WatchdogTimeout
+                    # (transient) and is retried, on a stream of its own
+                    return failure.run_with_watchdog(
+                        lambda: backend.synthesize_level(
+                            backend.build_features(job), job),
+                        params.dispatch_timeout_s, context={"level": level},
+                        log_path=params.log_path, device=dev)
+
+                bp, s, st = failure.run_with_retry(
+                    dispatch, retries=params.level_retries,
+                    context={"level": level}, log_path=params.log_path)
+                gap_t0 = time.perf_counter()
+                st["total_ms"] = (gap_t0 - t0) * 1e3
+                if donate and coarse:
+                    bp_pyr[level + 1] = s_pyr[level + 1] = None
+                    timing["donated_levels"] += 1.0
+                if params.level_retries > 0:
+                    # a retried level rebuilds from planes that survive a
+                    # device reset: with retries armed, levels chain
+                    # through host copies
+                    bp, s = _host(bp, np.float32), _host(s, np.int32)
+                bp_pyr[level], s_pyr[level] = bp, s
+                if params.log_path:
+                    # a log pays for the count's fetch now
+                    ialog.emit(_finalize_stats(st), params.log_path)
+                    st["_emitted"] = True
+                stats.append(st)
+                if params.checkpoint_dir:
+                    ckpt.save_level(params.checkpoint_dir, level,
+                                    _host(bp, np.float32),
+                                    _host(s, np.int32), digest=digest)
+                if params.save_levels_dir:
+                    save_image(os.path.join(params.save_levels_dir,
+                                            f"level_{level:02d}.png"),
+                               _host(bp, np.float32))
+            if params.profile_dir and on_card:
+                torch.cuda.synchronize(dev)  # the trace holds every kernel
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    # ONE host fetch for the finest B' plane and every level's deferred
+    # device counts (counts <= 2^24 are exact in fp32)
+    hb, wb = b_src.shape[:2]
     deferred = [(st, k) for st in stats for k in ("_n_coh", "_n_ref")
                 if k in st]
-    counts = torch.stack([st[k].reshape(()) for st, k in deferred]).to(
-        torch.float32)
-    fetched = torch.cat([bp_pyr[0].reshape(-1), counts]).cpu().numpy()
-    hb, wb = b_src.shape[:2]
-    bp_y = fetched[:hb * wb].reshape(hb, wb).astype(np.float32)
-    for (st, k), c in zip(deferred, fetched[hb * wb:]):
+    counts = ([torch.stack([st[k].reshape(()) for st, k in deferred]).to(
+        torch.float32)] if deferred else [])
+    if isinstance(bp_pyr[0], torch.Tensor):
+        fetched = torch.cat([bp_pyr[0].reshape(-1)] + [
+            c.to(bp_pyr[0].device) for c in counts]).cpu().numpy()
+        bp_y = fetched[:hb * wb].reshape(hb, wb).astype(np.float32)
+        fetched = fetched[hb * wb:]
+    else:
+        bp_y = _host(bp_pyr[0], np.float32)
+        fetched = counts[0].cpu().numpy() if counts else []
+    for (st, k), c in zip(deferred, fetched):
         st[k] = float(c)
     for st in stats:
         _finalize_stats(st)
+        if not st.pop("_emitted", False):
+            ialog.emit(st, params.log_path)
 
     need_s_host = params.color_mode == "source_rgb" or keep_levels
-    s_raw = (s_pyr[0].cpu().numpy().astype(np.int32) if need_s_host
-             else s_pyr[0])
+    s_raw = _host(s_pyr[0], np.int32) if need_s_host else s_pyr[0]
     if params.color_mode == "source_rgb":
         ap_flat = ap_rgb.reshape(-1, ap_rgb.shape[-1]) if ap_rgb.ndim == 3 \
             else ap_rgb.reshape(-1)
@@ -227,8 +397,7 @@ def create_image_analogy(
     levels_np = None
     if keep_levels:
         levels_np = [(bp_y, s_raw)] + [
-            (bp_pyr[lv].cpu().numpy().astype(np.float32),
-             s_pyr[lv].cpu().numpy().astype(np.int32))
+            (_host(bp_pyr[lv], np.float32), _host(s_pyr[lv], np.int32))
             for lv in range(1, levels)]
     return AnalogyResult(bp=out, bp_y=bp_y, source_map_raw=s_raw,
-                         stats=stats, levels=levels_np)
+                         stats=stats, levels=levels_np, timing=timing)

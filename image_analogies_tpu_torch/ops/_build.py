@@ -186,6 +186,20 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
+def preload(names: Iterable[str]) -> None:
+    """Load every named library now, building the missing ones together
+    first (one ``nvcc`` each): what a caller does before work that must not
+    wait on a first-use build, such as a level under a watchdog."""
+    names = list(names)
+    with _LOCK:
+        missing = [n for n in names
+                   if n not in _LIBS and not os.path.exists(library_path(n))]
+        if missing:
+            build(missing)
+    for name in names:
+        load(name)
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a launch reported a CUDA error (cudaGetLastError != 0)."""
     if err != 0:

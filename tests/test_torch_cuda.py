@@ -1272,3 +1272,121 @@ def test_cuda_packed_forms_scores_against_float64(form, monkeypatch):
     got = exact.gather(1, idx.cpu().long()[:, None])[:, 0]
     assert float((val.cpu().double() - got).abs().max()) <= 4e-5
 
+
+
+# ------------------------------------------------- the driver's surroundings
+
+
+def _driver_pair(size=64, seed=7):
+    return make_structured(size, seed)
+
+
+def _same_run(res, ref):
+    assert np.array_equal(res.bp_y, ref.bp_y)
+    assert np.array_equal(res.source_map, ref.source_map)
+
+
+@pytest.mark.cuda
+def test_cuda_devcache_hit_on_another_stream_waits_for_the_upload():
+    """The prefetch handshake: an upload queued on a side stream behind a
+    long kernel, then a hit on the main stream.  The hit waits on the
+    upload's event, so what the main stream reads is the host bytes."""
+    from image_analogies_tpu_torch.utils import devcache
+
+    dev = _card()
+    devcache.clear()
+    host = np.random.default_rng(0).standard_normal(
+        (1024, 1024)).astype(np.float32)
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s ahead of the copy
+        devcache.device_put_cached(host, dev)
+    hit = devcache.device_put_cached(host, dev)  # main stream
+    got = (hit * 1.0).cpu().numpy()
+    assert np.array_equal(got, host)
+    devcache.clear()
+
+
+@pytest.mark.cuda
+def test_cuda_watchdog_attempts_run_on_their_own_streams(monkeypatch):
+    """A level's first attempt wedges (a spin kernel longer than the
+    deadline) and is abandoned; the retry runs on another stream, with
+    its own argmin_l2 workspace, and its picks equal a clean run's."""
+    from image_analogies_tpu_torch.utils import failure
+
+    _card()
+    a, ap, b = _driver_pair()
+    params = AnalogyParams(levels=3)
+    clean = create_image_analogy(a, ap, b, params)
+    streams, spun = [], []
+    orig = CudaMatcher.synthesize_level
+
+    def wedged(self, db, job):
+        streams.append((job.level, torch.cuda.current_stream().cuda_stream))
+        if job.level == 0 and not spun:
+            spun.append(1)
+            torch.cuda._sleep(4_000_000_000)  # ~2 s, past the deadline
+        return orig(self, db, job)
+
+    monkeypatch.setattr(CudaMatcher, "synthesize_level", wedged)
+    res = create_image_analogy(
+        a, ap, b, params.replace(level_retries=1, dispatch_timeout_s=1.0))
+    _same_run(res, clean)
+    level0 = [s for lv, s in streams if lv == 0]
+    assert len(level0) == 2 and level0[0] != level0[1]
+    default = torch.cuda.default_stream().cuda_stream
+    assert all(s != default for _, s in streams)
+    import threading
+
+    for t in threading.enumerate():  # the abandoned attempt runs on
+        if t.name == "ia-watchdog-body":
+            t.join(timeout=60)
+            assert not t.is_alive()
+    torch.cuda.synchronize()
+    assert failure._INJECT["n"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_out_of_memory_is_retried(monkeypatch):
+    """A real ``torch.cuda.OutOfMemoryError`` in a level's first attempt
+    is transient: the level is retried and the run equals a clean one."""
+    _card()
+    a, ap, b = _driver_pair()
+    params = AnalogyParams(levels=2)
+    clean = create_image_analogy(a, ap, b, params)
+    orig = CudaMatcher.build_features
+    raised = []
+
+    def greedy(self, job):
+        if not raised:
+            raised.append(1)
+            torch.empty((1 << 46,), dtype=torch.uint8, device=self.device)
+        return orig(self, job)
+
+    monkeypatch.setattr(CudaMatcher, "build_features", greedy)
+    res = create_image_analogy(a, ap, b, params.replace(level_retries=1))
+    assert raised
+    _same_run(res, clean)
+
+
+@pytest.mark.cuda
+def test_cuda_pipelined_run_equals_lock_step():
+    """``level_sync=False`` (the pipeline and donation on by auto) at
+    64^2: the same bits and launches as the lock-step run."""
+    from image_analogies_tpu_torch.ops import match
+
+    _card()
+    a, ap, b = _driver_pair()
+    params = AnalogyParams(levels=4)
+    match.reset_launch_counts()
+    clean = create_image_analogy(a, ap, b, params)
+    want = dict(match.LAUNCHES)
+    match.reset_launch_counts()
+    pipe = create_image_analogy(a, ap, b, params.replace(level_sync=False))
+    assert dict(match.LAUNCHES) == want and want["argmin_l2"] > 0
+    _same_run(pipe, clean)
+    levels = len(pipe.stats)
+    assert pipe.timing["prepped_levels"] == levels - 1
+    assert pipe.timing["donated_levels"] == levels - 1
+    assert pipe.timing["prefetch_errors"] == 0
+    assert all("enqueue_ms" in st for st in pipe.stats)
