@@ -128,6 +128,25 @@ and carried on):
                 CLI's ``run`` with ``--checkpoint-dir --log-path
                 --no-level-sync`` as a subprocess.  Every run's bits must
                 be the clean run's.
+15. lanes      — the lane engine (``create_image_analogy_batch``) with
+                npr_1024 and ``remap_luminance=False`` on the 1024^2 A and
+                A' of seed 7 and the B planes of seeds 7, 13, 21 and 42:
+                a wavefront and a batched four-lane run, each cold then
+                warm, then the four singletons warm; a bucketed batched
+                run (``shape_buckets``) of heights 1,024, 1,000, 960 and
+                1,024 and its singletons; a remap-on batch, which must
+                refuse (``remap_divergence``) before any launch.  Every
+                lane's B', source map and ratios must be its singleton's
+                bits, and a four-lane run must launch what one singleton
+                does (6,138 packed_best + 1,783 argmin_l2; batched 1,984
+                argmin_l2_bf16); its walls, the per-lane wall against the
+                singletons' mean, peak memory and per-level ms printed.
+
+The kernels phase also runs each kernel of the lane path at four lanes'
+query rows (packed_best at M = 1,408, argmin_l2 at 352, argmin_l2_bf16 at
+4,096): every row's pick and score bits must be those of a singleton-sized
+call on the same rows; its ms beside the singleton call's, the plain
+version's, the yardstick's and the bound are a row of the table each.
 
 The kernels phase also runs packed_best at the widths the applications
 reach (M = 352, N = 2^20: 304-368 lanes on packed2k_best.cu, 608-1,040 on
@@ -162,7 +181,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video", "driver")
+          "modes", "video", "driver", "lanes")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -214,6 +233,16 @@ P2KW_SWEEP_M = (64, 128, 192)
 # then the shape of the other packed rows (M = 352, N = 2^20), L = 55
 FORMS_SHAPES = (dict(m=64, npad=65536), dict(m=352, npad=1048576))
 FORMS_LW = 55
+
+# the lane engine (batch/engine.py): k = 4 targets, the B planes of
+# make_structured(1024, seed) against seed 7's A and A'; the bucketed
+# batched run crops them to these heights (one query bucket at every
+# level); each kernel of the lane path at four lanes' rows, beside the
+# singleton's widest call: packed2k M = 4 x 352 (level 0), argmin_l2 M =
+# 4 x 88 (level 2), argmin_l2_bf16 M = 4 x 1,024 (batched level 0)
+LANE_SEEDS = (7, 13, 21, 42)
+LANE_HEIGHTS = (1024, 1000, 960, 1024)
+LANES = len(LANE_SEEDS)
 
 # the kernel (launch-count key) each resolved anchor mode runs
 ANCHOR_KERNEL = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed_best",
@@ -1204,7 +1233,166 @@ def phase_kernels(parent=None):
     phase_bf16_db_kernels(rows)
     phase_argmin_bf16_levels(rows, parent)
     phase_packed_forms(rows, parent)
+    phase_lane_kernels(rows)
     return rows
+
+
+def lane_rows_equal(name, match, call, q):
+    """``call`` on LANES lanes' query rows ``q`` (one launch) against
+    ``call`` on each lane's block (a singleton's launch): every row's pick
+    and score bits must be equal.  Returns the lane call's (idx, val)."""
+    import torch
+
+    key = name.split()[0]
+    match.reset_launch_counts()
+    idx, val = call(q)
+    parts = [call(part) for part in q.chunk(LANES)]
+    torch.cuda.synchronize()
+    if match.LAUNCHES[key] != 1 + LANES:
+        fail(f"{name}: {match.LAUNCHES[key]} launches, not {1 + LANES}")
+    one_i = torch.cat([pt[0] for pt in parts])
+    one_v = torch.cat([pt[1] for pt in parts])
+    if not (torch.equal(idx, one_i) and torch.equal(
+            val.view(torch.int32), one_v.view(torch.int32))):
+        fail(f"{name}: {int((idx != one_i).sum())} picks and "
+             f"{int((val.view(torch.int32) != one_v.view(torch.int32)).sum())}"
+             " scores differ from the singleton-sized calls' on the same "
+             "rows")
+    return idx, val
+
+
+def phase_lane_kernels(rows):
+    """Each kernel of the lane path at the rows of LANES lanes: packed_best
+    (packed2k) at M = 4 x 352 against N = 2^20, argmin_l2 at M = 4 x 88
+    against 65,536 rows, argmin_l2_bf16 at M = 4 x 1,024 against 2^20 rows
+    (``lane_rows_equal``: the bits of a singleton-sized call on every row),
+    held against the plain version as the headline cases, and timed beside
+    the singleton-sized call, the plain version, the yardstick and the
+    bound at the lane width.  argmin_l2_bf16's plain version and yardstick
+    run in four calls of 1,024 rows: one call's (4,096 x 2^20) fp32 scores
+    and their temporaries would take ~50 GB.  Each is a row of the table,
+    its launches from the lanes phase."""
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+
+    flush = flusher(torch.device("cuda", 0))
+    sm = match._sm_count(0)
+
+    # packed2k, level 0 of the main path
+    s = PACKED_SHAPE
+    m, lw = LANES * s["m"], s["lw"]
+    width = 4 * lw + 3
+    ((_, npad, _, _, qa, wk, k_used, n_real, lo),) = packed_cases(
+        match, [("lanes", s["npad"], m, 0)], lw)
+    call = lambda q: match.packed_best(q, wk, k_used)
+    idx, val = lane_rows_equal("packed_best lanes", match, call, qa)
+    scores = match._packed_scores_plain(qa, wk, k_used, None, None, None,
+                                        False)
+    ref_idx, ref_val = match._first_max(scores)
+    second = torch.topk(scores, 2, dim=1).values[:, 1]
+    del scores
+    err, ndiff = check_picks("packed_best lanes", idx, val, ref_idx, ref_val,
+                             second, PACKED_ATOL)
+    if int(idx[0]) != lo or int(idx.max()) >= n_real:
+        fail("packed_best lanes: duplicate/padding rule broken")
+    k_ms = cuda_time_ms(lambda: call(qa), reps=20, flush=flush)
+    one_ms = cuda_time_ms(lambda: call(qa[:s["m"]]), reps=20, flush=flush)
+    p_ms = cuda_time_ms(lambda: match.packed_best_plain(qa, wk, k_used),
+                        reps=3, flush=flush)
+    wkt = wk.T
+    l_ms = cuda_time_ms(
+        lambda: torch.mm(qa, wkt, out_dtype=torch.float32).max(dim=1),
+        reps=10, flush=flush)
+    b = packed_bound(m, npad, width)
+    name = f"packed_best ({LANES} lanes)"
+    rows[name] = kernel_row(name, "packed2k_best.cu", 523, err, k_ms, p_ms,
+                            l_ms, b)
+    say("kernels", kernel="packed_best", lanes=LANES, m=m, npad=npad,
+        width=width, plan=match._packed2k_plan(m, npad, sm, k_used)._asdict(),
+        max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
+        singleton_ms=one_ms, ms_per_lane=k_ms / LANES, plain_ms=p_ms,
+        library_ms=l_ms, bound_ms=b[0], bound_by=b[1])
+    del qa, wk, wkt, idx, val, ref_idx, ref_val, second
+    torch.cuda.empty_cache()
+
+    # argmin_l2, level 2 of the main path
+    s = ARGMIN_SHAPE
+    m, npad, f = LANES * s["m"], s["npad"], s["f"]
+    arrays = argmin_operands(m, npad, f, s["fp"], seed=11, dup=(1000, 64000))
+    n_real = arrays[3]
+    qd, dbd, dbnd = (torch.from_numpy(x).cuda() for x in arrays[:3])
+    call = lambda q: match.argmin_l2(q, dbd, dbnd)
+    idx, val = lane_rows_equal("argmin_l2 lanes", match, call, qd)
+    scores = dbnd[None, :] - 2.0 * (qd @ dbd[:, :f].T)
+    ref_idx, ref_val = match.argmin_l2_plain(qd, dbd, dbnd)
+    second = torch.topk(scores, 2, dim=1, largest=False).values[:, 1]
+    err, ndiff = check_picks("argmin_l2 lanes", idx, val, ref_idx, ref_val,
+                             second, ARGMIN_ATOL)
+    if int(idx[0]) != 1000 or int(idx.max()) >= n_real:
+        fail("argmin_l2 lanes: duplicate/padding rule broken")
+    k_ms = cuda_time_ms(lambda: call(qd), reps=50)
+    one_ms = cuda_time_ms(lambda: call(qd[:s["m"]]), reps=50)
+    p_ms = cuda_time_ms(lambda: match.argmin_l2_plain(qd, dbd, dbnd),
+                        reps=20)
+    dbt = dbd[:, :f].T
+    l_ms = cuda_time_ms(
+        lambda: torch.addmm(dbnd, qd, dbt, alpha=-2.0).min(dim=1), reps=20)
+    b = argmin_bound(m, npad, f)
+    name = f"argmin_l2 ({LANES} lanes)"
+    rows[name] = kernel_row(name, "argmin_l2.cu", 51, err, k_ms, p_ms, l_ms,
+                            b)
+    say("kernels", kernel="argmin_l2", lanes=LANES, m=m, npad=npad, f=f,
+        plan=match._argmin_plan(m, npad, sm, f)._asdict(), max_abs_err=err,
+        picks_differing_in_band=ndiff, ms=k_ms, singleton_ms=one_ms,
+        ms_per_lane=k_ms / LANES, plain_ms=p_ms, library_ms=l_ms,
+        bound_ms=b[0], bound_by=b[1])
+    del qd, dbd, dbnd, dbt, scores
+
+    # argmin_l2_bf16, level 0 of the batched strategy
+    level, npad, m1, _, f = batched_level_shapes()[0]
+    m = LANES * m1
+    k_used = (f + 15) // 16 * 16
+    ((_, _, _, _, q, dbp, dbn, n_real, lo, _),) = argmin2_cases(
+        [(level, npad, m, 0, f)], center=False)
+    call = lambda qq: match.argmin_l2_bf16(qq, dbp, dbn, k_used)
+    idx, val = lane_rows_equal("argmin_l2_bf16 lanes", match, call, q)
+    dbt = dbp.T
+    err = ndiff = 0
+    for blk, i_b, v_b in zip(q.chunk(LANES), idx.chunk(LANES),
+                             val.chunk(LANES)):
+        qk = match._scan_queries(blk, False)
+        second = torch.topk(dbn[None, :] - 2.0 * match._dots(qk, dbp, k_used),
+                            2, dim=1, largest=False).values[:, 1]
+        ref_idx, ref_val = match.argmin_l2_bf16_plain(blk, dbp, dbn, k_used)
+        e, nd = check_picks("argmin_l2_bf16 lanes", i_b, v_b, ref_idx,
+                            ref_val, second, PACKED_ATOL)
+        err, ndiff = max(err, e), ndiff + nd
+        del qk, second, ref_idx, ref_val
+    if int(idx[0]) != lo or int(idx.max()) >= n_real:
+        fail("argmin_l2_bf16 lanes: duplicate/padding rule broken")
+    k_ms = cuda_time_ms(lambda: call(q), reps=20, flush=flush)
+    one_ms = cuda_time_ms(lambda: call(q[:m1]), reps=20, flush=flush)
+    blocks = q.chunk(LANES)
+    p_ms = cuda_time_ms(lambda: [match.argmin_l2_bf16_plain(
+        blk, dbp, dbn, k_used) for blk in blocks], reps=3, flush=flush)
+    qks = [match._scan_queries(blk, False) for blk in blocks]
+    l_ms = cuda_time_ms(lambda: [(dbn[None, :] - 2.0 * torch.mm(
+        qk, dbt, out_dtype=torch.float32)).min(dim=1) for qk in qks],
+        reps=10, flush=flush)
+    b = argmin_bf16_bound(m, npad, f)
+    name = f"argmin_l2_bf16 ({LANES} lanes)"
+    rows[name] = kernel_row(name, "argmin_bf16.cu", 51, err, k_ms, p_ms,
+                            l_ms, b)
+    say("kernels", kernel="argmin_l2_bf16", lanes=LANES, m=m, npad=npad,
+        f=f, k_used=k_used,
+        plan=match._argmin_bf16_plan(m, npad, sm, k_used)._asdict(),
+        max_abs_err=err, picks_differing_in_band=ndiff, ms=k_ms,
+        singleton_ms=one_ms, ms_per_lane=k_ms / LANES, plain_ms=p_ms,
+        plain_calls=LANES, library_ms=l_ms, library_calls=LANES,
+        bound_ms=b[0], bound_by=b[1])
+    del q, dbp, dbn, dbt, qks, blocks
+    torch.cuda.empty_cache()
 
 
 def packed_db(match, npad, lw=55, seed=13):
@@ -3086,6 +3274,140 @@ def driver_cli(inputs, tmp):
         log_levels=levels)
 
 
+def lane_run(label, params, a, ap, targets, runs=("cold", "warm")):
+    """``create_image_analogy_batch`` on the card once per label in
+    ``runs``, every launch count set to 0 just before each run and read
+    just after: the k-lane run must launch exactly what one singleton of
+    the tallest target does (each level's kernel once per wavefront step
+    or scan row, for all lanes), and nothing else.  Then each target's
+    singleton, warm: every lane's B', source map and coherence (and
+    refined) ratios must be its singleton's bits.  Prints the walls, the
+    per-lane wall against the singletons' mean, peak memory and the lane
+    run's per-level scan and build ms.  Returns the last lane run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import (create_image_analogy,
+                                           create_image_analogy_batch)
+    from image_analogies_tpu_torch.ops import match
+
+    want = expected_launches(params, max(b.shape[0] for b in targets))
+    walls = {}
+    for run in runs:
+        match.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = create_image_analogy_batch(a, ap, targets, params)
+        torch.cuda.synchronize()
+        walls[run] = time.perf_counter() - t0
+        launches = dict(match.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for i, res in enumerate(results):
+            if isinstance(res, Exception):
+                fail(f"lanes {label}: lane {i} failed: {res!r}")
+        stats = sorted(results[0].stats, key=lambda st: st["level"])
+        say("lanes", run=f"{label} {run}", strategy=params.strategy,
+            lanes=len(targets), heights=[b.shape[0] for b in targets],
+            wall_s=walls[run], wall_per_lane_s=walls[run] / len(targets),
+            level_ms={st["level"]: st["ms"] for st in stats},
+            level_build_ms={st["level"]: st["total_ms"] - st["ms"]
+                            for st in stats},
+            launches={k: v for k, v in launches.items() if v},
+            expected_launches=want, peak_mem_gib=peak,
+            bits=[bits_digest(res) for res in results])
+        for name, n in launches.items():
+            if n != want.get(name, 0):
+                fail(f"lanes {label}: {name} launched {n} times, expected "
+                     f"{want.get(name, 0)} (one per wavefront step or scan "
+                     "row, for all lanes)")
+    singles, peaks = [], []
+    for i, (b, res) in enumerate(zip(targets, results)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = create_image_analogy(a, ap, b, params)
+        torch.cuda.synchronize()
+        singles.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        same = (np.array_equal(res.bp_y.view(np.int32),
+                               ref.bp_y.view(np.int32))
+                and np.array_equal(res.source_map, ref.source_map)
+                and [(st["coherence_ratio"], st.get("refined_ratio"))
+                     for st in res.stats]
+                == [(st["coherence_ratio"], st.get("refined_ratio"))
+                    for st in ref.stats])
+        if not same:
+            fail(f"lanes {label}: lane {i} differs from its singleton "
+                 f"(B' pixels differing: "
+                 f"{int((res.bp_y != ref.bp_y).sum())}, source map: "
+                 f"{int((res.source_map != ref.source_map).sum())})")
+    last = walls[runs[-1]]
+    say("lanes", run=f"{label} singletons", strategy=params.strategy,
+        singleton_wall_s=singles, singleton_mean_s=sum(singles) / len(
+            singles), lane_wall_s=last,
+        per_lane_over_singleton=last / len(targets) / (
+            sum(singles) / len(singles)),
+        singleton_peak_mem_gib=max(peaks), lanes_bit_identical=True)
+    return launches
+
+
+def phase_lanes(a, ap, size=1024):
+    """The lane engine on the card: npr_1024 with remap_luminance=False
+    (the serve configuration: with the remap on, differing targets refuse
+    by design) on seed 7's A and A' and the B planes of LANE_SEEDS, a
+    wavefront and a batched lane run (cold, warm, then the singletons), a
+    bucketed batched run of heights LANE_HEIGHTS (width 1,024: one query
+    bucket at every level, checked here), and a remap-on batch, which must
+    refuse (remap_divergence) before any launch.  ``size`` scales the
+    inputs and heights (a rehearsal on the CPU).  Returns each run's
+    launches."""
+    from image_analogies_tpu_torch import PRESETS, BatchIncompatible
+    from image_analogies_tpu_torch import create_image_analogy_batch
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.tune.buckets import (bucket_rows,
+                                                        pad_waste_frac)
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    targets = [make_structured(size, seed)[2] for seed in LANE_SEEDS]
+    heights = [h * size // 1024 for h in LANE_HEIGHTS]
+    params = dataclasses.replace(PRESETS["npr_1024"], remap_luminance=False)
+    out = {}
+    for strategy in ("wavefront", "batched"):
+        out[strategy] = lane_run(strategy, dataclasses.replace(
+            params, strategy=strategy), a, ap, targets)
+
+    cropped = [b[:h] for b, h in zip(targets, heights)]
+    buckets, waste, hs = [], 0.0, heights
+    for level in range(params.levels):
+        if level:
+            hs = [(h + 1) // 2 for h in hs]
+        w = size >> level
+        bks = {bucket_rows(h * w) for h in hs}
+        if len(bks) != 1:
+            fail(f"lanes: heights {hs} at level {level} span buckets {bks}")
+        buckets.append(bks.pop())
+        if level == 0:
+            waste = max(pad_waste_frac(h * w) for h in hs)
+    say("lanes", bucketed_heights=heights, buckets=buckets, pad_waste=waste)
+    out["bucketed"] = lane_run("bucketed", dataclasses.replace(
+        params, strategy="batched", shape_buckets=True), a, ap, cropped,
+        runs=("first",))
+
+    match.reset_launch_counts()
+    try:
+        create_image_analogy_batch(a, ap, targets, PRESETS["npr_1024"])
+    except BatchIncompatible as e:
+        reason = e.reason
+    else:
+        reason = None
+    launched = {k: v for k, v in match.LAUNCHES.items() if v}
+    say("lanes", remap_on_refused=reason, launches=launched)
+    if reason != "remap_divergence" or launched:
+        fail(f"lanes: a remap-on batch gave {reason!r} after launches "
+             f"{launched}; it must refuse (remap_divergence) before any")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3135,8 +3457,8 @@ def main() -> None:
         phase_env(args.ptxas)
     rows = phase_kernels(args.parent) if "kernels" in phases else None
     path_launches = {}
-    if {"main", "oracle", "profile", "exact_hi2", "rescue",
-            "two_pass", "batched", "batched_profile", "driver"} & set(phases):
+    if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
+            "batched", "batched_profile", "driver", "lanes"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -3175,6 +3497,10 @@ def main() -> None:
         phase_video()
     if "driver" in phases:
         phase_driver(a, ap_, b)
+    if "lanes" in phases:
+        lanes = phase_lanes(a, ap_)
+        path_launches["lanes wavefront"] = lanes["wavefront"]
+        path_launches["lanes batched"] = lanes["batched"]
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:
@@ -3191,6 +3517,13 @@ def main() -> None:
                         ("batched", ("argmin_l2_bf16",))):
         for name in names:
             rows[name]["launches"] = path_launches[path][name]
+    # the lane-width rows: their launches from the lanes phase's k-lane
+    # runs (one launch a step or row for all lanes)
+    for path, names in (("lanes wavefront", ("packed_best", "argmin_l2")),
+                        ("lanes batched", ("argmin_l2_bf16",))):
+        for name in names:
+            rows[f"{name} ({LANES} lanes)"]["launches"] = \
+                path_launches[path][name]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ Entry points::
 
     from image_analogies_tpu_torch import create_image_analogy, PRESETS
     res = create_image_analogy(a, ap, b, PRESETS["npr_1024"])   # on the card
+    outs = create_image_analogy_batch(a, ap, [b1, b2, b3], params)  # lanes
     res = modes.super_resolution(sharp, low)     # modes.artistic_filter, ...
     vid = video_analogy(a, ap, frames, PRESETS["video"])
     # python -m image_analogies_tpu_torch.cli run|video|sweep|eval ...
@@ -22,6 +23,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from image_analogies_tpu_torch.batch import (  # noqa: E402
+    BatchIncompatible,
+    create_image_analogy_batch,
+)
 from image_analogies_tpu_torch.config import AnalogyParams, PRESETS  # noqa: E402
 from image_analogies_tpu_torch.models import modes  # noqa: E402
 from image_analogies_tpu_torch.models.analogy import (  # noqa: E402
@@ -37,6 +42,7 @@ from image_analogies_tpu_torch.utils.imageio import (  # noqa: E402
     save_image,
 )
 
-__all__ = ["AnalogyParams", "AnalogyResult", "PRESETS", "VideoResult",
-           "create_image_analogy", "load_image", "modes", "save_image",
+__all__ = ["AnalogyParams", "AnalogyResult", "BatchIncompatible", "PRESETS",
+           "VideoResult", "create_image_analogy",
+           "create_image_analogy_batch", "load_image", "modes", "save_image",
            "video_analogy"]

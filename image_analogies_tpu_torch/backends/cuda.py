@@ -73,6 +73,7 @@ from image_analogies_tpu_torch.ops.match import (
     prepadded_argmin2_queries,
     prepadded_argmin_queries,
 )
+from image_analogies_tpu_torch.tune import buckets as tune_buckets
 from image_analogies_tpu_torch.utils import devcache
 
 _F32 = torch.float32
@@ -122,8 +123,10 @@ def _round_up(x: int, m: int) -> int:
 class LevelDB:
     """Device-resident per-level state of a level scan (the fields of the
     JAX package's ``TpuLevelDB`` that the port's strategies read).  The
-    fields after ``scan_tile`` serve the exact, rowwise and batched
-    strategies; wavefront levels leave them at their defaults."""
+    fields after ``scan_tile`` up to ``refine_passes`` serve the exact,
+    rowwise and batched strategies; wavefront levels leave them at their
+    defaults.
+    ``lanes`` and ``lane_hb`` describe a lane run (``stack_lanes``)."""
 
     db: torch.Tensor  # (Na, F) fp32: re-score / coherence source
     static_q: torch.Tensor  # (Nb, F) fp32, fine_filt block zero
@@ -167,6 +170,10 @@ class LevelDB:
     rowsafe: Optional[torch.Tensor] = None  # (nf,) fp32 causal offsets, di<0
     n_rowsafe: int = 0  # (p // 2) * p: the rows-above window positions
     refine_passes: int = 3  # batched left-propagation passes
+    # the number of lanes whose query side the fields above hold, and each
+    # lane's real B height
+    lanes: int = 1
+    lane_hb: Tuple[int, ...] = ()
 
 
 @functools.lru_cache(maxsize=64)
@@ -631,6 +638,17 @@ def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None,
 # ------------------------------------------------------------ wavefront scan
 
 
+def _per_lane(x: torch.Tensor, k: int,
+              offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A segment's (T, M, ...) schedule tensor as (T, k M, ...): lane i's
+    block of M rows is ``x`` (plus ``offsets[i]``)."""
+    t, m = x.shape[:2]
+    y = x[:, None].expand((t, k) + tuple(x.shape[1:]))
+    if offsets is not None:
+        y = y + offsets.view((1, k) + (1,) * (x.dim() - 1))
+    return y.reshape((t, k * m) + tuple(x.shape[2:]))
+
+
 def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     """The oracle's raster-scan rule on the anti-diagonal schedule (see the
     module docstring; the dependency proof is in the JAX package's
@@ -643,7 +661,22 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     indices and masks depend only on the schedule, so each segment's are
     computed once, batched over its steps.
 
-    Returns (bp (Nb,) fp32, s (Nb,) int32, n_coh () int64 device scalar)."""
+    Lanes (``db.lanes`` = k > 1, ``stack_lanes``): k targets of one shape
+    share the schedule and lane 0's DB, and ``db.static_q`` holds the k
+    lanes' query rows one lane after another.  Each step gathers the k
+    lanes' M queries into one (k M, F) block: one anchor call, one
+    coherence gather and one kappa rule serve every lane, and k = 1 is the
+    singleton's step, op for op.  The carry holds a block of ``nb + M_max``
+    rows per lane; the lane offsets go on the carry indices (window and
+    write indices) only, so source-map values stay A indices.  M is a
+    multiple of 8 (the schedule's padding), so each lane's block of every
+    (k M, ...) step tensor starts at a multiple of 32 bytes and its rows
+    keep the alignment they have in a singleton: the card's row sums round
+    by a row's address.
+
+    Returns (bp (Nb,) fp32, s (Nb,) int32, n_coh () int64 device scalar);
+    with k lanes (bp (k, Nb), s (k, Nb), n_coh (k,))."""
+    k = db.lanes
     hb, wb = db.hb, db.wb
     nb = hb * wb
     if db.ha * db.wa > MAX_A_ROWS:
@@ -658,11 +691,16 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     wsq_c = db.fine_sqrtw[:nc]
     fs = db.fine_start
     m_max = max(int(seg.shape[1]) for seg in db.diag)
-    bp = torch.zeros((nb + m_max,), dtype=_F32, device=dev)
-    s = torch.zeros((nb + m_max,), dtype=torch.int64, device=dev)
-    n_coh = torch.zeros((), dtype=torch.int64, device=dev)
+    blk = nb + m_max  # a lane's carry rows
+    bp = torch.zeros((k * blk,), dtype=_F32, device=dev)
+    s = torch.zeros((k * blk,), dtype=torch.int64, device=dev)
+    n_coh = torch.zeros((k,), dtype=torch.int64, device=dev)
     kappa = torch.tensor(kappa_mult, dtype=_F32, device=dev)
     lanes = torch.arange(m_max, dtype=torch.int64, device=dev)
+    if k > 1:
+        lane = torch.arange(k, dtype=torch.int64, device=dev)
+        carry_off = lane * blk
+        query_off = lane * (int(db.static_q.shape[0]) // k)
 
     for seg in db.diag:
         n_steps, m = int(seg.shape[0]), int(seg.shape[1])
@@ -679,6 +717,12 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
         # synthesized (clamped index < pixel index) contribute B' values
         wsq = (widx < pixc[..., None]).to(_F32) * wsq_c
         wpix = torch.where(lane_ok, seg, nb + lanes[:m])
+        if k > 1:
+            widx = _per_lane(widx, k, carry_off)
+            wpix = _per_lane(wpix, k, carry_off)
+            pixc = _per_lane(pixc, k, query_off)
+            inb, wsq, lane_ok = (_per_lane(x, k) for x in (inb, wsq,
+                                                           lane_ok))
         for t in range(n_steps):
             idx = widx[t]
             dyn = bp[idx] * wsq[t]
@@ -699,8 +743,12 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
                   else torch.where(use_coh, af_coh, af_app))
             bp.index_copy_(0, wpix[t], af)
             s.index_copy_(0, wpix[t], p)
-            n_coh += (use_coh & lane_ok[t]).sum()
-    return bp[:nb], s[:nb].to(torch.int32), n_coh
+            n_coh += (use_coh & lane_ok[t]).view(k, m).sum(dim=1)
+    bp = bp.view(k, blk)[:, :nb]
+    s = s.view(k, blk)[:, :nb].to(torch.int32)
+    if k == 1:
+        return bp[0], s[0], n_coh[0]
+    return bp, s, n_coh
 
 
 # ------------------------------------------------------ per-pixel pieces
@@ -840,12 +888,24 @@ def make_approx_fn(db: LevelDB):
     return approx_fn
 
 
+def lane_row_width(wb: int, lanes: int) -> int:
+    """Columns a lane takes in a batched scan row: ``wb``, rounded up to a
+    multiple of 8 when lanes share the row.  Each lane's block of a (k
+    wbp, ...) row tensor then starts at a multiple of 32 bytes, so every
+    row keeps the alignment it has in a singleton run (the card's row sums
+    round by a row's address); the pad columns duplicate the lane's last
+    column and write to carry rows nothing reads."""
+    return wb if lanes == 1 else _round_up(wb, 8)
+
+
 def _row_queries(db: LevelDB, r: int, bp: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
-    """(wb, F) queries of scan row ``r``; ``mask`` picks which causal
-    offsets contribute B' values (rowsafe for batched and rowwise)."""
+    """(R, F) queries of scan row ``r``, R = wb (k lanes: k
+    ``lane_row_width`` columns); ``mask`` picks which causal offsets
+    contribute B' values (rowsafe for batched and rowwise)."""
     nf = int(db.off.shape[0])
-    rows = slice(r * db.wb, (r + 1) * db.wb)
+    width = db.lanes * lane_row_width(db.wb, db.lanes)
+    rows = slice(r * width, (r + 1) * width)
     queries = db.static_q[rows].clone()
     queries[:, db.fine_start:db.fine_start + nf] = (
         bp[db.flat_idx[rows]] * db.written[rows] * mask[None, :]
@@ -853,16 +913,20 @@ def _row_queries(db: LevelDB, r: int, bp: torch.Tensor,
     return queries
 
 
-def _left_refine(db: LevelDB, queries, p, d_pick, d_app, kappa, row_fn):
+def _left_refine(db: LevelDB, queries, p, d_pick, d_app, kappa, row_fn,
+                 jcol: Optional[torch.Tensor] = None):
     """One vectorized left-propagation pass over a resolved row: the
     same-row candidates {s(j-d) + (0, d)}, d = 1..radius, from the row's
     current picks ``p``, each kept only if it passes the kappa rule against
     ``d_app`` and beats the current pick's distance ``d_pick`` (+inf on
     approximate picks).  ``torch.roll`` wraps as ``jnp.roll`` does; the
-    ``j >= d`` mask hides the wrapped columns.  Returns (p, d_pick)."""
-    wb = queries.shape[0]
+    ``j >= d`` mask hides the wrapped columns.  With k lanes in the row the
+    roll moves each lane's last d columns into the next lane's first d, and
+    ``jcol`` (each entry's column within its own lane; default ``arange``)
+    masks exactly those.  Returns (p, d_pick)."""
     wa = db.wa
-    jcol = torch.arange(wb, device=queries.device)
+    if jcol is None:
+        jcol = torch.arange(queries.shape[0], device=queries.device)
     radius = int(round(int(db.off.shape[0]) ** 0.5)) // 2
     best_p, best_d = p, d_pick
     for d in range(1, radius + 1):
@@ -882,7 +946,7 @@ def _left_refine(db: LevelDB, queries, p, d_pick, d_app, kappa, row_fn):
 def batched_scan_core(db: LevelDB, kappa_mult: float, approx_fn,
                       row_fn=None, afilt_fn=None):
     """The batched level scan given an approximate-match function (the JAX
-    package's ``batched_scan_core``).  ``approx_fn(queries (wb, F)) ->
+    package's ``batched_scan_core``).  ``approx_fn(queries (R, F)) ->
     (idx, d)`` is the pluggable match (``make_approx_fn``); ``row_fn`` /
     ``afilt_fn`` gather scoring-DB rows / A' values by index (default the
     rows-above DB and ``a_filt_flat``).
@@ -890,24 +954,46 @@ def batched_scan_core(db: LevelDB, kappa_mult: float, approx_fn,
     Per scan row: the rows-above queries, the approximate match, the
     coherence candidates of the first ``n_rowsafe`` window offsets, the
     kappa rule, ``refine_passes`` left-propagation passes, then the row's
-    (A' value, source index) written into the carry.  Returns (bp (Nb,)
+    (A' value, source index) written into the carry.  The row loop stops
+    at ``db.hb``: rows past it (a query bucket's zero rows,
+    ``CudaMatcher.build_features``) are never read.  Returns (bp (Nb,)
     fp32, s (Nb,) int32, counts (2,) int64 = [coherence picks before the
-    refinement, picks the refinement switched to a same-row candidate])."""
+    refinement, picks the refinement switched to a same-row candidate]).
+
+    Lanes (``db.lanes`` = k > 1, ``stack_lanes``): scan row r of every lane
+    is one row of R = k ``lane_row_width`` entries — one approximate-match
+    call and one refinement for all k — and k = 1 is the singleton's row,
+    op for op.  The row loop runs to the tallest lane (``db.hb``); a
+    shorter lane's rows past its own height read its zero rows and write
+    carry rows that the crop drops, and ``counts`` leaves them out, as it
+    leaves out the pad columns.  Returns the carry (hb R,) in row-major
+    (row, lane, column) order and counts (k, 2)."""
     nrs = db.n_rowsafe
-    wb = db.wb
+    k, wb = db.lanes, db.wb
+    wbp = lane_row_width(wb, k)
+    width = k * wbp
     dev = db.static_q.device
     if row_fn is None:
         row_fn = lambda i: db.db_rowsafe[i]
     if afilt_fn is None:
         afilt_fn = lambda i: db.a_filt_flat[i]
-    nb = db.hb * wb
-    bp = torch.zeros((nb,), dtype=_F32, device=dev)
-    s = torch.zeros((nb,), dtype=torch.int64, device=dev)
-    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    n = db.hb * width
+    bp = torch.zeros((n,), dtype=_F32, device=dev)
+    s = torch.zeros((n,), dtype=torch.int64, device=dev)
+    counts = torch.zeros((k, 2), dtype=torch.int64, device=dev)
     kappa = torch.tensor(kappa_mult, dtype=_F32, device=dev)
     inf = torch.tensor(float("inf"), dtype=_F32, device=dev)
+    col = torch.arange(wbp, device=dev)
+    jcol = col.repeat(k)
+    live = None  # (hb, R) the entries the counts take: all without lanes
+    hbs = db.lane_hb or (db.hb,)
+    if wbp != wb or min(hbs) != db.hb:
+        rows_of = torch.arange(db.hb, device=dev)[:, None, None]
+        live = ((col < wb)[None, None, :]
+                & (rows_of < torch.tensor(hbs, device=dev)[None, :, None])
+                ).reshape(db.hb, width)
     for r in range(db.hb):
-        rows = slice(r * wb, (r + 1) * wb)
+        rows = slice(r * width, (r + 1) * width)
         queries = _row_queries(db, r, bp, db.rowsafe)
         p_app, d_app = approx_fn(queries)
         # rows-above coherence candidates (positions known at row start)
@@ -919,12 +1005,69 @@ def batched_scan_core(db: LevelDB, kappa_mult: float, approx_fn,
         d_pick = torch.where(use_coh, d_coh, inf)
         for _ in range(db.refine_passes):
             p, d_pick = _left_refine(db, queries, p, d_pick, d_app, kappa,
-                                     row_fn)
+                                     row_fn, jcol)
         bp[rows] = afilt_fn(p)
         s[rows] = p
-        n_coh = use_coh.sum()
-        counts += torch.stack([n_coh, (d_pick < inf).sum() - n_coh])
-    return bp, s.to(torch.int32), counts
+        coh, picked = use_coh, d_pick < inf
+        if live is not None:
+            coh, picked = coh & live[r], picked & live[r]
+        n_coh = coh.view(k, wbp).sum(dim=1)
+        counts += torch.stack([n_coh, picked.view(k, wbp).sum(dim=1)
+                               - n_coh], dim=1)
+    s = s.to(torch.int32)
+    if k == 1:
+        return bp, s, counts[0]
+    return bp, s, counts
+
+
+def stack_lanes(dbs) -> LevelDB:
+    """One LevelDB for a lane run of the members' level states ``dbs``:
+    lane 0's DB — every member's A side is the same (the engine checks it)
+    — with the query side of every lane (``lanes`` k, ``lane_hb`` each
+    lane's real height).
+
+    - wavefront: ``static_q`` is the lanes' query rows one lane after
+      another (every lane has one shape);
+    - batched: ``static_q``, ``flat_idx``, ``valid`` and ``written`` in
+      scan-row order — row r holds each lane's ``lane_row_width`` columns
+      in turn, for rows up to the tallest lane's height (a shorter lane's
+      rows past its own come from its bucket's zero rows) — and
+      ``flat_idx`` maps each lane's window to its carry rows in the same
+      order (``batched_scan_core``)."""
+    db0 = dbs[0]
+    k = len(dbs)
+    hbs = tuple(d.hb for d in dbs)
+    if any(d.wb != db0.wb for d in dbs) or (
+            db0.strategy == "wavefront" and len(set(hbs)) > 1):
+        raise ValueError(f"lanes of shapes {[(d.hb, d.wb) for d in dbs]} "
+                         "cannot share a scan")
+    if db0.strategy == "wavefront":
+        return dataclasses.replace(
+            db0, static_q=torch.cat([d.static_q for d in dbs]), lanes=k,
+            lane_hb=hbs)
+    if db0.strategy != "batched":
+        raise ValueError(f"strategy {db0.strategy!r} has no lanes")
+    hb, wb = max(hbs), db0.wb
+    wbp = lane_row_width(wb, k)
+    if any(d.static_q.shape[0] < hb * wb for d in dbs):
+        raise ValueError("lanes of different heights share a scan only "
+                         "from one query bucket (shape_buckets)")
+    dev = db0.static_q.device
+    col = torch.arange(wbp, device=dev).clamp(max=wb - 1)
+    src = (torch.arange(hb, device=dev)[:, None] * wb + col).view(-1)
+
+    def rows(x):  # (hb wbp, C) lane rows -> interleaved with the others
+        return torch.stack([t.view(hb, wbp, -1) for t in x],
+                           dim=1).reshape(hb * k * wbp, -1)
+
+    # a lane's pixel q = i wb + j sits at carry row i (k wbp) + lane wbp + j
+    flat = [(d.flat_idx[src] // wb) * (k * wbp) + lane * wbp
+            + d.flat_idx[src] % wb for lane, d in enumerate(dbs)]
+    return dataclasses.replace(
+        db0, hb=hb, lanes=k, lane_hb=hbs,
+        static_q=rows([d.static_q[src] for d in dbs]), flat_idx=rows(flat),
+        valid=rows([d.valid[src] for d in dbs]),
+        written=rows([d.written[src] for d in dbs]))
 
 
 # ------------------------------------------------------------------ matcher
@@ -1094,12 +1237,67 @@ class CudaMatcher(Matcher):
                                       if pad_mode == "bf16" else 0),
                 **level)
         flat_idx, valid, written = self._gather_maps(hb, wb, spec.fine_size)
+        if strategy == "batched" and tune_buckets.buckets_enabled(
+                self.params):
+            # the query-side bucket (the JAX package's q_rows_pad): zero
+            # rows up to the bucket, which no real row reads (the row loop
+            # stops at the real hb); fresh tensors, the cached maps stay
+            grow = tune_buckets.bucket_rows(hb * wb) - hb * wb
+            level["static_q"], flat_idx, valid, written = (
+                torch.cat([x, x.new_zeros((grow,) + tuple(x.shape[1:]))])
+                for x in (level["static_q"], flat_idx, valid, written))
         return LevelDB(
             diag=(), db_rowsafe=arrs["db_rowsafe"],
             db_rowsafe_sqnorm=arrs["db_rowsafe_sqnorm"], flat_idx=flat_idx,
             valid=valid, written=written, rowsafe=rowsafe,
             n_rowsafe=(spec.fine_size // 2) * spec.fine_size,
             refine_passes=self.params.refine_passes, **level)
+
+    def _scan(self, db: LevelDB, kappa_mult: float):
+        """The level's strategy on ``db`` (k = ``db.lanes``): (bp, s, n_coh
+        (k,), n_ref (k,) or None, stats of every lane), with bp and s as
+        the strategy's core returns them."""
+        stats: Dict[str, Any] = {"backend": self.device.type,
+                                 "strategy": db.strategy}
+        n_ref = None
+        if db.strategy == "wavefront":
+            bp, s, n_coh = wavefront_scan_core(db, kappa_mult,
+                                               make_anchor_fn(db))
+            stats["match_mode"] = db.match_mode
+        elif db.strategy == "batched":
+            bp, s, counts = batched_scan_core(db, kappa_mult,
+                                              make_approx_fn(db))
+            counts = counts.view(db.lanes, 2)
+            # picks the left-propagation refinement switched to a same-row
+            # candidate, apart so coherence_ratio stays the oracle's stat
+            n_coh, n_ref = counts[:, 0], counts[:, 1]
+        else:
+            run = _run_exact if db.strategy == "exact" else _run_rowwise
+            bp, s, n_coh = run(db, kappa_mult)
+        return bp, s, n_coh.view(db.lanes), n_ref, stats
+
+    def _timed(self, t0: float, stats_list) -> None:
+        """Each lane's level wall from ``t0``: with ``level_sync`` (or
+        retries) one wait for the device, then ``ms`` and ``pixels_per_s``
+        (of the lane's own pixels); else the enqueue time, named for what
+        it is."""
+        if self.params.level_sync or self.params.level_retries > 0:
+            # one wait per level (never inside the step loop): per-level
+            # ms is the device's time, not the enqueue time; retries need
+            # the wait too (a fault must surface inside the retry wrapper,
+            # not at the final fetch)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            dt = time.perf_counter() - t0
+            for stats in stats_list:
+                stats["ms"] = dt * 1e3
+                stats["pixels_per_s"] = stats["pixels"] / max(dt, 1e-9)
+        else:
+            # only enqueued: the level's device work overlaps the host
+            # work of the next
+            dt = time.perf_counter() - t0
+            for stats in stats_list:
+                stats["enqueue_ms"] = dt * 1e3
 
     def synthesize_level(self, db: LevelDB, job: LevelJob
                          ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -1109,43 +1307,62 @@ class CudaMatcher(Matcher):
         batched strategy's refinement count under "_n_ref")."""
         t0 = time.perf_counter()
         hb, wb = job.b_shape
+        bp, s, n_coh, n_ref, scan_stats = self._scan(db, job.kappa_mult)
         stats: Dict[str, Any] = {
             "level": job.level,
             "db_rows": job.a_shape[0] * job.a_shape[1],
             "pixels": hb * wb,
-            "backend": self.device.type,
-            "strategy": db.strategy,
+            **scan_stats,
         }
-        if db.strategy == "wavefront":
-            bp, s, n_coh = wavefront_scan_core(
-                db, job.kappa_mult, make_anchor_fn(db))
-            stats["match_mode"] = db.match_mode
-        elif db.strategy == "batched":
-            bp, s, counts = batched_scan_core(db, job.kappa_mult,
-                                              make_approx_fn(db))
-            n_coh = counts[0]
-            # picks the left-propagation refinement switched to a same-row
-            # candidate, apart so coherence_ratio stays the oracle's stat
-            stats["_n_ref"] = counts[1]
-        else:
-            run = _run_exact if db.strategy == "exact" else _run_rowwise
-            bp, s, n_coh = run(db, job.kappa_mult)
-        stats["_n_coh"] = n_coh
-        if self.params.level_sync or self.params.level_retries > 0:
-            # one wait per level (never inside the step loop): per-level
-            # ms is the device's time, not the enqueue time; retries need
-            # the wait too (a fault must surface inside the retry wrapper,
-            # not at the final fetch)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            dt = time.perf_counter() - t0
-            stats["ms"] = dt * 1e3
-            stats["pixels_per_s"] = hb * wb / max(dt, 1e-9)
-        else:
-            # only enqueued: the level's device work overlaps the host
-            # work of the next, and the time is named for what it is
-            stats["enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        if n_ref is not None:
+            stats["_n_ref"] = n_ref[0]
+        stats["_n_coh"] = n_coh[0]
+        self._timed(t0, [stats])
         return bp.reshape(hb, wb), s.reshape(hb, wb), stats
+
+    def synthesize_level_lanes(self, dbs, jobs):
+        """The lane twin of ``synthesize_level`` (``batch/engine.py``; the
+        JAX package's ``TpuMatcher.synthesize_level_lanes``): k members'
+        level states ``dbs`` (from ``build_features``; the same A side, the
+        engine checks it) and their LevelJobs run as ONE scan
+        (``stack_lanes``), so each wavefront step or scan row makes one
+        anchor or approximate-match launch for every lane.  Returns per
+        lane (bp (hb, wb), s (hb, wb), stats), cropped to the member's real
+        shape; each stats dict carries ``lanes`` (k), the run's wall as
+        ``ms`` (or ``enqueue_ms`` with ``level_sync=False``) and the lane's
+        ``_n_coh`` (and ``_n_ref``, batched) as device scalars.  The kernel
+        wrappers count one launch a call, so a k-lane run counts what one
+        singleton does.  On the CPU the plain versions take the k lanes'
+        rows in one call too: their products round each row as at a
+        singleton's M (``tests/test_torch_batch.py`` holds every lane to
+        its singleton's bits there)."""
+        t0 = time.perf_counter()
+        k = len(dbs)
+        db = stack_lanes(dbs)
+        bp, s, n_coh, n_ref, scan_stats = self._scan(db, jobs[0].kappa_mult)
+        if db.strategy == "wavefront":
+            planes = lambda x, i, hb, wb: x[i].view(hb, wb)
+        else:
+            wbp = lane_row_width(db.wb, k)
+            planes = lambda x, i, hb, wb: x.view(db.hb, k, wbp)[
+                :hb, i, :wb].contiguous()
+        outs = []
+        for i, job in enumerate(jobs):
+            hb, wb = job.b_shape
+            stats: Dict[str, Any] = {
+                "level": job.level,
+                "db_rows": job.a_shape[0] * job.a_shape[1],
+                "pixels": hb * wb,
+                **scan_stats,
+                "lanes": k,
+                "_n_coh": n_coh[i],
+            }
+            if n_ref is not None:
+                stats["_n_ref"] = n_ref[i]
+            outs.append((planes(bp, i, hb, wb), planes(s, i, hb, wb),
+                         stats))
+        self._timed(t0, [st for _, _, st in outs])
+        return outs
 
     def best_match(self, db: LevelDB, job: LevelJob, q: int,
                    bp_flat: np.ndarray, s_flat: np.ndarray

@@ -79,6 +79,15 @@ class AnalogyParams:
       synthesis ignores it.
     - ``device``: where tensors live.  "cuda" (default) requires a card and
       never drops to the CPU; "cpu" runs every kernel's plain version.
+    - ``shape_buckets``: the query side of the batched strategy pads each
+      level's query rows (``static_q`` and the gather maps) with zero rows
+      up to ``tune.buckets.bucket_rows(hb*wb)``, in a singleton run and in
+      the lane engine (``batch/engine.py``), where targets of one width
+      and different heights in one bucket then share a lane run; results
+      are cropped to the real shape.  Env ``IA_SHAPE_BUCKETS`` overrides
+      either way.  False (default) changes nothing, bit for bit.  The
+      DB-side bucket of the JAX package and its ``--shape-buckets`` flag
+      are not ported yet (ROADMAP Queue 1 item 7).
 
     The driver's surroundings (``models/analogy.py``, ``utils/``):
 
@@ -124,6 +133,7 @@ class AnalogyParams:
     temporal_weight: float = 0.0
     bf16_scoring: bool = False
     device: str = "cuda"
+    shape_buckets: bool = False
     level_retries: int = 0
     dispatch_timeout_s: float = 0.0
     level_sync: bool = True

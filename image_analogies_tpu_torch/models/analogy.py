@@ -157,6 +157,50 @@ def _host(x, dtype) -> np.ndarray:
     return np.asarray(x, dtype)
 
 
+def _fetch_finest(bp, stats: List[Dict[str, Any]], params) -> np.ndarray:
+    """ONE host fetch for the finest B' plane ``bp`` (a device tensor, or a
+    NumPy plane resumed from disk) and every level's deferred device counts
+    (counts <= 2^24 are exact in fp32); then each level's stats are
+    finalized and logged (unless the level loop logged it already).
+    Returns B' as (hb, wb) float32."""
+    hb, wb = bp.shape[:2]
+    deferred = [(st, k) for st in stats for k in ("_n_coh", "_n_ref")
+                if k in st]
+    counts = ([torch.stack([st[k].reshape(()) for st, k in deferred]).to(
+        torch.float32)] if deferred else [])
+    if isinstance(bp, torch.Tensor):
+        fetched = torch.cat([bp.reshape(-1)] + [
+            c.to(bp.device) for c in counts]).cpu().numpy()
+        bp_y = fetched[:hb * wb].reshape(hb, wb).astype(np.float32)
+        fetched = fetched[hb * wb:]
+    else:
+        bp_y = _host(bp, np.float32)
+        fetched = counts[0].cpu().numpy() if counts else []
+    for (st, k), c in zip(deferred, fetched):
+        st[k] = float(c)
+    for st in stats:
+        _finalize_stats(st)
+        if not st.pop("_emitted", False):
+            ialog.emit(st, params.log_path)
+    return bp_y
+
+
+def _color_output(bp_y: np.ndarray, s_raw, params, ap_rgb: np.ndarray,
+                  b_yiq: Optional[np.ndarray]) -> np.ndarray:
+    """The final B' from the synthesized plane: A' colors gathered through
+    the source map (``source_rgb``; ``s_raw`` on the host), B's I/Q
+    channels around the plane (an RGB B), or the plane clipped to [0, 1]."""
+    if params.color_mode == "source_rgb":
+        ap_flat = ap_rgb.reshape(-1, ap_rgb.shape[-1]) if ap_rgb.ndim == 3 \
+            else ap_rgb.reshape(-1)
+        return ap_flat[s_raw.reshape(-1)].reshape(
+            bp_y.shape + (() if ap_rgb.ndim == 2 else (ap_rgb.shape[-1],)))
+    if b_yiq is not None:
+        return color.yiq2rgb(
+            np.stack([bp_y, b_yiq[..., 1], b_yiq[..., 2]], axis=-1))
+    return np.clip(bp_y, 0.0, 1.0)
+
+
 def create_image_analogy(
     a: np.ndarray,
     ap: np.ndarray,
@@ -360,40 +404,10 @@ def create_image_analogy(
         if pool is not None:
             pool.shutdown(wait=True)
 
-    # ONE host fetch for the finest B' plane and every level's deferred
-    # device counts (counts <= 2^24 are exact in fp32)
-    hb, wb = b_src.shape[:2]
-    deferred = [(st, k) for st in stats for k in ("_n_coh", "_n_ref")
-                if k in st]
-    counts = ([torch.stack([st[k].reshape(()) for st, k in deferred]).to(
-        torch.float32)] if deferred else [])
-    if isinstance(bp_pyr[0], torch.Tensor):
-        fetched = torch.cat([bp_pyr[0].reshape(-1)] + [
-            c.to(bp_pyr[0].device) for c in counts]).cpu().numpy()
-        bp_y = fetched[:hb * wb].reshape(hb, wb).astype(np.float32)
-        fetched = fetched[hb * wb:]
-    else:
-        bp_y = _host(bp_pyr[0], np.float32)
-        fetched = counts[0].cpu().numpy() if counts else []
-    for (st, k), c in zip(deferred, fetched):
-        st[k] = float(c)
-    for st in stats:
-        _finalize_stats(st)
-        if not st.pop("_emitted", False):
-            ialog.emit(st, params.log_path)
-
+    bp_y = _fetch_finest(bp_pyr[0], stats, params)
     need_s_host = params.color_mode == "source_rgb" or keep_levels
     s_raw = _host(s_pyr[0], np.int32) if need_s_host else s_pyr[0]
-    if params.color_mode == "source_rgb":
-        ap_flat = ap_rgb.reshape(-1, ap_rgb.shape[-1]) if ap_rgb.ndim == 3 \
-            else ap_rgb.reshape(-1)
-        out = ap_flat[s_raw.reshape(-1)].reshape(
-            bp_y.shape + (() if ap_rgb.ndim == 2 else (ap_rgb.shape[-1],)))
-    elif b_yiq is not None:
-        out = color.yiq2rgb(
-            np.stack([bp_y, b_yiq[..., 1], b_yiq[..., 2]], axis=-1))
-    else:
-        out = np.clip(bp_y, 0.0, 1.0)
+    out = _color_output(bp_y, s_raw, params, ap_rgb, b_yiq)
     levels_np = None
     if keep_levels:
         levels_np = [(bp_y, s_raw)] + [

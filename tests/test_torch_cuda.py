@@ -1390,3 +1390,105 @@ def test_cuda_pipelined_run_equals_lock_step():
     assert pipe.timing["donated_levels"] == levels - 1
     assert pipe.timing["prefetch_errors"] == 0
     assert all("enqueue_ms" in st for st in pipe.stats)
+
+
+# ------------------------------------------------------------ the lane engine
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy,match_mode,heights", [
+    ("wavefront", "auto", (40, 40, 40, 40)),
+    ("wavefront", "exact_hi2_2p", (40, 40, 40, 40)),
+    ("batched", "auto", (40, 40, 40, 40)),
+    # one query bucket at both levels (2,048 and 512 rows), four heights
+    ("batched", "auto", (40, 44, 42, 40))])
+def test_cuda_lanes_bit_identical_to_singletons(strategy, match_mode,
+                                                heights):
+    """Four lanes on the card against four singleton runs, at an odd width
+    (45: batched rows of 48 columns a lane) and F = 50 at the coarsest
+    level (no coarse block): every lane's B', source map and ratios are
+    its singleton's bits, and the lane run launches what the singleton of
+    the tallest target does (one kernel call a step or row for all
+    lanes)."""
+    from image_analogies_tpu_torch import create_image_analogy_batch
+
+    _card()
+    rng = np.random.RandomState(7)
+    a = rng.rand(48, 45).astype(np.float32)
+    ap = np.clip(0.8 * a + 0.2 * rng.rand(48, 45), 0, 1).astype(np.float32)
+    targets = [rng.rand(h, 45).astype(np.float32) for h in heights]
+    params = AnalogyParams(levels=2, remap_luminance=False,
+                           strategy=strategy, match_mode=match_mode,
+                           shape_buckets=len(set(heights)) > 1)
+    match.reset_launch_counts()
+    results = create_image_analogy_batch(a, ap, targets, params)
+    lanes = {k: v for k, v in match.LAUNCHES.items() if v}
+    for b, res in zip(targets, results):
+        assert not isinstance(res, Exception), res
+        match.reset_launch_counts()
+        ref = create_image_analogy(a, ap, b, params)
+        if b.shape[0] == max(heights):  # the lanes run to the tallest
+            assert lanes == {k: v for k, v in match.LAUNCHES.items() if v}
+        assert np.array_equal(res.bp_y, ref.bp_y)
+        assert np.array_equal(res.source_map, ref.source_map)
+        for st, st_ref in zip(res.stats, ref.stats):
+            assert st["lanes"] == 4
+            assert st["coherence_ratio"] == st_ref["coherence_ratio"]
+            assert st.get("refined_ratio") == st_ref.get("refined_ratio")
+
+
+def _rows_of_singletons(fn, q, k):
+    """``fn`` on each of the k lanes' row blocks of ``q``, concatenated."""
+    outs = [fn(part) for part in q.chunk(k)]
+    return tuple(torch.cat([o[i] for o in outs]) for i in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,m", [("packed_best", 352),
+                                      ("argmin_l2", 88),
+                                      ("argmin_l2_bf16", 1024)])
+def test_cuda_lane_width_calls_equal_singleton_calls(kernel, m):
+    """Each kernel of the lane path at four lanes' rows (packed2k at M =
+    1,408, argmin_l2 at 352, argmin_l2_bf16 at 4,096) gives every row the
+    pick and score bits of the same row in a singleton-sized call of M
+    rows, one launch a call, and agrees with its plain version as the
+    single-call cases above do."""
+    dev = _card()
+    k = 4
+    if kernel == "packed_best":
+        x, qv = packed_inputs(m=k * m, n=69000, dup=(3, 68940))
+        l = qv.shape[1]
+        xt = torch.from_numpy(x).to(dev)
+        wk, _ = pack_wk(xt, torch.zeros(l, device=dev),
+                        0.5 * (xt * xt).sum(1), torch.arange(l, device=dev),
+                        70000)
+        g1, g2, _ = match.bf16_split3(torch.from_numpy(qv).to(dev))
+        q = query_rows(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+                       wk.shape[1])
+        call = lambda qq: match.packed_best(qq, wk, 224)
+        plain = lambda qq: match.packed_best_plain(qq, wk, 224)
+        n, atol, band = 69000, 1e-6, 1e-6
+    elif kernel == "argmin_l2":
+        q, db, dbn = (torch.from_numpy(t).to(dev) for t in argmin_inputs(
+            m=k * m, n=64000, npad=65536, dup=(40, 63940)))
+        call = lambda qq: match.argmin_l2(qq, db, dbn)
+        plain = lambda qq: match.argmin_l2_plain(qq, db, dbn)
+        n, atol, band = 64000, 1e-5, 0.0  # the same picks
+    else:
+        q, dbp, dbn = (t.to(dev) for t in argmin2_case(k * m, 65436, 65536))
+        call = lambda qq: match.argmin_l2_bf16(qq, dbp, dbn, 80)
+        plain = lambda qq: match.argmin_l2_bf16_plain(qq, dbp, dbn, 80)
+        n, atol, band = 65436, 1e-4, 1e-4
+    match.reset_launch_counts()
+    idx, val = call(q)
+    assert match.LAUNCHES[kernel] == 1
+    one_i, one_v = _rows_of_singletons(call, q, k)
+    assert match.LAUNCHES[kernel] == 1 + k
+    assert torch.equal(idx, one_i)
+    assert torch.equal(val.view(torch.int32), one_v.view(torch.int32))
+    ref_i, ref_v = plain(q)
+    _assert_band(kernel, idx.cpu(), val.cpu(), ref_i.cpu(), ref_v.cpu(),
+                 atol=atol, band=band)
+    if not band:
+        assert torch.equal(idx, ref_i.to(idx.device))
+    assert int(idx.max()) < n
