@@ -141,6 +141,28 @@ and carried on):
                 does (6,138 packed_best + 1,783 argmin_l2; batched 1,984
                 argmin_l2_bf16); its walls, the per-lane wall against the
                 singletons' mean, peak memory and per-level ms printed.
+16. tune       — the tune store and the run's own counters: ``ia tune
+                --dry-run`` (a subprocess, no device work); ``ia tune``
+                live into a fresh store, twice (subprocesses): every
+                candidate of the packed2k sweep (M = 352, N = 2^20, 223
+                lanes; chunks_per_sm x ring_stages) and of the argmin_l2
+                sweep (M = 88, N = 65,536, F = 68; chunks_per_sm) must
+                give bit-identical idx and val; each candidate's ms,
+                the winners and whether both runs picked the same one
+                printed with the card's name and power limit; npr_1024
+                with ``metrics=True`` on the oracle inputs four times
+                (empty store, tuned, tuned, empty): each run the main
+                path's digest and launches, its ``launch.*`` counters
+                equal to ``LAUNCHES``, its ``hbm.peak_bytes.d0`` gauge
+                equal to ``max_memory_allocated``, its manifest naming
+                the store and its log the resolved keys, walls printed;
+                ``ia warmup --size 256x256 --levels 2`` twice into a fresh
+                ``--compile-cache-dir`` (subprocesses: the first builds
+                the libraries its levels launch, the second finds them
+                all); then npr_1024 on ``make_structured(1000, 7)``,
+                wavefront and batched, with and without ``shape_buckets``
+                (the DB bucketed to 2^20 ... 2^12 rows): the bucketed bits
+                must be the unbucketed ones, walls and peaks printed.
 
 The kernels phase also runs each kernel of the lane path at four lanes'
 query rows (packed_best at M = 1,408, argmin_l2 at 352, argmin_l2_bf16 at
@@ -181,7 +203,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video", "driver", "lanes")
+          "modes", "video", "driver", "lanes", "tune")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -276,6 +298,12 @@ CARD_CPU_MISMATCH_MAX = 0.02
 CARD_CPU_SSIM_MIN = 0.99
 # input digests of the cached 1024^2 CPU oracles, by make_structured seed
 ORACLE_DIGESTS = {7: "8512fc90ebcc2781", 13: "8f8cccf9bd2128a6"}
+# the main path's bits on seed 7's inputs (``bits_digest``): the tune phase
+# holds every metrics run, tuned or not, to them
+MAIN_DIGEST = "eb610f5475a13e63"
+# the bucketed level build's inputs: make_structured(1000, 7), whose levels'
+# A rows (10^6 ... 3,969) bucket to 2^20, 2^18, 2^16, 2^14 and 2^12 rows
+BUCKET_SIZE = 1000
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -452,9 +480,11 @@ def argmin_operands(m, npad, f=68, fp=128, seed=11, dup=None):
 
 def argmin_bound(m, npad, f):
     """Bound of one fp32 argmin call: q, the F used DB columns and the norms
-    read once, (idx, val) written once; 2 M N F operations."""
-    return bound(4 * (m * f + npad * f + npad) + 8 * m, 2 * m * npad * f,
-                 PEAK_FP32_FLOP_S)
+    read once, (idx, val) written once; 2 M N F operations (the package's
+    work count, ``obs/device.py argmin_work``)."""
+    from image_analogies_tpu_torch.obs.device import argmin_work
+
+    return bound(*argmin_work(m, npad, f), PEAK_FP32_FLOP_S)
 
 
 def run_argmin_shapes(match, shapes):
@@ -1490,9 +1520,11 @@ def run_packed_shapes(match, shapes):
 def packed_bound(m, npad, width):
     """Bound of one packed2k call at the function's own width (4L + 3
     lanes): qa and wk read once, (idx, val) written once; 2 M N width
-    bf16 operations."""
-    return bound(2 * (m * width + npad * width) + 8 * m,
-                 2 * m * npad * width, PEAK_BF16_FLOP_S)
+    bf16 operations (the package's work count, ``obs/device.py
+    packed2k_work``)."""
+    from image_analogies_tpu_torch.obs.device import packed2k_work
+
+    return bound(*packed2k_work(m, npad, width), PEAK_BF16_FLOP_S)
 
 
 def phase_packed_kernel(rows, parent):
@@ -3408,6 +3440,223 @@ def phase_lanes(a, ap, size=1024):
     return out
 
 
+def cli_json(phase, args, timeout=900):
+    """``python -m image_analogies_tpu_torch.cli ARGS`` as a subprocess of
+    this checkout; fails unless it exits 0.  Returns (its stdout parsed as
+    one JSON document, seconds)."""
+    cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=timeout)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{phase}: {' '.join(args[:2])} exit {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout), secs
+
+
+def tune_sweeps(tmp):
+    """Steps 1-2 of the tune phase: the dry run, then two live runs into a
+    fresh store.  Returns the store's path."""
+    plan, secs = cli_json("tune", ["tune", "--dry-run"])
+    say("tune", step="dry_run", s=secs, device_kind=plan["device_kind"],
+        sweeps={sw["kernel"]: dict(knobs=sw["knobs"],
+                                   candidates=len(sw["candidates"]),
+                                   shape=sw["shape"])
+                for sw in plan["sweeps"]})
+    store = os.path.join(tmp, "tune.json")
+    runs = []
+    for i in (1, 2):
+        res, secs = cli_json("tune", ["tune", "--store", store])
+        runs.append(res)
+        for sw in res["sweeps"]:
+            say("tune", step=f"sweep {i}", kernel=sw["kernel"], s=secs,
+                card=res["device_kind"], power_limit=res.get("power_limit"),
+                verified=sw["verified"], winner=sw["winner"],
+                winner_ms=sw["winner_ms"],
+                winner_spread_ms=sw["winner_spread_ms"],
+                default_ms=sw.get("default_ms"),
+                beats_default_by_more_than_spread=sw.get(
+                    "beats_default_by_more_than_spread"),
+                candidates=[[r["candidate"], r["ms"], r["spread_ms"],
+                             r["same_bits"], r["plan"]]
+                            for r in sw["results"]])
+            if not sw["verified"]:
+                fail(f"tune: the {sw['kernel']} candidates gave different "
+                     "bits")
+        if not res["persisted"]:
+            fail("tune: verified winners were not persisted")
+    same = {a["kernel"]: a["winner"] == b["winner"]
+            for a, b in zip(runs[0]["sweeps"], runs[1]["sweeps"])}
+    with open(store) as f:
+        say("tune", step="winners", same_winner_both_runs=same,
+            store=json.load(f)["entries"])
+    return store
+
+
+def tune_main_runs(a, ap, b, tmp, store):
+    """Step 3: npr_1024 with metrics=True, empty store, tuned, tuned,
+    empty, each held to the main path's digest and launches, its counters
+    to ``LAUNCHES`` and ``max_memory_allocated``, its manifest and log to
+    the store it ran with."""
+    import torch
+
+    from image_analogies_tpu_torch import PRESETS, create_image_analogy
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.tune import resolve as tresolve
+
+    base = PRESETS["npr_1024"]
+    want = {k: v for k, v in expected_launches(base, 1024).items() if v}
+    empty = os.path.join(tmp, "empty.json")  # never written
+    with open(store) as f:
+        entries = json.load(f)["entries"]
+    for i, (label, path) in enumerate((("empty", empty), ("tuned", store),
+                                       ("tuned", store), ("empty", empty))):
+        os.environ["IA_TUNE_STORE"] = path
+        tresolve.reset_provenance()
+        log = os.path.join(tmp, f"main_{i}.jsonl")
+        params = dataclasses.replace(base, metrics=True, log_path=log)
+        match.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = create_image_analogy(a, ap, b, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in match.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        recs = read_log(log)
+        man = [r for r in recs if r.get("event") == "run_manifest"]
+        snap = [r for r in recs if r.get("event") == "run_end"][-1]["metrics"]
+        counters, gauges = snap["counters"], snap["gauges"]
+        counted = {k[len("launch."):]: v for k, v in counters.items()
+                   if k.startswith("launch.")}
+        resolved = {r["key"]: {k: r[k] for k in ("chunks_per_sm",
+                                                 "ring_stages", "origin")}
+                    for r in recs if r.get("event") == "tune_resolved"}
+        stats = sorted(res.stats, key=lambda st: st["level"])
+        say("tune", step=f"main {label}", wall_s=wall,
+            bits=bits_digest(res),
+            level_ms={st["level"]: st["ms"] for st in stats},
+            launches=launches, launch_counters=counted,
+            kernel_flops=counters.get("kernel.flops"),
+            kernel_bytes=counters.get("kernel.bytes"),
+            hbm_peak_d0=gauges.get("hbm.peak_bytes.d0"), peak=peak,
+            manifest={k: man[0].get(k) for k in (
+                "tune_store", "tune_entries", "device_kind", "power_limit",
+                "capability")} if man else None,
+            resolved=resolved)
+        if bits_digest(res) != MAIN_DIGEST:
+            fail(f"tune: main {label} bits {bits_digest(res)} != "
+                 f"{MAIN_DIGEST}")
+        if launches != want or counted != launches:
+            fail(f"tune: main {label} launched {launches} (counted "
+                 f"{counted}), expected {want}")
+        if gauges.get("hbm.peak_bytes.d0") != float(peak):
+            fail(f"tune: main {label} hbm.peak_bytes.d0 "
+                 f"{gauges.get('hbm.peak_bytes.d0')} != {peak}")
+        n_entries = len(entries) if label == "tuned" else 0
+        if (len(man) != 1 or man[0].get("tune_store") != path
+                or man[0].get("tune_entries") != n_entries or not resolved):
+            fail(f"tune: main {label}: manifest {man} or resolved keys "
+                 f"{list(resolved)} do not name the store {path}")
+        hits = [key for key, r in resolved.items()
+                if "store_wildcard" in r["origin"].values()]
+        if (label == "tuned") != bool(hits):
+            fail(f"tune: main {label}: store hits {hits}")
+    os.environ.pop("IA_TUNE_STORE")
+
+
+def tune_warmups(tmp):
+    """Step 4: ``ia warmup`` twice into one fresh library directory."""
+    from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
+
+    libs = {"exact_hi": "argmin_l2", "exact_hi2_2p": "packed2k_best"}
+    want = len({libs[resolve_match_mode("auto", h * h)] for h in (256, 128)})
+    cache = os.path.join(tmp, "libs")
+    args = ["warmup", "--size", "256x256", "--levels", "2",
+            "--compile-cache-dir", cache]
+    first, s1 = cli_json("tune", args)
+    built = sorted(f for f in (os.listdir(cache) if os.path.isdir(cache)
+                               else ()) if f.endswith(".so"))
+    second, s2 = cli_json("tune", args)
+    say("tune", step="warmup", first=first, first_s=s1, second=second,
+        second_s=s2, libraries=built, want=want)
+    if (first["compile_count"] != want or len(built) != want
+            or first["compile_cache_hits"] != 0
+            or second["compile_count"] != 0
+            or second["compile_cache_hits"] != want):
+        fail(f"tune: warmup built {first['compile_count']} and found "
+             f"{second['compile_cache_hits']} of {want} libraries")
+
+
+def tune_buckets():
+    """Step 5: npr_1024 on make_structured(1000, 7), wavefront and batched,
+    unbucketed then bucketed: the same bits and launches; the packed2k and
+    argmin_l2 launches of the bucketed wavefront move more bytes (their
+    DB rows padded to the buckets)."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import PRESETS, create_image_analogy
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.tune.buckets import bucket_rows
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    a, ap, b = make_structured(BUCKET_SIZE, 7)
+    sizes = [BUCKET_SIZE]
+    for _ in range(PRESETS["npr_1024"].levels - 1):
+        sizes.append((sizes[-1] + 1) // 2)
+    say("tune", step="buckets", a_rows=[h * h for h in sizes],
+        buckets=[bucket_rows(h * h) for h in sizes])
+    for strategy in ("wavefront", "batched"):
+        out = {}
+        for bucketed in (False, True):
+            params = dataclasses.replace(
+                PRESETS["npr_1024"], strategy=strategy, metrics=True,
+                shape_buckets=bucketed)
+            match.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with obs_trace.run_scope(params):  # the run joins it
+                res = create_image_analogy(a, ap, b, params)
+                kbytes = obs_metrics.snapshot()["counters"].get(
+                    "kernel.bytes")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[bucketed] = (res, {k: v for k, v in match.LAUNCHES.items()
+                                   if v}, kbytes)
+            say("tune", step=f"buckets {strategy}", bucketed=bucketed,
+                wall_s=wall, bits=bits_digest(res), launches=out[bucketed][1],
+                kernel_bytes=kbytes,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        (r0, l0, k0), (r1, l1, k1) = out[False], out[True]
+        if not (np.array_equal(r0.bp_y.view(np.int32), r1.bp_y.view(np.int32))
+                and np.array_equal(r0.source_map, r1.source_map)
+                and l0 == l1):
+            fail(f"tune: bucketed {strategy} differs from unbucketed "
+                 f"(B' pixels {int((r0.bp_y != r1.bp_y).sum())}, source map "
+                 f"{int((r0.source_map != r1.source_map).sum())}, launches "
+                 f"{l0} vs {l1})")
+        if strategy == "wavefront" and not (k0 and k1 and k1 > k0):
+            fail(f"tune: the bucketed wavefront's kernels moved {k1} bytes "
+                 f"against {k0}: its DB rows were not padded")
+
+
+def phase_tune(a, ap, b):
+    """The tune phase (see the module docstring, 16)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        store = tune_sweeps(tmp)
+        tune_main_runs(a, ap, b, tmp, store)
+        tune_warmups(tmp)
+    tune_buckets()
+    say("tune", phase_s=time.perf_counter() - t0)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3458,7 +3707,8 @@ def main() -> None:
     rows = phase_kernels(args.parent) if "kernels" in phases else None
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
-            "batched", "batched_profile", "driver", "lanes"} & set(phases):
+            "batched", "batched_profile", "driver", "lanes",
+            "tune"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -3501,6 +3751,8 @@ def main() -> None:
         lanes = phase_lanes(a, ap_)
         path_launches["lanes wavefront"] = lanes["wavefront"]
         path_launches["lanes batched"] = lanes["batched"]
+    if "tune" in phases:
+        phase_tune(a, ap_, b)
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

@@ -74,6 +74,8 @@ from image_analogies_tpu_torch.ops.match import (
     prepadded_argmin_queries,
 )
 from image_analogies_tpu_torch.tune import buckets as tune_buckets
+from image_analogies_tpu_torch.tune import geometry as tune_geometry
+from image_analogies_tpu_torch.tune import resolve as tune_resolve
 from image_analogies_tpu_torch.utils import devcache
 
 _F32 = torch.float32
@@ -81,12 +83,10 @@ _F32 = torch.float32
 # match_mode="auto" switches to the packed scan at this many A rows.  The
 # value is the JAX package's (backends/tpu.py _PACKED_CROSSOVER_ROWS),
 # measured on a TPU; it decides which kernel runs and is due to be
-# re-derived on the H100 (ROADMAP).
+# re-derived on the H100 (ROADMAP).  A constant, as in the JAX package:
+# the launch geometry resolves through tune/resolve.py, the crossover
+# does not.
 PACKED_CROSSOVER_ROWS = 131072
-
-# The JAX scan carries source indices as exact f32 values, exact below
-# 2^24 rows; the port keeps integer indices but holds the same cap.
-MAX_A_ROWS = 2 ** 24
 
 # DB rows of the padded scan copies are a multiple of this
 PAD_TILE = 256
@@ -94,14 +94,6 @@ PAD_TILE = 256
 # rescue breadth of the scan_rescue anchor: the exact fp32 re-score covers
 # the top-T tile champions by scan score (the JAX package's _RESCUE_T)
 _RESCUE_T = 8
-
-# Tile cap of the per-tile champion scan (scan_rescue).  The tile decides
-# which rows the rescue re-scores, so it is part of the result, not only of
-# the speed.  4096 gives level 0 of npr_1024 (Npad 1,048,576) 256 tiles —
-# the tiling the JAX package resolves for F <= 128 without a tune store.
-# It is the port's own constant, measured on no device (neither a TPU nor
-# the H100), and due to be swept on the H100 (ROADMAP).
-SCAN_TILE_CAP = 4096
 
 # pad mode of the scan copy each resolved anchor mode reads
 PAD_MODES = {
@@ -174,6 +166,9 @@ class LevelDB:
     # lane's real B height
     lanes: int = 1
     lane_hb: Tuple[int, ...] = ()
+    # the level's launch geometry, resolved once (build_features); None:
+    # resolved when the scan starts (``level_tune``)
+    tune: Optional[tune_resolve.TuneConfig] = None
 
 
 @functools.lru_cache(maxsize=64)
@@ -328,17 +323,18 @@ def gather_maps_device(h: int, w: int, p: int, device):
 
 
 def pad_bf16_uncentered(src: torch.Tensor, srcn: torch.Tensor,
-                        pad_tile: int = PAD_TILE):
+                        pad_tile: int = PAD_TILE, n_rows: int = 0):
     """The scan copy of the batched/rowwise approximate match on the card:
     the rows ``src`` (N, F) ROUNDED to bf16 (as JAX ``.astype``), not
-    centered, lane-padded to (Npad, Fp) with Npad a multiple of
-    ``pad_tile``, beside ``srcn`` — the exact fp32 norms of the UNROUNDED
-    rows — with +inf on the padding rows.  (The "bf16" pad mode centers on
-    the column mean first: rounding centered values gives other numbers.)
-    Returns (db_pad (Npad, Fp) bf16, dbn_pad (Npad,) fp32)."""
+    centered, lane-padded to (Npad, Fp) with Npad the first multiple of
+    ``pad_tile`` at or past max(N, ``n_rows``), beside ``srcn`` — the exact
+    fp32 norms of the UNROUNDED rows — with +inf on the padding rows.  (The
+    "bf16" pad mode centers on the column mean first: rounding centered
+    values gives other numbers.)  Returns (db_pad (Npad, Fp) bf16, dbn_pad
+    (Npad,) fp32)."""
     n, f = src.shape
     fp = max(_round_up(f, 128), 128)
-    npad = _round_up(n, pad_tile)
+    npad = _round_up(max(n, n_rows), pad_tile)
     db_pad = torch.zeros((npad, fp), dtype=torch.bfloat16, device=src.device)
     db_pad[:n, :f] = src.to(torch.bfloat16)
     return db_pad, _inf_pad(srcn, npad)
@@ -349,11 +345,12 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
                          pad_mode: Optional[str] = "f32",
                          pad_tile: int = PAD_TILE,
                          rowsafe: Optional[torch.Tensor] = None,
-                         a_temporal=None, b_temporal=None
+                         a_temporal=None, b_temporal=None,
+                         db_rows_pad: int = 0
                          ) -> Dict[str, Optional[torch.Tensor]]:
-    """Torch counterpart of the JAX ``_prepare_level_arrays`` (no
-    bucketing).  With the spec's temporal block, ``a_temporal`` (A' at this
-    level) fills it on the DB side and ``b_temporal`` (the previous output
+    """Torch counterpart of the JAX ``_prepare_level_arrays``.  With the
+    spec's temporal block, ``a_temporal`` (A' at this level) fills it on
+    the DB side and ``b_temporal`` (the previous output
     frame at this level) on the query side; the block is static query
     lanes, live in every packed layout (``FeatureSpec.query_live_mask``).
     ``rowsafe`` None is the wavefront (``pad_full=True``):
@@ -371,6 +368,14 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
     - "bf16_uncentered": ``pad_bf16_uncentered`` (batched and rowwise on
       the card);
     - None: no scan copy (exact, and batched/rowwise on the CPU).
+
+    ``db_rows_pad`` (the DB-side shape bucket, ``tune/buckets.py``) grows
+    the scan copy's padding rows to it: the copy has the first multiple of
+    ``pad_tile`` at or past max(Na, ``db_rows_pad``) rows, every row past
+    Na one that cannot win (+inf norms and half norms, ``_PAD_SCORE``
+    norm lanes), at the end.  The fp32 DB, its norms and A' keep Na rows
+    (the JAX function pads them too, for its jit programs; nothing here
+    gathers past Na).  0 gives the unbucketed arrays, bit for bit.
 
     Inputs are fp32 tensors on the target device; the dict keys mirror the
     JAX function's (``dbn_pad`` / ``dbnh_pad`` are 1-D here)."""
@@ -393,7 +398,7 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
     dev = db.device
     n, f = db.shape
     fp = max(_round_up(f, 128), 128)
-    npad = _round_up(n, pad_tile)
+    npad = _round_up(max(n, db_rows_pad), pad_tile)
     out: Dict[str, Optional[torch.Tensor]] = {
         "db": db, "db_sqnorm": db_sqnorm, "db_rowsafe": db_rowsafe,
         "db_rowsafe_sqnorm": db_rowsafe_sqnorm, "static_q": static_q,
@@ -433,7 +438,8 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
                    dbnh_pad=_inf_pad(0.5 * nrm, npad),
                    feat_mean=feat_mean)
     elif pad_mode == "bf16_uncentered":
-        db_pad, dbn_pad = pad_bf16_uncentered(src, srcn, pad_tile)
+        db_pad, dbn_pad = pad_bf16_uncentered(src, srcn, pad_tile,
+                                              db_rows_pad)
         out.update(db_pad=db_pad, dbn_pad=dbn_pad)
     elif pad_mode == "f32":
         db_pad = torch.zeros((npad, fp), dtype=_F32, device=dev)
@@ -445,16 +451,28 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
 # -------------------------------------------------------------- the anchor
 
 
-def scan_tile_rows(npad: int) -> int:
-    """Per-tile scan tile for a DB padded to ``npad`` rows (the JAX
-    package's ``tune/geometry.scan_tile_rows`` with the port's cap): the
-    largest power of two dividing npad, at most ``SCAN_TILE_CAP``, then
-    halved until there are >= 16 tiles."""
-    p2_npad = npad & (-npad)
-    tile = min(SCAN_TILE_CAP, p2_npad, npad)
-    while npad // tile < 16 and tile >= 256:
-        tile //= 2
-    return tile
+def scan_tile_rows(npad: int, cap_rows: int = 0) -> int:
+    """Per-tile scan tile for a DB padded to ``npad`` rows
+    (``tune/geometry.scan_tile_rows``): the largest power of two dividing
+    npad, at most ``cap_rows`` (0: the resolved ``scan_tile_cap``,
+    ``tune/resolve.py scan_tile``), then halved until there are >= 16
+    tiles.  The tile is part of scan_rescue's result (it decides the
+    rescue's candidates), so a bucketed DB (a larger npad) can change it."""
+    if cap_rows:
+        return tune_geometry.scan_tile_rows(npad, cap_rows)
+    return tune_resolve.scan_tile(npad)
+
+
+def level_tune(db: LevelDB) -> tune_resolve.TuneConfig:
+    """The level's launch geometry: the config ``build_features`` resolved,
+    or for a LevelDB built elsewhere (a test's) its key's resolution."""
+    if db.tune is not None:
+        return db.tune
+    pad = PAD_MODES.get(db.match_mode) if db.strategy == "wavefront" else (
+        "bf16_uncentered" if db.db_pad is not None else None)
+    fp = int(db.db_pad.shape[1]) if db.db_pad is not None else int(
+        db.static_q.shape[1])
+    return tune_resolve.level_config(db.strategy, pad, fp, db.ha * db.wa)
 
 
 def _lex_min(d: torch.Tensor, cand: torch.Tensor):
@@ -498,6 +516,7 @@ def make_anchor_fn(db: LevelDB):
     na = db.ha * db.wa
     mode = db.match_mode
     f = int(db.static_q.shape[1])
+    cfg = level_tune(db)  # the main path's two kernels' launch knobs
     if mode in ("scan_rescue", "scan_rescue_1p"):
         q_split = mode == "scan_rescue"
         tile = db.scan_tile
@@ -553,7 +572,9 @@ def make_anchor_fn(db: LevelDB):
                     q2, q1,
                     torch.zeros((m, kp - o2 - 2 * lw), dtype=torch.bfloat16,
                                 device=dev)], dim=1)
-                p, _ = packed_best(qa, db.db_pad, k_used)
+                p, _ = packed_best(qa, db.db_pad, k_used,
+                                   chunks_per_sm=cfg.chunks_per_sm,
+                                   ring_stages=cfg.ring_stages)
                 return p
 
         def anchor(queries):
@@ -579,8 +600,11 @@ def make_anchor_fn(db: LevelDB):
 
         return anchor
 
+    chunks_per_sm = cfg.chunks_per_sm
+
     def anchor(queries):
-        p, _ = argmin_l2(queries, db.db_pad, db.dbn_pad)
+        p, _ = argmin_l2(queries, db.db_pad, db.dbn_pad,
+                         chunks_per_sm=chunks_per_sm)
         p = p.long()
         return p, ((db.db[p] - queries) ** 2).sum(dim=1)
 
@@ -679,10 +703,12 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     k = db.lanes
     hb, wb = db.hb, db.wb
     nb = hb * wb
-    if db.ha * db.wa > MAX_A_ROWS:
+    max_rows = level_tune(db).wavefront_max_rows
+    if db.ha * db.wa > max_rows:
         raise ValueError(
-            f"the wavefront scan caps exemplars at {MAX_A_ROWS} A rows "
-            f"(a 4096x4096 A); this A is {db.ha}x{db.wa}")
+            f"the wavefront scan caps exemplars at {max_rows} A rows "
+            f"(wavefront_max_rows, tune/resolve.py; the ceiling 2^24 is a "
+            f"4096x4096 A); this A is {db.ha}x{db.wa}")
     dev = db.static_q.device
     nf = int(db.off.shape[0])
     nc = (nf - 1) // 2  # causal positions = the first nc raster offsets
@@ -1191,6 +1217,20 @@ class CudaMatcher(Matcher):
                 self._gather_maps(hb, wb, p)
 
     def build_features(self, job: LevelJob) -> LevelDB:
+        """The level's state.  With shape buckets on (``tune/buckets.py``),
+        the wavefront's and batched's scan copies pad their DB rows to
+        ``bucket_rows(ha*wa)`` (``prepare_level_arrays db_rows_pad``) and
+        batched pads its query side to ``bucket_rows(hb*wb)``.  The level's
+        launch geometry resolves once here, after the upload (so a card
+        run's key names the card), keyed by the strategy, the pad mode,
+        the scan copy's width and the DB rows' bucket, and rides on the
+        ``LevelDB``.
+
+        Bucketing keeps every pick of the exact and packed anchors, whose
+        pad rows cannot win.  scan_rescue's tile (``scan_tile_rows``)
+        depends on the padded row count, so there bucketing can change the
+        rescue's candidates: that mode's bucketed run is held to the JAX
+        package's bucketed run, not to an unbucketed one."""
         spec = job.spec
         ha, wa = job.a_shape
         hb, wb = job.b_shape
@@ -1206,13 +1246,22 @@ class CudaMatcher(Matcher):
                 self.device)
             pad_mode = ("bf16_uncentered" if strategy != "exact"
                         and self.bf16_approx else None)
+        buckets = tune_buckets.buckets_enabled(self.params)
+        # the DB-side bucket (the JAX package's db_rows_pad): wavefront and
+        # batched only, as there
+        db_rows_pad = (tune_buckets.bucket_rows(ha * wa) if buckets and
+                       strategy in ("wavefront", "batched") else 0)
         arrs = prepare_level_arrays(
             spec, self._t(job.a_src), self._t(job.a_filt),
             self._t(job.a_src_coarse), self._t(job.a_filt_coarse),
             self._t(job.b_src), self._t(job.b_src_coarse),
             self._t(job.b_filt_coarse), pad_mode=pad_mode, rowsafe=rowsafe,
             a_temporal=self._t(job.a_temporal),
-            b_temporal=self._t(job.b_temporal))
+            b_temporal=self._t(job.b_temporal), db_rows_pad=db_rows_pad)
+        db_pad = arrs["db_pad"]
+        cfg = tune_resolve.level_config(
+            strategy, pad_mode, int(db_pad.shape[1]) if db_pad is not None
+            else int(arrs["static_q"].shape[1]), ha * wa)
         fsl = spec.fine_filt_slice
         level = dict(
             db=arrs["db"], static_q=arrs["static_q"],
@@ -1227,18 +1276,18 @@ class CudaMatcher(Matcher):
             db_live=arrs["db_live"], ha=ha, wa=wa, hb=hb, wb=wb,
             fine_start=fsl.start, match_mode=mode, db_pad2=arrs["db_pad2"],
             dbnh_pad=arrs["dbnh_pad"], strategy=strategy,
-            db_sqnorm=arrs["db_sqnorm"])
+            db_sqnorm=arrs["db_sqnorm"], tune=cfg)
         if strategy == "wavefront":
             diag = tuple(torch.from_numpy(sg.astype(np.int64)).to(self.device)
                          for sg in _diag_schedule_np(
                              hb, wb, spec.fine_size // 2 + 1))
             return LevelDB(
-                diag=diag, scan_tile=(scan_tile_rows(arrs["db_pad"].shape[0])
-                                      if pad_mode == "bf16" else 0),
+                diag=diag, scan_tile=(
+                    scan_tile_rows(int(db_pad.shape[0]), cfg.scan_tile_cap)
+                    if pad_mode == "bf16" else 0),
                 **level)
         flat_idx, valid, written = self._gather_maps(hb, wb, spec.fine_size)
-        if strategy == "batched" and tune_buckets.buckets_enabled(
-                self.params):
+        if strategy == "batched" and buckets:
             # the query-side bucket (the JAX package's q_rows_pad): zero
             # rows up to the bucket, which no real row reads (the row loop
             # stops at the real hb); fresh tensors, the cached maps stay

@@ -31,12 +31,15 @@ same alignment.  A batch that would break this raises
   pad_waste         a member's finest-level query bucket is padding past
                     the ceiling (``tune.resolve.batch_pad_waste_pct``)
 
+Each refusal also counts ``batch.fallback_sequential.<reason>`` in an
+active metrics run; an admitted batch counts ``batch.launches`` and
+``batch.lanes`` (k), sets the ``batch.pad_waste_frac`` gauge, and a lane
+whose build fails counts ``batch.lane_faults`` (the JAX names).  The run
+opens its own obs run scope and tune pin scope, as a singleton's does.
 The JAX package's ``sharded`` and ``cpu_backend`` reasons wait for the
-port's mesh path and CPU matcher (ROADMAP Queue 1 items 9 and 10), and
-``degrade_divergence`` is serve's (item 10).  Its obs counters
-(``batch.fallback_sequential.<reason>``, ``batch.lanes``, the pad-waste
-gauge) and the chaos site ``engine.batch`` wait for items 7 and 10: until
-then the reason rides on ``BatchIncompatible.reason`` alone.
+port's mesh path and CPU matcher (ROADMAP Queue 1 items 9 and 10),
+``degrade_divergence`` is serve's (item 10), and so is the chaos site
+``engine.batch``.
 ``dispatch_timeout_s`` and ``pipeline`` are neither refused nor applied,
 as in the JAX engine: lanes run lock-step, with no watchdog.
 
@@ -70,6 +73,8 @@ from image_analogies_tpu_torch.models.analogy import (
     create_image_analogy,
     resolve_device,
 )
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
+from image_analogies_tpu_torch.obs import trace as obs_trace
 from image_analogies_tpu_torch.ops.features import spec_for_level
 from image_analogies_tpu_torch.ops.pyramid import (
     build_pyramid_np,
@@ -77,7 +82,7 @@ from image_analogies_tpu_torch.ops.pyramid import (
 )
 from image_analogies_tpu_torch.tune import buckets as tune_buckets
 from image_analogies_tpu_torch.tune import resolve as tune_resolve
-from image_analogies_tpu_torch.utils import devcache
+from image_analogies_tpu_torch.tune import warmup as tune_warmup
 
 
 class BatchIncompatible(RuntimeError):
@@ -88,6 +93,13 @@ class BatchIncompatible(RuntimeError):
         self.reason = reason
         super().__init__(f"batch incompatible ({reason})"
                          + (f": {detail}" if detail else ""))
+
+
+def _refuse(reason: str, detail: str = "") -> BatchIncompatible:
+    """The refusal to raise, counted as
+    ``batch.fallback_sequential.<reason>``."""
+    obs_metrics.inc(f"batch.fallback_sequential.{reason}")
+    return BatchIncompatible(reason, detail)
 
 
 def create_image_analogy_batch(
@@ -122,31 +134,34 @@ def create_image_analogy_batch(
                                          backend=backend)]
         except Exception as e:  # noqa: BLE001 - the per-member contract
             return [e]
-    if params.devcache_max_bytes:
-        devcache.set_max_bytes(params.devcache_max_bytes)
-    return _run_batch(a, ap, targets, params, backend)
+    tune_warmup.apply_runtime_config(params)
+    with obs_trace.run_scope(params, manifest_extra=dict(
+            tune_resolve.manifest_info(),
+            device=str(getattr(backend, "device", None)))):
+        with tune_resolve.pin_scope():
+            return _run_batch(a, ap, targets, params, backend)
 
 
 def _preflight(a, ap, targets, params):
     """Refuse anything that would break the shared scan or bit-identity.
     Returns (each member's prepped planes, the resolved strategy)."""
     if params.level_retries > 0:
-        raise BatchIncompatible(
+        raise _refuse(
             "level_retries", "a retry rebuilds one member's level; a shared "
             "scan cannot re-run one lane")
     strategy = "wavefront" if params.strategy == "auto" else params.strategy
     if strategy not in ("wavefront", "batched"):
-        raise BatchIncompatible(
+        raise _refuse(
             "unsupported", f"strategy {strategy!r} has no lane scan")
     if (params.checkpoint_dir or params.save_levels_dir
             or params.profile_dir or params.resume_from_level is not None):
-        raise BatchIncompatible(
+        raise _refuse(
             "unsupported", "checkpoint/save-levels/profile runs need the "
             "sequential driver")
     try:
         preps = [_prep_planes(a, ap, b, params) for b in targets]
     except ValueError as e:
-        raise BatchIncompatible("shape_mismatch", str(e)) from e
+        raise _refuse("shape_mismatch", str(e)) from e
     # remap_luminance ties the A/A' planes to each member's B statistics
     # (Hertzmann §3.4): lanes share lane 0's DB, so every member must have
     # prepped the same A planes, bit for bit, whatever the cause
@@ -154,7 +169,7 @@ def _preflight(a, ap, targets, params):
     for p in preps[1:]:
         if not (np.array_equal(a0_src, p[0])
                 and np.array_equal(a0_filt, p[2])):
-            raise BatchIncompatible(
+            raise _refuse(
                 "remap_divergence", "the members' luminance statistics remap "
                 "the A/A' DB differently; batch with remap_luminance=False "
                 "or targets of identical statistics")
@@ -171,7 +186,7 @@ def _check_level_shapes(b_pyrs, strategy, params, levels) -> float:
         shapes = [p[level].shape[:2] for p in b_pyrs]
         if not bucketed:
             if any(sh != shapes[0] for sh in shapes[1:]):
-                raise BatchIncompatible(
+                raise _refuse(
                     "shape_mismatch",
                     f"level {level} B shapes {shapes} must be identical for "
                     "the " + ("wavefront" if strategy == "wavefront"
@@ -179,13 +194,13 @@ def _check_level_shapes(b_pyrs, strategy, params, levels) -> float:
             continue
         if any(sh[1] != shapes[0][1] for sh in shapes[1:]):
             # lanes share a scan row's columns: bucketing pads rows only
-            raise BatchIncompatible(
+            raise _refuse(
                 "shape_mismatch",
                 f"level {level} B widths {[sh[1] for sh in shapes]} must be "
                 "identical")
         bks = [tune_buckets.bucket_rows(h * w) for h, w in shapes]
         if any(bk != bks[0] for bk in bks[1:]):
-            raise BatchIncompatible(
+            raise _refuse(
                 "mixed_bucket", f"level {level} query buckets {bks} diverge")
         if level == 0:
             # the finest level dominates the dead rows' work: level sizes
@@ -210,7 +225,7 @@ def _finalize_lane(bp, s, stats, params, ap_rgb, b_yiq) -> AnalogyResult:
 def _run_batch(a, ap, targets, params, backend) -> List[Any]:
     preps, strategy = _preflight(a, ap, targets, params)
     if not hasattr(backend, "synthesize_level_lanes"):
-        raise BatchIncompatible(
+        raise _refuse(
             "unsupported", f"backend {type(backend).__name__} has no lane "
             "scan")
     k = len(targets)
@@ -222,7 +237,7 @@ def _run_batch(a, ap, targets, params, backend) -> List[Any]:
          min(a_src.shape[1], p[1].shape[1])), params.levels,
         params.patch_size) for p in preps]
     if any(lv != levels_per[0] for lv in levels_per[1:]):
-        raise BatchIncompatible(
+        raise _refuse(
             "shape_mismatch", f"members disagree on feasible levels "
             f"{levels_per}")
     levels = levels_per[0]
@@ -232,11 +247,16 @@ def _run_batch(a, ap, targets, params, backend) -> List[Any]:
     src_channels = 1 if a_src.ndim == 2 else a_src.shape[-1]
 
     waste = _check_level_shapes(b_pyrs, strategy, params, levels)
-    ceiling = tune_resolve.batch_pad_waste_pct() / 100.0
+    h0, w0 = b_pyrs[0][0].shape[:2]
+    ceiling = tune_resolve.batch_pad_waste_pct(
+        strategy=strategy, n_rows=h0 * w0) / 100.0
     if waste > ceiling:
-        raise BatchIncompatible(
+        raise _refuse(
             "pad_waste", f"finest-level pad waste {waste:.0%} exceeds the "
             f"ceiling {ceiling:.0%} (IA_BATCH_PAD_WASTE)")
+    obs_metrics.inc("batch.launches")
+    obs_metrics.inc("batch.lanes", k)
+    obs_metrics.set_gauge("batch.pad_waste_frac", waste)
 
     failed: List[Optional[Exception]] = [None] * k
     bp_pyr: List[List[Any]] = [[None] * levels for _ in range(k)]
@@ -271,6 +291,7 @@ def _run_batch(a, ap, targets, params, backend) -> List[Any]:
                 jobs[i] = job
             except Exception as e:  # noqa: BLE001 - isolated per lane
                 failed[i] = e
+                obs_metrics.inc("batch.lane_faults")
         live = [i for i in range(k) if failed[i] is None]
         if not live:
             break

@@ -8,6 +8,9 @@
     python -m image_analogies_tpu_torch.cli sweep --ap sharp.png \\
         --b low.png --kappas 0,0.5,1 --out-dir sweep/
     python -m image_analogies_tpu_torch.cli eval --a out.png --b ref.png
+    python -m image_analogies_tpu_torch.cli tune --dry-run
+    python -m image_analogies_tpu_torch.cli warmup --size 256x256 \
+        --compile-cache-dir /path/to/libs
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -16,9 +19,14 @@ JSON records) go to stdout, each level's stats to stderr as JSON lines.
 The engine flags are those whose fields the port has, the driver's
 surroundings included (``--no-level-sync``, ``--level-retries``,
 ``--dispatch-timeout-s``, ``--checkpoint-dir``, ``--resume-from-level``,
-``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``);
-ROADMAP lists the JAX package's others under the items that bring their
-fields.
+``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``)
+and the run's own counters and tuning (``--metrics``, ``--shape-buckets``,
+``--compile-cache-dir``); ROADMAP lists the JAX package's others under the
+items that bring their fields.  ``tune`` sweeps the main path's two
+kernels' launch geometry on the card and persists verified winners to the
+tune store (``tune/autotune.py``); ``warmup`` builds every kernel library
+a target size's levels launch into the library directory
+(``tune/warmup.py``).
 """
 
 from __future__ import annotations
@@ -112,6 +120,23 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--devcache-bytes", type=int, default=None,
                    help="device-upload cache byte budget "
                         "(utils/devcache.py; IA_DEVCACHE_BYTES overrides)")
+    p.add_argument("--metrics", action="store_true",
+                   help="run-scoped observability (obs/): per-run metrics "
+                        "registry (launch, compile, memory, pipeline "
+                        "counters) + span records; with --log-path the "
+                        "run_id-stamped records and the run_end snapshot "
+                        "go to the log.  Off by default and near-zero-cost "
+                        "when off")
+    p.add_argument("--shape-buckets", action="store_true",
+                   help="bucket per-level DB row counts (tune/buckets.py: "
+                        "the scan copies pad with rows that cannot win) and "
+                        "the batched strategy's query rows, so different "
+                        "sizes share launch plans; IA_SHAPE_BUCKETS "
+                        "overrides either way")
+    p.add_argument("--compile-cache-dir", default=None, metavar="DIR",
+                   help="directory of the kernel libraries nvcc builds — "
+                        "they survive process restarts (pairs with "
+                        "`warmup`; IA_COMPILE_CACHE_DIR overrides)")
 
 
 def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
@@ -131,6 +156,12 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
         kw["remap_luminance"] = False
     if args.no_gaussian:
         kw["gaussian_weights"] = False
+    if args.metrics:
+        kw["metrics"] = True
+    if args.shape_buckets:
+        kw["shape_buckets"] = True
+    if args.compile_cache_dir is not None:
+        kw["compile_cache_dir"] = args.compile_cache_dir
     return base.replace(**kw)
 
 
@@ -210,6 +241,47 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_tune(args) -> int:
+    """Measured tuning of the main path's two kernels' launch geometry
+    (tune/autotune.py): candidates timed on the card, every candidate's
+    picks and scores checked bit-identical, verified winners persisted to
+    the tune store.  --dry-run prints the plan and never touches CUDA."""
+    from image_analogies_tpu_torch.tune import autotune
+
+    cands = (tuple(int(x) for x in args.candidates.split(","))
+             if args.candidates else None)
+    if not args.dry_run and args.device == "cuda":
+        import torch
+
+        torch.cuda.init()  # so that the keys carry the card's name
+    plan = autotune.build_plan(knob=args.knob, reps=args.reps,
+                               candidates=cands, store=args.store,
+                               device=args.device, rows=args.rows)
+    if args.dry_run:
+        print(json.dumps(plan, indent=2, sort_keys=True))
+        return 0
+    res = autotune.run_plan(plan, persist=not args.no_persist)
+    print(json.dumps(res, indent=2, sort_keys=True))
+    return 0 if res["all_verified"] else 1
+
+
+def cmd_warmup(args) -> int:
+    """Build and load every kernel library a target size's levels launch
+    (tune/warmup.py): with --compile-cache-dir a later process finds them
+    there."""
+    from image_analogies_tpu_torch.tune import warmup as tune_warmup
+
+    params = _params_from_args(args, PRESETS["oil_filter"])
+    h, w = (int(x) for x in args.size.split("x"))
+    eh = ew = None
+    if args.exemplar_size:
+        eh, ew = (int(x) for x in args.exemplar_size.split("x"))
+    res = tune_warmup.warmup(params, h, w, exemplar_height=eh,
+                             exemplar_width=ew, seed=args.seed)
+    print(json.dumps(res, sort_keys=True))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="image_analogies_tpu_torch",
@@ -262,6 +334,49 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--a", required=True)
     ev.add_argument("--b", required=True)
     ev.set_defaults(fn=cmd_eval)
+
+    tn = sub.add_parser("tune",
+                        help="measured launch-geometry tuning: sweep the "
+                             "main path's two kernels' candidate plans on "
+                             "the card, verify bit-identical picks and "
+                             "scores, persist winners to the tune store "
+                             "(.ia_tune.json)")
+    tn.add_argument("--dry-run", action="store_true",
+                    help="print the sweep plan JSON; no device work")
+    tn.add_argument("--knob", choices=("chunks", "stages", "all"),
+                    default="all",
+                    help="chunks: chunks_per_sm of packed2k and argmin_l2; "
+                         "stages: packed2k's ring_stages; all: both (the "
+                         "packed2k sweep over their product)")
+    tn.add_argument("--store", default=None,
+                    help="tune store path (default: repo .ia_tune.json, "
+                         "IA_TUNE_STORE overrides)")
+    tn.add_argument("--reps", type=int, default=5,
+                    help="timed reps per candidate (min-of-k)")
+    tn.add_argument("--candidates", default=None,
+                    help="comma-separated values of the one swept knob "
+                         "(overrides its default grid)")
+    tn.add_argument("--rows", type=int, default=0,
+                    help="DB rows of every sweep (default: the main path's "
+                         "headline N), for a short or CPU run")
+    tn.add_argument("--no-persist", action="store_true",
+                    help="measure + verify but do not write the store")
+    tn.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="the card (default), or the CPU: the kernels' "
+                         "plain versions, which have no geometry "
+                         "(plumbing only)")
+    tn.set_defaults(fn=cmd_tune)
+
+    wu = sub.add_parser("warmup",
+                        help="build every kernel library a target "
+                             "resolution's levels launch (pairs with "
+                             "--compile-cache-dir and --shape-buckets)")
+    wu.add_argument("--size", default="256x256", help="target B HxW")
+    wu.add_argument("--exemplar-size", default=None,
+                    help="A/A' HxW (default: same as --size)")
+    wu.add_argument("--seed", type=int, default=0)
+    _add_engine_flags(wu)
+    wu.set_defaults(fn=cmd_warmup)
     return ap
 
 
@@ -276,7 +391,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if missing:
             parser.error(
                 f"--{' --'.join(missing)} required for mode {args.mode}")
-    if hasattr(args, "device"):
+    if hasattr(args, "device") and not getattr(args, "dry_run", False):
         try:
             resolve_device(args.device)
         except RuntimeError as e:  # no card and no --device cpu

@@ -10,7 +10,9 @@ driver's surroundings (``models/analogy.py``): ``level_retries``,
 ``dispatch_timeout_s``, ``level_sync``, ``checkpoint_dir``,
 ``resume_from_level``, ``profile_dir``, ``log_path``, ``save_levels_dir``,
 ``devcache_max_bytes``, ``pipeline`` and ``donate_buffers``, with the JAX
-defaults and validation, and ``pipeline_active()``.
+defaults and validation, and ``pipeline_active()``; and the run's own
+observability and tuning: ``metrics``, ``compile_cache_dir`` and
+``shape_buckets``.
 """
 
 from __future__ import annotations
@@ -79,15 +81,26 @@ class AnalogyParams:
       synthesis ignores it.
     - ``device``: where tensors live.  "cuda" (default) requires a card and
       never drops to the CPU; "cpu" runs every kernel's plain version.
-    - ``shape_buckets``: the query side of the batched strategy pads each
-      level's query rows (``static_q`` and the gather maps) with zero rows
-      up to ``tune.buckets.bucket_rows(hb*wb)``, in a singleton run and in
-      the lane engine (``batch/engine.py``), where targets of one width
-      and different heights in one bucket then share a lane run; results
-      are cropped to the real shape.  Env ``IA_SHAPE_BUCKETS`` overrides
-      either way.  False (default) changes nothing, bit for bit.  The
-      DB-side bucket of the JAX package and its ``--shape-buckets`` flag
-      are not ported yet (ROADMAP Queue 1 item 7).
+    - ``shape_buckets``: on the wavefront and batched strategies each
+      level's scan copies of the DB pad their rows, with rows that cannot
+      win, up to ``tune.buckets.bucket_rows(ha*wa)`` (the JAX package's DB
+      side); the batched strategy also pads each level's query rows
+      (``static_q`` and the gather maps) with zero rows up to
+      ``bucket_rows(hb*wb)``, in a singleton run and in the lane engine
+      (``batch/engine.py``), where targets of one width and different
+      heights in one bucket then share a lane run; results are cropped to
+      the real shape.  Env ``IA_SHAPE_BUCKETS`` overrides either way.
+      False (default) changes nothing, bit for bit.
+    - ``metrics``: run the synthesis inside an observed run
+      (``obs/trace.py run_scope``): a per-run metrics registry (launch,
+      compile, memory, pipeline, fetch and kappa counters), span records
+      and a manifest; with ``log_path`` the records and the ``run_end``
+      snapshot go to the log.  Off by default, and one bool read per
+      hook when off.
+    - ``compile_cache_dir``: the directory of the kernel libraries that
+      ``nvcc`` builds (``ops/_build.py``): a later process finds them
+      there (``ia warmup``).  None: ``image_analogies_tpu_torch/_build/``;
+      env ``IA_COMPILE_CACHE_DIR`` overrides either way.
 
     The driver's surroundings (``models/analogy.py``, ``utils/``):
 
@@ -145,6 +158,8 @@ class AnalogyParams:
     devcache_max_bytes: Optional[int] = None
     pipeline: Optional[bool] = None
     donate_buffers: Optional[bool] = None
+    metrics: bool = False
+    compile_cache_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.levels < 1:

@@ -16,10 +16,15 @@ uploaded and its schedule built on a helper thread and a side stream while
 the level in flight is issued) and donation (each coarser level's plane
 and source map dropped once consumed); per-level checkpoints and resume;
 level retries on transient faults, under a watchdog; a JSONL record per
-level; each level saved as a PNG; a ``torch.profiler`` trace; and the
-content-keyed upload cache (``utils/devcache.py``).  The exemplar catalog,
-chaos sites and the obs run scope (run manifest, counters, memory
-watermarks) are not ported yet (ROADMAP Queue 1 items 7-10).
+level; each level saved as a PNG; a ``torch.profiler`` trace; the
+content-keyed upload cache (``utils/devcache.py``); the runtime wiring of
+``tune/warmup.py`` (the library directory, the cache budget); and, as in
+the JAX driver, every run inside ``obs.trace.run_scope`` (inert unless
+``params.metrics`` or a log path: the manifest, the ``pipeline.*``,
+``fetch.bytes`` and ``kappa.*`` counters, per-level memory watermarks,
+the kernels' ``launch.*`` counts) and ``tune.resolve.pin_scope`` (each
+level's launch geometry resolves once a run).  The exemplar catalog and
+the chaos sites are not ported yet (ROADMAP Queue 1 items 8 and 10).
 """
 
 from __future__ import annotations
@@ -37,14 +42,19 @@ import torch
 from image_analogies_tpu_torch.backends.base import LevelJob
 from image_analogies_tpu_torch.backends.cuda import CudaMatcher
 from image_analogies_tpu_torch.config import AnalogyParams
+from image_analogies_tpu_torch.obs import device as obs_device
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
+from image_analogies_tpu_torch.obs import trace as obs_trace
 from image_analogies_tpu_torch.ops import color
 from image_analogies_tpu_torch.ops.features import spec_for_level
 from image_analogies_tpu_torch.ops.pyramid import (
     build_pyramid_np,
     num_feasible_levels,
 )
+from image_analogies_tpu_torch.tune import resolve as tune_resolve
+from image_analogies_tpu_torch.tune import warmup as tune_warmup
 from image_analogies_tpu_torch.utils import checkpoint as ckpt
-from image_analogies_tpu_torch.utils import devcache, failure
+from image_analogies_tpu_torch.utils import failure
 from image_analogies_tpu_torch.utils import logging as ialog
 from image_analogies_tpu_torch.utils.imageio import save_image
 
@@ -176,12 +186,21 @@ def _fetch_finest(bp, stats: List[Dict[str, Any]], params) -> np.ndarray:
     else:
         bp_y = _host(bp, np.float32)
         fetched = counts[0].cpu().numpy() if counts else []
+    if deferred:
+        obs_metrics.inc("fetch.bytes", 4 * len(deferred) + int(bp_y.nbytes))
     for (st, k), c in zip(deferred, fetched):
         st[k] = float(c)
     for st in stats:
         _finalize_stats(st)
         if not st.pop("_emitted", False):
             ialog.emit(st, params.log_path)
+    if obs_metrics._ACTIVE:
+        # coherence-vs-approximate pick totals, weighted by pixel count
+        for st in stats:
+            cr, px = st.get("coherence_ratio"), st.get("pixels", 0)
+            if cr is not None and px:
+                obs_metrics.inc("kappa.coherence_px", cr * px)
+                obs_metrics.inc("kappa.total_px", px)
     return bp_y
 
 
@@ -229,9 +248,21 @@ def create_image_analogy(
     if backend is None:
         backend = CudaMatcher(params, resolve_device(
             params.device if device is None else device))
-    if params.devcache_max_bytes:
-        devcache.set_max_bytes(params.devcache_max_bytes)
+    tune_warmup.apply_runtime_config(params)
     dev = getattr(backend, "device", None)
+    # the obs run scope (inert unless params.metrics or a log path; joins an
+    # enclosing run: a video clip's, the engine's) with the tune store in
+    # its manifest, and the level configs pinned for the run
+    with obs_trace.run_scope(params, manifest_extra=dict(
+            tune_resolve.manifest_info(), device=str(dev))):
+        with tune_resolve.pin_scope():
+            return _create_image_analogy(
+                a, ap, b, params, backend, dev, keep_levels, temporal_prev,
+                remap_anchor)
+
+
+def _create_image_analogy(a, ap, b, params, backend, dev, keep_levels,
+                          temporal_prev, remap_anchor) -> AnalogyResult:
     on_card = dev is not None and torch.device(dev).type == "cuda"
     a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(
         a, ap, b, params, remap_anchor=remap_anchor)
@@ -296,12 +327,15 @@ def create_image_analogy(
             backend.prefetch_level(job)
         except Exception:  # noqa: BLE001 - a boundary that must go on
             ialog.logger.exception("prefetch of level %d failed", job.level)
+            obs_metrics.inc("pipeline.prefetch_errors")
             failed = True
         return (time.perf_counter() - t0) * 1e3, failed
 
-    if params.dispatch_timeout_s > 0:
-        # a first-use nvcc build (tens of seconds) must not run under a
-        # dispatch deadline: load every library the levels route to now
+    if params.dispatch_timeout_s > 0 or params.metrics:
+        # load every library the levels route to now: a first-use nvcc
+        # build (tens of seconds) must not run under a dispatch deadline,
+        # and an observed run counts its builds before its first level
+        # (``ia warmup``)
         backend.load_kernels([make_job(lv) for lv in range(levels)])
 
     prof = contextlib.nullcontext()
@@ -327,7 +361,8 @@ def create_image_analogy(
                     # join the helper BEFORE this level touches the caches
                     # it warmed
                     twait = time.perf_counter()
-                    prep_ms, failed = pending.result()
+                    with obs_trace.span("pipeline.wait", level=level):
+                        prep_ms, failed = pending.result()
                     wait_ms = (time.perf_counter() - twait) * 1e3
                     pending = None
                     timing["prep_ms"] += prep_ms
@@ -371,14 +406,16 @@ def create_image_analogy(
                         params.dispatch_timeout_s, context={"level": level},
                         log_path=params.log_path, device=dev)
 
-                bp, s, st = failure.run_with_retry(
-                    dispatch, retries=params.level_retries,
-                    context={"level": level}, log_path=params.log_path)
+                with obs_trace.span("level", level=level):
+                    bp, s, st = failure.run_with_retry(
+                        dispatch, retries=params.level_retries,
+                        context={"level": level}, log_path=params.log_path)
                 gap_t0 = time.perf_counter()
                 st["total_ms"] = (gap_t0 - t0) * 1e3
                 if donate and coarse:
                     bp_pyr[level + 1] = s_pyr[level + 1] = None
                     timing["donated_levels"] += 1.0
+                    obs_metrics.inc("pipeline.donated_levels")
                 if params.level_retries > 0:
                     # a retried level rebuilds from planes that survive a
                     # device reset: with retries armed, levels chain
@@ -398,13 +435,25 @@ def create_image_analogy(
                     save_image(os.path.join(params.save_levels_dir,
                                             f"level_{level:02d}.png"),
                                _host(bp, np.float32))
+                # per-level memory watermark (hbm.peak_bytes.d<N>): one
+                # bool read with metrics off, silent on the CPU
+                obs_device.record_memory(level, params.log_path)
             if params.profile_dir and on_card:
                 torch.cuda.synchronize(dev)  # the trace holds every kernel
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
 
-    bp_y = _fetch_finest(bp_pyr[0], stats, params)
+    # the pipeline accounting, as the JAX driver's gauges and counters
+    obs_metrics.set_gauge("pipeline.host_gap_ms", timing["host_gap_ms"])
+    if pipeline_on:
+        for k in ("prep_ms", "wait_ms", "host_hidden_ms"):
+            obs_metrics.set_gauge(f"pipeline.{k}", timing[k])
+        obs_metrics.inc("pipeline.levels_prepped",
+                        int(timing["prepped_levels"]))
+    with obs_trace.span("fetch"):
+        bp_y = _fetch_finest(bp_pyr[0], stats, params)
+    obs_device.record_memory(None, params.log_path)  # the fetch's too
     need_s_host = params.color_mode == "source_rgb" or keep_levels
     s_raw = _host(s_pyr[0], np.int32) if need_s_host else s_pyr[0]
     out = _color_output(bp_y, s_raw, params, ap_rgb, b_yiq)

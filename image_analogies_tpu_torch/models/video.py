@@ -33,6 +33,8 @@ from image_analogies_tpu_torch.models.analogy import (
     create_image_analogy,
     resolve_device,
 )
+from image_analogies_tpu_torch.obs import trace as obs_trace
+from image_analogies_tpu_torch.tune import resolve as tune_resolve
 from image_analogies_tpu_torch.utils.ssim import ssim
 
 SCHEMES = ("sequential", "two_phase")
@@ -76,6 +78,16 @@ def video_analogy(
         return VideoResult(frames=[], frames_y=[])
     if backend is None:
         backend = CudaMatcher(params, resolve_device(params.device))
+    # one obs run (the frames' syntheses join it) and one geometry
+    # resolution a key for the whole clip, as in the JAX package
+    with obs_trace.run_scope(params, manifest_extra=dict(
+            tune_resolve.manifest_info(),
+            device=str(getattr(backend, "device", None)))):
+        with tune_resolve.pin_scope():
+            return _clip(a, ap, frames, params, scheme, backend)
+
+
+def _clip(a, ap, frames, params, scheme, backend) -> VideoResult:
     stats: List[Dict[str, Any]] = []
 
     def synth(b, prev_y, tag, idx):

@@ -1,0 +1,127 @@
+"""Mergeable relative-error quantile sketch (DDSketch-style).
+
+The base-2 histograms in obs/metrics.py answer "which power-of-two
+bucket" — fine for p50/p95 dashboards, useless for p99.9 at a million
+samples (the top bucket spans a 2x range and swallows the whole tail).
+This module adds the honest tail: a log-indexed sketch with a *stated*
+relative-error bound that holds at any count.
+
+Design (DDSketch, Masson et al.):
+
+- A value ``v > 0`` lands in bucket ``i = ceil(log(v) / log(gamma))``
+  with ``gamma = (1 + alpha) / (1 - alpha)``.  Reporting the bucket
+  midpoint ``2 * gamma^i / (gamma + 1)`` guarantees
+  ``|est - true| <= alpha * true`` for every quantile — a *relative*
+  bound, so p99.99 is as honest as p50.
+- Bucket counts are plain integers keyed by index, so two sketches over
+  disjoint streams merge by adding counts (the summary carries them).
+- Memory is fixed: when the bucket map exceeds ``max_bins`` the two
+  *lowest* buckets collapse into one.  The error bound degrades only
+  at the cheap end of the distribution; tail quantiles keep the
+  guarantee (that is the end we care about).
+
+Values ``<= 0`` (and exact zeros) go to a dedicated ``zeros`` count —
+latencies are non-negative, but a defensive path must not poison the
+log.  Pure stdlib: the port's copy of the JAX package's
+``obs/quantiles.py`` (its sketch, written and summarized; merging,
+export and the selftest wait for the port's serve layer).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+DEFAULT_ALPHA = 0.01     # 1% relative error: p99.9 of 250ms is +/- 2.5ms
+DEFAULT_MAX_BINS = 1024  # ~2.5 decades of dynamic range at alpha=0.01
+
+
+class QuantileSketch:
+    """Fixed-memory mergeable quantile sketch with relative-error
+    guarantee ``alpha`` (see module docstring for the math)."""
+
+    __slots__ = ("alpha", "gamma", "_lg", "max_bins", "count", "zeros",
+                 "sum", "min", "max", "bins", "collapsed")
+
+    def __init__(self, alpha: float = DEFAULT_ALPHA,
+                 max_bins: int = DEFAULT_MAX_BINS):
+        if not 0.0 < alpha < 1.0:
+            raise ValueError(f"alpha must be in (0, 1), got {alpha}")
+        if max_bins < 2:
+            raise ValueError(f"max_bins must be >= 2, got {max_bins}")
+        self.alpha = alpha
+        self.gamma = (1.0 + alpha) / (1.0 - alpha)
+        self._lg = math.log(self.gamma)
+        self.max_bins = max_bins
+        self.count = 0
+        self.zeros = 0
+        self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self.bins: Dict[int, int] = {}
+        self.collapsed = False
+
+    # ------------------------------------------------------------ write
+    def observe(self, v: float) -> None:
+        v = float(v)
+        if v != v:  # NaN: drop rather than poison min/max
+            return
+        self.count += 1
+        self.sum += v
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
+        if v <= 0.0:
+            self.zeros += 1
+            return
+        i = math.ceil(math.log(v) / self._lg)
+        self.bins[i] = self.bins.get(i, 0) + 1
+        if len(self.bins) > self.max_bins:
+            self._collapse()
+
+    def _collapse(self) -> None:
+        # Fold the lowest bucket into its neighbour above: tail accuracy
+        # is preserved, only the cheapest values blur together.
+        keys = sorted(self.bins)
+        lo, nxt = keys[0], keys[1]
+        self.bins[nxt] += self.bins.pop(lo)
+        self.collapsed = True
+
+    # ------------------------------------------------------------- read
+    def quantile(self, q: float) -> float:
+        """Value at quantile ``q`` in [0, 1]; 0.0 for an empty sketch.
+        Within ``alpha`` relative error of the exact stream quantile
+        (exact-rank semantics: rank ``ceil(q * count)``)."""
+        if self.count == 0:
+            return 0.0
+        q = min(max(q, 0.0), 1.0)
+        rank = max(1, math.ceil(q * self.count))
+        if rank <= self.zeros:
+            # all mass at or below zero reports the observed floor
+            return min(self.min, 0.0)
+        cum = self.zeros
+        for i in sorted(self.bins):
+            cum += self.bins[i]
+            if cum >= rank:
+                # bucket i covers (gamma^(i-1), gamma^i]; midpoint halves
+                # the worst-case multiplicative error to alpha.
+                return 2.0 * self.gamma ** i / (self.gamma + 1.0)
+        return self.max  # numeric slack: top bucket
+
+    # ------------------------------------------------- JSON round trip
+    def summary(self) -> Dict[str, Any]:
+        """JSON-safe snapshot: everything needed to reconstruct the
+        sketch or merge it elsewhere.  Bucket keys are strings because JSON
+        objects only key on strings."""
+        empty = self.count == 0
+        return {
+            "alpha": self.alpha,
+            "count": self.count,
+            "zeros": self.zeros,
+            "sum": round(self.sum, 6),
+            "min": 0.0 if empty else self.min,
+            "max": 0.0 if empty else self.max,
+            "bins": {str(i): n for i, n in sorted(self.bins.items())},
+            "collapsed": self.collapsed,
+        }

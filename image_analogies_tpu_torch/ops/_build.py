@@ -4,10 +4,19 @@ Each ``ops/csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers: a file that includes them takes minutes to compile, a plain one
 seconds).  Libraries are built at first use, from the sources in this
-checkout only, into ``image_analogies_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by the hash of the source and of the
-shared headers (``csrc/*.cuh``), so an edited source or header rebuilds.
-A missing ``nvcc`` or a failed build raises: there is no fallback.
+checkout only, into the library directory under a name keyed by the hash
+of the source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header rebuilds.  A missing ``nvcc`` or a failed build raises:
+there is no fallback.
+
+The library directory is the port's compile cache: ``IA_COMPILE_CACHE_DIR``
+over ``AnalogyParams.compile_cache_dir`` (``set_build_dir``, which
+``tune/warmup.py apply_runtime_config`` calls at the start of each run)
+over ``image_analogies_tpu_torch/_build/`` (listed in ``.gitignore``).  A
+library is loaded only from the directory in effect: one built in
+another directory is never used.  Inside a metrics run each library
+``nvcc`` builds counts in ``compile.count`` / ``compile.ms`` and each one
+found already built in ``compile.cache_hits`` (``obs/device.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
+
+from image_analogies_tpu_torch.obs import device as _obs_device
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -91,8 +102,35 @@ _SIGNATURES = {
     },
 }
 
+COMPILE_CACHE_ENV = "IA_COMPILE_CACHE_DIR"
+
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# name -> (the directory it was loaded from, the library)
+_LIBS: Dict[str, Tuple[str, ctypes.CDLL]] = {}
+_BUILT: set = set()  # library paths nvcc built in this process
+_HASHES: Dict[str, str] = {}  # name -> hash of its source and the headers
+
+
+def _env_dir() -> Optional[str]:
+    return os.environ.get(COMPILE_CACHE_ENV, "").strip() or None
+
+
+_DIR = os.path.abspath(_env_dir() or BUILD_DIR)  # the directory in effect
+
+
+def set_build_dir(directory: Optional[str] = None) -> str:
+    """Make the library directory ``IA_COMPILE_CACHE_DIR``, else
+    ``directory``, else the default ``BUILD_DIR``; returns it."""
+    global _DIR
+    new = os.path.abspath(_env_dir() or directory or BUILD_DIR)
+    if new != _DIR:
+        _DIR = new
+    return _DIR
+
+
+def build_dir() -> str:
+    """The library directory in effect."""
+    return _DIR
 
 
 def nvcc_path() -> str:
@@ -111,12 +149,18 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    """The library of source ``name`` in the directory in effect (the
+    sources are hashed once a process)."""
+    digest = _HASHES.get(name)
+    if digest is None:
+        h = hashlib.sha256()
+        headers = sorted(f for f in os.listdir(CSRC_DIR)
+                         if f.endswith(".cuh"))
+        for fname in [f"{name}.cu", *headers]:
+            with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+                h.update(f.read())
+        digest = _HASHES[name] = h.hexdigest()[:12]
+    return os.path.join(_DIR, f"lib{name}-{digest}.so")
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
@@ -126,7 +170,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
     common start to that source's end, compiler diagnostics)}; with
     ``ptxas_info`` the diagnostics include each kernel's registers, shared
     memory and spills.  Raises on any failure."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(_DIR, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in names:
@@ -159,6 +203,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
                 failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
                 continue
             os.replace(tmp, out)
+            _BUILT.add(out)
+            _obs_device.note_compile(name, secs * 1e3)
             done[name] = (secs, text)
         time.sleep(0.05)
     if failed:
@@ -167,23 +213,27 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_info: bool = False
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name`` (built if needed)."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
+    """The loaded library of kernel source ``name`` from the directory in
+    effect (built there if needed)."""
+    got = _LIBS.get(name)
+    if got is not None and got[0] == _DIR:
+        return got[1]
     with _LOCK:
-        if name not in _LIBS:
+        got = _LIBS.get(name)
+        if got is None or got[0] != _DIR:
             path = library_path(name)
             if not os.path.exists(path):
                 build([name])
+            elif path not in _BUILT:
+                _obs_device.note_cache_hit(name)
             lib = ctypes.CDLL(path)
             for fn, argtypes in _SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
             lib.ia_error_string.argtypes = [ctypes.c_int]
             lib.ia_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
-    return _LIBS[name]
+            _LIBS[name] = (_DIR, lib)
+    return _LIBS[name][1]
 
 
 def preload(names: Iterable[str]) -> None:
@@ -193,7 +243,8 @@ def preload(names: Iterable[str]) -> None:
     names = list(names)
     with _LOCK:
         missing = [n for n in names
-                   if n not in _LIBS and not os.path.exists(library_path(n))]
+                   if _LIBS.get(n, ("",))[0] != _DIR
+                   and not os.path.exists(library_path(n))]
         if missing:
             build(missing)
     for name in names:

@@ -38,7 +38,15 @@ raises — there is no fallback.
 form (one per wrapper call that launched; the packed2k form past 512 lanes
 counts as ``packed2kw_best``, the packed3 form past 256 lanes as
 ``packed3w_best``), so a run can show that its path went through the
-kernels.
+kernels.  Inside a metrics run each launch also counts as
+``launch.<key>`` in the run's registry (``obs/device.py note_launch``:
+one module-bool read per launch when no run is active).
+
+The main path's two kernels take their launch geometry's free choices
+(``chunks_per_sm``, and for packed2k ``ring_stages``) from the caller,
+which resolves them once per level through ``tune/resolve.py``; the
+defaults (``tune/geometry.py``) are the plans the port ran before the
+funnel.  Their plans are memoized per (shape, knobs).
 """
 
 from __future__ import annotations
@@ -48,7 +56,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from image_analogies_tpu_torch.obs import device as _obs_device
+from image_analogies_tpu_torch.obs import metrics as _metrics
 from image_analogies_tpu_torch.ops import _build
+from image_analogies_tpu_torch.tune.geometry import (
+    DEFAULT_CHUNKS_PER_SM,
+    DEFAULT_RING_STAGES,
+)
 
 # launches of each CUDA kernel entry since the last reset (plain-version
 # calls on CPU tensors do not count)
@@ -201,16 +215,20 @@ def _argmin_smem(f: int, nq: int) -> int:
             + 2 * (16 * slab4 * (_ARGMIN_ROWS + 1) + 4 * _ARGMIN_ROWS))
 
 
-def _argmin_plan(m: int, n: int, sm_count: int, f: int) -> ArgminPlan:
+@functools.lru_cache(maxsize=4096)
+def _argmin_plan(m: int, n: int, sm_count: int, f: int,
+                 chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM) -> ArgminPlan:
     """Launch plan of ``argmin_l2`` for M queries of width F against N DB
     rows on a card of ``sm_count`` SMs (F enters because the queries stay
     resident in shared memory).  The query groups of 8 are split into the
     fewest chunks the instance cap and the shared memory allow, evenly; the
-    128-row DB tiles are cut into about one chunk per SM for each query
-    chunk, never less than one tile a block."""
-    if m < 1 or n < 1 or f < 1 or sm_count < 1:
+    128-row DB tiles are cut into about ``chunks_per_sm`` chunks per SM for
+    each query chunk (default one), never less than one tile a block, so
+    the chunks cover the tiles exactly whatever the knob."""
+    if m < 1 or n < 1 or f < 1 or sm_count < 1 or chunks_per_sm < 1:
         raise ValueError(f"argmin_l2 plan: m={m}, n={n}, f={f}, "
-                         f"sm_count={sm_count}")
+                         f"sm_count={sm_count}, chunks_per_sm="
+                         f"{chunks_per_sm}")
     nq_cap = _ARGMIN_MAX_NQ
     while nq_cap and _argmin_smem(f, nq_cap) > _ARGMIN_SMEM:
         nq_cap -= 1
@@ -221,7 +239,7 @@ def _argmin_plan(m: int, n: int, sm_count: int, f: int) -> ArgminPlan:
     q_chunks = -(-groups // nq_cap)
     nq = -(-groups // q_chunks)
     tiles = -(-n // _ARGMIN_ROWS)
-    per = -(-tiles // max(1, sm_count // q_chunks))
+    per = -(-tiles // max(1, chunks_per_sm * sm_count // q_chunks))
     return ArgminPlan(nq, _ARGMIN_ROWS, per, -(-tiles // per), q_chunks)
 
 
@@ -246,7 +264,8 @@ def _argmin_workspace(device: torch.device, stream: int, m: int):
     return ws
 
 
-def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
+def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor, *,
+              chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per query m: (idx, score) = the lexicographic minimum over DB rows n
     of ``dbn[n] - 2 q[m].dbp[n]``, exact fp32, lowest index on ties.
@@ -256,7 +275,9 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
     multiple of 4); ``dbn`` (Npad,) fp32 row norms, +inf on padding rows so
     they never win.  The caller adds ||q||^2.  Returns (idx (M,) int32,
     score (M,) fp32).  On the card: one kernel launch, and no allocation
-    past the two outputs."""
+    past the two outputs; ``chunks_per_sm`` is the launch plan's free
+    choice (``_argmin_plan``), which changes no bit: the chunks' partials
+    meet by 64-bit (score, index) keys."""
     if q.dim() != 2 or dbp.dim() != 2 or dbn.dim() != 1:
         raise ValueError("argmin_l2: q (M,F), dbp (N,Fp), dbn (N,)")
     m, f = q.shape
@@ -273,7 +294,7 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
         raise ValueError(f"argmin_l2: the card kernel copies DB rows in "
                          f"16-byte pieces; Fp={fp} must be a multiple of 4")
     dev = _device_index(q)
-    plan = _argmin_plan(m, n, _sm_count(dev), f)
+    plan = _argmin_plan(m, n, _sm_count(dev), f, chunks_per_sm)
     lib = _build.load("argmin_l2")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     keys, ticket = _argmin_workspace(torch.device("cuda", dev), stream, m)
@@ -286,6 +307,8 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor
         out_val.data_ptr(), dev, stream)
     _build.check(lib, err, "argmin_l2 launch")
     LAUNCHES["argmin_l2"] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch("argmin_l2", *_obs_device.argmin_work(m, n, f))
     return out_idx, out_val
 
 
@@ -381,7 +404,9 @@ def _argmin2_rows(k_used: int) -> int:
 
 def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
                  consumer_choices, qsets: int, norms: bool,
-                 rows: int = _P2K_ROWS, streams: int = 1) -> Packed2kPlan:
+                 rows: int = _P2K_ROWS, streams: int = 1,
+                 chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM,
+                 ring_stages: int = DEFAULT_RING_STAGES) -> Packed2kPlan:
     """Launch plan of a Hopper-core scan for M queries against N DB rows on
     a card of ``sm_count`` SMs.  The most consumer warpgroups a block (of
     ``consumer_choices``) for which the ring beside their resident queries
@@ -389,12 +414,18 @@ def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
     the fewest query tiles of at most 64 rows a warpgroup, as even as they
     come (each tile's blocks read every DB tile from L2 again, and blocks
     of equal work stay in step, so the later ones find it there); the
-    deepest ring the shared memory allows; and the 64-row DB tiles cut into
-    about one chunk per SM for each query tile, so each block walks one
-    long run of tiles and the ring fills once per SM."""
-    if m < 1 or n < 1 or sm_count < 1 or k_used < 16 or k_used % 16:
+    deepest ring the shared memory allows (at most ``ring_stages`` where
+    that is not 0); and the 64-row DB tiles cut into about
+    ``chunks_per_sm`` chunks per SM for each query tile (default one, so
+    each block walks one long run of tiles and the ring fills once per
+    SM).  Neither knob changes a bit: rows score alike in any chunk, and
+    the chunks' partials fold by the lexicographic (score, lowest index)
+    rule."""
+    if (m < 1 or n < 1 or sm_count < 1 or k_used < 16 or k_used % 16
+            or chunks_per_sm < 1 or ring_stages < 0):
         raise ValueError(f"{name} plan: m={m}, n={n}, k_used={k_used}, "
-                         f"sm_count={sm_count}")
+                         f"sm_count={sm_count}, chunks_per_sm="
+                         f"{chunks_per_sm}, ring_stages={ring_stages}")
     last = consumer_choices[-1]
     consumers, stages = next(
         ((c, st) for c in consumer_choices
@@ -404,23 +435,27 @@ def _hopper_plan(name: str, m: int, n: int, sm_count: int, k_used: int,
     if not stages:
         raise ValueError(f"{name}: k_used={k_used} is too wide for the "
                          "kernel's shared memory")
+    if ring_stages:
+        stages = min(stages, ring_stages)
     bm, q_tiles, per, n_chunks = _hopper_grid(m, n, sm_count, consumers,
-                                              rows)
+                                              rows, chunks_per_sm)
     return Packed2kPlan(consumers, bm, stages, per, n_chunks, q_tiles,
                         _hopper_smem(k_used, stages, consumers, qsets, norms,
                                      rows, streams))
 
 
-def _hopper_grid(m: int, n: int, sm_count: int, consumers: int, rows: int
+def _hopper_grid(m: int, n: int, sm_count: int, consumers: int, rows: int,
+                 chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM
                  ) -> Tuple[int, int, int, int]:
     """(bm, q_tiles, tiles_per_chunk, n_chunks) of a Hopper scan: the
     fewest query tiles of at most 64 rows a warpgroup, as even as they
-    come, and the ``rows``-row DB tiles cut into about one chunk per SM for
-    each query tile."""
+    come, and the ``rows``-row DB tiles cut into about ``chunks_per_sm``
+    chunks per SM for each query tile: ceil(tiles / chunks) tiles a chunk,
+    so the chunks cover the tiles exactly (none empty) at any knob."""
     bm = -(-m // -(-m // (_P2K_ROWS * consumers)))
     q_tiles = -(-m // bm)
     tiles = -(-n // rows)
-    per = -(-tiles // max(1, sm_count // q_tiles))
+    per = -(-tiles // max(1, chunks_per_sm * sm_count // q_tiles))
     return bm, q_tiles, per, -(-tiles // per)
 
 
@@ -429,13 +464,16 @@ def _packed2k_smem(k_used: int, stages: int, consumers: int) -> int:
     return _hopper_smem(k_used, stages, consumers)
 
 
-def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int
-                   ) -> Packed2kPlan:
+@functools.lru_cache(maxsize=4096)
+def _packed2k_plan(m: int, n: int, sm_count: int, k_used: int,
+                   chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM,
+                   ring_stages: int = DEFAULT_RING_STAGES) -> Packed2kPlan:
     """Launch plan of the packed2k scan (``_hopper_plan``): three consumer
     warpgroups a block where a ring of two stages fits beside their
-    resident queries, else two."""
+    resident queries, else two; the knobs as ``_hopper_plan``'s."""
     return _hopper_plan("packed2k", m, n, sm_count, k_used, _P2K_CONSUMERS,
-                        qsets=1, norms=False)
+                        qsets=1, norms=False, chunks_per_sm=chunks_per_sm,
+                        ring_stages=ring_stages)
 
 
 # packed2k_best.cu takes k_used up to 512; past it packed2kw_best.cu, a
@@ -779,7 +817,9 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
                 qb: Optional[torch.Tensor] = None,
                 w2: Optional[torch.Tensor] = None,
                 dbnh: Optional[torch.Tensor] = None,
-                fold_a: bool = False
+                fold_a: bool = False,
+                chunks_per_sm: int = DEFAULT_CHUNKS_PER_SM,
+                ring_stages: int = DEFAULT_RING_STAGES
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per query row m: (idx, val) = the lexicographic maximum over DB rows
     n of the packed passes (bf16 operands, fp32 accumulation), lowest index
@@ -808,7 +848,9 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     multiple of 128 up to 1,152 (each form's kernel refuses the widths past
     its own); lanes at and past ``k_used`` (a multiple of 16; 0 means K)
     must be zero in the query rows, the kernel skips them.  Returns (idx (M,)
-    int32, val (M,) fp32).
+    int32, val (M,) fp32).  ``chunks_per_sm`` and ``ring_stages`` are the
+    packed2k route's launch-plan knobs (``_packed2k_plan``; no bit depends
+    on them); the other routes keep their default plans.
     """
     k_used = _check_packed("packed_best", qa, w1, k_used, qb, w2, dbnh,
                            fold_a)
@@ -829,12 +871,15 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
     route = (_packed3_route(k_used) if form == "packed3_best" else
              _packed2k_route(k_used) if form == "packed_best" else form)
     sm = _sm_count(dev)
-    plan_fn = {"packed_best": _packed2k_plan,
-               "packed2kw_best": _packed2kw_plan,
+    plan_fn = {"packed2kw_best": _packed2kw_plan,
                "packed3_best": _packed3_plan,
                "packed3w_best": _packed3w_plan}.get(route)
-    plan = (plan_fn(m, n, sm, k_used) if plan_fn is not None
-            else _packed_form_plan(form, m, n, sm, k_used))
+    if route == "packed_best":
+        plan = _packed2k_plan(m, n, sm, k_used, chunks_per_sm, ring_stages)
+    elif plan_fn is not None:
+        plan = plan_fn(m, n, sm, k_used)
+    else:
+        plan = _packed_form_plan(form, m, n, sm, k_used)
     part_val = torch.empty((plan.n_chunks, m), dtype=torch.float32,
                            device=qa.device)
     part_idx = torch.empty((plan.n_chunks, m), dtype=torch.int32,
@@ -861,6 +906,10 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
             ptr(dbnh), m, n, k, k_used, *geometry)
     _build.check(lib, err, f"{route} launch")
     LAUNCHES[route] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch(route, *(
+            _obs_device.packed2k_work(m, n, k_used)
+            if route == "packed_best" else ()))
     return out_idx, out_val
 
 
@@ -1078,6 +1127,8 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
         torch.cuda.current_stream(qa.device).cuda_stream)
     _build.check(lib, err, "packed_champions launch")
     LAUNCHES["packed_champions"] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch("packed_champions")
     return vals, idx
 
 
@@ -1204,6 +1255,8 @@ def _pertile_launch(q, dbp, dbnh, tile_n, k_used, q_split,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "pertile_champions launch")
     LAUNCHES["pertile_champions"] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch("pertile_champions")
     return vals, idx
 
 
@@ -1299,6 +1352,8 @@ def argmin_l2_bf16(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "argmin_l2_bf16 launch")
     LAUNCHES["argmin_l2_bf16"] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch("argmin_l2_bf16")
     return out_idx, out_val
 
 
@@ -1376,6 +1431,8 @@ def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
         torch.cuda.current_stream(qk.device).cuda_stream)
     _build.check(lib, err, "argmin2_l2 launch")
     LAUNCHES["argmin2_l2"] += 1
+    if _metrics._ACTIVE:
+        _obs_device.note_launch("argmin2_l2")
     return i1, v1, i2, v2
 
 

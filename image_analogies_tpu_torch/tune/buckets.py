@@ -10,16 +10,24 @@ Worst-case padding is just above a power of two (1025 -> 1536, ~1.5x);
 the geometric spacing keeps the bucket count logarithmic in the largest
 image.
 
-In the port the ladder serves the QUERY side of the batched strategy
-(``backends/cuda.py``): with bucketing on, a level pads its ``static_q``
-and gather maps with zero rows up to ``bucket_rows(hb*wb)``, so targets of
-different heights (one width) share one lane run
-(``batch/engine.py``).  The scan's row loop stops at each lane's real
-height, so no real row reads a pad row, and :func:`pad_waste_frac`
-measures the dead rows the engine weighs against its ceiling
-(``tune.resolve.batch_pad_waste_pct``).  The DB-side bucket of the JAX
-package (its jit-program reuse across exemplar sizes) is not ported yet
-(ROADMAP Queue 1 item 7).
+In the port the ladder serves both sides of a level (``backends/cuda.py
+CudaMatcher.build_features``):
+
+- the DB side (the JAX package's ``db_rows_pad``), on the wavefront and
+  batched strategies: the scan copies of the DB (``db_pad`` and
+  ``dbn_pad``, ``db_pad2`` and ``dbnh_pad``, the bf16 copies) pad their
+  rows up to ``bucket_rows(ha*wa)`` with rows that cannot win (+inf
+  norms, or the packed layouts' ``_PAD_SCORE`` lanes), at the end, so the
+  lowest-index rule never prefers one.  The kernels then see a few row
+  counts across exemplar sizes (one launch plan, and later one captured
+  graph, a bucket);
+- the query side of the batched strategy: a level pads its ``static_q``
+  and gather maps with zero rows up to ``bucket_rows(hb*wb)``, so targets
+  of different heights (one width) share one lane run
+  (``batch/engine.py``).  The scan's row loop stops at each lane's real
+  height, so no real row reads a pad row, and :func:`pad_waste_frac`
+  measures the dead rows the engine weighs against its ceiling
+  (``tune.resolve.batch_pad_waste_pct``).
 
 Bucketing is opt-in (``AnalogyParams.shape_buckets`` or
 ``IA_SHAPE_BUCKETS=1``): with it off, shapes and outputs are those of an

@@ -1492,3 +1492,80 @@ def test_cuda_lane_width_calls_equal_singleton_calls(kernel, m):
     if not band:
         assert torch.equal(idx, ref_i.to(idx.device))
     assert int(idx.max()) < n
+
+
+# ------------------------------------------- launch geometry (tune/, obs/)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 88, 352])
+@pytest.mark.parametrize("n,npad", [(100, 128), (8400, 8447),
+                                    (70000, 70037)])
+@pytest.mark.parametrize("kernel", ["packed_best", "argmin_l2"])
+def test_cuda_tune_chunks_and_stages_keep_the_bits(kernel, m, n, npad):
+    """Every candidate plan of ``ia tune``'s sweeps (chunks_per_sm 1, 2, 4;
+    for packed2k ring_stages 2 up to the deepest) gives the default plan's
+    idx and val bits, at ragged N, N under the SM count's rows and M from 1
+    to the headline 352; the duplicated rows go to the lower index."""
+    dev = _card()
+    if kernel == "packed_best":
+        dup = (3, n - 60) if n > 100 else (3, 60)
+        x, qv = packed_inputs(m=m, n=n, dup=dup)
+        l = qv.shape[1]
+        xt = torch.from_numpy(x).to(dev)
+        wk, _ = pack_wk(xt, torch.zeros(l, device=dev),
+                        0.5 * (xt * xt).sum(1), torch.arange(l, device=dev),
+                        npad)
+        g1, g2, _ = match.bf16_split3(torch.from_numpy(qv).to(dev))
+        q = query_rows(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+                       wk.shape[1])
+        deepest = match._packed2k_plan(m, npad, 132, 224).stages
+        cands = [dict(chunks_per_sm=c, ring_stages=s) for c in (1, 2, 4)
+                 for s in range(2, deepest + 1)]
+        call = lambda kw: match.packed_best(q, wk, 224, **kw)
+        pick = min(2, m - 1)
+    else:
+        dup = (40, n - 60) if n > 100 else (40, 80)
+        q, db, dbn = (torch.from_numpy(t).to(dev) for t in argmin_inputs(
+            m=m, n=n, npad=npad, dup=dup))
+        cands = [dict(chunks_per_sm=c) for c in (1, 2, 4)]
+        call = lambda kw: match.argmin_l2(q, db, dbn, **kw)
+        pick = 0
+    ref_i, ref_v = call({})
+    assert int(ref_i[pick]) == dup[0]
+    for kw in cands:
+        match.reset_launch_counts()
+        idx, val = call(kw)
+        assert match.LAUNCHES[kernel] == 1
+        assert torch.equal(idx, ref_i), kw
+        assert torch.equal(val.view(torch.int32), ref_v.view(torch.int32)), kw
+
+
+@pytest.mark.cuda
+def test_cuda_tune_metrics_run_counts_its_launches_and_memory():
+    """A metrics run on the card: its bits are the plain run's, its
+    launch.* counters equal LAUNCHES, its hbm.peak_bytes.d0 gauge equals
+    max_memory_allocated, and its kernel work counts are those of the
+    calls it made."""
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+
+    _card()
+    a, ap, b = make_structured(64, 7)
+    params = AnalogyParams(levels=2, match_mode="exact_hi")
+    ref = create_image_analogy(a, ap, b, params)
+    match.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with obs_trace.run_scope(params.replace(metrics=True)):
+        res = create_image_analogy(a, ap, b, params.replace(metrics=True))
+        snap = obs_metrics.snapshot()
+    torch.cuda.synchronize()
+    assert np.array_equal(res.bp_y.view(np.int32), ref.bp_y.view(np.int32))
+    assert np.array_equal(res.source_map, ref.source_map)
+    launches = {k: v for k, v in match.LAUNCHES.items() if v}
+    counted = {k[len("launch."):]: v for k, v in snap["counters"].items()
+               if k.startswith("launch.")}
+    assert counted == launches and launches["argmin_l2"] > 0
+    assert snap["gauges"]["hbm.peak_bytes.d0"] == float(
+        torch.cuda.max_memory_allocated())
+    assert snap["counters"]["kernel.flops"] > 0
