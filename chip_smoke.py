@@ -163,6 +163,39 @@ and carried on):
                 wavefront and batched, with and without ``shape_buckets``
                 (the DB bucketed to 2^20 ... 2^12 rows): the bucketed bits
                 must be the unbucketed ones, walls and peaks printed.
+17. ann        — the two-stage ANN matcher (``ann_prefilter``) and the
+                exemplar catalog.  Gate: npr_1024 with the flag at 64^2,
+                wavefront then batched, the gate in force: each verdict
+                and its probes' launches printed, every level run in the
+                mode its verdict allows (a refusal: the bits of the same
+                run without the flag).  Stage 1 and 2 alone at the level-0
+                shape (M = 352, N = 2^20, Kp = 32): ms of the product, of
+                the top-k, of each stage, and stage 1's bound.  Full
+                width, the gate bypassed, on the seed-7 oracle inputs: the
+                wavefront with its bases built on the card, ``ann_rescue``
+                at all five levels, ``ann.projection_built`` and
+                ``ann.prefilter_used`` 5, no kernel launched, SSIM vs the
+                oracle >= 0.90 and the tie-audit printed; the wavefront
+                again from the bases ``build_style`` sealed on the host:
+                5 hits, none built, the first run's bits; batched, its
+                bases built on the card, no ``argmin_l2_bf16`` launch, SSIM
+                printed; four wavefront lanes at 256^2 (the lanes phase's
+                seeds) and their singletons, each lane's bits against its
+                singleton's and the stage-1 product's rows printed;
+                per-level ms, build ms (total_ms - ms) and peak memory of
+                every run.  Catalog at 128^2: ``ia catalog build`` (a
+                subprocess, started with the phase: it needs no card)
+                seals one entry and one basis a level; a run
+                hits every basis and builds none; one damaged basis runs
+                its level exact, is quarantined and resealed
+                (``ann.fallback_exact`` 1, ``ann.artifacts_rebuilt`` 1);
+                the next run hits every level with the first run's bits.
+                Tune: ``ia tune --knob ann --no-persist`` (a subprocess),
+                which must exit 0 (a tie-clean candidate), its candidates
+                printed; the default slab (64) must be tie-clean.
+
+Each phase's seconds, and the seconds since the script began, are a
+``[time]`` line after it.
 
 The kernels phase also runs each kernel of the lane path at four lanes'
 query rows (packed_best at M = 1,408, argmin_l2 at 352, argmin_l2_bf16 at
@@ -203,7 +236,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video", "driver", "lanes", "tune")
+          "modes", "video", "driver", "lanes", "tune", "ann")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -304,6 +337,15 @@ MAIN_DIGEST = "eb610f5475a13e63"
 # the bucketed level build's inputs: make_structured(1000, 7), whose levels'
 # A rows (10^6 ... 3,969) bucket to 2^20, 2^18, 2^16, 2^14 and 2^12 rows
 BUCKET_SIZE = 1000
+# the ann phase: the gate's synthesis, the lanes' and the catalog
+# mechanics' sizes (the full-width runs are 1024^2; the lanes and the
+# catalog mechanics are cut so the whole script stays inside its limit:
+# the two-stage path takes 35-52 s a 1024^2 wavefront run on the card)
+ANN_GATE_SIZE = 64
+ANN_LANE_SIZE = 256
+ANN_CATALOG_SIZE = 128
+# the slab the port resolves with no tune row (tune/geometry.py)
+DEFAULT_ANN_TOP_M = 64
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -3444,26 +3486,42 @@ def cli_json(phase, args, timeout=900):
     """``python -m image_analogies_tpu_torch.cli ARGS`` as a subprocess of
     this checkout; fails unless it exits 0.  Returns (its stdout parsed as
     one JSON document, seconds)."""
+    return cli_wait(phase, cli_start(args), timeout)
+
+
+def cli_start(args):
+    """Start ``python -m image_analogies_tpu_torch.cli ARGS`` as a
+    subprocess of this checkout and return at once (for a command that
+    needs no card: it runs on the host's cores while the card works)."""
     cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
-                          timeout=timeout)
+    return (subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            args, time.perf_counter())
+
+
+def cli_wait(phase, started, timeout=900):
+    """Wait for a subprocess of :func:`cli_start`; fails unless it exits
+    0.  Returns (its stdout parsed as one JSON document, seconds from its
+    start)."""
+    proc, args, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{phase}: {' '.join(args[:2])} ran past {timeout} s")
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"{phase}: {' '.join(args[:2])} exit {proc.returncode}: "
-             f"{proc.stderr[-2000:]}")
-    return json.loads(proc.stdout), secs
+             f"{err[-2000:]}")
+    return json.loads(out), secs
 
 
 def tune_sweeps(tmp):
-    """Steps 1-2 of the tune phase: the dry run, then two live runs into a
-    fresh store.  Returns the store's path."""
-    plan, secs = cli_json("tune", ["tune", "--dry-run"])
-    say("tune", step="dry_run", s=secs, device_kind=plan["device_kind"],
-        sweeps={sw["kernel"]: dict(knobs=sw["knobs"],
-                                   candidates=len(sw["candidates"]),
-                                   shape=sw["shape"])
-                for sw in plan["sweeps"]})
+    """Steps 1-2 of the tune phase: the dry run (on the host's cores beside
+    the live runs: it touches no card), then two live runs into a fresh
+    store.  Returns the store's path."""
+    dry = cli_start(["tune", "--dry-run"])
     store = os.path.join(tmp, "tune.json")
     runs = []
     for i in (1, 2):
@@ -3486,6 +3544,12 @@ def tune_sweeps(tmp):
                      "bits")
         if not res["persisted"]:
             fail("tune: verified winners were not persisted")
+    plan, secs = cli_wait("tune", dry)
+    say("tune", step="dry_run", s=secs, device_kind=plan["device_kind"],
+        sweeps={sw["kernel"]: dict(knobs=sw["knobs"],
+                                   candidates=len(sw["candidates"]),
+                                   shape=sw["shape"])
+                for sw in plan["sweeps"]})
     same = {a["kernel"]: a["winner"] == b["winner"]
             for a, b in zip(runs[0]["sweeps"], runs[1]["sweeps"])}
     with open(store) as f:
@@ -3657,6 +3721,376 @@ def phase_tune(a, ap, b):
     say("tune", phase_s=time.perf_counter() - t0)
 
 
+def ann_run(label, params, a, ap, b, runs=("first",), keep_levels=False):
+    """``create_image_analogy`` with ``params`` and metrics on, inside a run
+    scope of its own, once per label in ``runs``, every launch count set to
+    0 just before each run and read just after.  Prints each run's wall,
+    bits, per-level ms, build ms (total_ms - ms) and mode, its launches,
+    its ``ann.*`` counters and peak memory.  Returns (the last result, its
+    launches, its ann counters)."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+    from image_analogies_tpu_torch.ops import match
+
+    params = dataclasses.replace(params, metrics=True)
+    for run in runs:
+        match.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with obs_trace.run_scope(params) as ctx:
+            result = create_image_analogy(a, ap, b, params,
+                                          keep_levels=keep_levels)
+            torch.cuda.synchronize()
+            counters = {k: v for k, v in ctx.registry.snapshot()[
+                "counters"].items() if k.startswith("ann.")}
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in match.LAUNCHES.items() if v}
+        stats = sorted(result.stats, key=lambda st: st["level"])
+        say("ann", run=f"{label} {run}", size=a.shape[0],
+            strategy=params.strategy, wall_s=wall, bits=bits_digest(result),
+            level_ms={st["level"]: st["ms"] for st in stats},
+            level_build_ms={st["level"]: st["total_ms"] - st["ms"]
+                            for st in stats},
+            level_mode={st["level"]: st.get("match_mode", st["strategy"])
+                        for st in stats},
+            launches=launches, counters=counters,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if not bool(np.isfinite(result.bp_y).all()):
+        fail(f"ann {label}: B' is not finite")
+    return result, launches, counters
+
+
+def _ann_modes(result):
+    return [st.get("match_mode") for st in sorted(result.stats,
+                                                  key=lambda s: s["level"])]
+
+
+def ann_gate(dev):
+    """The gate in force at ANN_GATE_SIZE: both strategies' verdicts on this
+    card, then a run each whose levels must run what the verdict allows."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import PRESETS, create_image_analogy
+    from image_analogies_tpu_torch.backends import gate
+    from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    gate.reset_ann_gate()
+    a, ap, b = make_structured(ANN_GATE_SIZE, 7)
+    for strategy in ("wavefront", "batched"):
+        params = dataclasses.replace(PRESETS["npr_1024"], strategy=strategy,
+                                     ann_prefilter=True)
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        allowed = gate.ann_gate_allows(params, dev, strategy)
+        say("ann", gate=strategy, device=gate.device_key(dev),
+            probe_s=time.perf_counter() - t0,
+            probe_launches={k: v for k, v in match.LAUNCHES.items() if v},
+            **gate.ann_gate_verdict(dev, strategy))
+        res, launches, counters = ann_run(f"gate {strategy}", params, a, ap,
+                                          b)
+        levels = len(res.stats)
+        if strategy == "wavefront":
+            want = ["ann_rescue" if allowed else resolve_match_mode(
+                "auto", (ANN_GATE_SIZE >> lv) ** 2) for lv in range(levels)]
+            if _ann_modes(res) != want:
+                fail(f"ann gate: levels ran {_ann_modes(res)}, the verdict "
+                     f"allows {want}")
+        elif allowed == bool(launches.get("argmin_l2_bf16")):
+            fail(f"ann gate: batched launched {launches} under a verdict "
+                 f"{'allowing' if allowed else 'refusing'} the prefilter")
+        if allowed and counters.get("ann.prefilter_used") != levels:
+            fail(f"ann gate: ann.prefilter_used {counters} at {levels} "
+                 "levels")
+        if not allowed:
+            ref = create_image_analogy(a, ap, b, dataclasses.replace(
+                params, ann_prefilter=False))
+            if not (np.array_equal(ref.bp_y.view(np.int32),
+                                   res.bp_y.view(np.int32))
+                    and np.array_equal(ref.source_map, res.source_map)):
+                fail(f"ann gate: a refused {strategy} run differs from the "
+                     "run without the flag")
+
+
+def ann_stage_times():
+    """Stage 1 and 2 alone at the level-0 wavefront shape (M = 352, N =
+    2^20, F = 68, Kp = 32; seeded, 8 rows tied at the slab boundary):
+    CUDA-event ms of the product with its half-norm subtract, of
+    ``torch.topk(65)`` over the scores, of the whole of stage 1 (with the
+    tie fix-up and its host sync) and of stage 2, beside stage 1's bound
+    (2 M N Kp fp32 operations; the bytes it must move are 0.14 GB)."""
+    import torch
+
+    from image_analogies_tpu_torch.ops import ann
+
+    m, n, f, kp, top_m = 352, 1 << 20, 68, 32, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda", 0)
+    q = torch.randn((m, f), generator=g, device=dev)
+    proj = torch.linalg.qr(torch.randn((f, kp), generator=g, device=dev))[0]
+    mean = 0.1 * torch.randn((f,), generator=g, device=dev)
+    dbp = torch.randn((n, kp), generator=g, device=dev)
+    dbp[n // 3::n // 100] = dbp[n // 3]  # 67 equal rows
+    dbnh = 0.5 * (dbp * dbp).sum(dim=1)
+    q[:8] = mean + proj @ dbp[n // 3]
+    db = torch.randn((n, f), generator=g, device=dev)
+    qp = (q - mean) @ proj
+
+    def product():
+        return (qp @ dbp.T).sub_(dbnh[None, :])
+
+    scores = product()
+    cand = ann.ann_topm_candidates(q, proj, mean, dbp, dbnh, n, top_m)
+    times = {
+        "product_ms": cuda_time_ms(product, 10),
+        "topk_ms": cuda_time_ms(lambda: torch.topk(scores, top_m + 1,
+                                                   dim=1), 10),
+        "stage1_ms": cuda_time_ms(lambda: ann.ann_topm_candidates(
+            q, proj, mean, dbp, dbnh, n, top_m), 10),
+        "stage2_ms": cuda_time_ms(lambda: ann.ann_rescore_slab(
+            q, db, cand, n), 10)}
+    b_ms, b_by = bound(0.14e9, 2.0 * m * n * kp, PEAK_FP32_FLOP_S)
+    say("ann", stage_shape=dict(m=m, n=n, f=f, kp=kp, top_m=top_m),
+        **times, stage1_bound_ms=b_ms, stage1_bound_by=b_by)
+
+
+def ann_full_width(a, ap, b, tmp):
+    """The gate bypassed at 1024^2: the wavefront with its bases built
+    fresh on the card (what ``--ann-prefilter`` alone gives; audited), then
+    again from the bases ``build_style`` sealed on the host, which must
+    give the same bits; batched once, its bases built fresh on the card;
+    four wavefront lanes at ANN_LANE_SIZE against their singletons."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import (PRESETS, create_image_analogy,
+                                           create_image_analogy_batch)
+    from image_analogies_tpu_torch.backends import cuda as tcuda
+    from image_analogies_tpu_torch.backends import gate
+    from image_analogies_tpu_torch.catalog import build as catalog_build
+    from image_analogies_tpu_torch.utils.assets import make_structured
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    params = dataclasses.replace(PRESETS["npr_1024"], ann_prefilter=True)
+    root = os.path.join(tmp, "cat1024")
+    with gate.ann_gate_bypass():
+        fresh, launches, counters = ann_run("wavefront fresh", params, a,
+                                            ap, b, keep_levels=True)
+        if (set(_ann_modes(fresh)) != {"ann_rescue"} or launches
+                or counters.get("ann.prefilter_used") != params.levels
+                or counters.get("ann.projection_built") != params.levels
+                or "ann.artifact_hits" in counters):
+            fail(f"ann: the 1024^2 wavefront ran {_ann_modes(fresh)}, "
+                 f"launched {launches}, counted {counters}")
+        phase_oracle(a, ap, b, params, fresh, phase="ann",
+                     ssim_min=PROBE_SSIM_MIN, unexplained_max=None)
+        t0 = time.perf_counter()
+        catalog_build.build_style(a, ap, PRESETS["npr_1024"], root_dir=root,
+                                  target=b)
+        say("ann", catalog_1024_build_s=time.perf_counter() - t0)
+        sealed = dataclasses.replace(params, catalog_dir=root)
+        res, launches, counters = ann_run("wavefront sealed", sealed, a,
+                                          ap, b)
+        same = (np.array_equal(res.bp_y.view(np.int32),
+                               fresh.bp_y.view(np.int32))
+                and np.array_equal(res.source_map, fresh.source_map))
+        say("ann", sealed_bits_equal_fresh=same)
+        if (set(_ann_modes(res)) != {"ann_rescue"} or launches
+                or counters.get("ann.prefilter_used") != params.levels
+                or counters.get("ann.artifact_hits") != params.levels
+                or "ann.projection_built" in counters or not same):
+            fail(f"ann: the sealed 1024^2 wavefront ran {_ann_modes(res)}, "
+                 f"launched {launches}, counted {counters}, bits equal to "
+                 f"the fresh bases' run: {same}")
+        del res, fresh
+        bparams = dataclasses.replace(params, strategy="batched")
+        res, launches, counters = ann_run("batched", bparams, a, ap, b)
+        if (launches or counters.get("ann.prefilter_used") != params.levels
+                or counters.get("ann.projection_built") != params.levels):
+            fail(f"ann: the 1024^2 batched run launched {launches}, "
+                 f"counted {counters}")
+        oz = np.load(os.path.join(HERE, "bench_cache",
+                                  "oracle_1024_seed7.npz"))
+        say("ann", batched_ssim_vs_oracle=ssim(res.bp_y, oz["bp_y"]))
+        del res
+
+        size = ANN_LANE_SIZE
+        la, lap = (a, ap) if size == 1024 else make_structured(size, 7)[:2]
+        targets = [make_structured(size, s)[2] for s in LANE_SEEDS]
+        lparams = dataclasses.replace(params, remap_luminance=False)
+        rows = []
+        real = tcuda.ann_topm_candidates
+
+        def spy(queries, *args):
+            rows.append(int(queries.shape[0]))
+            return real(queries, *args)
+
+        tcuda.ann_topm_candidates = spy
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            lanes = create_image_analogy_batch(la, lap, targets, lparams)
+            torch.cuda.synchronize()
+            lane_wall = time.perf_counter() - t0
+            lane_peak = torch.cuda.max_memory_allocated() / 2**30
+            lane_rows = list(rows)
+            rows.clear()
+            singles, walls = [], []
+            for tb in targets:
+                t0 = time.perf_counter()
+                singles.append(create_image_analogy(la, lap, tb, lparams))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        finally:
+            tcuda.ann_topm_candidates = real
+        per = len(rows) // len(targets)
+        same = []
+        for res, ref in zip(lanes, singles):
+            if isinstance(res, Exception):
+                fail(f"ann lanes: a lane failed: {res!r}")
+            same.append(bool(np.array_equal(res.bp_y.view(np.int32),
+                                            ref.bp_y.view(np.int32))
+                             and np.array_equal(res.source_map,
+                                                ref.source_map)))
+        stats = sorted(lanes[0].stats, key=lambda st: st["level"])
+        say("ann", lanes=len(targets), size=size, lane_wall_s=lane_wall,
+            singleton_wall_s=walls, lane_peak_mem_gib=lane_peak,
+            level_ms={st["level"]: st["ms"] for st in stats},
+            stage1_calls=len(lane_rows), singleton_stage1_calls=per,
+            stage1_rows_max=max(lane_rows),
+            singleton_stage1_rows_max=max(rows[:per]),
+            lanes_bits_equal_singletons=same,
+            bits=[bits_digest(r) for r in lanes])
+        if len(lane_rows) != per or max(lane_rows) != len(targets) * max(
+                rows[:per]):
+            fail("ann lanes: the lanes did not share one stage-1 product a "
+                 "step")
+
+
+def ann_catalog_start(tmp):
+    """Write the catalog mechanics' planes (make_structured at
+    ANN_CATALOG_SIZE) under ``tmp`` and start ``ia catalog build`` on them
+    (host only: it runs while the card works).  Returns what
+    :func:`ann_catalog` takes."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.utils.assets import make_structured
+
+    planes = make_structured(ANN_CATALOG_SIZE, 7)
+    paths = []
+    for name, x in zip(("a", "ap", "b"), planes):
+        paths.append(os.path.join(tmp, f"{name}.npy"))
+        np.save(paths[-1], x)
+    root = os.path.join(tmp, "cat")
+    started = cli_start(["catalog", "build", "--a", paths[0], "--ap",
+                         paths[1], "--b", paths[2], "--dir", root,
+                         "--levels", str(PRESETS["npr_1024"].levels)])
+    return planes, root, started
+
+
+def ann_catalog(planes, root, started):
+    """The catalog mechanics at ANN_CATALOG_SIZE, the gate bypassed, on
+    the catalog :func:`ann_catalog_start` built."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.backends import gate
+    from image_analogies_tpu_torch.backends.cuda import resolve_match_mode
+    from image_analogies_tpu_torch.catalog import ann as catalog_ann
+
+    size = ANN_CATALOG_SIZE
+    params = dataclasses.replace(PRESETS["npr_1024"], ann_prefilter=True,
+                                 catalog_dir=root)
+    rep, secs = cli_wait("ann", started)
+    levels = rep["levels"]
+    bases = sorted(os.listdir(os.path.join(root, catalog_ann.ANN_DIR)))
+    say("ann", catalog_build_s=secs, size=size, levels=levels,
+        entries=len(rep["entries"]), bases=len(bases),
+        ann_dims=[e["ann_dims"] for e in rep["entries"]])
+    if len(rep["entries"]) != levels or len(bases) != levels:
+        fail(f"ann catalog: {len(rep['entries'])} entries and {len(bases)} "
+             f"bases for {levels} levels")
+    with gate.ann_gate_bypass():
+        first, launches, c = ann_run("catalog", params, *planes)
+        if (c.get("ann.artifact_hits") != levels
+                or "ann.projection_built" in c or launches):
+            fail(f"ann catalog: counted {c}, launched {launches}")
+        key0 = next(e["key"] for e in rep["entries"] if e["level"] == 0)
+        path = catalog_ann.artifact_path(root, key0)
+        catalog_ann.damage_artifact(path, seed=3)
+        hurt, launches, c = ann_run("catalog damaged", params, *planes)
+        want0 = resolve_match_mode("auto", size * size)
+        if (_ann_modes(hurt)[0] != want0
+                or set(_ann_modes(hurt)[1:]) != {"ann_rescue"}
+                or not os.path.exists(path + ".corrupt")
+                or not os.path.exists(path)
+                or c.get("ann.fallback_exact") != 1
+                or c.get("ann.artifacts_rebuilt") != 1
+                or c.get("ann.artifact_hits") != levels - 1):
+            fail(f"ann catalog: the damaged basis ran {_ann_modes(hurt)} "
+                 f"and counted {c}")
+        again, launches, c = ann_run("catalog recovered", params, *planes)
+        same = (np.array_equal(again.bp_y.view(np.int32),
+                               first.bp_y.view(np.int32))
+                and np.array_equal(again.source_map, first.source_map))
+        say("ann", catalog_recovered_bits_equal_first=same)
+        if c.get("ann.artifact_hits") != levels or not same:
+            fail(f"ann catalog: the resealed catalog counted {c}, bits "
+                 f"equal to the first run's: {same}")
+
+
+def phase_ann(a, ap, b):
+    """The ann phase (see the module docstring, 17)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        catalog = ann_catalog_start(tmp)
+        ann_gate(torch.device("cuda", 0))
+        ann_stage_times()
+        ann_full_width(a, ap, b, tmp)
+        ann_catalog(*catalog)
+    res, secs = cli_json("ann", ["tune", "--knob", "ann", "--no-persist",
+                                 "--reps", "3"])
+    for sw in res["sweeps"]:
+        say("ann", tune_s=secs, card=res["device_kind"],
+            power_limit=res.get("power_limit"), verified=sw["verified"],
+            winner=sw["winner"], winner_ms=sw["winner_ms"],
+            default_ms=sw["default_ms"],
+            beats_default_by_more_than_spread=sw[
+                "beats_default_by_more_than_spread"],
+            candidates=[[r["candidate"]["ann_top_m"], r["ms"],
+                         r["spread_ms"], r["tie_ok"], r["mismatches"],
+                         r["unexplained"]] for r in sw["results"]])
+        default = [r for r in sw["results"]
+                   if r["candidate"]["ann_top_m"] == DEFAULT_ANN_TOP_M]
+        if not (default and default[0]["tie_ok"]):
+            fail(f"ann tune: the default slab {DEFAULT_ANN_TOP_M} is not "
+                 f"tie-clean on the probe pair: {default}")
+    say("ann", phase_s=time.perf_counter() - t0)
+
+
+def laps(phases):
+    """A clock for main(): ``lap(name)`` prints, for a phase that ran, the
+    seconds since the last lap and since the script began."""
+    start = last = time.perf_counter()
+
+    def lap(name):
+        nonlocal last
+        now = time.perf_counter()
+        if name in phases:
+            say("time", of=name, s=now - last, total_s=now - start)
+        last = now
+    return lap
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3702,32 +4136,42 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import image_analogies_tpu_torch  # noqa: F401  (sets TF32 off)
 
+    lap = laps(phases)
     if "env" in phases:
         phase_env(args.ptxas)
+    lap("env")
     rows = phase_kernels(args.parent) if "kernels" in phases else None
+    lap("kernels")
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
             "batched", "batched_profile", "driver", "lanes",
-            "tune"} & set(phases):
+            "tune", "ann"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
+        lap("main")
         if "oracle" in phases:
             phase_oracle(a, ap_, b, params, result)
             del result
             phase_oracle13(params)
+        lap("oracle")
         if "profile" in phases:
             phase_profile(a, ap_, b, params)
+        lap("profile")
     if "exact_hi2" in phases:
         path_launches["exact_hi2"] = phase_exact_hi2(a, ap_, b)
+    lap("exact_hi2")
     if "rescue" in phases:
         path_launches["rescue"] = phase_probe("rescue", "scan_rescue",
                                               a, ap_, b)
+    lap("rescue")
     if "two_pass" in phases:
         path_launches["two_pass"] = phase_probe("two_pass", "two_pass",
                                                 a, ap_, b)
+    lap("two_pass")
     if "batched" in phases:
         path_launches["batched"] = phase_batched(a, ap_, b)
+    lap("batched")
     if "batched_profile" in phases:
         from image_analogies_tpu_torch import PRESETS
 
@@ -3735,24 +4179,36 @@ def main() -> None:
         run_path("batched_profile", bparams, a, ap_, b, runs=("cold",),
                  keep_levels=False)
         phase_profile(a, ap_, b, bparams, phase="batched_profile")
+    lap("batched_profile")
     if "gate" in phases:
         phase_gate()
+    lap("gate")
     if "card_vs_cpu" in phases:
         path_launches["card_vs_cpu"] = phase_card_vs_cpu()
+    lap("card_vs_cpu")
     if "modes_small" in phases:
         phase_modes_small()
+    lap("modes_small")
     if "modes" in phases:
         path_launches["modes"] = phase_modes()
+    lap("modes")
     if "video" in phases:
         phase_video()
+    lap("video")
     if "driver" in phases:
         phase_driver(a, ap_, b)
+    lap("driver")
     if "lanes" in phases:
         lanes = phase_lanes(a, ap_)
         path_launches["lanes wavefront"] = lanes["wavefront"]
         path_launches["lanes batched"] = lanes["batched"]
+    lap("lanes")
     if "tune" in phases:
         phase_tune(a, ap_, b)
+    lap("tune")
+    if "ann" in phases:
+        phase_ann(a, ap_, b)
+    lap("ann")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

@@ -15,7 +15,10 @@ diagonal resolves as one batch:
   kernel (``exact_hi``), the bf16 lane-packed tensor-core scans
   (``exact_hi2``, ``exact_hi2_2p``), or the bf16 candidate scans of the
   probe modes and ``bf16_scoring`` (``scan_rescue[_1p]``,
-  ``two_pass[_1p]``), each followed by an exact fp32 re-score;
+  ``two_pass[_1p]``), each followed by an exact fp32 re-score; or, with
+  ``ann_prefilter`` (``ann_rescue``), the two-stage matcher of
+  ``ops/ann.py``: a PCA-projected prefilter over every row, then the exact
+  fp32 re-score of its top-m slab;
 - batched Ashikhmin coherence over the causal window (``_batched_coherence``);
 - the kappa rule (Hertzmann §3.2 eq. 2);
 - a scatter of (A' value, source index) into the carry.
@@ -23,8 +26,9 @@ diagonal resolves as one batch:
 **batched** (``batched_scan_core``): the causal window is cut to the rows
 strictly above, for the queries, the DB (``db_rowsafe``) and the coherence
 candidates, so a whole scan row resolves in one step: the approximate match
-(``make_approx_fn``: one bf16 pass on the card, exact fp32 on the CPU),
-rows-above coherence, the kappa rule, then ``refine_passes`` vectorized
+(``make_approx_fn``: one bf16 pass on the card, exact fp32 on the CPU,
+or with ``ann_prefilter`` the two-stage matcher on both), rows-above
+coherence, the kappa rule, then ``refine_passes`` vectorized
 passes that restore same-row left-propagation (``_left_refine``).
 
 **rowwise** and **exact** (``_run_rowwise``, ``_run_exact``): the per-pixel
@@ -42,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -58,6 +63,14 @@ from image_analogies_tpu_torch.ops.features import (
     window_offsets,
 )
 from image_analogies_tpu_torch.backends import gate
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
+from image_analogies_tpu_torch.obs import trace as obs_trace
+from image_analogies_tpu_torch.ops.ann import (
+    ann_arrays,
+    ann_project_db,
+    ann_rescore_slab,
+    ann_topm_candidates,
+)
 from image_analogies_tpu_torch.ops.match import (
     _lanes,
     _lex_lt,
@@ -95,7 +108,9 @@ PAD_TILE = 256
 # the top-T tile champions by scan score (the JAX package's _RESCUE_T)
 _RESCUE_T = 8
 
-# pad mode of the scan copy each resolved anchor mode reads
+# pad mode of the scan copy each resolved anchor mode reads (the modes a
+# user selects; "ann_rescue", which ann_prefilter selects, reads none: the
+# JAX package builds it the "f32" copy, which its anchor never reads)
 PAD_MODES = {
     "exact_hi": "f32",
     "exact_hi2": "packed",
@@ -142,7 +157,7 @@ class LevelDB:
     hb: int
     wb: int
     fine_start: int
-    match_mode: str  # resolved per level (a key of PAD_MODES)
+    match_mode: str  # resolved per level (a key of PAD_MODES, or ann_rescue)
     db_pad2: Optional[torch.Tensor] = None  # exact_hi2: W2 = [d3|d1]
     # (Npad,) fp32 half norms, +inf pads (packed and bf16 pads)
     dbnh_pad: Optional[torch.Tensor] = None
@@ -169,6 +184,16 @@ class LevelDB:
     # the level's launch geometry, resolved once (build_features); None:
     # resolved when the scan starts (``level_tune``)
     tune: Optional[tune_resolve.TuneConfig] = None
+    # the two-stage ANN matcher's state (``ann_prefilter`` past its gate;
+    # else None): the (F, Kp) PCA basis and the (F,) mean it centers on (a
+    # sealed catalog artifact, or computed on the device), the projected
+    # scoring DB (Npad, Kp) — the full DB for the wavefront, the rows-above
+    # DB for batched, with a shape bucket's zero rows — and its (Npad,)
+    # half squared norms
+    ann_proj: Optional[torch.Tensor] = None
+    ann_mean: Optional[torch.Tensor] = None
+    ann_dbp: Optional[torch.Tensor] = None
+    ann_dbnh: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=64)
@@ -486,10 +511,29 @@ def _lex_min(d: torch.Tensor, cand: torch.Tensor):
     return bi, bv
 
 
+def _two_stage_fn(db: LevelDB, scoring: torch.Tensor):
+    """The two-stage ANN match against ``scoring`` (the full DB for the
+    wavefront anchor, the rows-above DB for batched): queries (M, F) ->
+    (idx (M,) int64, d (M,) the slab winner's exact fp32 distance)."""
+    top_m = tune_resolve.ann_top_m()
+    na = db.ha * db.wa
+
+    def match(queries):
+        cand = ann_topm_candidates(queries, db.ann_proj, db.ann_mean,
+                                   db.ann_dbp, db.ann_dbnh, na, top_m)
+        return ann_rescore_slab(queries, scoring, cand, na)
+
+    return match
+
+
 def make_anchor_fn(db: LevelDB):
     """The wavefront's full-DB anchor: queries (M, F) -> (p_app (M,) int64,
     d_app (M,) fp32 EXACT squared distance, or None).  In the JAX package's
     order (``backends/tpu.py make_anchor_fn``):
+
+    - "ann_rescue": the two-stage matcher (``ops/ann.py``): the top
+      ``ann_top_m`` rows by projected score, re-scored in exact fp32
+      against the full DB, the lowest index winning a tie.  No kernel.
 
     - "scan_rescue[_1p]": ``pertile_champions`` over the bf16 centered DB
       (hi/lo query blocks folded, or one rounded block for _1p) gives each
@@ -516,6 +560,9 @@ def make_anchor_fn(db: LevelDB):
     na = db.ha * db.wa
     mode = db.match_mode
     f = int(db.static_q.shape[1])
+    if mode == "ann_rescue" and db.ann_dbp is not None:
+        return _two_stage_fn(db, db.db)
+
     cfg = level_tune(db)  # the main path's two kernels' launch knobs
     if mode in ("scan_rescue", "scan_rescue_1p"):
         q_split = mode == "scan_rescue"
@@ -885,8 +932,12 @@ def _run_rowwise(db: LevelDB, kappa_mult: float):
 def make_approx_fn(db: LevelDB):
     """The batched and rowwise strategies' approximate match, queries (M,
     F) -> (idx (M,), d (M,) squared distance), against the rows-above DB
-    (the JAX ``make_approx_fn`` without its ANN branch):
+    (the JAX ``make_approx_fn``):
 
+    - with the level's ANN state (batched with ``ann_prefilter``): the
+      two-stage matcher (``ops/ann.py``) against ``db_rowsafe``, on the
+      card and on the CPU alike; ``d`` is the slab winner's exact fp32
+      distance.
     - with the level's bf16 scan copy (built on the card):
       ``prepadded_argmin_queries`` — one bf16 pass with fp32 accumulation
       (``argmin_l2_bf16``), the kernel precision the JAX package gives
@@ -897,6 +948,8 @@ def make_approx_fn(db: LevelDB):
 
     A card level without the scan copy raises: the card never runs the
     fp32 form in place of the kernel."""
+    if db.ann_dbp is not None and db.strategy != "wavefront":
+        return _two_stage_fn(db, db.db_rowsafe)
     if db.db_pad is not None:
         return lambda queries: prepadded_argmin_queries(queries, db.db_pad,
                                                         db.dbn_pad)
@@ -1107,6 +1160,40 @@ def resolve_match_mode(match_mode: str, a_rows: int) -> str:
     return match_mode
 
 
+def _resolve_ann_projection(job: LevelJob):
+    """This level's ANN basis through the catalog's sealed artifacts (the
+    JAX ``_resolve_ann_projection``).  Returns one of:
+
+    - ``("artifact", mean, proj)``: a sealed artifact loaded and verified;
+    - ``("fresh",)``: no catalog root, or no artifact for this key: the
+      basis is computed on the device (``ops/ann.py ann_arrays``);
+    - ``("rebuild", root, key)``: an artifact existed but failed its seal
+      and was quarantined (``.corrupt``): this level runs the exact matcher
+      and the caller reseals the basis from the feature bytes, so the next
+      request recovers the two-stage path.
+
+    The key is the catalog's ``feature_key`` of the level's A side, the one
+    ``ia catalog build`` seals under.  The JAX package's ``match.prefilter``
+    chaos site waits for the port of chaos."""
+    from image_analogies_tpu_torch.catalog import ann as catalog_ann
+    from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
+
+    if not catalog_tiers.active():
+        return ("fresh",)
+    root_dir = catalog_tiers.root()
+    key = catalog_tiers.feature_key(job.spec, job.a_src, job.a_filt,
+                                    job.a_src_coarse, job.a_filt_coarse,
+                                    job.a_temporal)
+    existed = os.path.exists(catalog_ann.artifact_path(root_dir, key))
+    got = catalog_ann.load_artifact(root_dir, key)
+    if got is not None:
+        obs_metrics.inc("ann.artifact_hits")
+        return ("artifact", got[0], got[1])
+    if existed:
+        return ("rebuild", root_dir, key)
+    return ("fresh",)
+
+
 
 class CudaMatcher(Matcher):
     """The port's matcher: every tensor on ``device`` (the card, or the CPU
@@ -1140,19 +1227,28 @@ class CudaMatcher(Matcher):
         return ("wavefront" if self.params.strategy == "auto"
                 else self.params.strategy)
 
-    def _steer(self, job: LevelJob) -> Tuple[str, str]:
-        """(strategy, anchor mode) of a level, the JAX
+    def _steer(self, job: LevelJob) -> Tuple[str, str, Optional[bool]]:
+        """(strategy, anchor mode, ann) of a level, the JAX
         ``TpuMatcher.build_features`` steering: match_mode resolved per
         level, then bf16_scoring switches the wavefront to scan_rescue once
         the parity gate allows it on this device (a refused verdict keeps
-        the exact scan)."""
+        the exact scan).  ``ann``: None without ``ann_prefilter``; True
+        when the two-stage matcher's gate allows it for this (device,
+        strategy), which then wins over bf16_scoring on the wavefront
+        (``build_features`` still falls back for a quarantined artifact);
+        False for a refused verdict or an unsupported strategy."""
         strategy = self._strategy
         mode = resolve_match_mode(self.params.match_mode,
                                   job.a_shape[0] * job.a_shape[1])
         if (strategy == "wavefront" and self.params.bf16_scoring
                 and gate.bf16_gate_allows(self.params, self.device)):
             mode = "scan_rescue"
-        return strategy, mode
+        ann = None
+        if self.params.ann_prefilter:
+            ann = (strategy in ("wavefront", "batched")
+                   and gate.ann_gate_allows(self.params, self.device,
+                                            strategy))
+        return strategy, mode, ann
 
     def _gather_maps(self, hb: int, wb: int, p: int):
         """``gather_maps_device`` memoized by shape in the upload cache
@@ -1166,10 +1262,14 @@ class CudaMatcher(Matcher):
     def kernel_libraries(self, job: LevelJob) -> Tuple[str, ...]:
         """The CUDA libraries (``ops/_build.py`` names) a level's scan
         launches on the card: its anchor mode's, or the approximate
-        match's, by the kernels' own width rules."""
+        match's, by the kernels' own width rules.  A level the two-stage
+        ANN matcher runs launches none (a level whose sealed basis turns
+        out damaged runs exact and builds its library at first use)."""
         if self.device.type != "cuda":
             return ()
-        strategy, mode = self._steer(job)
+        strategy, mode, ann = self._steer(job)
+        if ann:
+            return ()
         if strategy != "wavefront":
             return ("argmin_bf16",) if (strategy != "exact"
                                          and self.bf16_approx) else ()
@@ -1230,22 +1330,37 @@ class CudaMatcher(Matcher):
         pad rows cannot win.  scan_rescue's tile (``scan_tile_rows``)
         depends on the padded row count, so there bucketing can change the
         rescue's candidates: that mode's bucketed run is held to the JAX
-        package's bucketed run, not to an unbucketed one."""
+        package's bucketed run, not to an unbucketed one.
+
+        With ``ann_prefilter`` past its gate the level's basis resolves
+        through the catalog (``_resolve_ann_projection``), the wavefront
+        runs ``ann_rescue`` and batched the two-stage approximate match,
+        neither with a scan copy (``_ann_state``); a quarantined artifact
+        runs the level exact and reseals it (``ann.fallback_exact``,
+        ``ann.artifacts_rebuilt``), and so does a refused or unsupported
+        request (``ann.fallback_exact``)."""
         spec = job.spec
         ha, wa = job.a_shape
         hb, wb = job.b_shape
         # the pad mode of the resolved scan: the wavefront's anchor mode's;
         # the other strategies score the rows-above DB (pad_full=False),
         # rowwise and batched scan its bf16 copy (``bf16_approx``)
-        strategy, mode = self._steer(job)
+        strategy, mode, ann = self._steer(job)
+        ann_plan = _resolve_ann_projection(job) if ann else None
+        if ann is False or (ann_plan is not None
+                            and ann_plan[0] == "rebuild"):
+            obs_metrics.inc("ann.fallback_exact")
+        use_ann = ann_plan is not None and ann_plan[0] != "rebuild"
+        if use_ann and strategy == "wavefront":
+            mode = "ann_rescue"
         rowsafe = None
         if strategy == "wavefront":
-            pad_mode = PAD_MODES[mode]
+            pad_mode = None if mode == "ann_rescue" else PAD_MODES[mode]
         else:
             rowsafe = torch.from_numpy(rowsafe_mask(spec.fine_size)).to(
                 self.device)
             pad_mode = ("bf16_uncentered" if strategy != "exact"
-                        and self.bf16_approx else None)
+                        and self.bf16_approx and not use_ann else None)
         buckets = tune_buckets.buckets_enabled(self.params)
         # the DB-side bucket (the JAX package's db_rows_pad): wavefront and
         # batched only, as there
@@ -1277,6 +1392,11 @@ class CudaMatcher(Matcher):
             fine_start=fsl.start, match_mode=mode, db_pad2=arrs["db_pad2"],
             dbnh_pad=arrs["dbnh_pad"], strategy=strategy,
             db_sqnorm=arrs["db_sqnorm"], tune=cfg)
+        if ann_plan is not None:
+            level.update(self._ann_state(
+                job, strategy, ann_plan,
+                arrs["db"] if strategy == "wavefront" else arrs["db_rowsafe"],
+                db_rows_pad))
         if strategy == "wavefront":
             diag = tuple(torch.from_numpy(sg.astype(np.int64)).to(self.device)
                          for sg in _diag_schedule_np(
@@ -1301,6 +1421,53 @@ class CudaMatcher(Matcher):
             valid=valid, written=written, rowsafe=rowsafe,
             n_rowsafe=(spec.fine_size // 2) * spec.fine_size,
             refine_passes=self.params.refine_passes, **level)
+
+    def _ann_state(self, job: LevelJob, strategy: str, plan, src,
+                   db_rows_pad: int) -> Dict[str, torch.Tensor]:
+        """The level's ANN fields from its resolved plan, over the scoring
+        DB ``src`` grown with zero rows to ``db_rows_pad`` (a shape bucket,
+        as the JAX package pads its fp32 DB; stage 1 masks them):
+
+        - "artifact": ``src`` projected through the sealed basis;
+        - "fresh": the basis computed on the device (``ann_arrays``,
+          ``ann.projection_built``);
+        - "rebuild": the basis rebuilt in float64 on the host from the
+          feature bytes and resealed (``ann.artifacts_rebuilt``); the level
+          runs exact, so no fields.
+
+        Each two-stage level counts ``ann.prefilter_used``, sets the
+        ``ann.top_m`` and ``ann.proj_dims`` gauges and emits one
+        ``ann_prefilter`` record."""
+        from image_analogies_tpu_torch.catalog import ann as catalog_ann
+
+        grow = db_rows_pad - int(src.shape[0])
+        if grow > 0:
+            src = torch.cat([src, src.new_zeros((grow, src.shape[1]))])
+        if plan[0] == "rebuild":
+            mean_np, proj_np = catalog_ann.build_projection(
+                src.cpu().numpy(), tune_resolve.ann_proj_dims())
+            catalog_ann.save_artifact(plan[1], plan[2], mean_np, proj_np)
+            obs_metrics.inc("ann.artifacts_rebuilt")
+            return {}
+        if plan[0] == "artifact":
+            mean = torch.from_numpy(plan[1]).to(self.device)
+            proj = torch.from_numpy(plan[2]).to(self.device)
+            dbp, dbnh = ann_project_db(src, mean, proj)
+        else:
+            mean, proj, dbp, dbnh = ann_arrays(
+                src, tune_resolve.ann_proj_dims())
+            obs_metrics.inc("ann.projection_built")
+        top_m = tune_resolve.ann_top_m()
+        kp = int(proj.shape[1])
+        obs_metrics.inc("ann.prefilter_used")
+        obs_metrics.set_gauge("ann.top_m", top_m)
+        obs_metrics.set_gauge("ann.proj_dims", kp)
+        obs_trace.emit_record(
+            {"event": "ann_prefilter", "level": job.level,
+             "strategy": strategy, "source": plan[0], "top_m": top_m,
+             "proj_dims": kp, "db_rows": int(src.shape[0])})
+        return dict(ann_proj=proj, ann_mean=mean, ann_dbp=dbp,
+                    ann_dbnh=dbnh)
 
     def _scan(self, db: LevelDB, kappa_mult: float):
         """The level's strategy on ``db`` (k = ``db.lanes``): (bp, s, n_coh

@@ -1,5 +1,6 @@
-"""The bf16 scoring parity gate (counterpart of the gate in the JAX
-package's ``backends/tpu.py``).
+"""The parity gates of the opt-in approximate matchers (counterpart of the
+gates in the JAX package's ``backends/tpu.py``): bf16 scoring and the
+two-stage ANN prefilter.
 
 ``AnalogyParams.bf16_scoring`` routes the wavefront anchor through the
 scan_rescue machinery (bf16 per-tile champion scan + exact fp32 top-T
@@ -10,18 +11,28 @@ two source maps with ``utils/parity.py``.  Only a verdict whose mismatches
 are ALL tie-explained (unexplained == 0, first divergence a tie) enables
 the mode; anything else disables it for the process, and every synthesis
 silently keeps the exact scan.  Verdicts are cached per device (the card's
-name, or "cpu") and readable through :func:`bf16_gate_verdict`; the JAX
-package's obs counters and log event wait for the port's obs layer.
+name, or "cpu") and readable through :func:`bf16_gate_verdict`.
+
+``AnalogyParams.ann_prefilter`` routes the wavefront anchor and the batched
+approximate match through the two-stage matcher (``ops/ann.py``) behind the
+same machinery, keyed per (device, strategy): the two strategies prefilter
+different DBs (the full DB, the rows-above DB), so one verdict must not
+vouch for the other.  The first verdict of a key counts ``ann.gate_ok`` or
+``ann.disabled_unexplained`` and emits one ``ann_gate`` record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
+from image_analogies_tpu_torch.obs import trace as obs_trace
 
 _BF16_GATE: Dict[str, Dict[str, Any]] = {}
 _BF16_GATE_LOCK = threading.Lock()
@@ -66,44 +77,59 @@ def _bf16_probe_pair(n: int = 32
     return a, ap, b
 
 
-def _probe_base_params(params, *, levels: int = 2):
-    """The probe's hermetic EXACT baseline: the caller's params with the
-    scan forced to the exact wavefront defaults, the video term off and
-    every resilience and IO knob off, so a probe is a pure synthesis of the
-    probe pair that writes nothing of the caller's (the port's subset of
-    the JAX package's ``_probe_base_params``)."""
+def _probe_base_params(params=None, *, levels: int = 2,
+                       strategy: str = "wavefront"):
+    """The probes' hermetic EXACT baseline: the caller's params (None: the
+    defaults) with the scan forced to ``strategy``'s exact defaults, both
+    approximate matchers, the video term, the run's metrics and every
+    resilience and IO knob off, so a probe is a pure synthesis of the probe
+    pair that writes nothing of the caller's (the port's subset of the JAX
+    package's ``_probe_base_params``).  Shared by the bf16 and ANN gates
+    and ``ia tune --knob ann``."""
+    if params is None:
+        from image_analogies_tpu_torch.config import AnalogyParams
+
+        params = AnalogyParams()
     return dataclasses.replace(
-        params, levels=levels, strategy="wavefront", match_mode="auto",
-        bf16_scoring=False, temporal_weight=0.0, level_retries=0,
-        dispatch_timeout_s=0.0, level_sync=True, checkpoint_dir=None,
-        resume_from_level=None, profile_dir=None, log_path=None,
-        save_levels_dir=None, pipeline=False, donate_buffers=False)
+        params, levels=levels, strategy=strategy, match_mode="auto",
+        bf16_scoring=False, ann_prefilter=False, temporal_weight=0.0,
+        level_retries=0, dispatch_timeout_s=0.0, level_sync=True,
+        checkpoint_dir=None, resume_from_level=None, profile_dir=None,
+        log_path=None, metrics=False, save_levels_dir=None, pipeline=False,
+        donate_buffers=False)
 
 
-def _bf16_probe_verdict(params, device) -> Dict[str, Any]:
-    """Run the probe pair through both scans on ``device`` and audit."""
+def _probe_verdict(base, flagged, device, tls) -> Dict[str, Any]:
+    """The probe pair through ``base`` (the exact engine) and ``flagged``
+    (the approximate one, run with ``tls.probing`` set so its own gate
+    passes) on ``device``, then the audit of the two source maps."""
     from image_analogies_tpu_torch.models.analogy import create_image_analogy
     from image_analogies_tpu_torch.utils.parity import (
         audit_source_map_mismatches)
 
-    base = _probe_base_params(params)
     a, ap, b = _bf16_probe_pair()
     exact = create_image_analogy(a, ap, b, base, device=device,
                                  keep_levels=True)
-    _BF16_TLS.probing = True
+    tls.probing = True
     try:
-        bf16 = create_image_analogy(
-            a, ap, b, dataclasses.replace(base, bf16_scoring=True),
-            device=device, keep_levels=True)
+        approx = create_image_analogy(a, ap, b, flagged, device=device,
+                                      keep_levels=True)
     finally:
-        _BF16_TLS.probing = False
-    audit = audit_source_map_mismatches(a, ap, b, base, bf16.levels,
+        tls.probing = False
+    audit = audit_source_map_mismatches(a, ap, b, base, approx.levels,
                                         exact.levels)
     ok = (audit["unexplained"] == 0
           and audit["first_divergence_is_tie"] is not False)
     return {"ok": ok, "mismatches": audit["mismatches"],
             "unexplained": audit["unexplained"],
             "first_divergence_is_tie": audit["first_divergence_is_tie"]}
+
+
+def _bf16_probe_verdict(params, device) -> Dict[str, Any]:
+    """Run the probe pair through both scans on ``device`` and audit."""
+    base = _probe_base_params(params)
+    return _probe_verdict(base, dataclasses.replace(base, bf16_scoring=True),
+                          device, _BF16_TLS)
 
 
 def bf16_gate_allows(params, device) -> bool:
@@ -118,4 +144,74 @@ def bf16_gate_allows(params, device) -> bool:
         fresh = _bf16_probe_verdict(params, device)
         with _BF16_GATE_LOCK:
             verdict = _BF16_GATE.setdefault(key, fresh)
+    return verdict["ok"]
+
+
+# ------------------------------------------------ ANN prefilter parity gate
+
+_ANN_GATE: Dict[str, Dict[str, Any]] = {}
+_ANN_GATE_LOCK = threading.Lock()
+_ANN_TLS = threading.local()  # .probing: True inside the gate's ANN run
+
+
+def reset_ann_gate() -> None:
+    """Forget cached ANN verdicts (tests re-probe after monkeypatching)."""
+    with _ANN_GATE_LOCK:
+        _ANN_GATE.clear()
+
+
+def _ann_key(device, strategy: str) -> str:
+    return f"{device_key(device)}|{strategy}"
+
+
+def ann_gate_verdict(device, strategy: str = "wavefront"
+                     ) -> Optional[Dict[str, Any]]:
+    """The cached ANN verdict of (``device``, ``strategy``), or None before
+    the first prefiltered synthesis there."""
+    with _ANN_GATE_LOCK:
+        verdict = _ANN_GATE.get(_ann_key(device, strategy))
+    return None if verdict is None else dict(verdict)
+
+
+@contextlib.contextmanager
+def ann_gate_bypass():
+    """Run the body with the ANN gate forced open (``ia tune --knob ann``
+    audits every candidate itself; the card's smoke runs the path at full
+    width whatever the verdict)."""
+    prev = getattr(_ANN_TLS, "probing", False)
+    _ANN_TLS.probing = True
+    try:
+        yield
+    finally:
+        _ANN_TLS.probing = prev
+
+
+def _ann_probe_verdict(params, device, strategy: str) -> Dict[str, Any]:
+    """The probe pair through the exact engine and the two-stage engine on
+    ``device``, then the audit."""
+    base = _probe_base_params(params, strategy=strategy)
+    return _probe_verdict(base, dataclasses.replace(base, ann_prefilter=True),
+                          device, _ANN_TLS)
+
+
+def ann_gate_allows(params, device, strategy: str) -> bool:
+    """True when the two-stage matcher may run on (``device``,
+    ``strategy``): the cached verdict, or a fresh probe the first time
+    (the gate's own probe run, and a bypassed body, pass)."""
+    if getattr(_ANN_TLS, "probing", False):
+        return True
+    key = _ann_key(device, strategy)
+    with _ANN_GATE_LOCK:
+        verdict = _ANN_GATE.get(key)
+    if verdict is None:
+        fresh = _ann_probe_verdict(params, device, strategy)
+        with _ANN_GATE_LOCK:
+            verdict = _ANN_GATE.setdefault(key, fresh)
+        if verdict is fresh:  # the first prober counts and logs it once
+            obs_metrics.inc("ann.gate_ok" if verdict["ok"]
+                            else "ann.disabled_unexplained")
+            obs_trace.emit_record(
+                {"event": "ann_gate",
+                 "severity": "info" if verdict["ok"] else "warning",
+                 "device": key, "strategy": strategy, **verdict})
     return verdict["ok"]

@@ -11,6 +11,10 @@
     python -m image_analogies_tpu_torch.cli tune --dry-run
     python -m image_analogies_tpu_torch.cli warmup --size 256x256 \
         --compile-cache-dir /path/to/libs
+    python -m image_analogies_tpu_torch.cli catalog build --a A.png \
+        --ap Ap.png --b B.png --dir cat/
+    python -m image_analogies_tpu_torch.cli run --a A.png --ap Ap.png \
+        --b B.png --out Bp.png --ann-prefilter --catalog-dir cat/
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -21,12 +25,16 @@ surroundings included (``--no-level-sync``, ``--level-retries``,
 ``--dispatch-timeout-s``, ``--checkpoint-dir``, ``--resume-from-level``,
 ``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``)
 and the run's own counters and tuning (``--metrics``, ``--shape-buckets``,
-``--compile-cache-dir``); ROADMAP lists the JAX package's others under the
-items that bring their fields.  ``tune`` sweeps the main path's two
-kernels' launch geometry on the card and persists verified winners to the
-tune store (``tune/autotune.py``); ``warmup`` builds every kernel library
-a target size's levels launch into the library directory
-(``tune/warmup.py``).
+``--compile-cache-dir``), and the two-stage ANN matcher and the exemplar
+catalog (``--ann-prefilter``, ``--catalog-dir``, ``--catalog-host-bytes``);
+ROADMAP lists the JAX package's others under the items that bring their
+fields.  ``tune`` sweeps the main path's two kernels' launch geometry on
+the card and persists verified winners to the tune store
+(``tune/autotune.py``; ``--knob ann``: the ANN slab, by audited
+syntheses, reported and never stored); ``warmup`` builds every kernel library a target size's levels
+launch into the library directory (``tune/warmup.py``); ``catalog``
+builds, inspects, warms and prunes the exemplar catalog (``catalog/``),
+with the JAX package's outputs and exit codes, and takes no engine flags.
 """
 
 from __future__ import annotations
@@ -137,6 +145,22 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="directory of the kernel libraries nvcc builds — "
                         "they survive process restarts (pairs with "
                         "`warmup`; IA_COMPILE_CACHE_DIR overrides)")
+    p.add_argument("--ann-prefilter", action="store_true",
+                   help="two-stage matcher (wavefront and batched): a "
+                        "PCA-projected prefilter ranks the whole exemplar "
+                        "DB and the exact fp32 distance re-scores only the "
+                        "top-m slab (tune: ann_top_m / ann_proj_dims).  "
+                        "Gated by a first-use parity probe per device and "
+                        "strategy; refused or unsupported requests run the "
+                        "exact matcher (ann.fallback_exact)")
+    p.add_argument("--catalog-dir", default=None, metavar="DIR",
+                   help="exemplar catalog root (catalog/): with "
+                        "--ann-prefilter each level's sealed PCA basis "
+                        "(`catalog build`) is read from here instead of "
+                        "computed; IA_CATALOG_DIR overrides")
+    p.add_argument("--catalog-host-bytes", type=int, default=None,
+                   help="host-RAM catalog tier byte budget "
+                        "(IA_CATALOG_HOST_BYTES overrides; default 256 MiB)")
 
 
 def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
@@ -162,6 +186,12 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
         kw["shape_buckets"] = True
     if args.compile_cache_dir is not None:
         kw["compile_cache_dir"] = args.compile_cache_dir
+    if args.catalog_dir is not None:
+        kw["catalog_dir"] = args.catalog_dir
+    if args.catalog_host_bytes is not None:
+        kw["catalog_host_bytes"] = args.catalog_host_bytes
+    if args.ann_prefilter:
+        kw["ann_prefilter"] = True
     return base.replace(**kw)
 
 
@@ -282,6 +312,129 @@ def cmd_warmup(args) -> int:
     return 0
 
 
+def cmd_catalog(args) -> int:
+    """Exemplar catalog tooling (catalog/), the JAX package's ``catalog``
+    command: ``build`` precomputes one style's per-level feature pyramid
+    and its ANN bases and seals them under the root; ``inspect`` is a
+    read-only summary of the store; ``warm`` pre-stages entries into this
+    process's host-RAM tier; ``gc`` prunes tmp litter, quarantined files
+    and over-budget bytes."""
+    from image_analogies_tpu_torch.catalog import build as catalog_build
+    from image_analogies_tpu_torch.catalog import store as catalog_store
+    from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
+
+    if args.action == "build":
+        a = load_image(args.a)
+        ap = load_image(args.ap)
+        target = load_image(args.b) if args.b else None
+        kw = {}
+        for name in ("levels", "kappa", "patch_size", "coarse_patch_size"):
+            v = getattr(args, name)
+            if v is not None:
+                kw[name] = v
+        if args.no_remap:
+            kw["remap_luminance"] = False
+        rep = catalog_build.build_style(a, ap, PRESETS["oil_filter"].replace(
+            **kw), root_dir=args.dir, target=target)
+        print(json.dumps(rep, sort_keys=True))
+        return 0
+
+    if not os.path.isdir(args.dir):
+        print(f"catalog: no such directory {args.dir}", file=sys.stderr)
+        return 2
+
+    if args.action == "inspect":
+        info = catalog_store.stats(args.dir)
+        if args.json:
+            print(json.dumps(info, indent=2, sort_keys=True))
+        else:
+            print(f"catalog {args.dir}: {len(info['styles'])} style(s), "
+                  f"{info['entries']} entries, "
+                  f"{info['bytes']} bytes"
+                  + (f", {info['corrupt']} quarantined"
+                     if info["corrupt"] else ""))
+            for style in catalog_store.list_styles(args.dir):
+                ents = catalog_store.list_entries(args.dir, style)
+                print(f"  {style}  {len(ents)} entries / "
+                      f"{sum(n for _, n in ents)} bytes")
+        return 0
+
+    if args.action == "warm":
+        styles = ([args.style] if args.style
+                  else catalog_store.list_styles(args.dir))
+        total = {"styles": 0, "entries": 0, "bytes": 0}
+        for style in styles:
+            rep = catalog_tiers.warm(style, root_dir=args.dir)
+            if rep["entries"]:
+                total["styles"] += 1
+                total["entries"] += rep["entries"]
+                total["bytes"] += rep["bytes"]
+        print(json.dumps(total, sort_keys=True))
+        return 0
+
+    # gc (argparse admits no other action)
+    keep = set(args.keep.split(",")) if args.keep else None
+    rep = catalog_store.gc(args.dir, keep=keep, max_bytes=args.max_bytes,
+                           purge_corrupt=args.purge_corrupt)
+    print(json.dumps(rep, sort_keys=True))
+    return 0
+
+
+def _add_catalog_parser(sub) -> None:
+    """``catalog build | inspect | warm | gc``: no engine flags (``build``
+    runs the host feature builds; the rest is file io)."""
+    ct = sub.add_parser("catalog",
+                        help="exemplar catalog tooling: precompute a "
+                             "style's sealed per-level feature pyramids and "
+                             "ANN bases (build), summarize the store "
+                             "(inspect), pre-stage entries into host RAM "
+                             "(warm), or prune it (gc)")
+    ct_sub = ct.add_subparsers(dest="action", required=True)
+    cb = ct_sub.add_parser("build",
+                           help="precompute + seal one style's per-level "
+                                "features and ANN bases under the root")
+    cb.add_argument("--a", required=True, help="unfiltered source A")
+    cb.add_argument("--ap", required=True, help="filtered source A'")
+    cb.add_argument("--b", default=None,
+                    help="remap anchor target: with luminance remap on, "
+                         "A's planes depend on the target's luminance "
+                         "stats — pass the (first) target so the sealed "
+                         "entries match its requests (omit to anchor on "
+                         "A itself)")
+    cb.add_argument("--dir", required=True, help="catalog root directory")
+    cb.add_argument("--levels", type=int, default=None)
+    cb.add_argument("--kappa", type=float, default=None)
+    cb.add_argument("--patch-size", type=int, default=None)
+    cb.add_argument("--coarse-patch-size", type=int, default=None)
+    cb.add_argument("--no-remap", action="store_true",
+                    help="disable luminance remapping")
+    ci = ct_sub.add_parser("inspect",
+                           help="read-only store summary: styles, "
+                                "entries, bytes, quarantined files")
+    ci.add_argument("dir", help="catalog root directory")
+    ci.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    cw = ct_sub.add_parser("warm",
+                           help="pre-stage sealed entries into this "
+                                "process's host-RAM tier")
+    cw.add_argument("dir", help="catalog root directory")
+    cw.add_argument("--style", default=None,
+                    help="warm one style (default: every style on disk)")
+    cg = ct_sub.add_parser("gc",
+                           help="prune the disk tier: tmp litter always, "
+                                "quarantined files with --purge-corrupt, "
+                                "oldest entries past --max-bytes")
+    cg.add_argument("dir", help="catalog root directory")
+    cg.add_argument("--max-bytes", type=int, default=None,
+                    help="prune oldest-first until the store fits")
+    cg.add_argument("--keep", default=None,
+                    help="comma-separated styles exempt from pruning")
+    cg.add_argument("--purge-corrupt", action="store_true",
+                    help="also remove quarantined .corrupt files "
+                         "(they are evidence; default keeps them)")
+    ct.set_defaults(fn=cmd_catalog)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="image_analogies_tpu_torch",
@@ -343,11 +496,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "(.ia_tune.json)")
     tn.add_argument("--dry-run", action="store_true",
                     help="print the sweep plan JSON; no device work")
-    tn.add_argument("--knob", choices=("chunks", "stages", "all"),
+    tn.add_argument("--knob", choices=("chunks", "stages", "all", "ann"),
                     default="all",
                     help="chunks: chunks_per_sm of packed2k and argmin_l2; "
                          "stages: packed2k's ring_stages; all: both (the "
-                         "packed2k sweep over their product)")
+                         "packed2k sweep over their product); ann: the ANN "
+                         "slab ann_top_m by full two-stage syntheses, each "
+                         "audited against an exact run; reported, never "
+                         "stored (not part of all)")
     tn.add_argument("--store", default=None,
                     help="tune store path (default: repo .ia_tune.json, "
                          "IA_TUNE_STORE overrides)")
@@ -377,6 +533,7 @@ def build_parser() -> argparse.ArgumentParser:
     wu.add_argument("--seed", type=int, default=0)
     _add_engine_flags(wu)
     wu.set_defaults(fn=cmd_warmup)
+    _add_catalog_parser(sub)
     return ap
 
 

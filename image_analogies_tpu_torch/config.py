@@ -12,7 +12,8 @@ driver's surroundings (``models/analogy.py``): ``level_retries``,
 ``devcache_max_bytes``, ``pipeline`` and ``donate_buffers``, with the JAX
 defaults and validation, and ``pipeline_active()``; and the run's own
 observability and tuning: ``metrics``, ``compile_cache_dir`` and
-``shape_buckets``.
+``shape_buckets``; and the exemplar catalog and the two-stage ANN matcher:
+``catalog_dir``, ``catalog_host_bytes`` and ``ann_prefilter``.
 """
 
 from __future__ import annotations
@@ -101,6 +102,17 @@ class AnalogyParams:
       ``nvcc`` builds (``ops/_build.py``): a later process finds them
       there (``ia warmup``).  None: ``image_analogies_tpu_torch/_build/``;
       env ``IA_COMPILE_CACHE_DIR`` overrides either way.
+    - ``ann_prefilter``: opt-in two-stage matcher for the wavefront anchor
+      and the batched approximate match (``ops/ann.py``): a PCA-projected
+      prefilter ranks every DB row and the exact fp32 distance re-scores
+      the top ``ann_top_m`` (``tune/resolve.py``).  Gated by a parity
+      probe on first use per (device, strategy) (``backends/gate.py``);
+      a refused or unsupported request runs the exact matcher.
+    - ``catalog_dir``: the exemplar catalog's root (``catalog/``); on the
+      card it serves the sealed ANN bases (``_ann/``) built by ``ia
+      catalog build``.  Env ``IA_CATALOG_DIR`` overrides.
+    - ``catalog_host_bytes``: the catalog's host-RAM tier budget (None:
+      256 MiB; env ``IA_CATALOG_HOST_BYTES`` overrides).
 
     The driver's surroundings (``models/analogy.py``, ``utils/``):
 
@@ -160,6 +172,9 @@ class AnalogyParams:
     donate_buffers: Optional[bool] = None
     metrics: bool = False
     compile_cache_dir: Optional[str] = None
+    catalog_dir: Optional[str] = None
+    catalog_host_bytes: Optional[int] = None
+    ann_prefilter: bool = False
 
     def __post_init__(self):
         if self.levels < 1:
@@ -202,6 +217,16 @@ class AnalogyParams:
             raise ValueError(
                 "devcache_max_bytes must be positive when set, got "
                 f"{self.devcache_max_bytes}")
+        if (self.catalog_host_bytes is not None
+                and self.catalog_host_bytes < 1):
+            raise ValueError(
+                "catalog_host_bytes must be positive when set, got "
+                f"{self.catalog_host_bytes}")
+        if self.ann_prefilter and self.strategy not in ("wavefront",
+                                                        "batched", "auto"):
+            raise ValueError(
+                "ann_prefilter requires strategy 'wavefront', 'batched' "
+                f"or 'auto', got {self.strategy!r}")
 
     def pipeline_active(self) -> bool:
         """The resolved pipeline flag: an explicit setting wins, auto is on

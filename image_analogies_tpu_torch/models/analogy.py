@@ -23,8 +23,12 @@ the JAX driver, every run inside ``obs.trace.run_scope`` (inert unless
 ``params.metrics`` or a log path: the manifest, the ``pipeline.*``,
 ``fetch.bytes`` and ``kappa.*`` counters, per-level memory watermarks,
 the kernels' ``launch.*`` counts) and ``tune.resolve.pin_scope`` (each
-level's launch geometry resolves once a run).  The exemplar catalog and
-the chaos sites are not ported yet (ROADMAP Queue 1 items 8 and 10).
+level's launch geometry resolves once a run).  With ``ann_prefilter`` the
+matcher resolves each level's ANN basis through the exemplar catalog's
+sealed artifacts (``catalog/``, ``backends/cuda.py``); as in the JAX
+driver on its TPU backend, the catalog's feature tiers are not consulted
+here.  The JAX driver's feature-tier lookup (its CPU backend's) and the
+chaos sites are not ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations

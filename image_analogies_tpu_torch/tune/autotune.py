@@ -24,6 +24,18 @@ A sweep that fails is reported ``verified: false`` and never stored.
 Winners go under the bucket-wildcard key of their (device, strategy,
 dtype, width), so one measurement covers every DB size.
 
+``--knob ann`` (not part of ``all``, as in the JAX package) sweeps the
+two-stage ANN matcher's slab ``ann_top_m`` over 16, 32, 64 and 128 with
+full syntheses of the gates' probe pair (32^2, 2 levels, the wavefront),
+each audited against an exact run of the same pair (``utils/parity.py``):
+only a candidate whose mismatches are all tie-explained may win, and a
+sweep with none is ``verified: false``.  Unlike the JAX package it stores
+no winner: it prints the winner, the default's time and whether the
+winner beats the default by more than either's spread, and the slab stays
+``DEFAULT_ANN_TOP_M`` (or a row written by hand under the wildcard key
+``device|wavefront|f32|f128|b*``, where every call site resolves it).  A
+winner timed and audited on a 32^2 pair would serve every size.
+
 ``scan_tile_cap`` and ``PACKED_CROSSOVER_ROWS`` change picks, not only
 time, so they are not swept here (their sweeps need the oracle audit).
 ``device="cpu"`` runs the kernels' plain versions, which have no geometry:
@@ -37,12 +49,17 @@ import time
 from typing import Any, Dict, List, Optional, Sequence
 
 from image_analogies_tpu_torch.obs import trace as _trace
+from image_analogies_tpu_torch.tune import geometry as _geometry
 from image_analogies_tpu_torch.tune import resolve as _resolve
 from image_analogies_tpu_torch.tune import store as _store
 
 CHUNKS_CANDIDATES = (1, 2, 4)
 KNOBS = {"chunks": ("chunks_per_sm",), "stages": ("ring_stages",),
-         "all": ("chunks_per_sm", "ring_stages")}
+         "all": ("chunks_per_sm", "ring_stages"), "ann": ("ann_top_m",)}
+# the ANN slab candidates (the JAX package's ANN_TOP_M_CANDIDATES)
+ANN_TOP_M_CANDIDATES = (16, 32, 64, 128)
+# the ANN sweep's synthesis: the gates' probe pair at this size and depth
+ANN_SHAPE = dict(size=32, levels=2)
 # the main path's headline shapes (chip_smoke.py PACKED_SHAPE, ARGMIN_SHAPE)
 PACKED_SHAPE = dict(m=352, n=1 << 20, lw=55)
 ARGMIN_SHAPE = dict(m=88, n=65536, f=68, fp=128)
@@ -84,6 +101,17 @@ def build_plan(*, knob: str = "all", reps: int = 5,
                              f"{candidates}")
     kind = "cpu" if device == "cpu" else _resolve.device_kind()
     sweeps: List[Dict[str, Any]] = []
+    if knob == "ann":
+        sweeps.append({
+            "kernel": "two_stage", "knobs": ["ann_top_m"],
+            "store_key": _resolve.make_key(kind, "wavefront", "f32", 128,
+                                           "*"),
+            "candidates": [{"ann_top_m": c} for c in
+                           (candidates or ANN_TOP_M_CANDIDATES)],
+            "shape": dict(ANN_SHAPE),
+        })
+        return {"device": device, "device_kind": kind, "reps": int(reps),
+                "store": _store.store_path(store), "sweeps": sweeps}
     m, lw = PACKED_SHAPE["m"], PACKED_SHAPE["lw"]
     n = rows or PACKED_SHAPE["n"]
     width, k_used, kp = _packed_lanes(lw)
@@ -186,10 +214,80 @@ def _time_ms(fn, reps: int, on_card: bool, **attrs):
     return min(times), max(times)
 
 
+def _run_ann_sweep(sweep: Dict[str, Any], reps: int,
+                   device: str) -> Dict[str, Any]:
+    """The ``ann_top_m`` sweep: per candidate, one warm and ``reps`` timed
+    two-stage syntheses of the probe pair (the run's wall, after a wait for
+    the device), the last audited against an exact run.  Only tie-clean
+    candidates (no unexplained mismatch, first divergence a tie) may
+    win."""
+    import torch
+
+    from image_analogies_tpu_torch.backends import gate
+    from image_analogies_tpu_torch.models.analogy import create_image_analogy
+    from image_analogies_tpu_torch.utils.parity import (
+        audit_source_map_mismatches)
+
+    shape = sweep["shape"]
+    dev = torch.device(device)
+    a, ap, b = gate._bf16_probe_pair(shape["size"])
+    base = gate._probe_base_params(levels=shape["levels"],
+                                   strategy="wavefront")
+    exact = create_image_analogy(a, ap, b, base, device=dev,
+                                 keep_levels=True)
+    ann_params = base.replace(ann_prefilter=True)
+
+    def run():
+        res = create_image_analogy(a, ap, b, ann_params, device=dev,
+                                   keep_levels=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return res
+
+    results: List[Dict[str, Any]] = []
+    for cand in sweep["candidates"]:
+        with _resolve.override(**cand), gate.ann_gate_bypass():
+            res = run()
+            times = []
+            for _ in range(max(reps, 1)):
+                with _trace.span("tune.candidate", kernel=sweep["kernel"],
+                                 **cand):
+                    t0 = time.perf_counter()
+                    res = run()
+                    times.append((time.perf_counter() - t0) * 1e3)
+        audit = audit_source_map_mismatches(a, ap, b, base, res.levels,
+                                            exact.levels)
+        tie_ok = (audit["unexplained"] == 0
+                  and audit["first_divergence_is_tie"] is not False)
+        results.append({"candidate": cand, "ms": min(times),
+                        "spread_ms": max(times) - min(times),
+                        "tie_ok": tie_ok,
+                        "mismatches": audit["mismatches"],
+                        "unexplained": audit["unexplained"]})
+    clean = [r for r in results if r["tie_ok"]]
+    best = min(clean, key=lambda r: r["ms"]) if clean else None
+    default = next((r for r in results if r["candidate"]["ann_top_m"]
+                    == _geometry.DEFAULT_ANN_TOP_M), None)
+    beats = (best is not None and default is not None
+             and default["ms"] - best["ms"]
+             > max(best["spread_ms"], default["spread_ms"]))
+    # reported, never stored: the probe pair is 32^2, and a slab audited
+    # there says nothing of the picks at the sizes a stored row would serve
+    return {"kernel": sweep["kernel"], "store_key": sweep["store_key"],
+            "shape": shape, "results": results, "verified": bool(clean),
+            "winner": best["candidate"] if best else None,
+            "winner_ms": best["ms"] if best else None,
+            "default_ms": default["ms"] if default else None,
+            "beats_default_by_more_than_spread": beats, "persist": False}
+
+
 def _run_sweep(sweep: Dict[str, Any], reps: int, device: str,
                seed: int) -> Dict[str, Any]:
     import numpy as np
     import torch
+
+    if sweep["kernel"] == "two_stage":
+        return _run_ann_sweep(sweep, reps, device)
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -251,7 +349,7 @@ def run_plan(plan: Dict[str, Any], *, persist: bool = True,
     for sweep in plan["sweeps"]:
         res = _run_sweep(sweep, plan["reps"], plan["device"], seed)
         out.append(res)
-        if res["verified"] and persist:
+        if res["verified"] and persist and res.get("persist", True):
             entry = winners.setdefault(res["store_key"], {})
             entry.update(res["winner"])
             entry["source"] = "ia tune"

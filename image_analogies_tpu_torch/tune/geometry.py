@@ -24,6 +24,10 @@ and two host-side bounds:
   port keeps integer indices but holds the same ceiling, and a configured
   value may only lower it.
 - ``batch_pad_waste_pct``: the lane engine's pad-waste ceiling.
+- ``ann_top_m`` / ``ann_proj_dims``: the two-stage ANN matcher's candidate
+  slab per query and the rank of the PCA basis its prefilter scores in
+  (``ops/ann.py``): counts, not launch shapes, with the JAX package's
+  defaults.
 
 This module is pure: no torch, no environment, no store.  With an empty
 store and no environment the launch plans are exactly those the port ran
@@ -52,6 +56,14 @@ DEFAULT_WAVEFRONT_MAX_ROWS = WAVEFRONT_MAX_ROWS_CEILING
 # bucket pad is ~33% (just past a 3*2^k midpoint), so 25 admits most
 # bucket residents and refuses the just-past-an-edge shapes.
 DEFAULT_BATCH_PAD_WASTE = 25
+
+# The two-stage ANN matcher (the JAX package's defaults): the prefilter
+# keeps a top-m candidate slab per query from PCA-projected distances,
+# then the exact fp32 distance re-scores only the slab.  The JAX package
+# chose 64 for recall at its probe sizes and 32 dims for the ~30-250-wide
+# feature vectors; neither was measured on a card.
+DEFAULT_ANN_TOP_M = 64
+DEFAULT_ANN_PROJ_DIMS = 32
 
 
 def round_up(n: int, m: int) -> int:

@@ -14,9 +14,9 @@ shape bucket), knob by knob:
   :func:`override`, so a swept value flows through the same funnel and
   wrappers production uses.
 - **env**: ``IA_CHUNKS_PER_SM`` / ``IA_RING_STAGES`` /
-  ``IA_SCAN_TILE_CAP`` / ``IA_WAVEFRONT_ROWS`` / ``IA_BATCH_PAD_WASTE``,
-  read at call time; a value that is not a positive integer is ignored,
-  with one warning a process.
+  ``IA_SCAN_TILE_CAP`` / ``IA_WAVEFRONT_ROWS`` / ``IA_BATCH_PAD_WASTE`` /
+  ``IA_ANN_TOP_M`` / ``IA_ANN_PROJ_DIMS``, read at call time; a value
+  that is not a positive integer is ignored, with one warning a process.
 - **store**: :mod:`tune.store`, the persistent JSON of measured winners.
 - **packaged**: :mod:`tune.tables`, winners shipped per card class.
 - **default**: :mod:`tune.geometry`: with an empty store and no
@@ -61,6 +61,8 @@ _ENV_VARS = {
     "scan_tile_cap": "IA_SCAN_TILE_CAP",
     "wavefront_max_rows": "IA_WAVEFRONT_ROWS",
     "batch_pad_waste_pct": "IA_BATCH_PAD_WASTE",
+    "ann_top_m": "IA_ANN_TOP_M",
+    "ann_proj_dims": "IA_ANN_PROJ_DIMS",
 }
 
 _DEFAULTS = {
@@ -69,6 +71,8 @@ _DEFAULTS = {
     "scan_tile_cap": _geometry.SCAN_TILE_CAP,
     "wavefront_max_rows": _geometry.DEFAULT_WAVEFRONT_MAX_ROWS,
     "batch_pad_waste_pct": _geometry.DEFAULT_BATCH_PAD_WASTE,
+    "ann_top_m": _geometry.DEFAULT_ANN_TOP_M,
+    "ann_proj_dims": _geometry.DEFAULT_ANN_PROJ_DIMS,
 }
 
 _TLS = threading.local()  # .overrides while the tuner runs; .pins
@@ -89,6 +93,8 @@ class TuneConfig:
     scan_tile_cap: int = _geometry.SCAN_TILE_CAP
     wavefront_max_rows: int = _geometry.DEFAULT_WAVEFRONT_MAX_ROWS
     batch_pad_waste_pct: int = _geometry.DEFAULT_BATCH_PAD_WASTE
+    ann_top_m: int = _geometry.DEFAULT_ANN_TOP_M
+    ann_proj_dims: int = _geometry.DEFAULT_ANN_PROJ_DIMS
     origin: Tuple[Tuple[str, str], ...] = field(default=())
     store_key: str = ""
 
@@ -289,6 +295,28 @@ def batch_pad_waste_pct(*, strategy: str = "batched", dtype: str = "f32",
     more than this share of their bucket refuses the batch."""
     return resolve(strategy=strategy, dtype=dtype, fp=fp, n_rows=n_rows,
                    store=store).batch_pad_waste_pct
+
+
+def ann_top_m(*, strategy: str = "wavefront", dtype: str = "f32",
+              fp: int = 128, n_rows: int = 0,
+              store: Optional[str] = None) -> int:
+    """The two-stage ANN matcher's candidate slab per query
+    (``IA_ANN_TOP_M``): how many prefilter survivors the exact fp32
+    re-score takes.  A count, not a launch shape, so every call site
+    resolves it at these defaults (one wildcard store row, as ``ia tune
+    --knob ann`` writes it, covers both strategies and every width)."""
+    return resolve(strategy=strategy, dtype=dtype, fp=fp, n_rows=n_rows,
+                   store=store).ann_top_m
+
+
+def ann_proj_dims(*, strategy: str = "wavefront", dtype: str = "f32",
+                  fp: int = 128, n_rows: int = 0,
+                  store: Optional[str] = None) -> int:
+    """The rank of the PCA basis the ANN prefilter scores in
+    (``IA_ANN_PROJ_DIMS``); ``catalog/build.py`` resolves it when it seals
+    a basis, so build time and request time agree."""
+    return resolve(strategy=strategy, dtype=dtype, fp=fp, n_rows=n_rows,
+                   store=store).ann_proj_dims
 
 
 def scan_tile(npad: int, fp: int = 128, cap_rows: int = 0, *,

@@ -42,7 +42,8 @@ SCHEMA_VERSION = 1
 
 # the integer knobs the port owns; each must be a positive int when present
 _KNOBS = ("chunks_per_sm", "ring_stages", "scan_tile_cap",
-          "wavefront_max_rows", "batch_pad_waste_pct")
+          "wavefront_max_rows", "batch_pad_waste_pct", "ann_top_m",
+          "ann_proj_dims")
 
 _LOCK = threading.Lock()
 # path -> ((mtime_ns, size), entries)

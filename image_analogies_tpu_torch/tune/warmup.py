@@ -7,7 +7,8 @@ the ``nvcc`` library directory (``ops/_build.py``): ``compile_cache_dir``
 ``image_analogies_tpu_torch/_build/``) is where a process builds its
 kernel libraries and where a later process finds them.
 :func:`apply_runtime_config` is the one call the driver makes per run to
-apply it and the upload cache's budget.  :func:`warmup` runs one real
+apply it, the upload cache's budget and the exemplar catalog's root and
+host budget.  :func:`warmup` runs one real
 synthesis on seeded planes at a target size with metrics on, so every
 library its levels launch is built (and kept in the directory) before
 traffic; ``ia warmup`` is its CLI face.
@@ -33,11 +34,18 @@ def compile_cache_dir(params: Any = None) -> Optional[str]:
 
 def apply_runtime_config(params: Any = None) -> str:
     """Per-run wiring: the library directory (each run's params decide; None
-    is the default directory) and the upload cache's byte budget.  Returns
-    the library directory in effect."""
+    is the default directory), the upload cache's byte budget and the
+    catalog's root and host-tier budget (``catalog.tiers.configure``; a
+    run without them clears the previous run's, the tiers stay warm).
+    Returns the library directory in effect."""
+    from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
+
     mb = getattr(params, "devcache_max_bytes", None)
     if mb:
         devcache.set_max_bytes(int(mb))
+    catalog_tiers.configure(
+        root_dir=getattr(params, "catalog_dir", None),
+        host_bytes=getattr(params, "catalog_host_bytes", None))
     return _build.set_build_dir(compile_cache_dir(params))
 
 

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.utils import logging as ialog
 
 # Fields that never change the bp/s planes, so a checkpoint written with
@@ -73,12 +74,17 @@ def _payload_checksum(bp: np.ndarray, s: np.ndarray,
 
 
 def quarantine(path: str, *, event: str = "ckpt_quarantined",
-               log_path: Optional[str] = None) -> str:
+               log_path: Optional[str] = None,
+               counter: Optional[str] = None) -> str:
     """Move a damaged file aside as ``<path>.corrupt`` (never deleted: the
-    bytes are evidence) and emit an ``event`` record.  Returns the new
+    bytes are evidence), emit an ``event`` record and, with ``counter``,
+    count it in the active metrics run (the catalog's stores pass
+    ``catalog.quarantined`` / ``ann.quarantined``).  Returns the new
     path."""
     qpath = path + ".corrupt"
     os.replace(path, qpath)
+    if counter:
+        obs_metrics.inc(counter)
     ialog.emit({"event": event, "path": path}, log_path)
     return qpath
 

@@ -35,6 +35,10 @@ from image_analogies_tpu_torch.ops.features import (
 )
 from image_analogies_tpu_torch.ops.pyramid import build_pyramid_np
 
+# queries per float64 product in the kappa-boundary pass (an (N, 32)
+# float64 block: 256 MiB at N = 2^20)
+AUDIT_CHUNK = 32
+
 
 def audit_source_map_mismatches(
     a: np.ndarray,
@@ -143,10 +147,18 @@ def audit_source_map_mismatches(
         kappa_mult = params.kappa_factor(level) ** 2
         ha, wa = a_filt_pyr[level].shape[:2]
         off = window_offsets(spec.fine_size)
-        for k in hard:
+        # d_app of every hard mismatch: one float64 product per chunk of
+        # queries (a product per query rereads the whole DB each time)
+        d_app_hard = np.empty(hard.size)
+        for c0 in range(0, hard.size, AUDIT_CHUNK):
+            ks = hard[c0:c0 + AUDIT_CHUNK]
+            d_all = db64 @ qx[ks].astype(np.float64).T
+            d_all *= -2.0
+            d_all += dbn64[:, None]  # + ||q||^2, argmin-invariant
+            d_app_hard[c0:c0 + ks.size] = d_all.min(axis=0) + qn[ks]
+        for k, d_app in zip(hard, d_app_hard):
             qv = qx[k].astype(np.float64)
-            d_all = dbn64 - 2.0 * (db64 @ qv)  # + ||q||^2, argmin-invariant
-            d_app = float(d_all.min() + qn[k])
+            d_app = float(d_app)
             vk = v[k]
             rf = win[k][vk]
             o = off[vk]

@@ -1569,3 +1569,85 @@ def test_cuda_tune_metrics_run_counts_its_launches_and_memory():
     assert snap["gauges"]["hbm.peak_bytes.d0"] == float(
         torch.cuda.max_memory_allocated())
     assert snap["counters"]["kernel.flops"] > 0
+
+
+# ------------------------------------------------ two-stage ANN matcher
+
+
+def ann_level0_inputs(m=352, n=1 << 20, f=68, kp=32, seed=5, dups=7):
+    """Stage-1 operands at npr_1024's level-0 wavefront shape (M = 352
+    queries, N = 2^20 rows, F = 68, Kp = 32): a random PCA-like basis and
+    DB, ``dups`` exact duplicates of one projected row (with its half norm
+    copied: the card's row sums of equal rows may round apart) spread over
+    the DB, and the first 8 queries projecting exactly onto it, so their
+    slab boundary falls inside the duplicates' tie for top_m < dups."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((m, f)).astype(np.float32)
+    proj = np.linalg.qr(rng.standard_normal((f, kp)))[0].astype(np.float32)
+    mean = (0.1 * rng.standard_normal(f)).astype(np.float32)
+    dbp = rng.standard_normal((n, kp)).astype(np.float32)
+    rows = np.sort(rng.choice(n, dups, replace=False))[::-1]
+    dbp[rows] = dbp[rows[0]]
+    dbnh = (0.5 * (dbp.astype(np.float64) ** 2).sum(1)).astype(np.float32)
+    dbnh[rows] = dbnh[rows[0]]
+    q[:8] = mean + proj @ dbp[rows[0]]
+    return q, proj, mean, dbp, dbnh, np.sort(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_m,n_valid", [(4, 1 << 20), (64, 1 << 20),
+                                           (64, (1 << 20) - 1000)])
+def test_cuda_ann_stages_against_cpu(top_m, n_valid):
+    """Stage 1 on the card against the CPU at the level-0 shape: equal
+    candidate sets on >= 99.9% of the query rows (two fp32 products may
+    round a near-tie at the slab boundary apart) and on every row of the
+    constructed boundary tie (the lowest duplicate indices); no candidate
+    past ``n_valid``.  Stage 2 on the card's candidates against the CPU on
+    the same candidates: equal picks, d within 1e-5 relative."""
+    from image_analogies_tpu_torch.ops import ann
+
+    dev = _card()
+    q, proj, mean, dbp, dbnh, dups = ann_level0_inputs()
+    host = [torch.from_numpy(x) for x in (q, proj, mean, dbp, dbnh)]
+    card = [x.to(dev) for x in host]
+    c_cpu = ann.ann_topm_candidates(*host, n_valid, top_m).numpy()
+    c_dev = ann.ann_topm_candidates(*card, n_valid, top_m)
+    same = (np.sort(c_cpu, 1) == np.sort(c_dev.cpu().numpy(), 1)).all(1)
+    assert same.mean() >= 0.999, same.mean()
+    assert same[:8].all()
+    want = set(dups[:top_m]) if top_m < len(dups) else set(dups)
+    assert want <= set(c_dev[0].cpu().numpy())
+    assert int(c_dev.max()) < n_valid
+    rng = np.random.default_rng(6)
+    db = rng.standard_normal((1 << 20, 68)).astype(np.float32)
+    i_dev, d_dev = ann.ann_rescore_slab(card[0], torch.from_numpy(db).to(dev),
+                                        c_dev, n_valid)
+    i_cpu, d_cpu = ann.ann_rescore_slab(host[0], torch.from_numpy(db),
+                                        c_dev.cpu(), n_valid)
+    np.testing.assert_array_equal(i_dev.cpu().numpy(), i_cpu.numpy())
+    np.testing.assert_allclose(d_dev.cpu().numpy(), d_cpu.numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["wavefront", "batched"])
+def test_cuda_ann_synthesis_against_cpu(strategy):
+    """ANN at 64^2 on the card against the CPU (gate bypassed): no kernel
+    launches, and the card_vs_cpu limits (source maps differ on < 2% of
+    pixels, SSIM >= 0.99)."""
+    from image_analogies_tpu_torch.backends import gate
+
+    dev = _card()
+    a, ap, b = make_structured(64, 7)
+    p = AnalogyParams(levels=3, strategy=strategy, ann_prefilter=True)
+    with gate.ann_gate_bypass():
+        match.reset_launch_counts()
+        card = create_image_analogy(a, ap, b, p, device=dev)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in match.LAUNCHES.items() if v}
+        cpu = create_image_analogy(a, ap, b, p, device="cpu")
+    assert launched == {}
+    if strategy == "wavefront":
+        assert {st["match_mode"] for st in card.stats} == {"ann_rescue"}
+    assert (card.source_map != cpu.source_map).mean() < 0.02
+    assert ssim(card.bp_y, cpu.bp_y) >= 0.99
