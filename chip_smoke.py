@@ -194,8 +194,31 @@ and carried on):
                 which must exit 0 (a tie-clean candidate), its candidates
                 printed; the default slab (64) must be tie-clean.
 
-Each phase's seconds, and the seconds since the script began, are a
-``[time]`` line after it.
+18. mesh       — the mesh path (``parallel/``) on the one card: NCCL in a
+                world of one (the sharded argmin at HIGHEST and DEFAULT,
+                the packed all-reduce and the ring at the main path's
+                level-0 and level-2 shapes, their picks the single-card
+                kernels'), then one gloo world of two ranks on cuda:0: the
+                npr_1024 wavefront at db_shards=2 on the seed-7 oracle's
+                inputs (each rank 6,138 packed2k and 1,783 argmin launches,
+                both ranks the same bits, SSIM and tie-audit against the
+                oracle, audited while the ranks go on; whether the bits are
+                MAIN_DIGEST), batched at db_shards=2 and the query-parallel
+                wavefront (data_shards=2) at 512^2 against single-card
+                runs, and a 3-frame two_phase clip at 256^2 with its frames
+                sharded (data_shards=2) against the serial clip; per rank
+                the walls, per-level ms, peak memory, the psum-gather
+                estimate and the bytes staged through the host.
+
+card_vs_cpu's CPU runs run in a side process started with the script
+(they need no card).  The ann and mesh phases run in side processes of
+their own (this script with ``--phases ann --inline`` and ``--phases
+mesh --inline``), started once the driver phase is done, beside the
+lanes and tune phases: their output is printed when each has ended, and
+a side phase that fails fails the script.  Each phase's seconds, and the
+seconds since the script began, are a ``[time]`` line after it (a side
+phase's own, inside its output; the line after it here, the seconds this
+process waited for it).
 
 The kernels phase also runs each kernel of the lane path at four lanes'
 query rows (packed_best at M = 1,408, argmin_l2 at 352, argmin_l2_bf16 at
@@ -236,7 +259,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video", "driver", "lanes", "tune", "ann")
+          "modes", "video", "driver", "lanes", "tune", "ann", "mesh")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -296,6 +319,11 @@ FORMS_LW = 55
 # singleton's widest call: packed2k M = 4 x 352 (level 0), argmin_l2 M =
 # 4 x 88 (level 2), argmin_l2_bf16 M = 4 x 1,024 (batched level 0)
 LANE_SEEDS = (7, 13, 21, 42)
+# the lanes phase's batched and bucketed runs (the wavefront lanes stay at
+# 1024^2), and the ann phase's batched run: cut from 1024^2 so that the
+# script ends inside its time limit with the mesh phase
+LANES_BATCHED_SIZE = 512
+ANN_BATCHED_SIZE = 512
 LANE_HEIGHTS = (1024, 1000, 960, 1024)
 LANES = len(LANE_SEEDS)
 
@@ -2679,29 +2707,17 @@ def phase_gate():
                  f"verdict allows {want}")
 
 
-def phase_card_vs_cpu():
-    """exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2 (3 levels) on
-    the card and on the CPU, exact_hi2 and scan_rescue on RGB sources;
-    exact_hi2 on RGB sources at patch 7 (64^2, 2 levels: 2L = 414 and 342
-    lanes, packed3w_best.cu at every wavefront step); then
-    batched (96^2) and rowwise (64^2) against a CPU run of the same bf16
-    approximate match (the kernel's plain version, through the level's
-    approx_fn), and exact (48^2) against the CPU's fp32 scan.  Returns the
-    launch counts of the patch-7 card run."""
+def card_vs_cpu_cases():
+    """card_vs_cpu's cases: [(params kwargs, (a, ap, b))]."""
     import numpy as np
 
-    from image_analogies_tpu_torch import AnalogyParams, create_image_analogy
-    from image_analogies_tpu_torch.backends.cuda import CudaMatcher
-    from image_analogies_tpu_torch.ops import match
     from image_analogies_tpu_torch.utils.assets import make_structured
-    from image_analogies_tpu_torch.utils.ssim import ssim
 
-    os.environ["IA_EXPERIMENTAL"] = "1"
     gray = make_structured(96, 7)
     rgb = tuple(np.stack([x, x * x, 1 - x], -1).astype(np.float32)
                 for x in gray)
     rgb64 = tuple(np.ascontiguousarray(x[16:80, 16:80]) for x in rgb)
-    cases = [(dict(match_mode=mode), gray) for mode in NEW_MODES] + [
+    return [(dict(match_mode=mode), gray) for mode in NEW_MODES] + [
         (dict(match_mode=mode, color_mode="source_rgb"), rgb)
         for mode in ("exact_hi2", "scan_rescue")] + [
         (dict(match_mode="exact_hi2", color_mode="source_rgb", patch_size=7,
@@ -2709,11 +2725,73 @@ def phase_card_vs_cpu():
         (dict(strategy=strategy), make_structured(size, 7))
         for strategy, size in (("batched", 96), ("rowwise", 64),
                                ("exact", 48))]
+
+
+def card_vs_cpu_params(kw):
+    from image_analogies_tpu_torch import AnalogyParams
+
+    return AnalogyParams(**{"levels": 3, "kappa": 5.0, **kw})
+
+
+def cpu_refs(out):
+    """card_vs_cpu's CPU runs (``--cpu-refs OUT``, a side process started
+    with the script: it needs no card and runs on the host's cores while
+    the card works): each case's B' and source map into the npz OUT."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.backends.cuda import CudaMatcher
+
+    torch.set_num_threads(4)  # the main process keeps the other cores
+    os.environ["IA_EXPERIMENTAL"] = "1"
+    refs = {}
+    for i, (kw, (a, ap, b)) in enumerate(card_vs_cpu_cases()):
+        params = card_vs_cpu_params(kw)
+        cpu = create_image_analogy(a, ap, b, params, backend=CudaMatcher(
+            params, "cpu", bf16_approx=params.strategy in ("batched",
+                                                           "rowwise")))
+        refs[f"bp{i}"], refs[f"s{i}"] = cpu.bp_y, cpu.source_map
+    np.savez(out + ".tmp.npz", **refs)
+    os.replace(out + ".tmp.npz", out)
+
+
+def cpu_refs_start():
+    """Start :func:`cpu_refs` in a side process; returns (process, npz
+    path) for :func:`phase_card_vs_cpu`."""
+    import tempfile
+
+    out = os.path.join(tempfile.mkdtemp(prefix="ia_cpu_refs_"), "refs.npz")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--cpu-refs", out], cwd=HERE,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def phase_card_vs_cpu(refs):
+    """exact_hi2, scan_rescue[_1p] and two_pass[_1p] at 96^2 (3 levels) on
+    the card and on the CPU, exact_hi2 and scan_rescue on RGB sources;
+    exact_hi2 on RGB sources at patch 7 (64^2, 2 levels: 2L = 414 and 342
+    lanes, packed3w_best.cu at every wavefront step); then
+    batched (96^2) and rowwise (64^2) against a CPU run of the same bf16
+    approximate match (the kernel's plain version, through the level's
+    approx_fn), and exact (48^2) against the CPU's fp32 scan.  The CPU
+    runs come from ``refs`` (:func:`cpu_refs_start`, started with the
+    script).  Returns the launch counts of the patch-7 card run."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    os.environ["IA_EXPERIMENTAL"] = "1"
+    gpus = []
     wide = None
-    for kw, (a, ap, b) in cases:
-        params = AnalogyParams(**{"levels": 3, "kappa": 5.0, **kw})
+    for kw, (a, ap, b) in card_vs_cpu_cases():
+        params = card_vs_cpu_params(kw)
         match.reset_launch_counts()
-        gpu = create_image_analogy(a, ap, b, params)
+        gpus.append(create_image_analogy(a, ap, b, params))
         if kw.get("patch_size") == 7:
             wide = dict(match.LAUNCHES)
             want = sum(expected_launches(params, a.shape[0]).values())
@@ -2721,11 +2799,18 @@ def phase_card_vs_cpu():
                 fail(f"card_vs_cpu: {kw} launched "
                      f"{ {k: v for k, v in wide.items() if v} }, expected "
                      f"packed3w_best once per wavefront step ({want})")
-        cpu = create_image_analogy(a, ap, b, params, backend=CudaMatcher(
-            params, "cpu", bf16_approx=params.strategy in ("batched",
-                                                           "rowwise")))
-        diff = float((gpu.source_map != cpu.source_map).mean())
-        s = ssim(gpu.bp_y, cpu.bp_y)
+    proc, path = refs
+    t0 = time.perf_counter()
+    _, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"card_vs_cpu: the CPU runs' process exit {proc.returncode}: "
+             f"{err[-2000:]}")
+    cpu = np.load(path)
+    say("card_vs_cpu", cpu_refs_wait_s=time.perf_counter() - t0)
+    for i, ((kw, (a, ap, b)), gpu) in enumerate(zip(card_vs_cpu_cases(),
+                                                    gpus)):
+        diff = float((gpu.source_map != cpu[f"s{i}"]).mean())
+        s = ssim(gpu.bp_y, cpu[f"bp{i}"])
         say("card_vs_cpu", size=a.shape[0], **kw, source_map_differs=diff,
             ssim=s)
         if not (diff < CARD_CPU_MISMATCH_MAX and s >= CARD_CPU_SSIM_MIN
@@ -3430,11 +3515,13 @@ def phase_lanes(a, ap, size=1024):
     (the serve configuration: with the remap on, differing targets refuse
     by design) on seed 7's A and A' and the B planes of LANE_SEEDS, a
     wavefront and a batched lane run (cold, warm, then the singletons), a
-    bucketed batched run of heights LANE_HEIGHTS (width 1,024: one query
-    bucket at every level, checked here), and a remap-on batch, which must
-    refuse (remap_divergence) before any launch.  ``size`` scales the
-    inputs and heights (a rehearsal on the CPU).  Returns each run's
-    launches."""
+    bucketed batched run of heights LANE_HEIGHTS (scaled to the batched
+    size: one query bucket at every level, checked here), and a remap-on
+    batch, which must refuse (remap_divergence) before any launch.
+    ``size`` scales the inputs and heights (a rehearsal on the CPU);
+    the batched and bucketed runs take make_structured at
+    LANES_BATCHED_SIZE scaled by ``size`` / 1024 (the script's time
+    limit).  Returns each run's launches."""
     from image_analogies_tpu_torch import PRESETS, BatchIncompatible
     from image_analogies_tpu_torch import create_image_analogy_batch
     from image_analogies_tpu_torch.ops import match
@@ -3443,13 +3530,17 @@ def phase_lanes(a, ap, size=1024):
     from image_analogies_tpu_torch.utils.assets import make_structured
 
     targets = [make_structured(size, seed)[2] for seed in LANE_SEEDS]
-    heights = [h * size // 1024 for h in LANE_HEIGHTS]
     params = dataclasses.replace(PRESETS["npr_1024"], remap_luminance=False)
-    out = {}
-    for strategy in ("wavefront", "batched"):
-        out[strategy] = lane_run(strategy, dataclasses.replace(
-            params, strategy=strategy), a, ap, targets)
+    out = {"wavefront": lane_run("wavefront", dataclasses.replace(
+        params, strategy="wavefront"), a, ap, targets)}
+    size = LANES_BATCHED_SIZE * size // 1024
+    if size != len(a):
+        a, ap = make_structured(size, 7)[:2]
+        targets = [make_structured(size, seed)[2] for seed in LANE_SEEDS]
+    out["batched"] = lane_run("batched", dataclasses.replace(
+        params, strategy="batched"), a, ap, targets)
 
+    heights = [h * size // 1024 for h in LANE_HEIGHTS]
     cropped = [b[:h] for b, h in zip(targets, heights)]
     buckets, waste, hs = [], 0.0, heights
     for level in range(params.levels):
@@ -3908,14 +3999,23 @@ def ann_full_width(a, ap, b, tmp):
                  f"the fresh bases' run: {same}")
         del res, fresh
         bparams = dataclasses.replace(params, strategy="batched")
-        res, launches, counters = ann_run("batched", bparams, a, ap, b)
+        bsize = ANN_BATCHED_SIZE * len(a) // 1024
+        ba, bap, bb = ((a, ap, b) if bsize == len(a)
+                       else make_structured(bsize, 7))
+        res, launches, counters = ann_run("batched", bparams, ba, bap, bb)
         if (launches or counters.get("ann.prefilter_used") != params.levels
                 or counters.get("ann.projection_built") != params.levels):
-            fail(f"ann: the 1024^2 batched run launched {launches}, "
+            fail(f"ann: the {bsize}^2 batched run launched {launches}, "
                  f"counted {counters}")
-        oz = np.load(os.path.join(HERE, "bench_cache",
-                                  "oracle_1024_seed7.npz"))
-        say("ann", batched_ssim_vs_oracle=ssim(res.bp_y, oz["bp_y"]))
+        if bsize == 1024:
+            ref = np.load(os.path.join(HERE, "bench_cache",
+                                       "oracle_1024_seed7.npz"))["bp_y"]
+        else:  # no oracle at this size: the exact batched path's plane
+            ref = create_image_analogy(ba, bap, bb, dataclasses.replace(
+                bparams, ann_prefilter=False)).bp_y
+        say("ann", batched_size=bsize, batched_ssim_vs_reference=ssim(
+            res.bp_y, ref), reference="oracle" if bsize == 1024
+            else "exact batched")
         del res
 
         size = ANN_LANE_SIZE
@@ -4077,6 +4177,393 @@ def phase_ann(a, ap, b):
     say("ann", phase_s=time.perf_counter() - t0)
 
 
+# the mesh phase's sizes below 1024^2: batched and the query-parallel
+# wavefront at 512^2, the frame-sharded clip at 256^2 (frames 0-2)
+MESH_SIZE = 512
+MESH_VIDEO_SIZE = 256
+MESH_BATCHED_SSIM_MIN = 0.99  # tests/test_sharded.py's limits
+MESH_BATCHED_AGREE_MIN = 0.95
+MESH_VIDEO_ATOL = 1e-5
+
+
+def mesh_nccl():
+    """NCCL in a world of one, in this process: the sharded argmin
+    (HIGHEST: ``argmin_l2``; DEFAULT: ``argmin_l2_bf16``), the packed
+    all-reduce (packed2k) and the ring at the main path's level-0 and
+    level-2 shapes, each pick held to the single-card kernel's on the same
+    inputs, through real NCCL collectives."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.parallel import sharded_match as sm
+    from image_analogies_tpu_torch.parallel.launch import _free_port
+
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        g = dist.group.WORLD
+        got = {}
+        shapes = (("level 2", ARGMIN_SHAPE["m"], ARGMIN_SHAPE["npad"]),
+                  ("level 0", PACKED_SHAPE["m"], PACKED_SHAPE["npad"]))
+        for name, m, npad in shapes:
+            q, db, dbn, _, _ = argmin_operands(m, npad)
+            q, db, dbn = (torch.from_numpy(x).to(dev) for x in (q, db, dbn))
+            ref, _ = match.argmin_l2(q, db, dbn)
+            idx, _ = sm.local_argmin_allreduce(q, db, dbn, g)
+            ring, _ = sm.make_ring_argmin(g)(q, db, dbn)
+            dbh = db.to(torch.bfloat16)
+            ref_h, _ = match.prepadded_argmin_queries(q, dbh, dbn)
+            idx_h, _ = sm.local_argmin_allreduce(q, dbh, dbn, g,
+                                                 precision="default")
+            got[f"argmin {name}"] = bool(torch.equal(idx, ref))
+            got[f"ring {name}"] = bool(torch.equal(ring, ref))
+            got[f"argmin_bf16 {name}"] = bool(torch.equal(idx_h, ref_h))
+        for level in PACKED_LEVELS:
+            npad = PACKED_SHAPE["npad"] >> (2 * level)
+            m = PACKED_SHAPE["m"] >> level
+            wk, shift, x_lo, _, _ = packed_db(match, npad)
+            qa = packed_queries(match, m, shift, x_lo, wk.shape[1])
+            lw = PACKED_SHAPE["lw"]
+            ref, _ = match.packed_best(qa, wk, (4 * lw + 3 + 15) // 16 * 16)
+            q1, q2 = qa[:, :lw].contiguous(), qa[:, 2 * lw + 3:3 * lw + 3]
+            idx, _ = sm.packed_champion_allreduce(q1, q2.contiguous(), wk, g)
+            got[f"packed level {level}"] = bool(torch.equal(idx, ref))
+        say("mesh", nccl_version=".".join(
+            str(v) for v in torch.cuda.nccl.version()), world=1,
+            picks_equal_single_card=got)
+        if not all(got.values()):
+            fail(f"mesh: NCCL world-of-one picks differ from the single "
+                 f"card's: {got}")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank, out_dir):
+    """One rank of the mesh phase's gloo world (two ranks on cuda:0): the
+    npr_1024 wavefront at db_shards=2 on the seed-7 oracle's inputs (rank
+    0 writes its planes for the parent's audit, then goes on), batched at
+    db_shards=2 and the query-parallel wavefront (data_shards=2) at
+    MESH_SIZE^2, and the frame-sharded two_phase clip (data_shards=2) at
+    MESH_VIDEO_SIZE^2.  Each run: every launch count, the staged bytes
+    and the peak memory set to 0 just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import (PRESETS, create_image_analogy,
+                                           video_analogy)
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.parallel import mesh as pmesh
+    from image_analogies_tpu_torch.utils.assets import (make_all,
+                                                        make_structured)
+
+    out = {}
+    go = os.path.join(out_dir, "go")
+    while not os.path.exists(go):  # the parent's single-card runs first
+        time.sleep(0.1)
+
+    def run(label, fn):
+        match.reset_launch_counts()
+        pmesh.reset_staged()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, extra = fn()
+        torch.cuda.synchronize()
+        out[label] = dict(
+            wall_s=time.perf_counter() - t0,
+            launches={k: v for k, v in match.LAUNCHES.items() if v},
+            staged_bytes=pmesh.STAGED["bytes"],
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **extra)
+        return res
+
+    a, ap, b = make_structured(1024, 7)
+    params = dataclasses.replace(PRESETS["npr_1024"], db_shards=2)
+
+    def wavefront():
+        with obs_trace.run_scope(dataclasses.replace(params,
+                                                     metrics=True)) as ctx:
+            res = create_image_analogy(a, ap, b, params, keep_levels=True)
+            counters = ctx.registry.snapshot()["counters"]
+        stats = sorted(res.stats, key=lambda st: st["level"])
+        return res, dict(
+            bits=bits_digest(res),
+            level_ms={st["level"]: st["ms"] for st in stats},
+            level_build_ms={st["level"]: st["total_ms"] - st["ms"]
+                            for st in stats},
+            level_mode={st["level"]: st["match_mode"] for st in stats},
+            psum_gather_bytes=counters.get("mesh.psum_gather_bytes"),
+            level_steps=counters.get("mesh.level_steps"))
+
+    res = run("wavefront 1024", wavefront)
+    if rank == 0:
+        levels = {f"{k}_l{i}": x for i, (bp, sm) in enumerate(res.levels)
+                  for k, x in (("bp", bp), ("s", sm))}
+        path = os.path.join(out_dir, "wavefront.npz")
+        np.savez(path + ".tmp.npz", bp_y=res.bp_y,
+                 source_map=res.source_map, **levels)
+        os.replace(path + ".tmp.npz", path)
+    del res
+    size = MESH_SIZE
+    sa, sap, sb = make_structured(size, 7)
+    for label, kw in (("batched", dict(strategy="batched", db_shards=2)),
+                      ("query_parallel", dict(data_shards=2))):
+        p = dataclasses.replace(PRESETS["npr_1024"], **kw)
+        res = run(f"{label} {size}", lambda: (
+            create_image_analogy(sa, sap, sb, p, keep_levels=True), {}))
+        out[f"{label} {size}"].update(
+            bits=bits_digest(res), bp_y=res.bp_y, source_map=res.source_map,
+            levels=res.levels if rank == 0 else None)
+    x = make_all(MESH_VIDEO_SIZE, 0)
+    frames = [x[f"video_f{t}"] for t in range(3)]
+    vp = dataclasses.replace(PRESETS["video"], data_shards=2)
+    res = run("video", lambda: (video_analogy(
+        x["filter_a"], x["filter_ap"], frames, vp), {}))
+    out["video"].update(frames_y=res.frames_y,
+                        mesh=[st["mesh"] for st in res.stats][:1])
+    return out
+
+
+def mesh_wait_audit(a, ap, b, params, path, box):
+    """Audit the 1024^2 mesh run against the seed-7 oracle as soon as rank
+    0 has written its planes, while the ranks go on."""
+    import types
+
+    import numpy as np
+
+    while not os.path.exists(path):
+        if "error" in box or "out" in box:
+            return
+        time.sleep(0.5)
+    z = np.load(path)
+    levels = [(z[f"bp_l{i}"], z[f"s_l{i}"]) for i in range(params.levels)]
+    phase_oracle(a, ap, b, params, types.SimpleNamespace(
+        bp_y=z["bp_y"], source_map=z["source_map"], levels=levels),
+        phase="mesh")
+
+
+def phase_mesh(a, ap, b):
+    """The mesh path (``parallel/``): NCCL in a world of one
+    (:func:`mesh_nccl`), then one gloo world of two ranks on cuda:0
+    (:func:`mesh_rank`) held to single-card references computed first:
+    the npr_1024 wavefront at db_shards=2 (each rank 6,138 packed2k and
+    1,783 argmin launches, both ranks the same bits, the oracle's SSIM and
+    tie-audit limits, audited here while the ranks go on; whether its bits
+    are the main path's), batched at db_shards=2 (one argmin_l2_bf16 a
+    scan row; SSIM and source-map agreement against the single card), the
+    query-parallel wavefront (the single card's bits, or a first
+    divergence that is a tie) and the frame-sharded clip (every frame the
+    serial clip's within MESH_VIDEO_ATOL)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch import (PRESETS, create_image_analogy,
+                                           video_analogy)
+    from image_analogies_tpu_torch.parallel.launch import spawn_local
+    from image_analogies_tpu_torch.utils.assets import (make_all,
+                                                        make_structured)
+    from image_analogies_tpu_torch.utils.parity import (
+        audit_source_map_mismatches)
+    from image_analogies_tpu_torch.utils.ssim import ssim
+
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ia_mesh_")
+    box = {}
+
+    def world():
+        try:
+            box["out"] = spawn_local(mesh_rank, 2, backend="gloo",
+                                     device="cuda:0", args=(tmp,))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["error"] = e
+
+    # the ranks start up (imports, CUDA contexts, kernel libraries) while
+    # this process runs NCCL and the single-card references; they run
+    # their measured work once told to go, with the card to themselves
+    t0 = time.perf_counter()
+    th = threading.Thread(target=world)
+    th.start()
+    params = dataclasses.replace(PRESETS["npr_1024"], db_shards=2)
+    try:
+        mesh_nccl()
+        size = MESH_SIZE
+        sa, sap, sb = make_structured(size, 7)
+        single = {kw.get("strategy", "wavefront"): create_image_analogy(
+            sa, sap, sb, dataclasses.replace(PRESETS["npr_1024"], **kw),
+            keep_levels=True) for kw in (dict(strategy="batched"), {})}
+        x = make_all(MESH_VIDEO_SIZE, 0)
+        frames = [x[f"video_f{t}"] for t in range(3)]
+        serial = video_analogy(x["filter_a"], x["filter_ap"], frames,
+                               PRESETS["video"])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        open(os.path.join(tmp, "go"), "w").close()
+        mesh_wait_audit(a, ap, b, params, os.path.join(tmp,
+                                                       "wavefront.npz"), box)
+    finally:
+        open(os.path.join(tmp, "go"), "w").close()  # never leave ranks waiting
+        th.join()
+    if "error" in box:
+        fail(f"mesh: the gloo world failed: {box['error']!r}")
+    outs = box["out"]
+    say("mesh", world=2, backend="gloo", device="cuda:0",
+        world_s=time.perf_counter() - t0)
+
+    want = expected_launches(params, 1024)
+    recs = [o["wavefront 1024"] for o in outs]
+    for rank, rec in enumerate(recs):
+        say("mesh", run="wavefront 1024", rank=rank, db_shards=2,
+            **{k: rec[k] for k in ("wall_s", "bits", "level_ms",
+                                   "level_build_ms", "level_mode",
+                                   "launches", "peak_mem_gib",
+                                   "psum_gather_bytes", "level_steps",
+                                   "staged_bytes")},
+            expected_launches=want)
+        if rec["launches"] != want:
+            fail(f"mesh: rank {rank} launched {rec['launches']}, expected "
+                 f"{want} (one per wavefront step of its levels)")
+    if recs[0]["bits"] != recs[1]["bits"]:
+        fail(f"mesh: the ranks' bits differ ({recs[0]['bits']} != "
+             f"{recs[1]['bits']})")
+    say("mesh", run="wavefront 1024", bits_equal_main_digest=(
+        recs[0]["bits"] == MAIN_DIGEST), main_digest=MAIN_DIGEST)
+
+    bparams = dataclasses.replace(PRESETS["npr_1024"], strategy="batched")
+    bwant = expected_launches(bparams, size)
+    ref = single["batched"]
+    for rank, o in enumerate(outs):
+        rec = o[f"batched {size}"]
+        sv = ssim(ref.bp_y, rec["bp_y"])
+        agree = float((ref.source_map == rec["source_map"]).mean())
+        say("mesh", run=f"batched {size}", rank=rank, db_shards=2,
+            wall_s=rec["wall_s"], launches=rec["launches"],
+            expected_launches=bwant, peak_mem_gib=rec["peak_mem_gib"],
+            staged_bytes=rec["staged_bytes"], ssim_vs_single=sv,
+            agreement=agree, bits_equal_single=(
+                rec["bits"] == bits_digest(ref)))
+        if rec["launches"] != bwant:
+            fail(f"mesh: batched rank {rank} launched {rec['launches']}, "
+                 f"expected {bwant} (one per scan row)")
+        if not (sv >= MESH_BATCHED_SSIM_MIN
+                and agree >= MESH_BATCHED_AGREE_MIN):
+            fail(f"mesh: batched at db_shards=2: SSIM {sv:.4f}, agreement "
+                 f"{agree:.4f} against the single card")
+
+    ref = single["wavefront"]
+    qwant = expected_launches(PRESETS["npr_1024"], size)
+    qp = [o[f"query_parallel {size}"] for o in outs]
+    same = qp[0]["bits"] == bits_digest(ref)
+    tie = None
+    if not same:  # the JAX test's rule: the first divergence is a tie
+        tie = audit_source_map_mismatches(
+            sa, sap, sb, PRESETS["npr_1024"], qp[0]["levels"],
+            ref.levels)["first_divergence_is_tie"]
+    for rank, rec in enumerate(qp):
+        say("mesh", run=f"query_parallel {size}", rank=rank, data_shards=2,
+            wall_s=rec["wall_s"], launches=rec["launches"],
+            expected_launches=qwant, peak_mem_gib=rec["peak_mem_gib"],
+            staged_bytes=rec["staged_bytes"], bits=rec["bits"],
+            bits_equal_single=rec["bits"] == bits_digest(ref),
+            first_divergence_is_tie=tie)
+        if rec["launches"] != qwant:
+            fail(f"mesh: query-parallel rank {rank} launched "
+                 f"{rec['launches']}, expected {qwant}")
+    if qp[1]["bits"] != qp[0]["bits"] or not (same or tie is True):
+        fail("mesh: the query-parallel ranks' bits differ, or from the "
+             "single card's with a first divergence that is not a tie")
+
+    for rank, o in enumerate(outs):
+        rec = o["video"]
+        err = max(float(np.abs(f - g).max())
+                  for f, g in zip(rec["frames_y"], serial.frames_y))
+        say("mesh", run=f"video {MESH_VIDEO_SIZE}", rank=rank,
+            data_shards=2, frames=len(rec["frames_y"]), mesh=rec["mesh"],
+            wall_s=rec["wall_s"], launches=rec["launches"],
+            peak_mem_gib=rec["peak_mem_gib"],
+            staged_bytes=rec["staged_bytes"], max_abs_vs_serial=err)
+        if len(rec["frames_y"]) != len(frames) or not err <= MESH_VIDEO_ATOL:
+            fail(f"mesh: the frame-sharded clip differs from the serial "
+                 f"clip by {err}")
+
+
+# phases a full run starts in child processes of their own once the
+# driver phase is done, beside the lanes and tune phases (every one of
+# them host-bound, the card idle much of the time): their checks hold
+# whatever else runs, their walls are then not alone (``--phases ann`` or
+# ``--phases env,mesh`` measures them alone)
+SIDE_PHASES = ("ann", "mesh")
+SIDE_TIMEOUT_S = 1100
+_SIDES = []  # the side processes started, for stop_sides
+
+
+def side_start(phase):
+    """Start ``phase`` in a child process (this script with ``--phases
+    PHASE --inline``), in a process group of its own so that
+    :func:`stop_sides` can stop it with every process it starts (it dies
+    with this process too: :func:`die_with_parent`); its output goes to
+    files that :func:`side_wait` replays.  Returns the handle for
+    side_wait."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"ia_side_{phase}_")
+    out = open(os.path.join(d, "out.log"), "w+")
+    err = open(os.path.join(d, "err.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phases", phase,
+         "--inline"], cwd=HERE, stdout=out, stderr=err, process_group=0)
+    _SIDES.append(proc)
+    return phase, proc, out, err
+
+
+def side_wait(handle):
+    """Wait for a side phase, print its output here, and fail unless it
+    exited 0 (its standard error's tail in the message)."""
+    phase, proc, out, err = handle
+    try:
+        proc.wait(timeout=SIDE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stop_sides()
+        fail(f"{phase}: its side process ran past {SIDE_TIMEOUT_S} s")
+    out.seek(0)
+    sys.stdout.write(out.read())
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        err.seek(0)
+        fail(f"{phase}: its side process exit {proc.returncode}: "
+             f"{err.read()[-3000:]}")
+
+
+def die_with_parent():
+    """Have the kernel kill this process when its parent ends (a side
+    phase's process, if the script is stopped at its time limit)."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # DEATHSIG
+    if os.getppid() == 1:  # the parent ended before the call
+        sys.exit(1)
+
+
+def stop_sides():
+    """Stop every side process still running, with every process it
+    started (the mesh phase's ranks, the ann phase's subprocesses)."""
+    import signal
+
+    for proc in _SIDES:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+
+
 def laps(phases):
     """A clock for main(): ``lap(name)`` prints, for a phase that ran, the
     seconds since the last lap and since the script began."""
@@ -4116,6 +4603,10 @@ def main() -> None:
     ap.add_argument("--bits-of", nargs=3, metavar=("KIND", "ROOT", "OUT"),
                     help=argparse.SUPPRESS)  # the child of --parent
     ap.add_argument("--shapes", help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-refs", metavar="OUT",
+                    help=argparse.SUPPRESS)  # card_vs_cpu's side process
+    ap.add_argument("--inline", action="store_true",
+                    help=argparse.SUPPRESS)  # a side phase's own process
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     if any(p not in PHASES + ("profile", "batched_profile") for p in phases):
@@ -4136,16 +4627,24 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import image_analogies_tpu_torch  # noqa: F401  (sets TF32 off)
 
+    if args.cpu_refs:
+        cpu_refs(args.cpu_refs)
+        return
+    if args.inline:
+        die_with_parent()
     lap = laps(phases)
     if "env" in phases:
         phase_env(args.ptxas)
     lap("env")
+    # card_vs_cpu's CPU runs need no card: they run beside the card's work
+    # (after the build, whose nvcc processes want every core)
+    refs = cpu_refs_start() if "card_vs_cpu" in phases else None
     rows = phase_kernels(args.parent) if "kernels" in phases else None
     lap("kernels")
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
             "batched", "batched_profile", "driver", "lanes",
-            "tune", "ann"} & set(phases):
+            "tune", "ann", "mesh"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -4184,7 +4683,7 @@ def main() -> None:
         phase_gate()
     lap("gate")
     if "card_vs_cpu" in phases:
-        path_launches["card_vs_cpu"] = phase_card_vs_cpu()
+        path_launches["card_vs_cpu"] = phase_card_vs_cpu(refs)
     lap("card_vs_cpu")
     if "modes_small" in phases:
         phase_modes_small()
@@ -4198,6 +4697,12 @@ def main() -> None:
     if "driver" in phases:
         phase_driver(a, ap_, b)
     lap("driver")
+    sides = {}
+    if not args.inline:
+        import atexit
+
+        atexit.register(stop_sides)
+        sides = {p: side_start(p) for p in SIDE_PHASES if p in phases}
     if "lanes" in phases:
         lanes = phase_lanes(a, ap_)
         path_launches["lanes wavefront"] = lanes["wavefront"]
@@ -4207,8 +4712,17 @@ def main() -> None:
         phase_tune(a, ap_, b)
     lap("tune")
     if "ann" in phases:
-        phase_ann(a, ap_, b)
+        if sides:
+            side_wait(sides["ann"])
+        else:
+            phase_ann(a, ap_, b)
     lap("ann")
+    if "mesh" in phases:
+        if sides:
+            side_wait(sides["mesh"])
+        else:
+            phase_mesh(a, ap_, b)
+    lap("mesh")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

@@ -194,6 +194,19 @@ class LevelDB:
     ann_mean: Optional[torch.Tensor] = None
     ann_dbp: Optional[torch.Tensor] = None
     ann_dbnh: Optional[torch.Tensor] = None
+    # a sharded level (``build_sharded_db``; ``db_shards`` or
+    # ``data_shards`` > 1): the (data, db) mesh, and THIS rank's shard of
+    # the scoring DB (R, Fp) fp32, its (R,) norms (+inf padding rows), A'
+    # values and, packed, its (R, L+2) [live | dead norm | A'] rows; the
+    # packed scan's K-wide weight shard rides ``db_pad`` and the global
+    # centering shift ``feat_mean``.  ``db``, ``db_rowsafe``,
+    # ``a_filt_flat`` and ``db_live`` are then 1-row placeholders
+    # (``make_level_template``): no rank holds the whole DB.
+    mesh: Any = None
+    db_sharded: Optional[torch.Tensor] = None
+    dbn_sharded: Optional[torch.Tensor] = None
+    afilt_sharded: Optional[torch.Tensor] = None
+    dblive_sharded: Optional[torch.Tensor] = None
 
 
 @functools.lru_cache(maxsize=64)
@@ -272,6 +285,26 @@ def _inf_pad(x: torch.Tensor, npad: int) -> torch.Tensor:
     out = torch.full((npad,), float("inf"), dtype=_F32, device=x.device)
     out[:x.shape[0]] = x
     return out
+
+
+def packed2k_scan(q1: torch.Tensor, q2: torch.Tensor, wk: torch.Tensor, *,
+                  chunks_per_sm: int = tune_geometry.DEFAULT_CHUNKS_PER_SM,
+                  ring_stages: int = tune_geometry.DEFAULT_RING_STAGES):
+    """The exact_hi2_2p scan (``packed_best``'s packed2k form): the (M, Kp)
+    bf16 query rows ``[q1|q1|1 1 1|q2|q1|0]`` against ``pack_wk``'s ``wk =
+    [d1|d2|n1 n2 n3|d1|d3|0]``, so one dot gives q1.d1 + q1.d2 + q2.d1 +
+    q1.d3 - ||d||^2/2, over the first ``k_used`` = 4L+3 rounded up to 16
+    lanes.  ``q1``/``q2`` (M, L) bf16 are the bit-mask split of the
+    centered live query dims.  Returns (idx (M,) int32, val (M,) fp32),
+    the first maximum."""
+    m, lw = q1.shape
+    qa = torch.cat([
+        q1, q1, torch.ones((m, 3), dtype=torch.bfloat16, device=q1.device),
+        q2, q1,
+        torch.zeros((m, wk.shape[1] - 4 * lw - 3), dtype=torch.bfloat16,
+                    device=q1.device)], dim=1)
+    return packed_best(qa, wk, _round_up(4 * lw + 3, 16),
+                       chunks_per_sm=chunks_per_sm, ring_stages=ring_stages)
 
 
 def pack_w12(src: torch.Tensor, shift: torch.Tensor, half_norm: torch.Tensor,
@@ -473,6 +506,153 @@ def prepare_level_arrays(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
     return out
 
 
+# ------------------------------------------------------- the sharded build
+
+
+def packed_scan_eligible(match_mode: str, na_rows: int) -> bool:
+    """THE steering predicate of the mesh's anchor scan (the JAX
+    ``packed_scan_eligible``): "auto" packs at or above
+    ``PACKED_CROSSOVER_ROWS``, an explicit exact_hi2_2p always packs, and
+    every other mode (exact_hi2's three-pass set and the probe modes have
+    no mesh scan) runs the fp32 argmin."""
+    return (match_mode in ("auto", "exact_hi2_2p")
+            and (match_mode != "auto" or na_rows >= PACKED_CROSSOVER_ROWS))
+
+
+def build_sharded_db(spec: FeatureSpec, a_src, a_filt, a_src_coarse,
+                     a_filt_coarse, a_temporal, rowsafe, mesh,
+                     pad_full: bool, packed: bool = False):
+    """THIS rank's shard of a level's scoring DB over the mesh's ``db``
+    axis (the JAX ``build_sharded_db``), built from the full A planes
+    (small) without building the full DB: shard r holds rows [r R, (r+1)
+    R) of ``sharded_pad_geometry`` (R a multiple of ``PAD_TILE``, so every
+    row keeps its single-card byte alignment), each bit-equal to its row
+    of the single card's DB (``build_features_torch(rows=)``).  Batched
+    (``pad_full`` False) masks the fine_filt block to the rows above.
+
+    With ``packed`` (the wavefront's packed2k scan) also the K-wide weight
+    shard ``pack_wk`` builds and the [live | dead norm | A'] rows.  Over
+    two or more ``db`` shards the live-dim centering shift reduces over
+    EVERY shard (one all_reduce of float64 column sums over the ``db``
+    group), so scan scores are globally comparable and the all-reduce's
+    ties go to the lowest global index; it may differ from the single
+    card's fp32 ``mean`` by an ulp, which moves only near-tied packed
+    scores.  One ``db`` shard (query-parallel, frame-sharded video) holds
+    the whole DB and takes the single card's shift and half norms
+    (``packed_shift_and_halfnorm``), so its scores are the single card's
+    bits.
+
+    Returns (dbp (R, Fp), dbnp (R,), afiltp (R,), wk, shift (Fp,), dbl);
+    the last three None unless ``packed``."""
+    from image_analogies_tpu_torch.parallel.mesh import all_reduce_sum
+    from image_analogies_tpu_torch.parallel.sharded_match import \
+        sharded_pad_geometry
+
+    ha, wa = a_filt.shape[:2]
+    na = ha * wa
+    shards = mesh.shape["db"]
+    npad, fp = sharded_pad_geometry(na, spec.total, shards, PAD_TILE)
+    r_rows = npad // shards
+    lo = mesh.rank_in("db") * r_rows
+    rows = slice(min(lo, na), min(lo + r_rows, na))
+    n = rows.stop - rows.start
+    db = build_features_torch(spec, a_src, a_filt, a_src_coarse,
+                              a_filt_coarse, temporal_fine=a_temporal,
+                              rows=rows)
+    if not pad_full:
+        fsl = spec.fine_filt_slice
+        db[:, fsl] = db[:, fsl] * rowsafe[None, :]
+    dev = db.device
+    f = spec.total
+    af = a_filt.reshape(-1)[rows]
+    dbp = torch.zeros((r_rows, fp), dtype=_F32, device=dev)
+    dbp[:n, :f] = db
+    afp = torch.zeros((r_rows,), dtype=_F32, device=dev)
+    afp[:n] = af
+    out = (dbp, _inf_pad((db * db).sum(dim=1), r_rows), afp)
+    if not packed:
+        return out + (None, None, None)
+    live_np = np.nonzero(spec.query_live_mask())[0]
+    dead_np = np.setdiff1d(np.arange(f), live_np)
+    live = torch.from_numpy(live_np.astype(np.int64)).to(dev)
+    dead = torch.from_numpy(dead_np.astype(np.int64)).to(dev)
+    if mesh.group("db") is None:
+        shift, half_norm = packed_shift_and_halfnorm(db, live)
+    else:
+        colsum = db[:, live].double().sum(dim=0)
+        all_reduce_sum(colsum, mesh.group("db"))
+        shift = torch.zeros((f,), dtype=_F32, device=dev)
+        shift[live] = (colsum / na).float()
+        srcc = db - shift[None, :]
+        half_norm = 0.5 * (srcc * srcc).sum(dim=1)
+    wk, _ = pack_wk(db, shift, half_norm, live, r_rows)
+    dbl = torch.zeros((r_rows, live_np.size + 2), dtype=_F32, device=dev)
+    dbl[:n] = torch.cat([db[:, live], (db[:, dead] ** 2).sum(dim=1)[:, None],
+                         af[:, None]], dim=1)
+    shiftp = torch.zeros((fp,), dtype=_F32, device=dev)
+    shiftp[:f] = shift
+    return out + (wk, shiftp, dbl)
+
+
+def prepare_query_arrays(spec: FeatureSpec, b_src, b_src_coarse,
+                         b_filt_coarse, b_temporal) -> torch.Tensor:
+    """The query side of a level alone, (Nb, F) fp32: the sharded build
+    makes its DB side in ``build_sharded_db`` and must not run
+    ``prepare_level_arrays``, which builds the whole DB."""
+    return build_features_torch(spec, b_src, None, b_src_coarse,
+                                b_filt_coarse, temporal_fine=b_temporal)
+
+
+def make_level_template(params, job: LevelJob, strategy: str,
+                        match_mode: str, device) -> LevelDB:
+    """The slim per-level LevelDB of the mesh step: the real query-side
+    maps (the wavefront's anti-diagonal schedule, or batched's gather
+    maps), weights and live columns, and a 1-row placeholder for every
+    DB-sized field: the mesh step reads DB rows only through the sharded
+    arrays, so no rank holds the whole DB.  The JAX function's, with the
+    port's field set."""
+    spec = job.spec
+    hb, wb = job.b_shape
+    ha, wa = job.a_shape
+    p = spec.fine_size
+    fsl = spec.fine_filt_slice
+    z2 = torch.zeros((1, spec.total), dtype=_F32, device=device)
+    z1 = torch.zeros((1,), dtype=_F32, device=device)
+    level = dict(
+        db=z2, static_q=z2, a_filt_flat=z1,
+        fine_sqrtw=torch.from_numpy(spec.sqrt_weights()[fsl]).to(device),
+        off=torch.from_numpy(window_offsets(p).astype(np.int64)).to(device),
+        db_pad=None, dbn_pad=None, feat_mean=None,
+        live_idx=torch.from_numpy(np.nonzero(spec.query_live_mask())[0]
+                                  .astype(np.int64)).to(device),
+        db_live=None, ha=ha, wa=wa, hb=hb, wb=wb, fine_start=fsl.start,
+        match_mode=match_mode, strategy=strategy, db_sqnorm=z1)
+    if strategy == "wavefront":
+        return LevelDB(diag=tuple(
+            torch.from_numpy(sg.astype(np.int64)).to(device)
+            for sg in _diag_schedule_np(hb, wb, p // 2 + 1)), **level)
+    flat_idx, valid, written = devcache.cached(
+        ("gather_maps", hb, wb, p, str(device)),
+        lambda: gather_maps_device(hb, wb, p, device), device)
+    return LevelDB(
+        diag=(), db_rowsafe=z2, db_rowsafe_sqnorm=z1, flat_idx=flat_idx,
+        valid=valid, written=written,
+        rowsafe=torch.from_numpy(rowsafe_mask(p)).to(device),
+        n_rowsafe=(p // 2) * p, refine_passes=params.refine_passes, **level)
+
+
+def slim_for_mesh(db: LevelDB) -> LevelDB:
+    """The mesh step's template of a sharded level: the LevelDB without
+    its query features and shard arrays, which the step takes as its own
+    inputs (the JAX ``slim_for_mesh``; the DB-sized fields are already
+    placeholders)."""
+    z2 = torch.zeros((1, db.static_q.shape[1]), dtype=_F32,
+                     device=db.static_q.device)
+    return dataclasses.replace(
+        db, static_q=z2, mesh=None, db_sharded=None, dbn_sharded=None,
+        afilt_sharded=None, dblive_sharded=None, db_pad=None)
+
+
 # -------------------------------------------------------------- the anchor
 
 
@@ -546,7 +726,7 @@ def make_anchor_fn(db: LevelDB):
       mask.  exact_hi2 scans ``packed3_best`` (rows [q1|q1], [q2|q2] against
       W1 = [d1|d2] plus [q1|q3] against W2 = [d3|d1], minus the half norm:
       the six bf16_6x products); exact_hi2_2p lays the query out as
-      [q1|q1|1 1 1|q2|q1|0] against wk so one ``packed_best`` dot gives
+      [q1|q1|1 1 1|q2|q1|0] against wk so one ``packed2k_scan`` dot gives
       q1.d1 + q1.d2 + q2.d1 + q1.d3 - ||d||^2/2.  The pick is clamped to a
       real row; its fp32 re-score is deferred (d_app None): the step takes
       it from the coherence block's ``db_live`` row gather, which fetches
@@ -563,7 +743,6 @@ def make_anchor_fn(db: LevelDB):
     if mode == "ann_rescue" and db.ann_dbp is not None:
         return _two_stage_fn(db, db.db)
 
-    cfg = level_tune(db)  # the main path's two kernels' launch knobs
     if mode in ("scan_rescue", "scan_rescue_1p"):
         q_split = mode == "scan_rescue"
         tile = db.scan_tile
@@ -591,11 +770,10 @@ def make_anchor_fn(db: LevelDB):
         return anchor
 
     if mode in ("exact_hi2", "exact_hi2_2p"):
-        live = db.live_idx
-        lw = int(live.numel())
-        shift = db.feat_mean[:f]
-        dev = db.db.device
         if mode == "exact_hi2":
+            live = db.live_idx
+            shift = db.feat_mean[:f]
+
             def scan(qc):
                 g1, g2, gr = bf16_split3(qc[:, live])
                 p, _ = packed3_best(
@@ -603,30 +781,15 @@ def make_anchor_fn(db: LevelDB):
                     gr.to(torch.bfloat16), db.db_pad, db.db_pad2,
                     db.dbnh_pad)
                 return p
+
+            def anchor(queries):
+                p = scan(queries - shift[None, :])
+                return torch.clamp(p.long(), max=na - 1), None
         else:
-            o2 = 2 * lw + 3
-            kp = int(db.db_pad.shape[1])
-            k_used = _round_up(o2 + 2 * lw, 16)
+            scan = exact_scan_fn(db, True, db.db_pad)
 
-            def scan(qc):
-                m = qc.shape[0]
-                g1, g2, _ = bf16_split3(qc[:, live])
-                q1 = g1.to(torch.bfloat16)
-                q2 = g2.to(torch.bfloat16)
-                qa = torch.cat([
-                    q1, q1,
-                    torch.ones((m, 3), dtype=torch.bfloat16, device=dev),
-                    q2, q1,
-                    torch.zeros((m, kp - o2 - 2 * lw), dtype=torch.bfloat16,
-                                device=dev)], dim=1)
-                p, _ = packed_best(qa, db.db_pad, k_used,
-                                   chunks_per_sm=cfg.chunks_per_sm,
-                                   ring_stages=cfg.ring_stages)
-                return p
-
-        def anchor(queries):
-            p = scan(queries - shift[None, :])
-            return torch.clamp(p.long(), max=na - 1), None
+            def anchor(queries):
+                return torch.clamp(scan(queries)[0], max=na - 1), None
 
         return anchor
 
@@ -647,35 +810,74 @@ def make_anchor_fn(db: LevelDB):
 
         return anchor
 
-    chunks_per_sm = cfg.chunks_per_sm
+    scan = exact_scan_fn(db, False, db.db_pad, db.dbn_pad)
 
     def anchor(queries):
-        p, _ = argmin_l2(queries, db.db_pad, db.dbn_pad,
-                         chunks_per_sm=chunks_per_sm)
-        p = p.long()
+        p, _ = scan(queries)
         return p, ((db.db[p] - queries) ** 2).sum(dim=1)
 
     return anchor
+
+
+def exact_scan_fn(db: LevelDB, packed: bool, scan_db: torch.Tensor,
+                  scan_norm: Optional[torch.Tensor] = None):
+    """The exact anchors' kernel pass over one scan copy of the DB: the
+    level's own (``make_anchor_fn``) or a mesh rank's shard
+    (``parallel/step.py``).  queries (M, F) -> (idx (M,) int64 into
+    ``scan_db``, score (M,) fp32, the lower the better), the lowest index
+    on ties; a padding row wins only in a copy that is all padding.
+
+    - ``packed`` (exact_hi2_2p): the queries centered on ``feat_mean``'s
+      live dims and split by bit mask into bf16 q1 + q2, then
+      ``packed2k_scan`` over the K-wide ``scan_db``; the score is minus
+      the scan value.
+    - else (exact_hi): ``argmin_l2`` over the fp32 ``scan_db`` and its row
+      norms ``scan_norm`` (+inf on padding rows)."""
+    cfg = level_tune(db)  # the main path's two kernels' launch knobs
+    if not packed:
+        def scan(queries):
+            p, score = argmin_l2(queries, scan_db, scan_norm,
+                                 chunks_per_sm=cfg.chunks_per_sm)
+            return p.long(), score
+
+        return scan
+    live = db.live_idx
+    shift = db.feat_mean[:int(db.static_q.shape[1])]
+
+    def scan(queries):
+        g1, g2, _ = bf16_split3((queries - shift[None, :])[:, live])
+        p, val = packed2k_scan(g1.to(torch.bfloat16), g2.to(torch.bfloat16),
+                               scan_db, chunks_per_sm=cfg.chunks_per_sm,
+                               ring_stages=cfg.ring_stages)
+        return p.long(), -val
+
+    return scan
 
 
 # --------------------------------------------------------------- coherence
 
 
 def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None,
-                       row_fn=None):
+                       row_fn=None, gather=None, live_rows: bool = True):
     """Batched Ashikhmin candidates for M pixels (Hertzmann §3.2): for each
     query the candidates are {s(r) + (q - r)} over its first nc causal
     window positions r (``s_r`` (M, nc) source indices there, ``ok`` their
     base validity), scored in fp32 — against ``row_fn(cand)``, a gather of
     the scoring DB's rows (default the full DB; the rows-above DB for the
-    batched strategy), or, with
-    ``p_app`` (the packed anchor's deferred pick), by the live/dead split
-    d = sum_live (cf - q)^2 + dead norm over ``db_live`` rows with the pick
-    appended as one more gathered column, so its exact re-score and A'
-    value ride the same row gather.
+    batched strategy), or, with ``p_app`` (the anchor's deferred pick),
+    with the pick appended as one more gathered column, so its exact
+    re-score and A' value ride the same row gather: by the live/dead split
+    d = sum_live (cf - q)^2 + dead norm over ``db_live`` rows.
 
-    Returns (p_coh, d_coh, has_coh), plus (d_app, af_coh, af_app) when
-    ``p_app`` is given."""
+    ``gather(cand, p_app) -> (rows (M, nc+1, C), p_app)`` replaces that
+    gather (the mesh, ``parallel/step.py``: the rows of every shard and
+    the anchor's global pick in one collective); its rows are ``db_live``
+    rows, or with ``live_rows`` False full rows with their A' value as one
+    more column (C = F + 1), each score summing a fresh contiguous copy of
+    its rows as the single card's ``db.db[cand]`` gather does.
+
+    Returns (p_coh, d_coh, has_coh), plus (d_app, af_coh, af_app, p_app)
+    when ``p_app`` is given."""
     nc = s_r.shape[1]
     off_i = db.off[:nc, 0]
     off_j = db.off[:nc, 1]
@@ -685,12 +887,23 @@ def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None,
     ok = ok & (ci >= 0) & (ci < ha) & (cj >= 0) & (cj < wa)
     cand = ci.clamp(0, ha - 1) * wa + cj.clamp(0, wa - 1)
     if p_app is not None:
-        q_live = queries[:, db.live_idx]
-        lw = q_live.shape[1]
-        cf = db.db_live[torch.cat([cand, p_app[:, None]], dim=1)]
-        dca = ((cf[..., :lw] - q_live[:, None, :]) ** 2).sum(dim=-1) \
-            + cf[..., lw]  # (M, nc+1)
-        dc = dca[:, :nc]
+        if gather is None:
+            cf = db.db_live[torch.cat([cand, p_app[:, None]], dim=1)]
+        else:
+            cf, p_app = gather(cand, p_app)
+        if live_rows:
+            q_live = queries[:, db.live_idx]
+            lw = q_live.shape[1]
+            dca = ((cf[..., :lw] - q_live[:, None, :]) ** 2).sum(dim=-1) \
+                + cf[..., lw]  # (M, nc+1)
+            dc, d_app = dca[:, :nc], dca[:, nc]
+            af = cf[..., lw + 1]
+        else:
+            f = queries.shape[1]
+            dc = ((cf[:, :nc, :f].contiguous() - queries[:, None, :]) ** 2
+                  ).sum(dim=-1)
+            d_app = ((cf[:, nc, :f].contiguous() - queries) ** 2).sum(dim=1)
+            af = cf[..., f]
     else:
         cf = db.db[cand] if row_fn is None else row_fn(cand)  # (M, nc, F)
         dc = ((cf - queries[:, None, :]) ** 2).sum(dim=-1)
@@ -701,9 +914,8 @@ def _batched_coherence(db: LevelDB, queries, s_r, ok, p_app=None,
     has_coh = ok.any(dim=1)
     if p_app is None:
         return p_coh, d_coh, has_coh
-    af = cf[..., lw + 1]
-    return (p_coh, d_coh, has_coh, dca[:, nc],
-            af.gather(1, k[:, None])[:, 0], af[:, nc])
+    return (p_coh, d_coh, has_coh, d_app, af.gather(1, k[:, None])[:, 0],
+            af[:, nc], p_app)
 
 
 # ------------------------------------------------------------ wavefront scan
@@ -720,7 +932,22 @@ def _per_lane(x: torch.Tensor, k: int,
     return y.reshape((t, k * m) + tuple(x.shape[2:]))
 
 
-def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
+def _gather_picks(p, use_coh, af, group):
+    """The query-parallel step's reassembly: every data rank's slice of a
+    diagonal's (pick, coherence flag, A' value), in rank order, by one
+    all_gather of a (3, M/D) float64 tensor (exact for the fp32 values
+    and the indices)."""
+    from image_analogies_tpu_torch.parallel.mesh import all_gather_stack
+
+    both = all_gather_stack(torch.stack([p.double(), use_coh.double(),
+                                         af.double()]), group)
+    both = both.permute(1, 0, 2).reshape(3, -1)
+    return both[0].long(), both[1] > 0.5, both[2].float()
+
+
+def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn,
+                        row_fn=None, afilt_fn=None, live_gather=None,
+                        data_group=None, data_size: int = 1):
     """The oracle's raster-scan rule on the anti-diagonal schedule (see the
     module docstring; the dependency proof is in the JAX package's
     ``wavefront_scan_core``).
@@ -745,6 +972,22 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
     keep the alignment they have in a singleton: the card's row sums round
     by a row's address.
 
+    The mesh (``parallel/step.py``) reads DB rows only through its hooks,
+    which replace the reads of the level's own arrays, each for an anchor
+    that defers its re-score (d_app None) to the coherence gather
+    (``_batched_coherence``): ``live_gather(cand, p_app)`` returns the
+    ``db_live`` rows of the (M, nc) candidates and the pick, and the pick
+    itself (the mesh resolves its global pick in the same collective);
+    ``row_fn`` the same with [scoring row | A' value] rows (F + 1
+    columns); ``afilt_fn(idx)`` gathers A' values where no gather carried
+    them.
+    With ``data_group`` (``data_size`` ranks, a power of two <= 8, so it
+    divides every segment's 8-aligned width) the step is QUERY-PARALLEL:
+    each data rank scores its M / D slice of every diagonal, then one
+    all_gather reassembles the picks, so every rank's carry advances
+    alike.  Per-query work reads no other query, so the picks are the
+    unsplit step's.  With no hooks the step is what it was, op for op.
+
     Returns (bp (Nb,) fp32, s (Nb,) int32, n_coh () int64 device scalar);
     with k lanes (bp (k, Nb), s (k, Nb), n_coh (k,))."""
     k = db.lanes
@@ -756,6 +999,12 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
             f"the wavefront scan caps exemplars at {max_rows} A rows "
             f"(wavefront_max_rows, tune/resolve.py; the ceiling 2^24 is a "
             f"4096x4096 A); this A is {db.ha}x{db.wa}")
+    if data_group is not None and (data_size & (data_size - 1)
+                                   or data_size > 8 or k > 1):
+        raise ValueError(
+            f"query-parallel wavefront needs a power-of-two data axis "
+            f"<= 8 (segment widths are 8-aligned) and one lane; got "
+            f"{data_size} ranks, {k} lanes")
     dev = db.static_q.device
     nf = int(db.off.shape[0])
     nc = (nf - 1) // 2  # causal positions = the first nc raster offsets
@@ -774,12 +1023,23 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
         lane = torch.arange(k, dtype=torch.int64, device=dev)
         carry_off = lane * blk
         query_off = lane * (int(db.static_q.shape[0]) // k)
+    if afilt_fn is None:
+        afilt_fn = lambda i: db.a_filt_flat[i]
+    gather = live_gather if row_fn is None else row_fn
+    me = 0
+    if data_group is not None:
+        import torch.distributed as dist
+
+        me = dist.get_rank(data_group)
 
     for seg in db.diag:
         n_steps, m = int(seg.shape[0]), int(seg.shape[1])
         # schedule-only quantities for every step of the segment
         lane_ok = seg >= 0  # (T, M)
         pixc = seg.clamp(min=0)
+        if data_group is not None:  # this data rank's slice of each step
+            mq = m // data_size
+            pixc = pixc[:, me * mq:(me + 1) * mq]
         qi = pixc // wb
         qj = pixc - qi * wb
         wi = qi[..., None] + off_i  # (T, M, nc)
@@ -803,17 +1063,21 @@ def wavefront_scan_core(db: LevelDB, kappa_mult: float, anchor_fn):
             queries = db.static_q[pixc[t]]
             queries[:, fs:fs + nc] = dyn
             p_app, d_app = anchor_fn(queries)
-            if d_app is None:  # packed anchor: re-score rides the gather
-                p_coh, d_coh, has_coh, d_app, af_coh, af_app = \
-                    _batched_coherence(db, queries, s_r, inb[t], p_app=p_app)
+            if d_app is None:  # the re-score rides the coherence gather
+                p_coh, d_coh, has_coh, d_app, af_coh, af_app, p_app = \
+                    _batched_coherence(db, queries, s_r, inb[t],
+                                       p_app=p_app, gather=gather,
+                                       live_rows=row_fn is None)
             else:
                 p_coh, d_coh, has_coh = _batched_coherence(
                     db, queries, s_r, inb[t])
                 af_coh = af_app = None
             use_coh = has_coh & (d_coh <= d_app * kappa)
             p = torch.where(use_coh, p_coh, p_app)
-            af = (db.a_filt_flat[p] if af_app is None
+            af = (afilt_fn(p) if af_app is None
                   else torch.where(use_coh, af_coh, af_app))
+            if data_group is not None:
+                p, use_coh, af = _gather_picks(p, use_coh, af, data_group)
             bp.index_copy_(0, wpix[t], af)
             s.index_copy_(0, wpix[t], p)
             n_coh += (use_coh & lane_ok[t]).view(k, m).sum(dim=1)
@@ -1227,7 +1491,20 @@ class CudaMatcher(Matcher):
         return ("wavefront" if self.params.strategy == "auto"
                 else self.params.strategy)
 
-    def _steer(self, job: LevelJob) -> Tuple[str, str, Optional[bool]]:
+    @property
+    def _sharded(self) -> bool:
+        """The JAX ``build_features``'s ``sharded`` predicate: the patch DB
+        shards over ``db_shards``, and ``data_shards`` > 1 on one image is
+        the query-parallel wavefront; both on the wavefront and batched
+        strategies only."""
+        strategy = self._strategy
+        return ((self.params.db_shards > 1
+                 or (self.params.data_shards > 1
+                     and strategy == "wavefront"))
+                and strategy in ("batched", "wavefront"))
+
+    def _steer(self, job: LevelJob, sharded: Optional[bool] = None
+               ) -> Tuple[str, str, Optional[bool]]:
         """(strategy, anchor mode, ann) of a level, the JAX
         ``TpuMatcher.build_features`` steering: match_mode resolved per
         level, then bf16_scoring switches the wavefront to scan_rescue once
@@ -1236,8 +1513,17 @@ class CudaMatcher(Matcher):
         when the two-stage matcher's gate allows it for this (device,
         strategy), which then wins over bf16_scoring on the wavefront
         (``build_features`` still falls back for a quarantined artifact);
-        False for a refused verdict or an unsupported strategy."""
+        False for a refused verdict or an unsupported strategy.  A sharded
+        level (``_sharded``) scans with the packed2k kernel where
+        ``packed_scan_eligible`` allows it and the fp32 argmin elsewhere,
+        with neither gate consulted: ``ann`` is False where it was asked
+        for.  ``sharded`` None: ``_sharded``."""
         strategy = self._strategy
+        if self._sharded if sharded is None else sharded:
+            packed = (strategy == "wavefront" and packed_scan_eligible(
+                self.params.match_mode, job.a_shape[0] * job.a_shape[1]))
+            return (strategy, "exact_hi2_2p" if packed else "exact_hi",
+                    False if self.params.ann_prefilter else None)
         mode = resolve_match_mode(self.params.match_mode,
                                   job.a_shape[0] * job.a_shape[1])
         if (strategy == "wavefront" and self.params.bf16_scoring
@@ -1350,6 +1636,8 @@ class CudaMatcher(Matcher):
         if ann is False or (ann_plan is not None
                             and ann_plan[0] == "rebuild"):
             obs_metrics.inc("ann.fallback_exact")
+        if self._sharded:
+            return self.build_mesh_level(job)
         use_ann = ann_plan is not None and ann_plan[0] != "rebuild"
         if use_ann and strategy == "wavefront":
             mode = "ann_rescue"
@@ -1422,6 +1710,42 @@ class CudaMatcher(Matcher):
             n_rowsafe=(spec.fine_size // 2) * spec.fine_size,
             refine_passes=self.params.refine_passes, **level)
 
+    def build_mesh_level(self, job: LevelJob) -> LevelDB:
+        """A sharded level (the JAX ``build_features``'s mesh branch, and
+        each level of the frame-sharded video): the template
+        (``make_level_template``), this rank's DB shard
+        (``build_sharded_db``; packed where ``packed_scan_eligible``
+        allows the packed2k scan) and the query side of ``job``
+        (``prepare_query_arrays``).  Neither shape buckets nor the gates
+        apply.  The level's launch geometry resolves on the shard's
+        rows."""
+        from image_analogies_tpu_torch.parallel.mesh import make_mesh
+
+        spec = job.spec
+        strategy, mode, _ = self._steer(job, sharded=True)
+        mesh = make_mesh(db_shards=self.params.db_shards,
+                         data_shards=self.params.data_shards)
+        template = make_level_template(self.params, job, strategy, mode,
+                                       self.device)
+        packed = mode == "exact_hi2_2p"
+        dbp, dbnp, afp, wk, shift, dbl = build_sharded_db(
+            spec, self._t(job.a_src), self._t(job.a_filt),
+            self._t(job.a_src_coarse), self._t(job.a_filt_coarse),
+            self._t(job.a_temporal), template.rowsafe, mesh,
+            strategy == "wavefront", packed=packed)
+        static_q = prepare_query_arrays(
+            spec, self._t(job.b_src), self._t(job.b_src_coarse),
+            self._t(job.b_filt_coarse), self._t(job.b_temporal))
+        pad = ("packed2" if packed else "f32" if strategy == "wavefront"
+               else "bf16_uncentered" if self.bf16_approx else None)
+        cfg = tune_resolve.level_config(
+            strategy, pad, int((wk if packed else dbp).shape[1]),
+            int(dbp.shape[0]))
+        return dataclasses.replace(
+            template, static_q=static_q, mesh=mesh, db_sharded=dbp,
+            dbn_sharded=dbnp, afilt_sharded=afp, dblive_sharded=dbl,
+            db_pad=wk, feat_mean=shift, tune=cfg)
+
     def _ann_state(self, job: LevelJob, strategy: str, plan, src,
                    db_rows_pad: int) -> Dict[str, torch.Tensor]:
         """The level's ANN fields from its resolved plan, over the scoring
@@ -1476,7 +1800,22 @@ class CudaMatcher(Matcher):
         stats: Dict[str, Any] = {"backend": self.device.type,
                                  "strategy": db.strategy}
         n_ref = None
-        if db.strategy == "wavefront":
+        if db.mesh is not None:
+            from image_analogies_tpu_torch.parallel.step import \
+                multichip_level_step
+
+            bp, s, counts = multichip_level_step(
+                db.mesh, db.static_q[None], db.db_sharded, db.dbn_sharded,
+                db.afilt_sharded, slim_for_mesh(db), kappa_mult,
+                wk_shard=db.db_pad, dbl_shard=db.dblive_sharded,
+                bf16_approx=self.bf16_approx)
+            bp, s, n_coh = bp[0], s[0], counts[:, 0]
+            if db.strategy == "batched":
+                n_ref = counts[:, 1]
+            else:
+                stats["match_mode"] = db.match_mode
+            stats["mesh"] = dict(db.mesh.shape)
+        elif db.strategy == "wavefront":
             bp, s, n_coh = wavefront_scan_core(db, kappa_mult,
                                                make_anchor_fn(db))
             stats["match_mode"] = db.match_mode
@@ -1552,6 +1891,9 @@ class CudaMatcher(Matcher):
         rows in one call too: their products round each row as at a
         singleton's M (``tests/test_torch_batch.py`` holds every lane to
         its singleton's bits there)."""
+        if dbs[0].mesh is not None:
+            raise ValueError("a sharded level (db_shards or data_shards > 1) "
+                             "has no lane scan")
         t0 = time.perf_counter()
         k = len(dbs)
         db = stack_lanes(dbs)
@@ -1587,6 +1929,11 @@ class CudaMatcher(Matcher):
         a unit-test seam, not a fast path): the exact strategy's decision
         at pixel ``q`` given the B' values and source map so far.  Returns
         (source index, squared distance, coherence won)."""
+        if db.mesh is not None:
+            raise ValueError(
+                "best_match reads the per-rank DB arrays, which are 1-row "
+                "placeholders when the DB is sharded; use synthesize_level "
+                "(the mesh step) or build with db_shards=1")
         if db.flat_idx is None:
             # wavefront levels carry no gather maps (the scan computes its
             # window indices per step); this seam is per-pixel and cold

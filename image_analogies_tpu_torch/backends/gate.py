@@ -81,9 +81,10 @@ def _probe_base_params(params=None, *, levels: int = 2,
                        strategy: str = "wavefront"):
     """The probes' hermetic EXACT baseline: the caller's params (None: the
     defaults) with the scan forced to ``strategy``'s exact defaults, both
-    approximate matchers, the video term, the run's metrics and every
-    resilience and IO knob off, so a probe is a pure synthesis of the probe
-    pair that writes nothing of the caller's (the port's subset of the JAX
+    approximate matchers, the mesh (a probe runs on one device, never
+    sharded), the video term, the run's metrics and every resilience and
+    IO knob off, so a probe is a pure synthesis of the probe pair that
+    writes nothing of the caller's (the port's subset of the JAX
     package's ``_probe_base_params``).  Shared by the bf16 and ANN gates
     and ``ia tune --knob ann``."""
     if params is None:
@@ -92,7 +93,8 @@ def _probe_base_params(params=None, *, levels: int = 2,
         params = AnalogyParams()
     return dataclasses.replace(
         params, levels=levels, strategy=strategy, match_mode="auto",
-        bf16_scoring=False, ann_prefilter=False, temporal_weight=0.0,
+        bf16_scoring=False, ann_prefilter=False, db_shards=1,
+        data_shards=1, temporal_weight=0.0,
         level_retries=0, dispatch_timeout_s=0.0, level_sync=True,
         checkpoint_dir=None, resume_from_level=None, profile_dir=None,
         log_path=None, metrics=False, save_levels_dir=None, pipeline=False,

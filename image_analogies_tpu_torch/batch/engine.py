@@ -36,10 +36,14 @@ active metrics run; an admitted batch counts ``batch.launches`` and
 ``batch.lanes`` (k), sets the ``batch.pad_waste_frac`` gauge, and a lane
 whose build fails counts ``batch.lane_faults`` (the JAX names).  The run
 opens its own obs run scope and tune pin scope, as a singleton's does.
-The JAX package's ``sharded`` and ``cpu_backend`` reasons wait for the
-port's mesh path and CPU matcher (ROADMAP Queue 1 items 9 and 10),
-``degrade_divergence`` is serve's (item 10), and so is the chaos site
-``engine.batch``.
+  sharded           data_shards > 1 composes with the mesh wavefront, not
+                    the lane axis; and db_shards > 1: the lanes would read
+                    the sharded level's 1-row placeholders (the JAX
+                    engine does, and its lanes come out wrong)
+
+The JAX package's ``cpu_backend`` reason waits for the port's CPU matcher
+(ROADMAP Queue 1 item 10), ``degrade_divergence`` is serve's (item 10),
+and so is the chaos site ``engine.batch``.
 ``dispatch_timeout_s`` and ``pipeline`` are neither refused nor applied,
 as in the JAX engine: lanes run lock-step, with no watchdog.
 
@@ -149,6 +153,13 @@ def _preflight(a, ap, targets, params):
         raise _refuse(
             "level_retries", "a retry rebuilds one member's level; a shared "
             "scan cannot re-run one lane")
+    if params.data_shards > 1:
+        raise _refuse("sharded", "data_shards composes with the mesh "
+                      "wavefront, not the lane axis")
+    if params.db_shards > 1:
+        raise _refuse("sharded", "a sharded level holds 1-row placeholders "
+                      "for the DB the lanes read; run the members one by "
+                      "one on the mesh")
     strategy = "wavefront" if params.strategy == "auto" else params.strategy
     if strategy not in ("wavefront", "batched"):
         raise _refuse(

@@ -25,8 +25,15 @@ surroundings included (``--no-level-sync``, ``--level-retries``,
 ``--dispatch-timeout-s``, ``--checkpoint-dir``, ``--resume-from-level``,
 ``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``)
 and the run's own counters and tuning (``--metrics``, ``--shape-buckets``,
-``--compile-cache-dir``), and the two-stage ANN matcher and the exemplar
-catalog (``--ann-prefilter``, ``--catalog-dir``, ``--catalog-host-bytes``);
+``--compile-cache-dir``), the two-stage ANN matcher and the exemplar
+catalog (``--ann-prefilter``, ``--catalog-dir``, ``--catalog-host-bytes``),
+and the mesh (``--db-shards``, ``--data-shards``; a world starts from
+torchrun's environment or ``--coordinator``, ``--num-processes``,
+``--process-id``, and only rank 0 writes outputs and prints):
+
+    torchrun --nproc-per-node 2 -m image_analogies_tpu_torch.cli run \
+        --a A.png --ap Ap.png --b B.png --out Bp.png --db-shards 2
+
 ROADMAP lists the JAX package's others under the items that bring their
 fields.  ``tune`` sweeps the main path's two kernels' launch geometry on
 the card and persists verified winners to the tune store
@@ -58,6 +65,10 @@ from image_analogies_tpu_torch.config import (
 from image_analogies_tpu_torch.models import modes
 from image_analogies_tpu_torch.models.analogy import resolve_device
 from image_analogies_tpu_torch.models.video import SCHEMES, video_analogy
+from image_analogies_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_writer,
+)
 from image_analogies_tpu_torch.utils.imageio import load_image, save_image
 from image_analogies_tpu_torch.utils.ssim import ssim
 
@@ -161,6 +172,21 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--catalog-host-bytes", type=int, default=None,
                    help="host-RAM catalog tier byte budget "
                         "(IA_CATALOG_HOST_BYTES overrides; default 256 MiB)")
+    p.add_argument("--db-shards", type=int, default=None,
+                   help="shard the patch DB over this many ranks of a "
+                        "running world (torchrun, or --coordinator)")
+    p.add_argument("--data-shards", type=int, default=None,
+                   help="video: shard frames over this many ranks "
+                        "(two_phase); one image (wavefront): split each "
+                        "anti-diagonal's queries over them "
+                        "(query-parallel; with one db shard, one device's "
+                        "bits)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-process: the coordinator host:port "
+                        "(parallel/distributed.py); torchrun's environment "
+                        "serves with no flags at all")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
@@ -168,7 +194,8 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
     for name in ("levels", "kappa", "patch_size", "coarse_patch_size",
                  "strategy", "match_mode", "refine_passes", "level_retries",
                  "dispatch_timeout_s", "checkpoint_dir", "resume_from_level",
-                 "log_path", "save_levels_dir", "profile_dir"):
+                 "log_path", "save_levels_dir", "profile_dir", "db_shards",
+                 "data_shards"):
         v = getattr(args, name)
         if v is not None:
             kw[name] = v
@@ -215,9 +242,10 @@ def cmd_run(args) -> int:
         fn = (modes.artistic_filter if args.mode == "filter"
               else modes.texture_by_numbers)
         res = fn(a, ap, b, params)
-    save_image(args.out, res.bp)
-    _emit_stats(res.stats)
-    print(args.out)
+    if is_writer():
+        save_image(args.out, res.bp)
+        _emit_stats(res.stats)
+        print(args.out)
     return 0
 
 
@@ -228,6 +256,8 @@ def cmd_video(args) -> int:
     if args.temporal_weight is not None:
         params = params.replace(temporal_weight=args.temporal_weight)
     res = video_analogy(a, ap, frames, params, scheme=args.scheme)
+    if not is_writer():
+        return 0
     os.makedirs(args.out_dir, exist_ok=True)
     outs = []
     for t, frame in enumerate(res.frames):
@@ -255,6 +285,8 @@ def cmd_sweep(args) -> int:
                                          blur_passes=args.blur_passes)
         else:
             res = modes.artistic_filter(a, ap_img, b, params)
+        if not is_writer():
+            continue
         out = os.path.join(args.out_dir, f"kappa_{k:g}.png")
         save_image(out, res.bp)
         rec = {"kappa": k, "out": out}
@@ -555,6 +587,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"{parser.prog}: {e} (on the command line: --device "
                   "cpu)", file=sys.stderr)
             return 2
+    if hasattr(args, "coordinator"):  # the engine commands
+        # before any device work; a no-op for a single-process run, and
+        # torchrun's environment serves with no flags at all
+        initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            device=None if args.device == "cuda" else args.device)
     return args.fn(args)
 
 

@@ -13,7 +13,8 @@ driver's surroundings (``models/analogy.py``): ``level_retries``,
 defaults and validation, and ``pipeline_active()``; and the run's own
 observability and tuning: ``metrics``, ``compile_cache_dir`` and
 ``shape_buckets``; and the exemplar catalog and the two-stage ANN matcher:
-``catalog_dir``, ``catalog_host_bytes`` and ``ann_prefilter``.
+``catalog_dir``, ``catalog_host_bytes`` and ``ann_prefilter``; and the
+mesh: ``db_shards`` and ``data_shards`` (``parallel/``).
 """
 
 from __future__ import annotations
@@ -113,6 +114,17 @@ class AnalogyParams:
       catalog build``.  Env ``IA_CATALOG_DIR`` overrides.
     - ``catalog_host_bytes``: the catalog's host-RAM tier budget (None:
       256 MiB; env ``IA_CATALOG_HOST_BYTES`` overrides).
+    - ``db_shards``: shard the A/A' patch DB over this many ranks of a
+      running world (``parallel/``), on the wavefront and batched
+      strategies; each rank runs the whole scan against its shard and
+      every rank gets the same result.
+    - ``data_shards``: video (two_phase): shard the frames over this many
+      ranks; one image on the wavefront: split each anti-diagonal's
+      queries over them (query-parallel).  The world must hold exactly
+      ``db_shards * data_shards`` ranks.  A sharded run refuses
+      ``level_retries`` and ``dispatch_timeout_s``: each rank is a
+      process of its own, and a rank that retried or timed out alone
+      would leave its peers waiting in the step's collectives.
 
     The driver's surroundings (``models/analogy.py``, ``utils/``):
 
@@ -175,6 +187,8 @@ class AnalogyParams:
     catalog_dir: Optional[str] = None
     catalog_host_bytes: Optional[int] = None
     ann_prefilter: bool = False
+    db_shards: int = 1
+    data_shards: int = 1
 
     def __post_init__(self):
         if self.levels < 1:
@@ -213,6 +227,18 @@ class AnalogyParams:
         if self.level_retries < 0:
             raise ValueError(
                 f"level_retries must be >= 0, got {self.level_retries}")
+        if self.db_shards < 1:
+            raise ValueError(f"db_shards must be >= 1, got {self.db_shards}")
+        if self.data_shards < 1:
+            raise ValueError(
+                f"data_shards must be >= 1, got {self.data_shards}")
+        if (self.db_shards > 1 or self.data_shards > 1) and (
+                self.level_retries > 0 or self.dispatch_timeout_s > 0):
+            raise ValueError(
+                "a sharded run (db_shards or data_shards > 1) takes no "
+                "level_retries or dispatch_timeout_s: each rank is its own "
+                "process, and a rank that retried or timed out alone would "
+                "leave its peers waiting in the step's collectives")
         if self.devcache_max_bytes is not None and self.devcache_max_bytes < 1:
             raise ValueError(
                 "devcache_max_bytes must be positive when set, got "

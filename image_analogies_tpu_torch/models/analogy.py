@@ -55,6 +55,7 @@ from image_analogies_tpu_torch.ops.pyramid import (
     build_pyramid_np,
     num_feasible_levels,
 )
+from image_analogies_tpu_torch.parallel import distributed
 from image_analogies_tpu_torch.tune import resolve as tune_resolve
 from image_analogies_tpu_torch.tune import warmup as tune_warmup
 from image_analogies_tpu_torch.utils import checkpoint as ckpt
@@ -248,7 +249,25 @@ def create_image_analogy(
     0`` its windows join the feature vector and are matched against A'
     windows on the DB side.  ``remap_anchor`` pins the luminance remap to
     another image's stats (``_prep_planes``).
+
+    With ``params.db_shards`` > 1 the patch DB shards over the ranks of a
+    running world (``parallel/``: ``torchrun``, the CLI's
+    ``--coordinator``, or ``parallel.launch.spawn_local``), and with
+    ``data_shards`` > 1 each anti-diagonal's queries split over the data
+    axis (the wavefront only).  Every rank calls this function alike and
+    gets the same result; rank 0 alone writes the run's files (log,
+    checkpoints, saved levels, profile), and every rank reads a resume.
     """
+    if params.data_shards > 1 and params.strategy not in ("wavefront",
+                                                          "auto"):
+        raise ValueError(
+            "data_shards > 1 on a single image is the query-parallel "
+            "wavefront (anti-diagonals split over the mesh 'data' axis) "
+            "and exists only for strategy='wavefront'/'auto'; for video "
+            "frame sharding use models.video.video_analogy")
+    if not distributed.is_writer():
+        params = params.replace(log_path=None, save_levels_dir=None,
+                                profile_dir=None)
     if backend is None:
         backend = CudaMatcher(params, resolve_device(
             params.device if device is None else device))
@@ -431,7 +450,7 @@ def _create_image_analogy(a, ap, b, params, backend, dev, keep_levels,
                     ialog.emit(_finalize_stats(st), params.log_path)
                     st["_emitted"] = True
                 stats.append(st)
-                if params.checkpoint_dir:
+                if params.checkpoint_dir and distributed.is_writer():
                     ckpt.save_level(params.checkpoint_dir, level,
                                     _host(bp, np.float32),
                                     _host(s, np.int32), digest=digest)

@@ -166,7 +166,7 @@ def config_digest(params: Any) -> str:
 def build_manifest(params: Any = None,
                    extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The ``run_manifest`` record (the JAX record's keys; ``backend`` is
-    the run's device, the mesh one card)."""
+    the run's device, ``mesh`` [data_shards, db_shards])."""
     extra = dict(extra or {})
     device = extra.pop("device", None) or getattr(params, "device", None)
     man: Dict[str, Any] = {"event": "run_manifest"}
@@ -174,7 +174,8 @@ def build_manifest(params: Any = None,
         man["config_hash"] = config_digest(params)
         man["backend"] = str(device) if device is not None else None
         man["strategy"] = getattr(params, "strategy", None)
-        man["mesh"] = [1, 1]
+        man["mesh"] = [getattr(params, "data_shards", 1),
+                       getattr(params, "db_shards", 1)]
         man["levels"] = getattr(params, "levels", None)
         man["metrics"] = bool(getattr(params, "metrics", False))
     rev = _git_rev()

@@ -258,12 +258,16 @@ def _clip_window_idx(h: int, w: int, p: int) -> np.ndarray:
     return (ci * w + cj).astype(np.int64)
 
 
-def extract_patches_torch(img: torch.Tensor, p: int) -> torch.Tensor:
+def extract_patches_torch(img: torch.Tensor, p: int,
+                          rows: Optional[slice] = None) -> torch.Tensor:
     """(H,W) -> (H*W, p*p) edge-clamped windows as ONE clip-index gather
-    (the same values as pad + shifted slices, copied bit for bit)."""
+    (the same values as pad + shifted slices, copied bit for bit); with
+    ``rows``, only those pixels' windows."""
     h, w = img.shape
-    idx = torch.from_numpy(_clip_window_idx(h, w, p)).to(img.device)
-    return img.reshape(-1)[idx]
+    idx = _clip_window_idx(h, w, p)
+    if rows is not None:
+        idx = idx[rows]
+    return img.reshape(-1)[torch.from_numpy(idx).to(img.device)]
 
 
 def build_features_torch(
@@ -273,28 +277,35 @@ def build_features_torch(
     src_coarse: Optional[torch.Tensor],
     filt_coarse: Optional[torch.Tensor],
     temporal_fine: Optional[torch.Tensor] = None,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """Torch twin of ``build_features_jax`` (same layout, weights, masks,
     and operation order: blocks concatenated, then scaled by sqrt(w)).
-    Inputs are float32 tensors on the target device."""
+    Inputs are float32 tensors on the target device.  ``rows`` (a slice
+    of the flat pixel range) builds only those rows, each bit-equal to
+    its row of the full build: a shard of the sharded patch DB
+    (``backends/cuda.py build_sharded_db``)."""
     dev = src_fine.device
     sf = src_fine if src_fine.dim() == 3 else src_fine[..., None]
     h, w, cs = sf.shape
+    n = len(range(h * w)[rows]) if rows is not None else h * w
     sw = torch.from_numpy(spec.sqrt_weights()).to(dev)
-    parts = [extract_patches_torch(sf[..., c], spec.fine_size)
+    parts = [extract_patches_torch(sf[..., c], spec.fine_size, rows)
              for c in range(cs)]
     if filt_fine is not None:
         causal = torch.from_numpy(spec.fine_causal()).to(dev)
-        parts.append(extract_patches_torch(filt_fine, spec.fine_size)
+        parts.append(extract_patches_torch(filt_fine, spec.fine_size, rows)
                      * causal[None, :])
     else:
-        parts.append(torch.zeros((h * w, spec.fine_n), dtype=torch.float32,
+        parts.append(torch.zeros((n, spec.fine_n), dtype=torch.float32,
                                  device=dev))
     if spec.has_coarse:
         sc = src_coarse if src_coarse.dim() == 3 else src_coarse[..., None]
         hc, wc, _ = sc.shape
-        cmap = torch.from_numpy(
-            coarse_index_map_np(h, w, hc, wc).astype(np.int64)).to(dev)
+        cmap = coarse_index_map_np(h, w, hc, wc).astype(np.int64)
+        if rows is not None:
+            cmap = cmap[rows]
+        cmap = torch.from_numpy(cmap).to(dev)
         for c in range(cs):
             parts.append(
                 extract_patches_torch(sc[..., c], spec.coarse_size)[cmap])
@@ -302,5 +313,5 @@ def build_features_torch(
     if spec.temporal_n:
         tp = (torch.zeros((h, w), dtype=torch.float32, device=dev)
               if temporal_fine is None else temporal_fine)
-        parts.append(extract_patches_torch(tp, spec.fine_size))
+        parts.append(extract_patches_torch(tp, spec.fine_size, rows))
     return torch.cat(parts, dim=1) * sw[None, :]

@@ -1651,3 +1651,62 @@ def test_cuda_ann_synthesis_against_cpu(strategy):
         assert {st["match_mode"] for st in card.stats} == {"ann_rescue"}
     assert (card.source_map != cpu.source_map).mean() < 0.02
     assert ssim(card.bp_y, cpu.bp_y) >= 0.99
+
+
+# ----------------------------------------------------------------- the mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,npad", [(88, 64000, 65536),
+                                      (352, (1 << 20) - 100, 1 << 20)])
+def test_cuda_mesh_nccl_world_of_one_picks(m, n, npad):
+    """NCCL in a world of one: the sharded argmin (both precisions) and the
+    ring pick what the single-card kernels pick on the same inputs,
+    through real NCCL collectives."""
+    import torch.distributed as dist
+
+    from image_analogies_tpu_torch.parallel import sharded_match as sm
+    from image_analogies_tpu_torch.parallel.launch import _free_port
+    from torch_mesh_workers import seeded_argmin
+
+    dev = _card()
+    q, db, dbn = (torch.from_numpy(x).to(dev)
+                  for x in seeded_argmin(m, n, npad))
+    ref, _ = match.argmin_l2(q, db, dbn)
+    ref_h, _ = match.prepadded_argmin_queries(q, db.to(torch.bfloat16), dbn)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        g = dist.group.WORLD
+        idx, _ = sm.local_argmin_allreduce(q, db, dbn, g)
+        idx_h, _ = sm.local_argmin_allreduce(q, db.to(torch.bfloat16), dbn,
+                                             g, precision="default")
+        ring, _ = sm.make_ring_argmin(g)(q, db, dbn)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(idx, ref) and torch.equal(ring, ref)
+    assert torch.equal(idx_h, ref_h)
+    assert int(idx[0]) == n // 7  # the duplicate pair: the lowest row
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_two_gloo_ranks_on_one_card():
+    """Two ranks on cuda:0 over gloo (the caller names the device and the
+    backend) at the main path's level-0 shape: each rank scans its half
+    of the DB with the single-card kernel and the all-reduce, staged
+    through the host, gives the single card's picks."""
+    from image_analogies_tpu_torch.parallel.launch import spawn_local
+    from torch_mesh_workers import gloo_card_rank, seeded_argmin
+
+    dev = _card()
+    shape = (352, (1 << 20) - 100, 1 << 20)
+    q, db, dbn = (torch.from_numpy(x).to(dev) for x in seeded_argmin(*shape))
+    ref, _ = match.argmin_l2(q, db, dbn)
+    ref_h, _ = match.prepadded_argmin_queries(q, db.to(torch.bfloat16), dbn)
+    del db
+    outs = spawn_local(gloo_card_rank, 2, backend="gloo", device="cuda:0",
+                       args=(shape,))
+    for idx, idx_h, staged in outs:
+        np.testing.assert_array_equal(idx, ref.cpu().numpy())
+        np.testing.assert_array_equal(idx_h, ref_h.cpu().numpy())
+        assert staged > 0
