@@ -209,12 +209,37 @@ and carried on):
                 sharded (data_shards=2) against the serial clip; per rank
                 the walls, per-level ms, peak memory, the psum-gather
                 estimate and the bytes staged through the host.
+19. serve      — the serving path (``serve/``) on npr_1024 with
+                ``remap_luminance=False``: (1) ``loadgen.selftest`` of four
+                1024^2 requests (one shape class, seed 7) on two workers,
+                batches of up to four: every response its singleton's
+                bits, no error, the lane engine run (completions > engine
+                launches >= 1), and the selftest's launches exactly its
+                singleton runs' (the baseline's four, each engine launch
+                and each one-by-one member a singleton's 6,138 packed2k +
+                1,783 argmin_l2); the walls, p50/p99 latency, queue and
+                dispatch ms, peak memory and the learned cost rate beside
+                the card's name and power limit (recorded, not claimed);
+                (2) ``cli serve --selftest 12`` at its default shapes as a
+                subprocess, exit 0; (3) at 256^2: an injected transient
+                fault retried inside the server to the library call's bits,
+                an expired deadline cancelled before dispatch with no
+                launch, a gated worker's queue of one refusing at once
+                (queue_full), an unmeetable live deadline served degraded
+                with the bits of a library run at the degraded params, the
+                breaker failing fast after two failures; (4) eight 256^2
+                requests over two exemplars on two workers at once: each
+                its singleton's bits, two engine launches, and the
+                launches exactly two singletons' (the counters under
+                threads; a key's burst may split, so it holds
+                engine launches >= 2 and the launches to what ran).  It
+                checks bits and counts, not times.
 
 card_vs_cpu's CPU runs run in a side process started with the script
-(they need no card).  The ann and mesh phases run in side processes of
-their own (this script with ``--phases ann --inline`` and ``--phases
-mesh --inline``), started once the driver phase is done, beside the
-lanes and tune phases: their output is printed when each has ended, and
+(they need no card).  The ann, mesh and serve phases run in side
+processes of their own (this script with ``--phases ann --inline``,
+``--phases mesh --inline`` and ``--phases serve --inline``), started once
+the driver phase is done, beside the lanes and tune phases: their output is printed when each has ended, and
 a side phase that fails fails the script.  Each phase's seconds, and the
 seconds since the script began, are a ``[time]`` line after it (a side
 phase's own, inside its output; the line after it here, the seconds this
@@ -259,7 +284,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
-          "modes", "video", "driver", "lanes", "tune", "ann", "mesh")
+          "modes", "video", "driver", "lanes", "tune", "ann", "mesh",
+          "serve")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -4497,7 +4523,300 @@ def phase_mesh(a, ap, b):
 # them host-bound, the card idle much of the time): their checks hold
 # whatever else runs, their walls are then not alone (``--phases ann`` or
 # ``--phases env,mesh`` measures them alone)
-SIDE_PHASES = ("ann", "mesh")
+SERVE_SIZE = 1024  # check 1: loadgen.selftest at full width
+SERVE_N = 4  # its requests (never below two)
+SERVE_SMALL = 256  # checks 3 and 4
+SERVE_WINDOW_MS = 1000.0  # a batch's window: it closes at max_batch
+
+
+def serve_counts():
+    """The launch counts of this process, nonzero ones only."""
+    from image_analogies_tpu_torch.ops import match
+
+    return {k: v for k, v in match.LAUNCHES.items() if v}
+
+
+def serve_selftest(params):
+    """Check 1: ``loadgen.selftest`` at full width, SERVE_N requests of
+    one 1024^2 shape class (seed 7), two workers, batches of up to four.
+    Every response must be its singleton's bits with no error, the lane
+    engine must run (completions > engine launches >= 1), and the card's
+    launches of the whole selftest must be what its singleton runs (the
+    sequential baseline's SERVE_N, the served run's engine launches and
+    one-by-one members) each launch (``expected_launches``)."""
+    import torch
+
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.serve import ServeConfig, loadgen
+
+    cfg = ServeConfig(params=params, workers=2, max_batch=4,
+                      batch_window_ms=SERVE_WINDOW_MS)
+    match.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    summary = loadgen.selftest(cfg, SERVE_N, seed=7,
+                               shapes=((SERVE_SIZE, SERVE_SIZE),))
+    torch.cuda.synchronize()
+    launched = serve_counts()
+    be = summary["batch_engine"]
+    single = expected_launches(params, SERVE_SIZE)
+    runs = SERVE_N + be["launches"] + be["completed"] - be["lanes"]
+    want = {k: v * runs for k, v in single.items()}
+    say("serve", check="selftest", size=SERVE_SIZE, n=SERVE_N,
+        sequential_s=summary["sequential_s"], served_s=summary["served_s"],
+        p50_ms=summary["p50_ms"], p99_ms=summary["p99_ms"],
+        queue_ms=summary["queue_ms"], dispatch_ms=summary["dispatch_ms"],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        cost_rate_s_per_unit=summary["cost_rate"],
+        cost_prior=summary["cost_prior"],
+        batch_size_hist=summary["batch_size_hist"], batch_engine=be,
+        singleton_launches=single, launches=launched,
+        expected_launches=want, bit_identical=summary["bit_identical"],
+        errors=summary["errors"], card=nvidia_smi())
+    if not summary["bit_identical"] or summary["errors"]:
+        fail(f"serve: selftest bit_identical={summary['bit_identical']}, "
+             f"errors={summary['errors']}")
+    if summary["completed"] != SERVE_N or not \
+            summary["completed"] > be["launches"] >= 1:
+        fail(f"serve: the lane engine did not run: {be}")
+    if launched != want:
+        fail(f"serve: the selftest launched {launched}; {runs} singleton "
+             f"runs launch {want}")
+
+
+def serve_cli_start(tmp):
+    """Check 2: ``cli serve --selftest 12`` at its default shapes, as a
+    subprocess (its tune store a file of its own)."""
+    cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", "serve",
+           "--selftest", "12"]
+    env = dict(os.environ, IA_TUNE_STORE=os.path.join(tmp, "tune.json"))
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def serve_cli_wait(proc):
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("serve: cli serve --selftest 12 ran past 600 s")
+    if proc.returncode != 0:
+        fail(f"serve: cli serve --selftest 12 exit {proc.returncode}: "
+             f"{out[-1500:]} {err[-1500:]}")
+    summary = json.loads(err.strip().splitlines()[-1])
+    say("serve", check="cli_selftest", rc=proc.returncode,
+        completed=summary["completed"], errors=summary["errors"],
+        bit_identical=summary["bit_identical"],
+        fallbacks=summary["batch_engine"]["fallbacks"],
+        served_s=summary["served_s"], sequential_s=summary["sequential_s"])
+
+
+def serve_behaviours(params, a, ap, b):
+    """Check 3, at SERVE_SMALL^2: a transient fault retried inside the
+    server (the response the library call's bits); an expired deadline
+    cancelled before dispatch with no launch; a gated worker's queue of
+    one refusing at once; an unmeetable live deadline served degraded
+    with the bits of a library run at the degraded params; the breaker
+    failing fast after ``breaker_threshold`` failures."""
+    import threading
+
+    import numpy as np
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.serve import (DeadlineExceeded, Rejected,
+                                                 Server, ServeConfig)
+    from image_analogies_tpu_torch.serve import degrade as serve_degrade
+    from image_analogies_tpu_torch.serve.worker import WorkerPool
+    from image_analogies_tpu_torch.utils import failure
+
+    ref = create_image_analogy(a, ap, b, params)
+    one = dict(workers=1, max_batch=1, batch_window_ms=0.0)
+
+    with Server(ServeConfig(params=params, request_retries=1,
+                            **one)) as srv:
+        failure.inject_failures(1)
+        resp = srv.request(a, ap, b, timeout=300)
+    retried = failure._INJECT["n"] == 0 and resp.status == "ok" and \
+        np.array_equal(resp.bp, ref.bp)
+
+    with Server(ServeConfig(params=params, **one)) as srv:
+        match.reset_launch_counts()
+        try:
+            srv.request(a, ap, b, deadline_s=0.0, timeout=300)
+            expired = "served"
+        except DeadlineExceeded:
+            expired = "DeadlineExceeded"
+        expired_launches = serve_counts()
+
+    gate = threading.Event()
+    run_batch = WorkerPool._run_batch
+
+    def gated(self, batch):
+        gate.wait(120)
+        run_batch(self, batch)
+
+    WorkerPool._run_batch = gated
+    try:
+        with Server(ServeConfig(params=params, queue_depth=1,
+                                **one)) as srv:
+            first = srv.submit(a, ap, b)
+            while srv.queue_depth:  # the worker pops it and waits
+                time.sleep(0.001)
+            second = srv.submit(a, ap, b)
+            t0 = time.perf_counter()
+            try:
+                srv.submit(a, ap, b)
+                full = "admitted"
+            except Rejected as e:
+                full = e.reason
+            full_ms = (time.perf_counter() - t0) * 1e3
+            gate.set()
+            queued_ok = all(np.array_equal(f.result(timeout=300).bp, ref.bp)
+                            for f in (first, second))
+    finally:
+        WorkerPool._run_batch = run_batch
+        gate.set()
+
+    with Server(ServeConfig(params=params, **one)) as srv:
+        # the EWMA set so that full fidelity estimates 8 s against a 3 s
+        # deadline; the same levels at patch 3 (9/25 of the work) fit
+        srv.cost_model.observe(serve_degrade.work_units(
+            a.size, params.levels, params.patch_size), 8.0)
+        deg = srv.request(a, ap, b, deadline_s=3.0, timeout=300)
+    dref = create_image_analogy(a, ap, b, params.replace(
+        levels=deg.degraded["levels"], patch_size=deg.degraded["patch_size"]
+    )) if deg.degraded else None
+    degraded_ok = dref is not None and np.array_equal(deg.bp, dref.bp)
+
+    with Server(ServeConfig(params=params, request_retries=0,
+                            breaker_threshold=2, breaker_cooldown_s=600.0,
+                            **one)) as srv:
+        failure.inject_failures(2)
+        failed = 0
+        for _ in range(2):
+            try:
+                srv.request(a, ap, b, timeout=300)
+            except failure.InjectedFailure:
+                failed += 1
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            srv.request(a, ap, b, timeout=300)
+            fast = "served"
+        except Rejected as e:
+            fast = e.reason
+        fast_ms = (time.perf_counter() - t0) * 1e3
+        breaker = srv._pool.breaker.state
+        fast_launches = serve_counts()
+    failure.inject_failures(0)
+    say("serve", check="behaviours", size=len(a), retried_bits_equal=retried,
+        expired=expired, expired_launches=expired_launches,
+        queue_full=full, queue_full_ms=full_ms, queued_bits_equal=queued_ok,
+        degraded=deg.degraded, degraded_bits_equal=degraded_ok,
+        breaker_failures=failed, breaker=breaker, breaker_fast=fast,
+        breaker_fast_ms=fast_ms, breaker_fast_launches=fast_launches)
+    if not retried:
+        fail("serve: the injected fault was not retried to the library "
+             "call's bits")
+    if expired != "DeadlineExceeded" or expired_launches:
+        fail(f"serve: an expired deadline gave {expired} after launches "
+             f"{expired_launches}")
+    if full != "queue_full" or full_ms > 1000 or not queued_ok:
+        fail(f"serve: a full queue gave {full} in {full_ms:.1f} ms "
+             f"(queued bits equal: {queued_ok})")
+    if deg.status != "degraded" or not degraded_ok:
+        fail(f"serve: an unmeetable deadline gave {deg.status} "
+             f"{deg.degraded} (bits equal: {degraded_ok})")
+    if (failed, breaker, fast) != (2, "open", "breaker_open") or \
+            fast_launches:
+        fail(f"serve: the breaker after {failed} failures is {breaker}, "
+             f"the next request {fast}, launches {fast_launches}")
+
+
+def serve_two_workers(params, planes):
+    """Check 4: eight SERVE_SMALL^2 requests over two exemplars (two batch
+    keys), four each, on two workers at once: every response must be its
+    singleton's bits, at least two lane-engine launches (a key's burst
+    may split, as the queue lets a waiting worker lead a follower that
+    arrives inside another's window: then one member runs alone), and the
+    served run's launches exactly its batches' (each engine launch and
+    each lone member a singleton's: ``expected_launches``), which the
+    counters under threads must hold."""
+    import numpy as np
+
+    from image_analogies_tpu_torch import create_image_analogy
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.serve import Server, ServeConfig
+
+    load = [(a, ap, b) for a, ap, bs in planes for b in bs]
+    refs = [create_image_analogy(a, ap, b, params) for a, ap, b in load]
+    cfg = ServeConfig(params=params, workers=2, max_batch=4,
+                      batch_window_ms=SERVE_WINDOW_MS)
+    with Server(cfg) as srv:
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [srv.submit(a, ap, b) for a, ap, b in load]
+        resps = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        counters = obs_metrics.snapshot()["counters"]
+        launched = serve_counts()
+    engine = counters.get("batch.launches", 0)
+    runs = engine + len(load) - counters.get("batch.lanes", 0)
+    single = expected_launches(params, SERVE_SMALL)
+    want = {k: runs * v for k, v in single.items()}
+    equal = [bool(np.array_equal(r.bp, f.bp) and
+                  np.array_equal(r.bp_y, f.bp_y)) for r, f in
+             zip(resps, refs)]
+    say("serve", check="two_workers", size=SERVE_SMALL, requests=len(load),
+        wall_s=wall, batch_sizes=[r.batch_size for r in resps],
+        engine_launches=engine, lanes=counters.get("batch.lanes", 0),
+        singleton_launches=single, launches=launched,
+        expected_launches=want, bits_equal=equal)
+    if not all(equal):
+        fail(f"serve: two workers' responses differ from their singletons: "
+             f"{equal}")
+    if engine < 2 or launched != want:
+        fail(f"serve: two batch keys launched {launched} in {engine} "
+             f"engine launches; want {want} ({runs} singletons' worth) in "
+             "two or more")
+
+
+def phase_serve():
+    """The serving path (``serve/``) on the card: checks 1-4 of the
+    docstring's serve phase, on npr_1024 with ``remap_luminance=False``
+    (the serve configuration: with the remap on, differing targets refuse
+    the lane engine by design)."""
+    import tempfile
+
+    import numpy as np
+
+    from image_analogies_tpu_torch import PRESETS
+
+    params = dataclasses.replace(PRESETS["npr_1024"], remap_luminance=False)
+    tmp = tempfile.mkdtemp(prefix="ia_serve_")
+    cli = serve_cli_start(tmp)
+    t0 = time.perf_counter()
+    serve_selftest(params)
+    t1 = time.perf_counter()
+    # two exemplar pairs with four targets each, seeded planes
+    rng = np.random.RandomState(11)
+    shape = (SERVE_SMALL, SERVE_SMALL)
+    planes = [(rng.rand(*shape).astype(np.float32),
+               rng.rand(*shape).astype(np.float32),
+               [rng.rand(*shape).astype(np.float32) for _ in range(4)])
+              for _ in range(2)]
+    serve_behaviours(params, planes[0][0], planes[0][1], planes[0][2][0])
+    t2 = time.perf_counter()
+    serve_two_workers(params, planes)
+    t3 = time.perf_counter()
+    serve_cli_wait(cli)
+    say("serve", selftest_s=t1 - t0, behaviours_s=t2 - t1,
+        two_workers_s=t3 - t2, cli_extra_wait_s=time.perf_counter() - t3)
+
+
+SIDE_PHASES = ("ann", "mesh", "serve")
 SIDE_TIMEOUT_S = 1100
 _SIDES = []  # the side processes started, for stop_sides
 
@@ -4723,6 +5042,12 @@ def main() -> None:
         else:
             phase_mesh(a, ap_, b)
     lap("mesh")
+    if "serve" in phases:
+        if sides:
+            side_wait(sides["serve"])
+        else:
+            phase_serve()
+    lap("serve")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

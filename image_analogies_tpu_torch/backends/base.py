@@ -41,6 +41,13 @@ class LevelJob:
     b_filt_coarse: Optional[Any] = None
     a_temporal: Optional[np.ndarray] = None
     b_temporal: Optional[np.ndarray] = None
+    # The exemplar catalog's resolution of this level's A-side
+    # (catalog/tiers.CatalogRef), attached by the driver for the CPU
+    # matcher only: ``entry`` holds a stored build_features_np output (a
+    # cold build's bytes); entry=None asks the matcher to build cold and
+    # record the result through ``a_features.record(...)``.  CudaMatcher
+    # ignores it.
+    a_features: Optional[Any] = None
     # Donation consent, set by the driver (it alone knows whether anything
     # still reads the chained planes: retries, keep_levels, checkpoints,
     # saved levels).  The port's donation is the driver's: it drops the

@@ -41,9 +41,12 @@ opens its own obs run scope and tune pin scope, as a singleton's does.
                     the sharded level's 1-row placeholders (the JAX
                     engine does, and its lanes come out wrong)
 
-The JAX package's ``cpu_backend`` reason waits for the port's CPU matcher
-(ROADMAP Queue 1 item 10), ``degrade_divergence`` is serve's (item 10),
-and so is the chaos site ``engine.batch``.
+  cpu_backend       ``backend="cpu"``: the host oracle's literal raster
+                    scan has no lane axis
+
+``degrade_divergence`` is serve's (``serve/worker.py``); the chaos site
+``engine.batch`` waits for the port's chaos plane (ROADMAP Queue 1 item
+10d).
 ``dispatch_timeout_s`` and ``pipeline`` are neither refused nor applied,
 as in the JAX engine: lanes run lock-step, with no watchdog.
 
@@ -65,6 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from image_analogies_tpu_torch.backends import get_backend
 from image_analogies_tpu_torch.backends.base import LevelJob
 from image_analogies_tpu_torch.backends.cuda import CudaMatcher
 from image_analogies_tpu_torch.config import AnalogyParams
@@ -75,7 +79,6 @@ from image_analogies_tpu_torch.models.analogy import (
     _host,
     _prep_planes,
     create_image_analogy,
-    resolve_device,
 )
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import trace as obs_trace
@@ -127,8 +130,7 @@ def create_image_analogy_batch(
     one.  A batch of one is the singleton run (``create_image_analogy``).
     """
     if backend is None:
-        backend = CudaMatcher(params, resolve_device(
-            params.device if device is None else device))
+        backend = get_backend(params, device)
     targets = list(targets)
     if not targets:
         return []
@@ -160,6 +162,9 @@ def _preflight(a, ap, targets, params):
         raise _refuse("sharded", "a sharded level holds 1-row placeholders "
                       "for the DB the lanes read; run the members one by "
                       "one on the mesh")
+    if params.backend != "cuda":
+        raise _refuse("cpu_backend", "the host oracle's raster scan has no "
+                      "lane axis")
     strategy = "wavefront" if params.strategy == "auto" else params.strategy
     if strategy not in ("wavefront", "batched"):
         raise _refuse(

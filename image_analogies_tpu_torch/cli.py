@@ -15,6 +15,7 @@
         --ap Ap.png --b B.png --dir cat/
     python -m image_analogies_tpu_torch.cli run --a A.png --ap Ap.png \
         --b B.png --out Bp.png --ann-prefilter --catalog-dir cat/
+    python -m image_analogies_tpu_torch.cli serve --selftest 12
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -27,7 +28,8 @@ surroundings included (``--no-level-sync``, ``--level-retries``,
 and the run's own counters and tuning (``--metrics``, ``--shape-buckets``,
 ``--compile-cache-dir``), the two-stage ANN matcher and the exemplar
 catalog (``--ann-prefilter``, ``--catalog-dir``, ``--catalog-host-bytes``),
-and the mesh (``--db-shards``, ``--data-shards``; a world starts from
+the matcher (``--backend cpu``: the host oracle, with ``--no-ann`` its
+brute force), and the mesh (``--db-shards``, ``--data-shards``; a world starts from
 torchrun's environment or ``--coordinator``, ``--num-processes``,
 ``--process-id``, and only rank 0 writes outputs and prints):
 
@@ -41,7 +43,9 @@ the card and persists verified winners to the tune store
 syntheses, reported and never stored); ``warmup`` builds every kernel library a target size's levels
 launch into the library directory (``tune/warmup.py``); ``catalog``
 builds, inspects, warms and prunes the exemplar catalog (``catalog/``),
-with the JAX package's outputs and exit codes, and takes no engine flags.
+with the JAX package's outputs and exit codes, and takes no engine flags;
+``serve --selftest N`` drives the serving path (``serve/``) with a
+synthetic load, on the ``oil_filter`` preset as in the JAX package.
 """
 
 from __future__ import annotations
@@ -85,6 +89,10 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="where the synthesis runs: the card (default; "
                         "exits non-zero where there is none) or the CPU "
                         "(the kernels' plain versions)")
+    p.add_argument("--backend", choices=("cuda", "cpu"), default=None,
+                   help="the matcher: cuda (default; the card's kernels on "
+                        "--device) or cpu (the host oracle: NumPy and the "
+                        "cKDTree, which ignores --device)")
     p.add_argument("--levels", type=int, default=None)
     p.add_argument("--kappa", type=float, default=None)
     p.add_argument("--patch-size", type=int, default=None)
@@ -156,6 +164,9 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                    help="directory of the kernel libraries nvcc builds — "
                         "they survive process restarts (pairs with "
                         "`warmup`; IA_COMPILE_CACHE_DIR overrides)")
+    p.add_argument("--no-ann", action="store_true",
+                   help="disable the cKDTree index (the cpu backend's "
+                        "brute force)")
     p.add_argument("--ann-prefilter", action="store_true",
                    help="two-stage matcher (wavefront and batched): a "
                         "PCA-projected prefilter ranks the whole exemplar "
@@ -195,7 +206,7 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
                  "strategy", "match_mode", "refine_passes", "level_retries",
                  "dispatch_timeout_s", "checkpoint_dir", "resume_from_level",
                  "log_path", "save_levels_dir", "profile_dir", "db_shards",
-                 "data_shards"):
+                 "data_shards", "backend"):
         v = getattr(args, name)
         if v is not None:
             kw[name] = v
@@ -219,6 +230,8 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
         kw["catalog_host_bytes"] = args.catalog_host_bytes
     if args.ann_prefilter:
         kw["ann_prefilter"] = True
+    if args.no_ann:
+        kw["use_ann"] = False
     return base.replace(**kw)
 
 
@@ -325,6 +338,66 @@ def cmd_tune(args) -> int:
     res = autotune.run_plan(plan, persist=not args.no_persist)
     print(json.dumps(res, indent=2, sort_keys=True))
     return 0 if res["all_verified"] else 1
+
+
+def cmd_serve(args) -> int:
+    """The serving scheduler (serve/): micro-batching with admission
+    control, deadlines and graceful degradation.  ``--selftest N`` replays
+    a synthetic load against a sequential baseline and prints the latency
+    and throughput summary (its JSON on stderr); exit 0 iff no request
+    errored and every full-fidelity response equals its singleton's bits.
+    The JAX command's ``--http``, ``--journal``, ``--archive`` and
+    ``--metrics-port`` wait for ROADMAP Queue 1 item 10b."""
+    from image_analogies_tpu_torch.serve import loadgen
+    from image_analogies_tpu_torch.serve.types import ServeConfig
+
+    params = _params_from_args(args, PRESETS["oil_filter"])
+    # --deadline-ms: a scalar is the server-wide default; a comma list
+    # ("none" entries undeadlined) is cycled per selftest request
+    deadline_ms = None
+    if args.deadline_ms is not None:
+        parts = [None if p.lower() in ("none", "") else float(p)
+                 for p in str(args.deadline_ms).split(",")]
+        deadline_ms = parts[0] if len(parts) == 1 else tuple(parts)
+    warmup_sizes = ()
+    if args.warmup:
+        warmup_sizes = tuple(
+            tuple(int(x) for x in chunk.split("x"))
+            for chunk in args.warmup.split(","))
+    cfg = ServeConfig(
+        params=params,
+        queue_depth=args.queue_depth,
+        batch_window_ms=args.batch_window_ms,
+        max_batch=args.max_batch,
+        workers=args.workers,
+        default_deadline_s=(deadline_ms / 1e3
+                            if isinstance(deadline_ms, (int, float))
+                            else None),
+        degrade=not args.no_degrade,
+        request_retries=args.request_retries,
+        warmup_sizes=warmup_sizes,
+        deadline_ordering=not args.no_deadline_ordering,
+        breaker_threshold=args.breaker_threshold,
+        cost_persist=not args.no_cost_persist,
+        slo_target=args.slo_target,
+        slo_fast_window_s=args.slo_fast_window_s,
+        slo_slow_window_s=args.slo_slow_window_s,
+        batch_engine=not args.no_batch_engine,
+        ledger=not args.no_ledger,
+    )
+    if args.selftest is None:
+        print("serve: pass --selftest N (the HTTP front, --http, is not "
+              "ported yet)", file=sys.stderr)
+        return 2
+    flash_crowd = (loadgen.parse_flash_crowd(args.flash_crowd)
+                   if args.flash_crowd else None)
+    summary = loadgen.selftest(cfg, args.selftest, seed=args.seed,
+                               deadline_ms=deadline_ms,
+                               zipf=args.zipf, styles=args.styles,
+                               flash_crowd=flash_crowd)
+    print(loadgen.render(summary))
+    print(json.dumps(summary, sort_keys=True), file=sys.stderr)
+    return 0 if (summary["errors"] == 0 and summary["bit_identical"]) else 1
 
 
 def cmd_warmup(args) -> int:
@@ -555,6 +628,74 @@ def build_parser() -> argparse.ArgumentParser:
                          "(plumbing only)")
     tn.set_defaults(fn=cmd_tune)
 
+    sv = sub.add_parser("serve",
+                        help="serving scheduler: micro-batched dispatch "
+                             "with admission control, per-request "
+                             "deadlines and graceful degradation "
+                             "(--selftest N for the synthetic load)")
+    sv.add_argument("--selftest", type=int, default=None, metavar="N",
+                    help="replay N synthetic mixed-shape requests against "
+                         "a sequential baseline and print the latency/"
+                         "throughput/degradation summary")
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--queue-depth", type=int, default=32,
+                    help="admission bound; requests beyond it are "
+                         "Rejected(queue_full) immediately")
+    sv.add_argument("--batch-window-ms", type=float, default=4.0,
+                    help="coalescing window once a batch leader is held")
+    sv.add_argument("--max-batch", type=int, default=8)
+    sv.add_argument("--workers", type=int, default=2)
+    sv.add_argument("--deadline-ms", default=None,
+                    help="default per-request deadline; expired before "
+                         "dispatch -> cancelled, unmeetable -> degraded "
+                         "(fewer levels / coarser patch), flagged in the "
+                         "response.  With --selftest a comma list (e.g. "
+                         "300,none) cycles per request")
+    sv.add_argument("--no-degrade", action="store_true",
+                    help="never degrade: unmeetable deadlines run full "
+                         "fidelity anyway (only already-expired requests "
+                         "time out)")
+    sv.add_argument("--request-retries", type=int, default=1,
+                    help="transparent retries around each dispatch on "
+                         "transient device faults")
+    sv.add_argument("--warmup", default=None, metavar="SIZES",
+                    help="comma-separated HxW list (e.g. 64x64,128x128): "
+                         "build and load every kernel library their "
+                         "levels launch before accepting traffic")
+    sv.add_argument("--no-deadline-ordering", action="store_true",
+                    help="pop batch leaders FIFO instead of earliest-"
+                         "deadline-first")
+    sv.add_argument("--breaker-threshold", type=int, default=5,
+                    help="consecutive dispatch failures that trip the "
+                         "worker circuit breaker; 0 disables")
+    sv.add_argument("--no-cost-persist", action="store_true",
+                    help="do not persist the learned degrade cost rate to "
+                         "the tune store at shutdown")
+    sv.add_argument("--slo-target", type=float, default=0.99,
+                    help="SLO: target fraction of deadlined requests that "
+                         "meet their deadline (obs/slo.py)")
+    sv.add_argument("--slo-fast-window-s", type=float, default=60.0)
+    sv.add_argument("--slo-slow-window-s", type=float, default=600.0)
+    sv.add_argument("--no-batch-engine", action="store_true",
+                    help="dispatch every batch member as its own engine "
+                         "call instead of one lane-engine call a "
+                         "compatible batch (batch/engine.py); the bits "
+                         "are the same either way")
+    sv.add_argument("--no-ledger", action="store_true",
+                    help="disarm the tenant metering plane (per-request "
+                         "cost vectors, heavy hitters)")
+    sv.add_argument("--zipf", type=float, default=None, metavar="S",
+                    help="selftest load: draw requests over --styles "
+                         "synthetic styles with Zipf(S)-skewed frequency")
+    sv.add_argument("--styles", type=int, default=0,
+                    help="style count for --zipf (default 8)")
+    sv.add_argument("--flash-crowd", default=None, metavar="T0,DUR,MULT",
+                    help="selftest arrivals: Poisson arrivals whose rate "
+                         "multiplies by MULT inside [T0, T0+DUR) seconds, "
+                         "deterministic from --seed")
+    _add_engine_flags(sv)
+    sv.set_defaults(fn=cmd_serve)
+
     wu = sub.add_parser("warmup",
                         help="build every kernel library a target "
                              "resolution's levels launch (pairs with "
@@ -580,7 +721,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         if missing:
             parser.error(
                 f"--{' --'.join(missing)} required for mode {args.mode}")
-    if hasattr(args, "device") and not getattr(args, "dry_run", False):
+    host_oracle = getattr(args, "backend", None) == "cpu"
+    if hasattr(args, "device") and not getattr(args, "dry_run", False) \
+            and not host_oracle:
         try:
             resolve_device(args.device)
         except RuntimeError as e:  # no card and no --device cpu
@@ -592,7 +735,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         # torchrun's environment serves with no flags at all
         initialize_distributed(
             args.coordinator, args.num_processes, args.process_id,
-            device=None if args.device == "cuda" else args.device)
+            device="cpu" if host_oracle else (
+                None if args.device == "cuda" else args.device))
     return args.fn(args)
 
 

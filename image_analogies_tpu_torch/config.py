@@ -3,8 +3,9 @@
 
 Only the fields the ported paths read are here.  Field names, defaults and
 validation mirror the JAX package so a params object reads the same in
-both; the backend seam becomes an explicit ``device`` ("cuda" by default —
-the port runs on the card unless the caller asks for the CPU).  Every
+both; the device is explicit (``device``, "cuda" by default — the port
+runs on the card unless the caller asks for the CPU), and the backend seam
+picks the matcher (``backend``: the device's, or the host oracle).  Every
 strategy and every match mode of the JAX package is ported, and so are the
 driver's surroundings (``models/analogy.py``): ``level_retries``,
 ``dispatch_timeout_s``, ``level_sync``, ``checkpoint_dir``,
@@ -83,6 +84,12 @@ class AnalogyParams:
       synthesis ignores it.
     - ``device``: where tensors live.  "cuda" (default) requires a card and
       never drops to the CPU; "cpu" runs every kernel's plain version.
+    - ``backend``: the matcher.  "cuda" (default) is ``CudaMatcher`` on
+      ``device``; "cpu" is the host oracle (``backends/cpu.py``: NumPy and
+      the cKDTree, the JAX package's ``backend="cpu"``), which ignores
+      ``device``, ``strategy`` and ``match_mode``.
+    - ``use_ann``: the CPU oracle's approximate match through a cKDTree
+      (True, default), or brute force (``backends/native_match.py``).
     - ``shape_buckets``: on the wavefront and batched strategies each
       level's scan copies of the DB pad their rows, with rows that cannot
       win, up to ``tune.buckets.bucket_rows(ha*wa)`` (the JAX package's DB
@@ -170,6 +177,8 @@ class AnalogyParams:
     temporal_weight: float = 0.0
     bf16_scoring: bool = False
     device: str = "cuda"
+    backend: str = "cuda"  # "cuda" (CudaMatcher on device) | "cpu"
+    use_ann: bool = True
     shape_buckets: bool = False
     level_retries: int = 0
     dispatch_timeout_s: float = 0.0
@@ -224,6 +233,17 @@ class AnalogyParams:
         if self.device not in ("cuda", "cpu") and not \
                 self.device.startswith("cuda:"):
             raise ValueError(f"unknown device {self.device!r}")
+        if self.backend not in ("cuda", "cpu"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.bf16_scoring and self.backend != "cuda":
+            raise ValueError(
+                "bf16_scoring applies to the device's wavefront scan; "
+                f"backend {self.backend!r} has no bf16 candidate path")
+        if self.ann_prefilter and self.backend != "cuda":
+            raise ValueError(
+                "ann_prefilter is the device matcher's two-stage matcher; "
+                f"backend {self.backend!r} has its own ANN toggle "
+                "(use_ann)")
         if self.level_retries < 0:
             raise ValueError(
                 f"level_retries must be >= 0, got {self.level_retries}")

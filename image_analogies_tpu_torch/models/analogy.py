@@ -1,6 +1,8 @@
 """The synthesis driver (counterpart of the JAX package's
 ``models/analogy.py``): coarse-to-fine over pyramid levels on one device,
-delegating feature building and the level scan to ``CudaMatcher``.
+delegating feature building and the level scan to the matcher
+(``CudaMatcher``, or the host oracle ``CpuMatcher`` for
+``backend="cpu"``).
 
 B' chains between levels as a device tensor; the host fetches once at the
 end (the finest plane together with every level's coherence count and,
@@ -25,10 +27,13 @@ the JAX driver, every run inside ``obs.trace.run_scope`` (inert unless
 the kernels' ``launch.*`` counts) and ``tune.resolve.pin_scope`` (each
 level's launch geometry resolves once a run).  With ``ann_prefilter`` the
 matcher resolves each level's ANN basis through the exemplar catalog's
-sealed artifacts (``catalog/``, ``backends/cuda.py``); as in the JAX
-driver on its TPU backend, the catalog's feature tiers are not consulted
-here.  The JAX driver's feature-tier lookup (its CPU backend's) and the
-chaos sites are not ported yet (ROADMAP Queue 1 item 10).
+sealed artifacts (``catalog/``, ``backends/cuda.py``).  With
+``backend="cpu"`` the matcher is the host oracle (``backends/cpu.py``),
+and, as in the JAX driver, only then does the driver consult the
+catalog's feature tiers: each level's A-side goes to the matcher as
+``job.a_features`` (``catalog/tiers.py lookup``), and a cold build records
+itself back through it.  The chaos sites are not ported yet (ROADMAP
+Queue 1 item 10d).
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from image_analogies_tpu_torch.backends.base import LevelJob
-from image_analogies_tpu_torch.backends.cuda import CudaMatcher
+from image_analogies_tpu_torch.backends import get_backend
+from image_analogies_tpu_torch.backends.base import LevelJob, Matcher
+from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
 from image_analogies_tpu_torch.config import AnalogyParams
 from image_analogies_tpu_torch.obs import device as obs_device
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
@@ -232,7 +238,7 @@ def create_image_analogy(
     params: AnalogyParams = AnalogyParams(),
     device=None,
     keep_levels: bool = False,
-    backend: Optional[CudaMatcher] = None,
+    backend: Optional[Matcher] = None,
     temporal_prev: Optional[np.ndarray] = None,
     remap_anchor: Optional[np.ndarray] = None,
 ) -> AnalogyResult:
@@ -242,7 +248,8 @@ def create_image_analogy(
     raises when no card is present; pass ``device="cpu"`` to run on the
     CPU.  ``keep_levels`` returns every level's (bp, s) for the tie-audit.
     ``backend`` replaces the matcher (as the JAX package's argument of the
-    same name; ``device`` is then the matcher's).
+    same name; ``device`` is then the matcher's); None is the one
+    ``params.backend`` names (``backends.get_backend``).
 
     ``temporal_prev`` is the previous output frame's synthesized luminance
     (B'_{t-1}, B's shape) for video mode: with ``params.temporal_weight >
@@ -269,8 +276,7 @@ def create_image_analogy(
         params = params.replace(log_path=None, save_levels_dir=None,
                                 profile_dir=None)
     if backend is None:
-        backend = CudaMatcher(params, resolve_device(
-            params.device if device is None else device))
+        backend = get_backend(params, device)
     tune_warmup.apply_runtime_config(params)
     dev = getattr(backend, "device", None)
     # the obs run scope (inert unless params.metrics or a log path; joins an
@@ -287,6 +293,12 @@ def create_image_analogy(
 def _create_image_analogy(a, ap, b, params, backend, dev, keep_levels,
                           temporal_prev, remap_anchor) -> AnalogyResult:
     on_card = dev is not None and torch.device(dev).type == "cuda"
+    # the exemplar catalog's feature tiers, for the host oracle only (the
+    # device matcher's A-side is built on the card, its warmth the upload
+    # cache): the style key is the raw exemplar's sha1, once a run
+    catalog_style = None
+    if params.backend == "cpu" and catalog_tiers.active():
+        catalog_style = catalog_tiers.style_key(a, ap)
     a_src, b_src, a_filt, ap_rgb, b_yiq = _prep_planes(
         a, ap, b, params, remap_anchor=remap_anchor)
 
@@ -406,6 +418,11 @@ def _create_image_analogy(a, ap, b, params, backend, dev, keep_levels,
                         continue
                 coarse = level + 1 < levels
                 job = make_job(level, bp_pyr[level + 1] if coarse else None)
+                if catalog_style is not None:
+                    # tier by tier (resident, host, disk); a full miss
+                    # leaves entry None, and the matcher builds cold and
+                    # records back through the ref
+                    job.a_features = catalog_tiers.lookup(catalog_style, job)
                 if pipeline_on and level > 0:
                     # the port's host issues a level's launches for the
                     # whole of its scan, so the next level's prefetch runs

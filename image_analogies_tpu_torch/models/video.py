@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from image_analogies_tpu_torch.backends import get_backend
 from image_analogies_tpu_torch.backends.base import LevelJob
 from image_analogies_tpu_torch.backends.cuda import (
     CudaMatcher,
@@ -53,7 +54,6 @@ from image_analogies_tpu_torch.models.analogy import (
     _color_output,
     _prep_planes,
     create_image_analogy,
-    resolve_device,
 )
 from image_analogies_tpu_torch.obs import device as obs_device
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
@@ -121,6 +121,10 @@ def video_analogy(
         if backend is not None:
             raise ValueError("data_shards > 1 runs the mesh path; a custom "
                              "backend cannot be injected")
+        if params.backend != "cuda":
+            raise ValueError(
+                "data_shards > 1 requires backend='cuda' (the mesh path); "
+                f"got backend={params.backend!r}")
         if params.strategy in ("exact", "rowwise"):
             raise ValueError(
                 f"strategy {params.strategy!r} has no mesh scan core; frame "
@@ -130,7 +134,7 @@ def video_analogy(
             params = params.replace(log_path=None, profile_dir=None,
                                     save_levels_dir=None)
     if backend is None:
-        backend = CudaMatcher(params, resolve_device(params.device))
+        backend = get_backend(params)
     # one obs run (the frames' syntheses join it) and one geometry
     # resolution a key for the whole clip, as in the JAX package
     with obs_trace.run_scope(params, manifest_extra=dict(

@@ -92,6 +92,40 @@ class Histogram:
                 "buckets": {str(k): v
                             for k, v in sorted(self.buckets.items())}}
 
+    def merge(self, other: "Histogram") -> None:
+        """Fold ``other`` into this histogram: the result equals one
+        histogram fed both sample sets (count, sum, min, max and every
+        bucket add exactly, so the percentile estimates agree too).  An
+        empty ``other`` is a no-op (its inf/-inf sentinels would poison a
+        non-empty target's extremes)."""
+        if not other.count:
+            return
+        if other.min < self.min:
+            self.min = other.min
+        if other.max > self.max:
+            self.max = other.max
+        self.count += other.count
+        self.total += other.total
+        for k, v in other.buckets.items():
+            self.buckets[k] = self.buckets.get(k, 0) + v
+
+    @classmethod
+    def from_summary(cls, summ: Dict) -> "Histogram":
+        """Rebuild a mergeable histogram from a :meth:`summary` dict (the
+        timeline's downsampler merges window aggregates kept as plain
+        dicts).  An empty summary has no ``buckets`` key."""
+        h = cls()
+        count = int(summ.get("count", 0) or 0)
+        if not count:
+            return h
+        h.count = count
+        h.total = float(summ.get("sum", 0.0))
+        h.min = float(summ.get("min", 0.0))
+        h.max = float(summ.get("max", 0.0))
+        h.buckets = {int(k): int(v)
+                     for k, v in (summ.get("buckets") or {}).items()}
+        return h
+
 
 # Series (by name suffix) that also feed a relative-error quantile
 # sketch next to their base-2 histogram — the honest-tail rider for
@@ -355,3 +389,11 @@ def snapshot() -> Dict[str, dict]:
     s = current_scope() if _ACTIVE else None
     return s.registry.snapshot() if s is not None else {
         "counters": {}, "gauges": {}, "histograms": {}}
+
+
+def registry() -> Optional[MetricsRegistry]:
+    """The current scope's registry, or None with no run active."""
+    if not _ACTIVE:
+        return None
+    s = current_scope()
+    return s.registry if s is not None else None

@@ -19,8 +19,14 @@ The module is inert unless a run is active: ``run_scope`` with
 ``span`` then returns a singleton no-op context manager (no record, no
 allocation, no clock read).  ``run_scope`` is reentrant: a nested call (a
 video clip's per-frame synthesis, the bf16 gate's probe) joins the
-enclosing run instead of minting a second ``run_id``.  The request and
-trace-header helpers of the JAX module wait for the port's serve layer.
+enclosing run instead of minting a second ``run_id``.
+
+``request_context(**attrs)`` sets ambient attrs on the calling thread that
+every span and ``emit_record`` inside inherits (a serve request's id flows
+from the worker into the engine's own level spans); ``capture_trace`` /
+``ensure_trace`` carry a trace id across threads in the request itself.
+The trace-header parse and format helpers of the JAX module wait for the
+port's HTTP front (ROADMAP Queue 1 item 10b).
 """
 
 from __future__ import annotations
@@ -71,6 +77,11 @@ class RunContext:
 
 _CURRENT: Optional[RunContext] = None
 _SPANS = threading.local()  # per-thread span stack
+_REQ_CTX = threading.local()  # per-thread ambient request attrs
+
+
+def current_run_id() -> Optional[str]:
+    return _CURRENT.run_id if _CURRENT is not None else None
 
 
 def _stamp(record: Dict[str, Any]) -> None:
@@ -86,6 +97,65 @@ def _stamp(record: Dict[str, Any]) -> None:
 # Registered once at import: utils.logging calls it on every emit; it is a
 # no-op check while no run is active.
 _logging.set_record_stamper(_stamp)
+
+
+@contextlib.contextmanager
+def request_context(**attrs: Any):
+    """Ambient trace attributes for the current thread.
+
+    Every span exit and :func:`emit_record` inside the scope inherits
+    ``attrs`` (explicit span attrs win): the serve worker wraps each
+    request's path once, and every record below it, the engine's own
+    ``level`` and ``fetch`` spans included, carries the request's id.
+    Nests: an inner scope overlays the outer and restores it on exit."""
+    prev = getattr(_REQ_CTX, "attrs", None)
+    merged = dict(prev) if prev else {}
+    merged.update(attrs)
+    _REQ_CTX.attrs = merged
+    try:
+        yield
+    finally:
+        _REQ_CTX.attrs = prev
+
+
+def context_attrs() -> Optional[Dict[str, Any]]:
+    """The current thread's ambient request attrs (or None)."""
+    return getattr(_REQ_CTX, "attrs", None)
+
+
+# The ambient keys that cross a thread or process boundary with a request:
+# "trace" is the end-to-end trace id, "parent_span" names the hop that
+# forwarded it, "origin_request" pins the id the client saw at admission.
+TRACE_KEYS = ("trace", "parent_span", "origin_request")
+
+
+def mint_trace_id() -> str:
+    return uuid.uuid4().hex[:16]
+
+
+def capture_trace() -> Optional[Dict[str, str]]:
+    """The portable subset of the ambient request attrs, what a hop
+    carries in the request before another thread runs it.  None when the
+    calling thread carries no trace."""
+    ambient = getattr(_REQ_CTX, "attrs", None)
+    if not ambient or "trace" not in ambient:
+        return None
+    return {k: str(ambient[k]) for k in TRACE_KEYS if ambient.get(k)}
+
+
+@contextlib.contextmanager
+def ensure_trace(parent_span: Optional[str] = None, **extra: Any):
+    """Run the block under a trace: adopt the thread's ambient trace id
+    if one is set, else mint one.  ``parent_span`` (and any extra attrs)
+    overlay the context either way."""
+    ambient = getattr(_REQ_CTX, "attrs", None)
+    attrs: Dict[str, Any] = dict(extra)
+    if not ambient or not ambient.get("trace"):
+        attrs["trace"] = mint_trace_id()
+    if parent_span is not None:
+        attrs["parent_span"] = parent_span
+    with request_context(**attrs):
+        yield
 
 
 _UNSET = object()
@@ -282,6 +352,10 @@ class _Span:
         if exc and exc[0] is not None:
             rec["error"] = getattr(exc[0], "__name__", str(exc[0]))
         rec.update(self.attrs)
+        ambient = getattr(_REQ_CTX, "attrs", None)
+        if ambient:
+            for k, v in ambient.items():
+                rec.setdefault(k, v)
         _logging.emit(rec, self.ctx.log_path)
         return False
 
@@ -295,9 +369,14 @@ def span(name: str, **attrs: Any):
 
 
 def emit_record(record: Dict[str, Any]) -> None:
-    """Emit a structured record into the active run's log (with no run
-    active it still goes to the standard logging module)."""
+    """Emit a structured record, with the thread's ambient request attrs,
+    into the active run's log (with no run active it still goes to the
+    standard logging module)."""
     ctx = _CURRENT
+    ambient = getattr(_REQ_CTX, "attrs", None)
+    if ambient:
+        for k, v in ambient.items():
+            record.setdefault(k, v)
     _logging.emit(record, ctx.log_path if ctx is not None else None)
 
 

@@ -52,6 +52,7 @@ funnel.  Their plans are memoized per (shape, knobs).
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -75,6 +76,19 @@ LAUNCHES = {"argmin_l2": 0, "argmin_l2_bf16": 0, "packed_best": 0,
 # score given to padding rows by the norm-in-W scheme: far below any real
 # score, finite (an inf lane would split to hi=-inf, lo=NaN)
 _PAD_SCORE = -3.0e38
+
+
+# The counts are bumped from every thread that launches (serve's workers
+# launch side by side on one card): ``+=`` on a dict entry is a read and a
+# write, so an unlocked bump can lose a count between them.
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, counted where the wrapper launched
+    it and nowhere else."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -243,16 +257,22 @@ def _argmin_plan(m: int, n: int, sm_count: int, f: int,
     return ArgminPlan(nq, _ARGMIN_ROWS, per, -(-tiles // per), q_chunks)
 
 
-# (device index, stream) -> (keys, ticket) of the one-launch merge
+# (device index, stream) -> (keys, ticket) of the one-launch merge.  Threads
+# that launch on one stream share its workspace (their launches run in
+# stream order, each leaving it as it found it); _ARGMIN_LOCK covers the
+# check-then-insert, and a launch holds it from fetching the workspace to
+# enqueueing the kernel, so a retry's reset (utils/failure.py
+# reset_device_state) never drops a workspace between the two.
 _ARGMIN_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] \
     = {}
+_ARGMIN_LOCK = threading.Lock()
 
 
 def _argmin_workspace(device: torch.device, stream: int, m: int):
     """The merge workspace of ``stream``: (keys (>= 16 M,) int64 all-ones,
     query m's at 16 m, one 128-byte line each; ticket (1,) int32 zero),
     the state every launch leaves behind.  Allocated once per (device,
-    stream), grown for a larger M."""
+    stream), grown for a larger M.  The caller holds ``_ARGMIN_LOCK``."""
     key = (device.index, stream)
     ws = _ARGMIN_WORKSPACE.get(key)
     if ws is None or ws[0].numel() < m * _ARGMIN_KEY_STRIDE:
@@ -297,16 +317,18 @@ def argmin_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor, *,
     plan = _argmin_plan(m, n, _sm_count(dev), f, chunks_per_sm)
     lib = _build.load("argmin_l2")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    keys, ticket = _argmin_workspace(torch.device("cuda", dev), stream, m)
     out_idx = torch.empty((m,), dtype=torch.int32, device=q.device)
     out_val = torch.empty((m,), dtype=torch.float32, device=q.device)
-    err = lib.ia_argmin_l2(
-        q.data_ptr(), m, f, dbp.data_ptr(), n, fp, f, dbn.data_ptr(),
-        plan.nq, plan.q_chunks, plan.n_chunks, plan.tiles_per_chunk,
-        keys.data_ptr(), ticket.data_ptr(), out_idx.data_ptr(),
-        out_val.data_ptr(), dev, stream)
+    with _ARGMIN_LOCK:
+        keys, ticket = _argmin_workspace(torch.device("cuda", dev), stream,
+                                         m)
+        err = lib.ia_argmin_l2(
+            q.data_ptr(), m, f, dbp.data_ptr(), n, fp, f, dbn.data_ptr(),
+            plan.nq, plan.q_chunks, plan.n_chunks, plan.tiles_per_chunk,
+            keys.data_ptr(), ticket.data_ptr(), out_idx.data_ptr(),
+            out_val.data_ptr(), dev, stream)
     _build.check(lib, err, "argmin_l2 launch")
-    LAUNCHES["argmin_l2"] += 1
+    _count_launch("argmin_l2")
     if _metrics._ACTIVE:
         _obs_device.note_launch("argmin_l2", *_obs_device.argmin_work(m, n, f))
     return out_idx, out_val
@@ -905,7 +927,7 @@ def packed_best(qa: torch.Tensor, w1: torch.Tensor, k_used: int = 0, *,
             _query_operand(qa, qb).data_ptr(), w1.data_ptr(), ptr(w2),
             ptr(dbnh), m, n, k, k_used, *geometry)
     _build.check(lib, err, f"{route} launch")
-    LAUNCHES[route] += 1
+    _count_launch(route)
     if _metrics._ACTIVE:
         _obs_device.note_launch(route, *(
             _obs_device.packed2k_work(m, n, k_used)
@@ -1126,7 +1148,7 @@ def packed_champions(qa, qb, w1, w2, dbnh, tile_n: int, k_used: int = 0,
         plan.smem, plan.n_chunks, vals.data_ptr(), idx.data_ptr(), dev,
         torch.cuda.current_stream(qa.device).cuda_stream)
     _build.check(lib, err, "packed_champions launch")
-    LAUNCHES["packed_champions"] += 1
+    _count_launch("packed_champions")
     if _metrics._ACTIVE:
         _obs_device.note_launch("packed_champions")
     return vals, idx
@@ -1254,7 +1276,7 @@ def _pertile_launch(q, dbp, dbnh, tile_n, k_used, q_split,
         idx.data_ptr(), _device_index(q),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, err, "pertile_champions launch")
-    LAUNCHES["pertile_champions"] += 1
+    _count_launch("pertile_champions")
     if _metrics._ACTIVE:
         _obs_device.note_launch("pertile_champions")
     return vals, idx
@@ -1351,7 +1373,7 @@ def argmin_l2_bf16(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
         out_val.data_ptr(), dev,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, "argmin_l2_bf16 launch")
-    LAUNCHES["argmin_l2_bf16"] += 1
+    _count_launch("argmin_l2_bf16")
     if _metrics._ACTIVE:
         _obs_device.note_launch("argmin_l2_bf16")
     return out_idx, out_val
@@ -1430,7 +1452,7 @@ def argmin2_l2(q: torch.Tensor, dbp: torch.Tensor, dbn: torch.Tensor,
         i2.data_ptr(), v2.data_ptr(), dev,
         torch.cuda.current_stream(qk.device).cuda_stream)
     _build.check(lib, err, "argmin2_l2 launch")
-    LAUNCHES["argmin2_l2"] += 1
+    _count_launch("argmin2_l2")
     if _metrics._ACTIVE:
         _obs_device.note_launch("argmin2_l2")
     return i1, v1, i2, v2

@@ -1,0 +1,223 @@
+"""Core serving datatypes (the port's copy of the JAX package's
+``serve/types.py``).
+
+Host-side only: numpy planes in, numpy planes out.  The engine types
+(`AnalogyParams`, `AnalogyResult`) are reused as they are, so a served
+request runs the code path a CLI run does, to the bit.  The fleet's
+``FleetConfig`` comes with the fleet (ROADMAP Queue 1 item 10c), and the
+write-ahead journal (``journal_dir``) with item 10b: until then a
+``ServeConfig`` with a ``journal_dir`` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from concurrent.futures import Future
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from image_analogies_tpu_torch.config import AnalogyParams
+from image_analogies_tpu_torch.serve.policy import QosPolicy
+
+
+class Rejected(RuntimeError):
+    """Admission control refused the request (no hang, no unbounded queue).
+
+    ``reason`` is machine-readable: ``"queue_full"`` when the bounded queue
+    is at depth, ``"shutting_down"`` once drain has begun,
+    ``"breaker_open"`` when admission sheds because the dispatch circuit
+    breaker is open (one hop before the queue — see serve/breaker.py),
+    ``"circuit_open"`` when the breaker trips between an accepted
+    request's admission and its dispatch,
+    ``"worker_crash"`` when a crashed worker exhausted the requeue budget,
+    ``"quota"`` when the tenant's per-style admission token bucket is
+    empty (serve/policy.py — the viral style degrades itself, not the
+    server; a verdict about the request).  The JAX package's
+    ``"poison"`` and ``"bad_idempotency_key"`` come with the journal
+    (ROADMAP Queue 1 item 10b).
+    """
+
+    def __init__(self, reason: str):
+        super().__init__(f"request rejected: {reason}")
+        self.reason = reason
+
+
+class DeadlineExceeded(RuntimeError):
+    """Deadline expired before dispatch; the request was cancelled, never
+    sent to the device."""
+
+    def __init__(self, request_id: int, late_s: float):
+        super().__init__(
+            f"request {request_id} deadline expired {late_s * 1e3:.1f}ms "
+            "before dispatch")
+        self.request_id = request_id
+        self.late_s = late_s
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Scheduler knobs.  ``params`` is the default engine config; requests
+    may carry their own (each distinct digest forms its own batch key)."""
+
+    params: AnalogyParams
+    queue_depth: int = 32          # admission bound; above it -> Rejected
+    batch_window_ms: float = 4.0   # coalescing wait once a leader is held
+    max_batch: int = 8             # requests per batched invocation
+    workers: int = 2
+    default_deadline_s: Optional[float] = None  # None -> no deadline
+    degrade: bool = True           # False -> never degrade, only timeout
+    request_retries: int = 1       # run_with_retry budget around dispatch
+    warmup_sizes: Tuple[Tuple[int, int], ...] = ()  # (h, w) AOT precompile
+    drain_timeout_s: float = 60.0
+    # Deadline-aware batch pop: the leader is the earliest-deadline
+    # request instead of the oldest, so tight-deadline traffic dispatches
+    # first.  Undeadlined (or slack) requests are protected by the aging
+    # bound: once the oldest waiter's queue age exceeds
+    # ``ordering_age_bound_s`` it is promoted to leader regardless of
+    # deadlines — EDF can reorder, never starve.
+    deadline_ordering: bool = True
+    ordering_age_bound_s: float = 5.0
+    # Dispatch circuit breaker (serve/breaker.py): this many CONSECUTIVE
+    # batch-dispatch failures trip it open (0 disables); while open,
+    # requests fail fast with Rejected("circuit_open") instead of burning
+    # workers, and one probe per cooldown tests recovery.
+    breaker_threshold: int = 5
+    breaker_cooldown_s: float = 1.0
+    # Persist the learned cost-model rate into the tune store on shutdown
+    # so the NEXT server seeds its degrade estimates from it
+    # (provenance "store").  Off by default: tests and embedders should
+    # not write store files unless asked; `ia serve` enables it.
+    cost_persist: bool = False
+    # A crashed worker thread (an escape below the per-request handler)
+    # requeues its batch's unresolved requests up to this many times each
+    # before failing them with Rejected("worker_crash") — no request is
+    # ever silently lost, and a poison request can't requeue forever.
+    crash_requeues: int = 1
+    # SLO over deadline outcomes (obs/slo.py): target fraction of
+    # deadlined requests that must meet their deadline, with fast
+    # (paging) and slow (ticket) burn-rate windows.  Exported as gauges
+    # and in /healthz; undeadlined traffic is not counted.
+    slo_target: float = 0.99
+    slo_fast_window_s: float = 60.0
+    slo_slow_window_s: float = 600.0
+    # Durability (serve/journal.py): when set, every request is recorded
+    # in a write-ahead journal under this directory at admit time and on
+    # each state transition; Server.recover() replays it on startup
+    # (done-dedupe, re-enqueue, poison shed).  None (default) disables
+    # the journal entirely — the request path never touches the module.
+    journal_dir: Optional[str] = None
+    # fsync each journal append (the durability guarantee).  Tests and
+    # throughput-over-durability embedders may turn it off.
+    journal_fsync: bool = True
+    # The lane engine (batch/engine.py): a compatible same-key batch of
+    # >= 2 requests on the device backend dispatches as ONE engine call
+    # (one level scan, k lanes) with per-member fault isolation.
+    # Incompatible batches fall back to the sequential per-member loop
+    # with the reason on batch.fallback_sequential.<reason>.  Outputs
+    # are bit-identical either way (the loadgen selftest gates it).
+    batch_engine: bool = True
+    # Tenant metering plane (obs/ledger.py): arm the per-request cost
+    # ledger + space-saving heavy-hitter tracker for the server's
+    # lifetime.  One style (= batcher exemplar sha1) is one tenant;
+    # /tenants and `ia top --tenants` read the resulting document.
+    # Disarming makes the cost path one bool check (zero-alloc,
+    # tracemalloc-locked in tests) — what bench.py's
+    # ledger_overhead_pct measures.
+    ledger: bool = True
+    ledger_capacity: int = 512     # bounded in-memory cost vectors
+    tenant_k: int = 16             # heavy-hitter slots (O(K) memory)
+    # Per-tenant QoS (serve/policy.py): admission token buckets fed by
+    # the tenants sketch's observed cost shares + weighted-fair batch
+    # pop across tenants.  None (default) disables QoS entirely — the
+    # admission and pop paths are those of a server without QoS.
+    qos: Optional[QosPolicy] = None
+
+    def __post_init__(self):
+        if self.journal_dir:
+            raise ValueError(
+                "journal_dir: the write-ahead request journal is not "
+                "ported yet (ROADMAP Queue 1 item 10b)")
+        if self.ledger_capacity < 1:
+            raise ValueError("ledger_capacity must be >= 1")
+        if self.tenant_k < 1:
+            raise ValueError("tenant_k must be >= 1")
+        if self.queue_depth < 1:
+            raise ValueError("queue_depth must be >= 1")
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.workers < 1:
+            raise ValueError("workers must be >= 1")
+        if self.breaker_threshold < 0 or self.crash_requeues < 0:
+            raise ValueError("breaker_threshold/crash_requeues must be >= 0")
+        if self.ordering_age_bound_s < 0:
+            raise ValueError("ordering_age_bound_s must be >= 0")
+        if not 0.0 < self.slo_target < 1.0:
+            raise ValueError("slo_target must be in (0, 1)")
+        if (self.slo_fast_window_s <= 0
+                or self.slo_slow_window_s < self.slo_fast_window_s):
+            raise ValueError(
+                "slo windows must satisfy 0 < fast <= slow")
+
+
+@dataclasses.dataclass
+class Request:
+    """One enqueued synthesis job.  ``deadline`` is absolute
+    ``time.monotonic()`` seconds (None = unbounded)."""
+
+    request_id: int
+    a: np.ndarray
+    ap: np.ndarray
+    b: np.ndarray
+    params: AnalogyParams
+    key: Tuple[Any, ...]
+    future: "Future[Response]"
+    deadline: Optional[float] = None
+    t_submit: float = dataclasses.field(default_factory=time.monotonic)
+    t_dequeue: Optional[float] = None
+    requeues: int = 0  # crash-containment requeue count (bounded)
+    # Cross-hop trace context (obs/trace.py TRACE_KEYS): captured from
+    # the submitting thread, adopted by the worker thread that runs the
+    # request — worker threads are NOT the submit thread, so the trace
+    # must travel in the request, not in a thread-local.
+    trace: Optional[Dict[str, str]] = None
+    # Encoded request size as it crossed the HTTP boundary (0 for
+    # in-process submissions) — part of the cost vector (obs/ledger.py).
+    wire_bytes: int = 0
+    # Priority class weight (serve/policy.py PRIORITY_*): the tenant's
+    # stride-scheduling share in the weighted-fair queue pop.  Carried
+    # per request (X-IA-Priority over HTTP); inert unless the queue
+    # runs with a QosPolicy that arms weighted_fair.
+    priority: int = 2
+
+    def __post_init__(self):
+        if self.priority < 1:
+            raise ValueError("priority must be >= 1")
+
+    def remaining(self, now: Optional[float] = None) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        return self.deadline - (time.monotonic() if now is None else now)
+
+
+@dataclasses.dataclass
+class Response:
+    """Completed request.  ``degraded`` is None for a full-fidelity run,
+    else the substitutions made to meet the deadline (e.g.
+    ``{"levels": 1, "patch_size": 3}``) — degraded responses are valid
+    outputs, just flagged."""
+
+    request_id: int
+    bp: np.ndarray
+    bp_y: np.ndarray
+    stats: Dict[str, Any]
+    batch_size: int
+    queue_ms: float
+    dispatch_ms: float
+    total_ms: float
+    degraded: Optional[Dict[str, Any]] = None
+
+    @property
+    def status(self) -> str:
+        return "degraded" if self.degraded else "ok"

@@ -7,7 +7,7 @@ Precedence, as in the JAX package: override > env > store > packaged >
 default (a store entry is a winner measured on the operator's own card).
 
 No TPU row carries over (those are VMEM budgets and Pallas tiles, not
-launch plans), and the serve cost rates wait for the port's serve layer.
+launch plans), and no TPU serve cost rate either (``COST_RATES``).
 A row of a class holds only a winner that a committed script measured on
 that card: ``ia tune`` run twice in one call, both runs picking the same
 winner, the winner beating the default by more than the spread of its own
@@ -32,6 +32,14 @@ TABLES: Dict[str, Dict[str, Dict[str, int]]] = {
 }
 
 
+# Packaged serve cost rates (s per pixel*level*patch^2 work unit,
+# ``serve/degrade.py``), keyed "<backend>|<device class>": the degrade
+# cost model's prior where the tune store has none.  Empty: no rate
+# measured on a card ships yet, so a fresh server starts from the
+# optimistic default and learns (``serve.cost_prior.default``).
+COST_RATES: Dict[str, float] = {}
+
+
 def device_class(kind: str) -> Optional[str]:
     """Map a CUDA device name (``torch.cuda.get_device_name``) to a table
     class; None for a device with no packaged table (the CPU, other
@@ -40,6 +48,23 @@ def device_class(kind: str) -> Optional[str]:
     if "h100" in k:
         return "h100"
     return None
+
+
+def card_class(device: str) -> str:
+    """The table class of the card ``device`` names ("h100"), "cpu" for
+    the CPU, "any" where no card answers or it has no table.  Unlike
+    ``tune.resolve.device_kind`` this may initialize CUDA: its caller (the
+    serve cost model's key) is about to use the card."""
+    if not str(device).startswith("cuda"):
+        return "cpu"
+    try:
+        import torch
+
+        if torch.cuda.is_available():
+            return device_class(torch.cuda.get_device_name(device)) or "any"
+    except Exception:  # noqa: BLE001 - no card: the wildcard class
+        pass
+    return "any"
 
 
 def lookup(kind: str, strategy: str, dtype: str) -> Dict[str, Any]:

@@ -47,8 +47,11 @@ import torch
 from image_analogies_tpu_torch.utils import devcache
 from image_analogies_tpu_torch.utils import logging as ialog
 
-# armed synthetic faults (fault injection for tests and drills)
+# armed synthetic faults (fault injection for tests and drills); the lock
+# makes each armed fault fire in exactly one body when threads retry side
+# by side (serve's workers)
 _INJECT = {"n": 0}
+_INJECT_LOCK = threading.Lock()
 
 
 class InjectedFailure(RuntimeError):
@@ -64,7 +67,17 @@ class WatchdogTimeout(RuntimeError):
 def inject_failures(n: int) -> None:
     """Arm the injector: the next ``n`` ``run_with_retry`` bodies raise
     ``InjectedFailure`` before their real work."""
-    _INJECT["n"] = int(n)
+    with _INJECT_LOCK:
+        _INJECT["n"] = int(n)
+
+
+def _take_injected() -> bool:
+    """Consume one armed fault, if any."""
+    with _INJECT_LOCK:
+        if _INJECT["n"] > 0:
+            _INJECT["n"] -= 1
+            return True
+        return False
 
 
 def _is_transient(exc: BaseException) -> bool:
@@ -104,7 +117,8 @@ def reset_device_state() -> None:
     from image_analogies_tpu_torch.ops import match
 
     devcache.clear()
-    match._ARGMIN_WORKSPACE.clear()
+    with match._ARGMIN_LOCK:  # never between a launch's fetch and enqueue
+        match._ARGMIN_WORKSPACE.clear()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
 
@@ -129,8 +143,7 @@ def run_with_retry(
     attempt = 0
     while True:
         try:
-            if _INJECT["n"] > 0:
-                _INJECT["n"] -= 1
+            if _take_injected():
                 raise InjectedFailure("synthetic fault (inject_failures)")
             return fn()
         except BaseException as exc:  # noqa: BLE001 - filtered below

@@ -182,7 +182,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         subdirs[:] = [s for s in subdirs if s != "_build"]  # build outputs
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 12
-    assert any(os.sep + "parallel" + os.sep in f for f in files)
+    for sub in ("parallel", "serve", "soak"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
