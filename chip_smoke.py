@@ -232,8 +232,36 @@ and carried on):
                 its singleton's bits, two engine launches, and the
                 launches exactly two singletons' (the counters under
                 threads; a key's burst may split, so it holds
-                engine launches >= 2 and the launches to what ran).  It
-                checks bits and counts, not times.
+                engine launches >= 2 and the launches to what ran); (5) the
+                journal and the HTTP front on check 1's four requests, their
+                derived idempotency keys and singleton runs (no new
+                singleton), ``journal_fsync=True``: (a) a journaled server
+                behind ``serve_http`` on an ephemeral loopback port, the
+                telemetry archive armed, request 1 POSTed as an
+                ``x-ia-f32`` frame with its key and an ``X-IA-Trace``,
+                answered with its singleton's bits and the caller's trace
+                id, ``/healthz``'s journal at done 1, ``/metrics`` parsed as
+                Prometheus 0.0.4 with ``serve.journal.done``; (b) requests
+                2-4 in process, the workers held in the two engine entry
+                points (past the members' ``dispatched`` lines, before any
+                launch; a wrapper the check installs), then ``kill()``: the
+                check fails the killed server's futures and releases the
+                holds, which raise before any launch, and joins every thread
+                of the killed server (none alive, no launch) before (c)
+                counts; (c) a new server on the directory: recovery done 1,
+                replayed 3, poisoned 0, unrecoverable 0, ``wait_recovered``
+                ok three times, each response its singleton's bits, the
+                launches exactly (engine launches + lone members) x a
+                singleton's; (d) the four keys POSTed again as frames, each
+                plane its singleton's, the journal's recorded
+                ``response_digest`` the singleton's, no launch; (e) ``cli
+                journal inspect --json`` (4 requests, 4 done), ``cli why
+                <key 2> --json`` (admitted, then replay, then done) and
+                ``cli archive inspect --json`` (a segment, nothing
+                quarantined) as subprocesses.  The walls of (a) and (c),
+                the recovery seconds, the peak memory and the journal's
+                bytes are printed beside the card's name and power limit.
+                It checks bits and counts, not times.
 
 card_vs_cpu's CPU runs run in a side process started with the script
 (they need no card).  The ann, mesh and serve phases run in side
@@ -4543,18 +4571,22 @@ def serve_selftest(params):
     engine must run (completions > engine launches >= 1), and the card's
     launches of the whole selftest must be what its singleton runs (the
     sequential baseline's SERVE_N, the served run's engine launches and
-    one-by-one members) each launch (``expected_launches``)."""
+    one-by-one members) each launch (``expected_launches``).  Returns the
+    load and its singleton runs, in load order, which check 5 reuses."""
     import torch
 
     from image_analogies_tpu_torch.ops import match
     from image_analogies_tpu_torch.serve import ServeConfig, loadgen
+    from image_analogies_tpu_torch.soak.trace import trace_plan
 
     cfg = ServeConfig(params=params, workers=2, max_batch=4,
                       batch_window_ms=SERVE_WINDOW_MS)
     match.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
+    baselines = {}
     summary = loadgen.selftest(cfg, SERVE_N, seed=7,
-                               shapes=((SERVE_SIZE, SERVE_SIZE),))
+                               shapes=((SERVE_SIZE, SERVE_SIZE),),
+                               baselines=baselines)
     torch.cuda.synchronize()
     launched = serve_counts()
     be = summary["batch_engine"]
@@ -4581,6 +4613,10 @@ def serve_selftest(params):
     if launched != want:
         fail(f"serve: the selftest launched {launched}; {runs} singleton "
              f"runs launch {want}")
+    # the selftest's own load (loadgen.selftest draws it so)
+    load = trace_plan(SERVE_N, ((SERVE_SIZE, SERVE_SIZE),), 7)[0]
+    return ([(it["a"], it["ap"], it["b"]) for it in load],
+            [baselines[it["index"]] for it in load])
 
 
 def serve_cli_start(tmp):
@@ -4783,8 +4819,309 @@ def serve_two_workers(params, planes):
              "two or more")
 
 
+SERVE_TRACE = "c5feed0123"  # check 5's caller trace id (X-IA-Trace)
+# a Prometheus 0.0.4 sample line: name, optional labels, a float value
+PROM_SAMPLE = (r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+               r'(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+               r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? (\S+)$')
+
+
+def serve_http_call(base, path, body=None, headers=None):
+    """One loopback HTTP call: (status, headers, body bytes)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body,
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def prometheus_families(text):
+    """The metric families of a Prometheus 0.0.4 exposition, {name:
+    (type, help)}; fails on any line the format does not allow (a sample
+    of a family with no TYPE line, a value that is not a float)."""
+    import re
+
+    fams, sample = {}, re.compile(PROM_SAMPLE)
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            _, kind, name, rest = line.split(" ", 3)
+            entry = fams.setdefault(name, ["untyped", ""])
+            if kind == "TYPE":
+                if rest not in ("counter", "gauge", "histogram", "summary",
+                                "untyped"):
+                    fail(f"serve: /metrics TYPE line {line!r}")
+                entry[0] = rest
+            else:
+                entry[1] = rest
+            continue
+        if line.startswith("#") or not line:
+            continue
+        m = sample.match(line)
+        if m is None:
+            fail(f"serve: /metrics line {line!r} is not 0.0.4")
+        float(m.group(4))
+        name = m.group(1)
+        base = next((name[:-len(x)] for x in ("_bucket", "_sum", "_count")
+                     if name.endswith(x) and name[:-len(x)] in fams), name)
+        if base not in fams:
+            fail(f"serve: /metrics sample {name} has no TYPE line")
+    return {k: tuple(v) for k, v in fams.items()}
+
+
+class _Killed(BaseException):
+    """What a held worker raises once its server is killed and the check
+    has resolved its futures: no launch, and the crash containment, with
+    nothing left to requeue, lets the thread exit."""
+
+
+def serve_hold(gate, held, lock):
+    """Wrap the two engine entry points the worker calls (the lane engine
+    for a batch, ``create_image_analogy`` one by one) so that a worker
+    that reaches one holds there: past its members' ``dispatched`` lines,
+    before any launch.  Returns the undo."""
+    from image_analogies_tpu_torch.batch import engine as batch_engine
+    from image_analogies_tpu_torch.models import analogy as models_analogy
+
+    saved = (batch_engine.create_image_analogy_batch,
+             models_analogy.create_image_analogy)
+
+    def hold(lanes):
+        with lock:
+            held.append(lanes)
+        gate.wait(600)
+        raise _Killed()
+
+    batch_engine.create_image_analogy_batch = \
+        lambda a, ap, targets, params, **kw: hold(len(targets))
+    models_analogy.create_image_analogy = lambda *a, **kw: hold(1)
+
+    def undo():
+        (batch_engine.create_image_analogy_batch,
+         models_analogy.create_image_analogy) = saved
+    return undo
+
+
+def serve_journal(params, load, singles):
+    """Check 5: check 1's four 1024^2 requests (their derived idempotency
+    keys, their singleton runs) through a journaled server (fsync on):
+    (a) request 1 POSTed as a frame over HTTP with its key and a trace,
+    the archive armed; (b) requests 2-4 in process, the workers held past
+    their ``dispatched`` lines and before any launch, then ``kill()``;
+    (c) a new server on the directory recovers them; (d) all four keys
+    POSTed again dedupe from the journal with no launch; (e) the offline
+    readers ``journal inspect``, ``why`` and ``archive inspect`` as
+    subprocesses."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.obs import archive as obs_archive
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.serve import Server, ServeConfig, batcher
+    from image_analogies_tpu_torch.serve import journal as sj
+    from image_analogies_tpu_torch.serve import wire
+    from image_analogies_tpu_torch.serve.http import serve_http
+
+    jdir = tempfile.mkdtemp(prefix="ia_journal_")
+    adir = tempfile.mkdtemp(prefix="ia_archive_")
+    keys = [sj.idem_key(batcher.key_str(batcher.batch_key(a, ap, b, params)),
+                        b) for a, ap, b in load]
+    digests = [sj.response_digest(r.bp, r.bp_y) for r in singles]
+    cfg = ServeConfig(params=params, workers=2, max_batch=4,
+                      batch_window_ms=SERVE_WINDOW_MS, journal_dir=jdir,
+                      journal_fsync=True)
+    f32 = {"Content-Type": wire.CONTENT_TYPE, "Accept": wire.CONTENT_TYPE}
+
+    def front(srv):
+        httpd = serve_http(srv, 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(base, i, **hdr):
+        return serve_http_call(base, "/v1/analogy",
+                               wire.encode_planes(load[i]),
+                               dict(f32, **{"X-IA-Idempotency-Key": keys[i]},
+                                    **hdr))
+
+    torch.cuda.reset_peak_memory_stats()
+    obs_archive.arm(root=adir)
+    try:
+        # (a) request 1 over HTTP
+        srv = Server(cfg).start()
+        httpd, base = front(srv)
+        t0 = time.perf_counter()
+        code, hdrs, body = post(base, 0, **{"X-IA-Trace":
+                                            f"{SERVE_TRACE}/-/-"})
+        wall_a = time.perf_counter() - t0
+        if code != 200:
+            fail(f"serve: check 5 POST 1 gave {code}: {body[:300]!r}")
+        plane = wire.decode_planes(body)[0]
+        a_bits = bool(np.array_equal(plane, singles[0].bp))
+        trace_hdr = hdrs.get("X-IA-Trace") or ""
+        health = json.loads(serve_http_call(base, "/healthz")[2])
+        mcode, mhdrs, mbody = serve_http_call(base, "/metrics")
+        fams = prometheus_families(mbody.decode())
+        journal_fam = "ia_serve_journal_done_total"
+        httpd.shutdown()
+        httpd.server_close()
+
+        # (b) requests 2-4 held past their dispatched lines, then kill()
+        gate, held, lock = threading.Event(), [], threading.Lock()
+        undo = serve_hold(gate, held, lock)
+        try:
+            match.reset_launch_counts()
+            futs = [srv.submit(*load[i], idempotency_key=keys[i])
+                    for i in (1, 2, 3)]
+            end = time.monotonic() + 120
+            while sum(held) < 3 and time.monotonic() < end:
+                time.sleep(0.01)
+            held_lanes = sorted(held)
+            srv.kill()
+            # a killed process's clients see nothing; here the check
+            # fails their futures so that the held workers, released,
+            # find nothing to requeue, raise _Killed before any launch
+            # and exit: every thread of the killed server is joined
+            # before (c) counts
+            for f in futs:
+                f.set_exception(RuntimeError("server killed"))
+            gate.set()
+            threads = list(srv._pool._threads)
+            for t in threads:
+                t.join(60)
+            alive = [t.name for t in threads if t.is_alive()]
+        finally:
+            gate.set()
+            undo()
+        killed_launches = serve_counts()
+        rep = sj.RequestJournal(jdir).replay()
+        dispatched = {k: rep.entries[k].dispatched for k in keys[1:]}
+
+        # (c) a new server recovers
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        srv2 = Server(cfg).start()
+        recovery_s = time.perf_counter() - t0
+        stats = dict(srv2.recovery_stats)
+        outcomes = srv2.wait_recovered(timeout=600)
+        wall_c = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        recovered = {k: srv2.recovery[k].result() for k in keys[1:]}
+        counters = obs_metrics.snapshot()["counters"]
+        launched = serve_counts()
+        engine = counters.get("batch.launches", 0)
+        lanes = counters.get("batch.lanes", 0)
+        runs = engine + 3 - lanes
+        single = expected_launches(params, SERVE_SIZE)
+        want = {k: runs * v for k, v in single.items()}
+        c_bits = [bool(np.array_equal(recovered[k].bp, r.bp) and
+                       np.array_equal(recovered[k].bp_y, r.bp_y))
+                  for k, r in zip(keys[1:], singles[1:])]
+
+        # (d) every key again, as frames: answered from the journal
+        httpd, base = front(srv2)
+        match.reset_launch_counts()
+        answers = [post(base, i) for i in range(SERVE_N)]
+        dedupe_launches = serve_counts()
+        obs_archive.current().sample(force=True)
+        httpd.shutdown()
+        httpd.server_close()
+        srv2.shutdown()
+    finally:
+        for _ in range(8):
+            if obs_archive.current() is None:
+                break
+            obs_archive.disarm()
+    peak = torch.cuda.max_memory_allocated()
+    rep = sj.RequestJournal(jdir).replay()
+    recorded = {k: (rep.entries[k].done or {}) for k in keys}
+    d_ok = [code == 200 and bool(np.array_equal(
+        wire.decode_planes(body)[0], r.bp)) and
+        recorded[k].get("response_digest") == dg and
+        hdrs.get("X-IA-Request") == str(recorded[k].get("rid"))
+        for (code, hdrs, body), k, r, dg in zip(answers, keys, singles,
+                                                digests)]
+    seg_bytes = sum(os.path.getsize(os.path.join(jdir, n))
+                    for n in os.listdir(jdir) if n.startswith("segment-"))
+    disk_bytes = sum(os.path.getsize(os.path.join(d, n))
+                     for d, _, names in os.walk(jdir) for n in names)
+
+    # (e) the offline readers, as subprocesses side by side (no card)
+    readers = [("journal", "inspect", jdir, "--json"),
+               ("why", keys[1], "--root", jdir, "--json"),
+               ("archive", "inspect", adir, "--json")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for args in readers]
+    docs = []
+    for args, proc in zip(readers, procs):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"serve: cli {' '.join(args)} exit {proc.returncode}: "
+                 f"{err[-800:]}")
+        docs.append(json.loads(out))
+    inspect, why, archive = docs
+    chain = why["chain"]
+    order = [next((i for i, step in enumerate(chain) if step.startswith(p)),
+                  -1) for p in ("admitted", "replay(", "done")]
+    say("serve", check="journal", size=SERVE_SIZE, keys=keys,
+        a_wall_s=wall_a, a_bits_equal=a_bits, a_trace=trace_hdr,
+        a_healthz_journal=health.get("journal"), a_metrics_status=mcode,
+        a_metrics_type=mhdrs.get("Content-Type"),
+        a_metrics_families=len(fams),
+        a_metrics_journal_done=fams.get(journal_fam),
+        b_held_lanes=held_lanes, b_dispatched=dispatched,
+        b_threads_alive=alive, b_launches=killed_launches,
+        c_recovery_stats=stats, c_outcomes=outcomes, c_recovery_s=recovery_s,
+        c_wall_s=wall_c, c_bits_equal=c_bits, c_engine_launches=engine,
+        c_lanes=lanes, c_launches=launched, c_expected_launches=want,
+        d_answers_ok=d_ok, d_launches=dedupe_launches,
+        peak_mem_gib=peak / 2**30, journal_segment_bytes=seg_bytes,
+        journal_disk_bytes=disk_bytes, e_inspect_states=inspect["states"],
+        e_inspect_requests=inspect["requests"], e_why_chain=chain,
+        e_archive={k: archive.get(k) for k in ("segments", "bytes",
+                                               "quarantined", "kinds")},
+        card=nvidia_smi())
+    if not a_bits or not trace_hdr.startswith(SERVE_TRACE + "/"):
+        fail(f"serve: check 5(a) bits equal {a_bits}, trace {trace_hdr!r}")
+    if (health.get("journal") or {}).get("done") != 1 or mcode != 200 or \
+            fams.get(journal_fam, ("", ""))[1] != "counter serve.journal.done":
+        fail(f"serve: check 5(a) healthz journal {health.get('journal')}, "
+             f"/metrics {mcode} {fams.get(journal_fam)}")
+    if sum(held_lanes) != 3 or alive or killed_launches or \
+            dispatched != {k: 1 for k in keys[1:]}:
+        fail(f"serve: check 5(b) held {held_lanes}, threads alive {alive}, "
+             f"launches {killed_launches}, dispatched {dispatched}")
+    if {k: stats[k] for k in ("done", "replayed", "poisoned",
+                              "unrecoverable")} != \
+            {"done": 1, "replayed": 3, "poisoned": 0, "unrecoverable": 0} \
+            or outcomes != {k: "ok" for k in keys[1:]} or not all(c_bits) \
+            or launched != want:
+        fail(f"serve: check 5(c) recovery {stats}, outcomes {outcomes}, "
+             f"bits {c_bits}, launched {launched} (want {want})")
+    if not all(d_ok) or dedupe_launches:
+        fail(f"serve: check 5(d) answers {d_ok}, launches {dedupe_launches}")
+    if inspect["requests"] != SERVE_N or \
+            inspect["states"] != {"done": SERVE_N} or \
+            not 0 <= order[0] < order[1] < order[2]:
+        fail(f"serve: check 5(e) inspect {inspect['states']}, why {chain}")
+    if not archive.get("segments") or archive.get("quarantined"):
+        fail(f"serve: check 5(e) archive {archive}")
+    shutil.rmtree(jdir, ignore_errors=True)
+    shutil.rmtree(adir, ignore_errors=True)
+
+
 def phase_serve():
-    """The serving path (``serve/``) on the card: checks 1-4 of the
+    """The serving path (``serve/``) on the card: checks 1-5 of the
     docstring's serve phase, on npr_1024 with ``remap_luminance=False``
     (the serve configuration: with the remap on, differing targets refuse
     the lane engine by design)."""
@@ -4798,7 +5135,7 @@ def phase_serve():
     tmp = tempfile.mkdtemp(prefix="ia_serve_")
     cli = serve_cli_start(tmp)
     t0 = time.perf_counter()
-    serve_selftest(params)
+    load, singles = serve_selftest(params)
     t1 = time.perf_counter()
     # two exemplar pairs with four targets each, seeded planes
     rng = np.random.RandomState(11)
@@ -4811,9 +5148,12 @@ def phase_serve():
     t2 = time.perf_counter()
     serve_two_workers(params, planes)
     t3 = time.perf_counter()
+    serve_journal(params, load, singles)
+    t4 = time.perf_counter()
     serve_cli_wait(cli)
     say("serve", selftest_s=t1 - t0, behaviours_s=t2 - t1,
-        two_workers_s=t3 - t2, cli_extra_wait_s=time.perf_counter() - t3)
+        two_workers_s=t3 - t2, journal_s=t4 - t3,
+        cli_extra_wait_s=time.perf_counter() - t4)
 
 
 SIDE_PHASES = ("ann", "mesh", "serve")

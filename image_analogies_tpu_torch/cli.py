@@ -16,6 +16,13 @@
     python -m image_analogies_tpu_torch.cli run --a A.png --ap Ap.png \
         --b B.png --out Bp.png --ann-prefilter --catalog-dir cat/
     python -m image_analogies_tpu_torch.cli serve --selftest 12
+    python -m image_analogies_tpu_torch.cli serve --http 8080 \
+        --journal journal/ --archive archive/
+    python -m image_analogies_tpu_torch.cli journal inspect journal/
+    python -m image_analogies_tpu_torch.cli why <idempotency-key> \
+        --root journal/
+    python -m image_analogies_tpu_torch.cli metrics run.jsonl
+    python -m image_analogies_tpu_torch.cli archive inspect archive/
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -25,8 +32,9 @@ The engine flags are those whose fields the port has, the driver's
 surroundings included (``--no-level-sync``, ``--level-retries``,
 ``--dispatch-timeout-s``, ``--checkpoint-dir``, ``--resume-from-level``,
 ``--log-path``, ``--save-levels``, ``--profile-dir``, ``--devcache-bytes``)
-and the run's own counters and tuning (``--metrics``, ``--shape-buckets``,
-``--compile-cache-dir``), the two-stage ANN matcher and the exemplar
+and the run's own counters and tuning (``--metrics``, ``--metrics-port``:
+a loopback ``/metrics`` + ``/healthz`` for the command's duration,
+``--shape-buckets``, ``--compile-cache-dir``), the two-stage ANN matcher and the exemplar
 catalog (``--ann-prefilter``, ``--catalog-dir``, ``--catalog-host-bytes``),
 the matcher (``--backend cpu``: the host oracle, with ``--no-ann`` its
 brute force), and the mesh (``--db-shards``, ``--data-shards``; a world starts from
@@ -45,12 +53,19 @@ launch into the library directory (``tune/warmup.py``); ``catalog``
 builds, inspects, warms and prunes the exemplar catalog (``catalog/``),
 with the JAX package's outputs and exit codes, and takes no engine flags;
 ``serve --selftest N`` drives the serving path (``serve/``) with a
-synthetic load, on the ``oil_filter`` preset as in the JAX package.
+synthetic load, on the ``oil_filter`` preset as in the JAX package, and
+``serve --http PORT`` serves it on loopback (``--journal DIR``: the
+write-ahead request journal; ``--archive DIR``: the telemetry archive)
+until interrupted.  ``journal``, ``why``, ``metrics`` and ``archive``
+are the offline readers of the journal, the run log and the archive, with
+the JAX package's flags, outputs and exit codes; they take no engine
+flags and need no card.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -154,6 +169,12 @@ def _add_engine_flags(p: argparse.ArgumentParser) -> None:
                         "run_id-stamped records and the run_end snapshot "
                         "go to the log.  Off by default and near-zero-cost "
                         "when off")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="bind a loopback /metrics + /healthz exposition "
+                        "server (obs/live.py) for the duration of the "
+                        "command, scraping the LIVE registry mid-run "
+                        "(implies --metrics; 0 = ephemeral port, printed "
+                        "to stderr)")
     p.add_argument("--shape-buckets", action="store_true",
                    help="bucket per-level DB row counts (tune/buckets.py: "
                         "the scan copies pad with rows that cannot win) and "
@@ -218,7 +239,7 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
         kw["remap_luminance"] = False
     if args.no_gaussian:
         kw["gaussian_weights"] = False
-    if args.metrics:
+    if args.metrics or args.metrics_port is not None:
         kw["metrics"] = True
     if args.shape_buckets:
         kw["shape_buckets"] = True
@@ -235,6 +256,27 @@ def _params_from_args(args, base: AnalogyParams) -> AnalogyParams:
     return base.replace(**kw)
 
 
+@contextlib.contextmanager
+def _maybe_metrics_server(args):
+    """Bind the obs/live exposition server for the command's duration
+    when --metrics-port was given; no-op (and no obs.live import)
+    otherwise."""
+    port = getattr(args, "metrics_port", None)
+    if port is None:
+        yield None
+        return
+    from image_analogies_tpu_torch.obs import live as obs_live
+
+    httpd = obs_live.start_http_server(port)
+    bound = httpd.server_address[1]
+    print(f"metrics: http://127.0.0.1:{bound}/metrics "
+          f"(and /healthz)", file=sys.stderr)
+    try:
+        yield httpd
+    finally:
+        obs_live.stop_http_server(httpd)
+
+
 def _emit_stats(stats) -> None:
     for st in stats:
         print(json.dumps(st, sort_keys=True), file=sys.stderr)
@@ -243,18 +285,19 @@ def _emit_stats(stats) -> None:
 def cmd_run(args) -> int:
     params = _params_from_args(args, PRESETS[_BASE[args.mode]])
     ap = load_image(args.ap)
-    if args.mode == "texture_synthesis":
-        shape = tuple(int(x) for x in args.out_shape.split("x"))
-        res = modes.texture_synthesis(ap, shape, params, seed=args.seed)
-    elif args.mode == "super_resolution":
-        # A is A' degraded; only A' and B are read
-        res = modes.super_resolution(ap, load_image(args.b), params,
-                                     blur_passes=args.blur_passes)
-    else:
-        a, b = load_image(args.a), load_image(args.b)
-        fn = (modes.artistic_filter if args.mode == "filter"
-              else modes.texture_by_numbers)
-        res = fn(a, ap, b, params)
+    with _maybe_metrics_server(args):
+        if args.mode == "texture_synthesis":
+            shape = tuple(int(x) for x in args.out_shape.split("x"))
+            res = modes.texture_synthesis(ap, shape, params, seed=args.seed)
+        elif args.mode == "super_resolution":
+            # A is A' degraded; only A' and B are read
+            res = modes.super_resolution(ap, load_image(args.b), params,
+                                         blur_passes=args.blur_passes)
+        else:
+            a, b = load_image(args.a), load_image(args.b)
+            fn = (modes.artistic_filter if args.mode == "filter"
+                  else modes.texture_by_numbers)
+            res = fn(a, ap, b, params)
     if is_writer():
         save_image(args.out, res.bp)
         _emit_stats(res.stats)
@@ -268,7 +311,8 @@ def cmd_video(args) -> int:
     params = _params_from_args(args, PRESETS["video"])
     if args.temporal_weight is not None:
         params = params.replace(temporal_weight=args.temporal_weight)
-    res = video_analogy(a, ap, frames, params, scheme=args.scheme)
+    with _maybe_metrics_server(args):
+        res = video_analogy(a, ap, frames, params, scheme=args.scheme)
     if not is_writer():
         return 0
     os.makedirs(args.out_dir, exist_ok=True)
@@ -291,21 +335,23 @@ def cmd_sweep(args) -> int:
     ref = load_image(args.ref) if args.ref else None
     base = PRESETS[_BASE[args.mode]]
     os.makedirs(args.out_dir, exist_ok=True)
-    for k in (float(x) for x in args.kappas.split(",")):
-        params = _params_from_args(args, base).replace(kappa=k)
-        if args.mode == "super_resolution":
-            res = modes.super_resolution(ap_img, b, params,
-                                         blur_passes=args.blur_passes)
-        else:
-            res = modes.artistic_filter(a, ap_img, b, params)
-        if not is_writer():
-            continue
-        out = os.path.join(args.out_dir, f"kappa_{k:g}.png")
-        save_image(out, res.bp)
-        rec = {"kappa": k, "out": out}
-        if ref is not None:
-            rec["ssim_vs_ref"] = round(ssim(np.clip(res.bp, 0, 1), ref), 4)
-        print(json.dumps(rec))
+    with _maybe_metrics_server(args):
+        for k in (float(x) for x in args.kappas.split(",")):
+            params = _params_from_args(args, base).replace(kappa=k)
+            if args.mode == "super_resolution":
+                res = modes.super_resolution(ap_img, b, params,
+                                             blur_passes=args.blur_passes)
+            else:
+                res = modes.artistic_filter(a, ap_img, b, params)
+            if not is_writer():
+                continue
+            out = os.path.join(args.out_dir, f"kappa_{k:g}.png")
+            save_image(out, res.bp)
+            rec = {"kappa": k, "out": out}
+            if ref is not None:
+                rec["ssim_vs_ref"] = round(
+                    ssim(np.clip(res.bp, 0, 1), ref), 4)
+            print(json.dumps(rec))
     return 0
 
 
@@ -346,8 +392,10 @@ def cmd_serve(args) -> int:
     a synthetic load against a sequential baseline and prints the latency
     and throughput summary (its JSON on stderr); exit 0 iff no request
     errored and every full-fidelity response equals its singleton's bits.
-    The JAX command's ``--http``, ``--journal``, ``--archive`` and
-    ``--metrics-port`` wait for ROADMAP Queue 1 item 10b."""
+    ``--http PORT`` binds the loopback front end (serve/http.py) and
+    serves until interrupted; ``--journal DIR`` arms the write-ahead
+    request journal, ``--archive DIR`` (or ``IA_ARCHIVE_DIR``) the
+    telemetry archive."""
     from image_analogies_tpu_torch.serve import loadgen
     from image_analogies_tpu_torch.serve.types import ServeConfig
 
@@ -382,22 +430,60 @@ def cmd_serve(args) -> int:
         slo_target=args.slo_target,
         slo_fast_window_s=args.slo_fast_window_s,
         slo_slow_window_s=args.slo_slow_window_s,
+        journal_dir=args.journal,
         batch_engine=not args.no_batch_engine,
         ledger=not args.no_ledger,
     )
-    if args.selftest is None:
-        print("serve: pass --selftest N (the HTTP front, --http, is not "
-              "ported yet)", file=sys.stderr)
+    if args.selftest is not None:
+        flash_crowd = (loadgen.parse_flash_crowd(args.flash_crowd)
+                       if args.flash_crowd else None)
+        with _maybe_metrics_server(args):
+            summary = loadgen.selftest(cfg, args.selftest, seed=args.seed,
+                                       deadline_ms=deadline_ms,
+                                       zipf=args.zipf, styles=args.styles,
+                                       flash_crowd=flash_crowd)
+        print(loadgen.render(summary))
+        print(json.dumps(summary, sort_keys=True), file=sys.stderr)
+        return 0 if (summary["errors"] == 0
+                     and summary["bit_identical"]) else 1
+
+    if args.http is None:
+        print("serve: pass --selftest N or --http PORT", file=sys.stderr)
         return 2
-    flash_crowd = (loadgen.parse_flash_crowd(args.flash_crowd)
-                   if args.flash_crowd else None)
-    summary = loadgen.selftest(cfg, args.selftest, seed=args.seed,
-                               deadline_ms=deadline_ms,
-                               zipf=args.zipf, styles=args.styles,
-                               flash_crowd=flash_crowd)
-    print(loadgen.render(summary))
-    print(json.dumps(summary, sort_keys=True), file=sys.stderr)
-    return 0 if (summary["errors"] == 0 and summary["bit_identical"]) else 1
+
+    from image_analogies_tpu_torch.obs import archive as obs_archive
+    from image_analogies_tpu_torch.obs import ceilings as obs_ceilings
+    from image_analogies_tpu_torch.obs import timeline as obs_timeline
+    from image_analogies_tpu_torch.serve.http import serve_http
+    from image_analogies_tpu_torch.serve.server import Server
+
+    with Server(cfg) as srv:
+        # single-server deployment: arm the temporal plane and run its
+        # own background sampler so /timeline is live
+        tl = obs_timeline.arm()
+        # witness + watchdog planes ride the same sampler as feeders
+        archive_root = args.archive or os.environ.get("IA_ARCHIVE_DIR")
+        if archive_root:
+            obs_archive.arm(root=archive_root)
+        obs_ceilings.arm()
+        tl.start_sampler(interval_s=1.0)
+        httpd = serve_http(srv, args.http)
+        # the bound port (--http 0 binds an ephemeral one)
+        print(f"serving on http://127.0.0.1:{httpd.server_address[1]} "
+              f"(POST /v1/analogy, GET /healthz, GET /metrics, "
+              f"GET /timeline, GET /tenants, GET /archive/stats); "
+              f"Ctrl-C to drain+exit", flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
+            obs_ceilings.disarm()
+            if archive_root:
+                obs_archive.disarm()
+            obs_timeline.disarm()
+    return 0
 
 
 def cmd_warmup(args) -> int:
@@ -483,6 +569,190 @@ def cmd_catalog(args) -> int:
                            purge_corrupt=args.purge_corrupt)
     print(json.dumps(rep, sort_keys=True))
     return 0
+
+
+def cmd_journal(args) -> int:
+    """Write-ahead journal tooling (serve/journal.py).  ``inspect`` is a
+    read-only summary of a journal directory — segments, per-state
+    request counts, incomplete and poisoned keys; ``compact`` rewrites
+    it to its minimal equivalent (final state per key, finished input
+    spills dropped, response spills kept for dedupe)."""
+    from image_analogies_tpu_torch.serve.journal import RequestJournal
+
+    if not os.path.isdir(args.dir):
+        print(f"journal: no such directory {args.dir}", file=sys.stderr)
+        return 2
+    jr = RequestJournal(args.dir)
+    if args.action == "inspect":
+        info = jr.inspect()
+        if args.json:
+            print(json.dumps(info, indent=2, sort_keys=True))
+        else:
+            print(f"journal {info['path']}: {info['requests']} requests "
+                  f"in {info['segments']} segment(s), {info['lines']} lines"
+                  + (f", {info['corrupt_segments']} quarantined file(s)"
+                     if info["corrupt_segments"] else ""))
+            for st, n in sorted(info["states"].items()):
+                print(f"  {st:<12} {n}")
+            if info["incomplete"]:
+                print(f"  incomplete   {', '.join(info['incomplete'])}")
+            if info["poisoned"]:
+                print(f"  poisoned     {', '.join(info['poisoned'])}")
+        return 0
+    if args.action == "compact":
+        try:
+            out = jr.compact()
+        except RuntimeError as exc:  # journal active (live appender)
+            print(f"journal: {exc}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(out, indent=2, sort_keys=True))
+        else:
+            print(f"compacted {args.dir}: {out['segments']} segment(s) / "
+                  f"{out['lines']} lines -> 1 segment / "
+                  f"{out['after']['lines']} lines "
+                  f"({out['dropped_lines']} dropped)")
+        return 0
+    print(f"journal: unknown action {args.action}", file=sys.stderr)
+    return 2
+
+
+def cmd_why(args) -> int:
+    """Request forensics (``ia why <idem-key>``): merge the write-ahead
+    journal(s) under --root — a single ``ia serve --journal`` dir or an
+    ``ia fleet --journal`` root with per-worker subdirs — with the
+    sealed decision log into one ordered causal chain for a single
+    request: which worker admitted it, every control-plane verdict
+    (degrade, shed, spill, requeue, poison, handoff re-chain) with its
+    cause, the cost vector, and the terminal state."""
+    from image_analogies_tpu_torch.serve import journal as serve_journal
+
+    if not os.path.isdir(args.root):
+        print(f"why: no such directory {args.root}", file=sys.stderr)
+        return 2
+    doc = serve_journal.reconstruct(args.idem, args.root)
+    if args.json:
+        print(json.dumps(doc, indent=2, sort_keys=True, default=str))
+    else:
+        sys.stdout.write(serve_journal.render_why(doc))
+    return 0 if doc.get("found") else 2
+
+
+def cmd_metrics(args) -> int:
+    """Prometheus exposition of a run log's latest metrics snapshot
+    (obs/live.py).  Without --port, render once to stdout.  With --port,
+    bind a loopback sidecar exposition server that re-reads the log per
+    scrape — live telemetry for runs that did not pass --metrics-port
+    themselves (the log is the transport)."""
+    from image_analogies_tpu_torch.obs import live as obs_live
+
+    if not os.path.exists(args.log):
+        print(f"metrics: no such log: {args.log}", file=sys.stderr)
+        return 2
+    if args.port is None:
+        snap = obs_live.snapshot_from_log(args.log)
+        if snap is None:
+            print(f"metrics: no run_end snapshot in {args.log}",
+                  file=sys.stderr)
+            return 1
+        sys.stdout.write(obs_live.render_prometheus(snap))
+        return 0
+
+    log = args.log
+    httpd = obs_live.start_http_server(
+        args.port,
+        snapshot_fn=lambda: obs_live.snapshot_from_log(log),
+        health_fn=lambda: obs_live.health_from_log(log))
+    bound = httpd.server_address[1]
+    print(f"metrics sidecar on http://127.0.0.1:{bound}/metrics "
+          f"(and /healthz), re-reading {log} per scrape; Ctrl-C to exit",
+          file=sys.stderr)
+    try:
+        httpd._ia_thread.join()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        obs_live.stop_http_server(httpd)
+    return 0
+
+
+def cmd_archive(args) -> int:
+    """Offline reader over a durable telemetry archive (obs/archive.py).
+    ``inspect`` summarizes the sealed store — segments, bytes, witnessed
+    record kinds, quarantined files; ``replay`` reconstructs the final
+    ``/timeline`` + ``/tenants`` documents exactly as the server last
+    published them (the round-trip contract); ``diff`` compares two
+    archives series-by-series — the before/after-an-incident view."""
+    from image_analogies_tpu_torch.obs import archive as obs_archive
+
+    def _open(root):
+        if not os.path.isdir(root):
+            print(f"archive: no such directory {root}", file=sys.stderr)
+            return None
+        return obs_archive.TelemetryArchive(root)
+
+    if args.action == "diff":
+        a = _open(args.a)
+        b = _open(args.b)
+        if a is None or b is None:
+            return 2
+        d = obs_archive.diff_replays(a.replay(), b.replay())
+        if args.json:
+            print(json.dumps(d, indent=2, sort_keys=True))
+        else:
+            print(obs_archive.render_diff(d))
+        return 0
+
+    ar = _open(args.root)
+    if ar is None:
+        return 2
+
+    if args.action == "inspect":
+        info = ar.stats()
+        rep = ar.replay()
+        info["kinds"] = rep["kinds"]
+        info["span"] = rep["span"]
+        if args.json:
+            print(json.dumps(info, indent=2, sort_keys=True))
+            return 0
+        span = rep["span"]
+        dur = (span[1] - span[0]
+               if span[0] is not None and span[1] is not None else 0.0)
+        print(f"archive {args.root}: {info['segments']} segment(s) + "
+              f"{info['summary_segments']} summary, {info['bytes']} bytes"
+              + (f", {info['quarantined']} quarantined"
+                 if info["quarantined"] else ""))
+        kinds = ", ".join(f"{k}={n}"
+                          for k, n in sorted(rep["kinds"].items()))
+        print(f"  span: {dur:.1f}s  kinds: {kinds or '(empty)'}")
+        return 0
+
+    if args.action == "replay":
+        from image_analogies_tpu_torch.obs import ledger as obs_ledger
+        from image_analogies_tpu_torch.obs import timeline as obs_timeline
+
+        rep = ar.replay()
+        if args.json:
+            print(json.dumps(rep, indent=2, sort_keys=True))
+            return 0
+        if rep["timeline"] is None and rep["tenants"] is None:
+            print("archive: no witnessed timeline/tenants documents",
+                  file=sys.stderr)
+            return 2
+        if rep["timeline"] is not None:
+            print(obs_timeline.render_cockpit(rep["timeline"]))
+        if rep["tenants"] is not None:
+            print(obs_ledger.render_tenants(rep["tenants"],
+                                            title="tenants (archived)"))
+        if rep["decisions"]:
+            print(f"decisions witnessed: {len(rep['decisions'])}  latest: "
+                  + json.dumps(rep["decisions"][-1], sort_keys=True))
+        if rep["anomalies"]:
+            print(f"anomalies witnessed: {len(rep['anomalies'])}")
+        return 0
+
+    print(f"archive: unknown action {args.action}", file=sys.stderr)
+    return 2
 
 
 def _add_catalog_parser(sub) -> None:
@@ -632,11 +902,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="serving scheduler: micro-batched dispatch "
                              "with admission control, per-request "
                              "deadlines and graceful degradation "
-                             "(--selftest N for the synthetic load)")
+                             "(--selftest N for the synthetic load, "
+                             "--http PORT for the loopback front end)")
     sv.add_argument("--selftest", type=int, default=None, metavar="N",
                     help="replay N synthetic mixed-shape requests against "
                          "a sequential baseline and print the latency/"
                          "throughput/degradation summary")
+    sv.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="bind the loopback-only stdlib HTTP front end "
+                         "(0 = an ephemeral port, printed) and serve "
+                         "until interrupted")
     sv.add_argument("--seed", type=int, default=0)
     sv.add_argument("--queue-depth", type=int, default=32,
                     help="admission bound; requests beyond it are "
@@ -676,6 +951,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "meet their deadline (obs/slo.py)")
     sv.add_argument("--slo-fast-window-s", type=float, default=60.0)
     sv.add_argument("--slo-slow-window-s", type=float, default=600.0)
+    sv.add_argument("--journal", default=None, metavar="DIR",
+                    help="write-ahead request journal directory: every "
+                         "request is recorded at admit and on each state "
+                         "transition; on startup the server replays it — "
+                         "finished requests dedupe exactly-once, "
+                         "interrupted ones re-enqueue, poison ones shed "
+                         "(omit to disable; disabled costs nothing)")
     sv.add_argument("--no-batch-engine", action="store_true",
                     help="dispatch every batch member as its own engine "
                          "call instead of one lane-engine call a "
@@ -693,6 +975,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="selftest arrivals: Poisson arrivals whose rate "
                          "multiplies by MULT inside [T0, T0+DUR) seconds, "
                          "deterministic from --seed")
+    sv.add_argument("--archive", default=None, metavar="DIR",
+                    help="durable telemetry archive root: closed timeline "
+                         "windows, tenant cost vectors, decision records "
+                         "and anomaly events stream to sealed append-only "
+                         "segments under DIR (also via IA_ARCHIVE_DIR; "
+                         "inspect offline with `archive`)")
     _add_engine_flags(sv)
     sv.set_defaults(fn=cmd_serve)
 
@@ -707,6 +995,85 @@ def build_parser() -> argparse.ArgumentParser:
     _add_engine_flags(wu)
     wu.set_defaults(fn=cmd_warmup)
     _add_catalog_parser(sub)
+    mx = sub.add_parser("metrics",
+                        help="Prometheus text exposition of a run log's "
+                             "metrics: once to stdout, or as a loopback "
+                             "sidecar server with --port")
+    mx.add_argument("log", help="run-log JSONL (--log-path output)")
+    mx.add_argument("--port", type=int, default=None, metavar="PORT",
+                    help="bind a sidecar /metrics + /healthz server that "
+                         "re-reads the log per scrape (0 = ephemeral)")
+    mx.set_defaults(fn=cmd_metrics)
+
+    av = sub.add_parser("archive",
+                        help="durable telemetry archive tooling: "
+                             "summarize the sealed store (inspect), "
+                             "reconstruct the final cockpit + tenants "
+                             "documents (replay), or compare two "
+                             "archives series-by-series (diff)")
+    av_sub = av.add_subparsers(dest="action", required=True)
+    ai = av_sub.add_parser("inspect",
+                           help="read-only store summary: segments, "
+                                "bytes, witnessed record kinds, "
+                                "quarantined files")
+    ai.add_argument("root", help="archive root directory")
+    ai.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    ai.set_defaults(fn=cmd_archive)
+    av_rp = av_sub.add_parser("replay",
+                              help="reconstruct the final /timeline + "
+                                   "/tenants documents from the sealed "
+                                   "segments and render them as the "
+                                   "cockpit would have")
+    av_rp.add_argument("root", help="archive root directory")
+    av_rp.add_argument("--json", action="store_true",
+                       help="full replay document (timeline, tenants, "
+                            "kinds, decisions, anomalies, span) as JSON")
+    av_rp.set_defaults(fn=cmd_archive)
+    ad = av_sub.add_parser("diff",
+                           help="compare two archives' replayed state: "
+                                "per-series deltas (p50/p95/p99/p999, "
+                                "counts), tenants present in only one, "
+                                "witnessed-kind counts")
+    ad.add_argument("a", help="baseline archive root")
+    ad.add_argument("b", help="comparison archive root")
+    ad.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    ad.set_defaults(fn=cmd_archive)
+
+    jr = sub.add_parser("journal",
+                        help="write-ahead request journal tooling: "
+                             "inspect a journal directory or compact it "
+                             "to its minimal equivalent")
+    jr.add_argument("action", choices=("inspect", "compact"),
+                    help="inspect: read-only per-state summary; compact: "
+                         "rewrite to one segment of final states "
+                         "(finished input spills dropped, response "
+                         "spills kept for dedupe); compact refuses "
+                         "while a live server holds the journal")
+    jr.add_argument("dir", help="journal directory (ia serve --journal)")
+    jr.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    jr.set_defaults(fn=cmd_journal)
+
+    wy = sub.add_parser("why",
+                        help="request forensics: replay the journal(s) + "
+                             "decision log into one ordered causal chain "
+                             "for a single idempotency key (admit -> "
+                             "verdicts with causes -> cost vector -> "
+                             "terminal state)")
+    wy.add_argument("idem", help="idempotency key (the journal key; "
+                                 "derived content keys appear in "
+                                 "`ia journal inspect`)")
+    wy.add_argument("--root", required=True, metavar="DIR",
+                    help="journal directory (ia serve --journal) or "
+                         "fleet journal ROOT (ia fleet --journal) — "
+                         "worker subdirs and decisions.jsonl are "
+                         "discovered automatically")
+    wy.add_argument("--json", action="store_true",
+                    help="machine-readable reconstruction (events with "
+                         "ts/worker/op, decisions, cost vectors, chain)")
+    wy.set_defaults(fn=cmd_why)
     return ap
 
 

@@ -26,9 +26,10 @@ Mechanics:
   series (``cooldown_s``).
 
 The port's copy of the JAX package's ``obs/ceilings.py``; stdlib only.
-Its feed into the telemetry archive waits for the port's ``obs/archive``
-(ROADMAP Queue 1 item 10b): the ``archive.bytes`` series keeps its
-threshold and gets no values until then.
+The ``journal.bytes`` series is read from the gauge a write-ahead
+journal keeps of its segments' bytes (serve/journal.py), as
+``devcache.bytes`` is; the telemetry archive's own disk use is
+``archive.bytes``.
 """
 
 from __future__ import annotations
@@ -182,6 +183,7 @@ class CeilingMonitor:
         """One tick: gather vitals + ambient gauges + ``extra`` series
         values, evaluate every watchdog, emit alarms.  Returns the
         alarms raised this tick."""
+        from image_analogies_tpu_torch.obs import archive as _archive
         from image_analogies_tpu_torch.obs import ledger as _ledger
 
         if now is None:
@@ -198,8 +200,12 @@ class CeilingMonitor:
         reg = _metrics.registry()
         if reg is not None:
             gauges = reg.snapshot().get("gauges") or {}
-            if "devcache.bytes" in gauges:
-                values["devcache.bytes"] = float(gauges["devcache.bytes"])
+            for series in ("devcache.bytes", "journal.bytes"):
+                if series in gauges:
+                    values[series] = float(gauges[series])
+        ar = _archive.current()
+        if ar is not None:
+            values["archive.bytes"] = float(ar.stats().get("bytes") or 0)
         for k, v in (extra or {}).items():
             if v is not None:
                 values[k] = float(v)
@@ -232,6 +238,10 @@ class CeilingMonitor:
                         slope_per_s=verdict["slope_per_s"])
                 except Exception:
                     pass
+            _archive.record("anomaly", {"series": series,
+                                        "kind": "ceiling",
+                                        "slope_per_s":
+                                        verdict["slope_per_s"]})
         return alarms
 
     def report(self) -> Dict[str, Any]:

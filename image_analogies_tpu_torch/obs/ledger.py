@@ -1,8 +1,7 @@
 """Tenant-scoped metering plane: per-request cost vectors + decisions.
 
-The port's copy of the JAX package's ``obs/ledger.py`` (its archive hook
-waits for the port's ``obs/archive``, ROADMAP Queue 1 item 10b).  Three
-planes in one module, all host-side and torch-free:
+The port's copy of the JAX package's ``obs/ledger.py``.  Three planes in
+one module, all host-side and torch-free:
 
 **Cost ledger.**  serve/worker.py assembles one *cost vector* per
 completed dispatch — queue wait, device/dispatch ms, batch lanes shared,
@@ -212,6 +211,8 @@ def emit_decision(site: str, verdict: str, cause: Optional[str] = None,
     if extra:
         rec.update(extra)
     _trace.emit_record(rec)
+    from image_analogies_tpu_torch.obs import archive as _archive
+    _archive.record("decision", rec)
 
 
 # --- rendering (`ia top --tenants` and tests share it) -----------------------

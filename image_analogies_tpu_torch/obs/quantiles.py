@@ -23,8 +23,9 @@ Design (DDSketch, Masson et al.):
 Values ``<= 0`` (and exact zeros) go to a dedicated ``zeros`` count —
 latencies are non-negative, but a defensive path must not poison the
 log.  Pure stdlib: the port's copy of the JAX package's
-``obs/quantiles.py`` (its sketch, written and summarized; merging,
-export and the selftest wait for the port's serve layer).
+``obs/quantiles.py`` (its sketch, written, summarized, read back from a
+summary and exported on ``/metrics``; merging and the selftest wait for
+the fleet, ROADMAP Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ from typing import Any, Dict
 
 DEFAULT_ALPHA = 0.01     # 1% relative error: p99.9 of 250ms is +/- 2.5ms
 DEFAULT_MAX_BINS = 1024  # ~2.5 decades of dynamic range at alpha=0.01
+
+# Quantiles exported on /metrics and in timeline point values.
+EXPORT_QUANTILES = (0.5, 0.9, 0.99, 0.999, 0.9999)
 
 
 class QuantileSketch:
@@ -125,3 +129,19 @@ class QuantileSketch:
             "bins": {str(i): n for i, n in sorted(self.bins.items())},
             "collapsed": self.collapsed,
         }
+
+    @classmethod
+    def from_summary(cls, summ: Dict[str, Any],
+                     max_bins: int = DEFAULT_MAX_BINS) -> "QuantileSketch":
+        sk = cls(alpha=float(summ.get("alpha", DEFAULT_ALPHA)),
+                 max_bins=max_bins)
+        sk.count = int(summ.get("count", 0))
+        sk.zeros = int(summ.get("zeros", 0))
+        sk.sum = float(summ.get("sum", 0.0))
+        if sk.count:
+            sk.min = float(summ.get("min", 0.0))
+            sk.max = float(summ.get("max", 0.0))
+        sk.bins = {int(i): int(n)
+                   for i, n in (summ.get("bins") or {}).items()}
+        sk.collapsed = bool(summ.get("collapsed", False))
+        return sk

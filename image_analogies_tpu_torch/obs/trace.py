@@ -24,9 +24,9 @@ enclosing run instead of minting a second ``run_id``.
 ``request_context(**attrs)`` sets ambient attrs on the calling thread that
 every span and ``emit_record`` inside inherits (a serve request's id flows
 from the worker into the engine's own level spans); ``capture_trace`` /
-``ensure_trace`` carry a trace id across threads in the request itself.
-The trace-header parse and format helpers of the JAX module wait for the
-port's HTTP front (ROADMAP Queue 1 item 10b).
+``ensure_trace`` carry a trace id across threads in the request itself,
+and ``parse_trace_header`` / ``format_trace_header`` across the HTTP
+front's process boundary (the ``X-IA-Trace`` header).
 """
 
 from __future__ import annotations
@@ -123,14 +123,55 @@ def context_attrs() -> Optional[Dict[str, Any]]:
     return getattr(_REQ_CTX, "attrs", None)
 
 
-# The ambient keys that cross a thread or process boundary with a request:
-# "trace" is the end-to-end trace id, "parent_span" names the hop that
-# forwarded it, "origin_request" pins the id the client saw at admission.
+# The ambient keys that cross a thread or process boundary with a request
+# (a worker thread through the request, an HTTP hop through the X-IA-Trace
+# header): "trace" is the end-to-end trace id, "parent_span" names the hop
+# that forwarded it, "origin_request" pins the id the client saw at
+# admission.
+TRACE_HEADER = "X-IA-Trace"
 TRACE_KEYS = ("trace", "parent_span", "origin_request")
+_TOKEN_OK = frozenset(
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz0123456789_-")
 
 
 def mint_trace_id() -> str:
     return uuid.uuid4().hex[:16]
+
+
+def _token_ok(part: str) -> bool:
+    return 0 < len(part) <= 64 and all(c in _TOKEN_OK for c in part)
+
+
+def parse_trace_header(value: Optional[str]) -> Optional[Dict[str, str]]:
+    """Parse an ``X-IA-Trace`` header: ``trace/parent_span/request``
+    (``-`` marks an absent field).  Returns the context dict or None for
+    anything malformed — a bad header degrades to a fresh trace, never
+    an error."""
+    if not value:
+        return None
+    parts = value.strip().split("/")
+    if len(parts) != 3 or not all(_token_ok(p) for p in parts):
+        return None
+    ctx: Dict[str, str] = {}
+    for key, part in zip(TRACE_KEYS, parts):
+        if part != "-":
+            ctx[key] = part
+    return ctx if "trace" in ctx else None
+
+
+def format_trace_header(ctx: Optional[Dict[str, Any]] = None
+                        ) -> Optional[str]:
+    """Render a trace context (default: the ambient one) as the
+    ``X-IA-Trace`` header value, or None when there is no trace."""
+    if ctx is None:
+        ctx = capture_trace()
+    if not ctx or "trace" not in ctx:
+        return None
+    parts = []
+    for key in TRACE_KEYS:
+        part = str(ctx.get(key, "") or "-")
+        parts.append(part if _token_ok(part) else "-")
+    return "/".join(parts)
 
 
 def capture_trace() -> Optional[Dict[str, str]]:

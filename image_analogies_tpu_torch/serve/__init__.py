@@ -1,5 +1,5 @@
 """The single-process serving path of the port (the JAX package's
-``serve/``, without its journal, HTTP front and fleet).
+``serve/``, without its fleet).
 
 Layering (each module one concern):
 
@@ -18,13 +18,20 @@ Layering (each module one concern):
   every engine call wrapped in ``utils.failure.run_with_retry``.
 - :mod:`serve.server`   — lifecycle (warmup before traffic, drain on
   shutdown) + the in-process :class:`Client` API.
+- :mod:`serve.journal`  — the write-ahead request journal (sealed
+  segments, payload and response spills, replay, compaction) and the
+  ``ia why`` forensic reader.
+- :mod:`serve.wire`     — the ``IAF2`` raw-f32 plane frames and ``IAT1``
+  trace-context frames.
+- :mod:`serve.http`     — the loopback stdlib HTTP front end (``ia serve
+  --http PORT``).
 - :mod:`serve.loadgen`  — ``ia serve --selftest N`` synthetic load.
 
 Everything here is host-side orchestration: no module of ``serve/``
 launches a kernel or imports torch itself; the card's
 work happens only inside the engine (``models/analogy.py``,
-``batch/engine.py``).  The journal and the HTTP front (ROADMAP Queue 1
-item 10b) and the fleet (10c) are not ported yet.
+``batch/engine.py``).  The fleet (ROADMAP Queue 1 item 10c) is not
+ported yet.
 """
 
 from image_analogies_tpu_torch.serve.server import Client, Server

@@ -123,7 +123,8 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
              deadline_ms: Optional[Any] = None,
              shapes: Sequence[Tuple[int, int]] = DEFAULT_SHAPES,
              zipf: Optional[float] = None, styles: int = 0,
-             flash_crowd: Optional[Dict[str, float]] = None
+             flash_crowd: Optional[Dict[str, float]] = None,
+             baselines: Optional[Dict[int, Any]] = None
              ) -> Dict[str, Any]:
     """Run the synthetic load end-to-end; returns the summary dict.
 
@@ -131,7 +132,12 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
     cycled per request — a MIXED-deadline load (e.g. ``(300, None)``)
     interleaves tight-deadline traffic with undeadlined bulk, which is
     what the queue's EDF ordering exists for: the summary's timeout count
-    under such a load is the thing deadline ordering lowers."""
+    under such a load is the thing deadline ordering lowers.
+
+    With ``cfg.journal_dir`` set, every completed request is submitted
+    again under its derived content key and must be answered from the
+    journal (``journal.resubmit_deduped``).  ``baselines``, when given, is
+    filled with each request's sequential run (index -> result)."""
     from image_analogies_tpu_torch.models.analogy import create_image_analogy
     from image_analogies_tpu_torch.obs import metrics as obs_metrics
     from image_analogies_tpu_torch.soak.trace import trace_plan
@@ -146,14 +152,18 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
     baseline = {}
     t0 = time.perf_counter()
     for item in load:
-        baseline[item["index"]] = create_image_analogy(
-            item["a"], item["ap"], item["b"], seq_params).bp
+        res = create_image_analogy(item["a"], item["ap"], item["b"],
+                                   seq_params)
+        baseline[item["index"]] = res.bp
+        if baselines is not None:
+            baselines[item["index"]] = res
     seq_s = time.perf_counter() - t0
 
     # Served run: burst-submit everything, then gather.
     responses: Dict[int, Any] = {}
     errors: Dict[int, BaseException] = {}
     rejected = 0
+    journal_stats: Optional[Dict[str, int]] = None
     with Server(cfg) as srv:
         t0 = time.perf_counter()
         futures = {}
@@ -189,6 +199,23 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
         }
         cost_rate = srv.cost_model.rate
         cost_prior = srv.cost_prior_source
+        if cfg.journal_dir:
+            # journaled smoke: every completed request resubmitted under
+            # its derived content key must dedupe, not recompute
+            deduped = 0
+            for idx in sorted(responses):
+                item = load[idx]
+                try:
+                    again = srv.submit(item["a"], item["ap"],
+                                       item["b"]).result(timeout=600)
+                    if (again.request_id == responses[idx].request_id
+                            and np.array_equal(again.bp,
+                                               responses[idx].bp)):
+                        deduped += 1
+                except BaseException:  # noqa: BLE001 - counted below
+                    pass
+            journal_stats = dict(srv.health()["journal"] or {})
+            journal_stats["resubmit_deduped"] = deduped
 
     ok = [r for r in responses.values() if r.degraded is None]
     degraded = [r for r in responses.values() if r.degraded is not None]
@@ -236,6 +263,7 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
         "zipf": zipf,
         "style_hist": style_hist(load),
         "flash_crowd": flash_crowd,
+        "journal": journal_stats,
     }
 
 
@@ -271,4 +299,12 @@ def render(summary: Dict[str, Any]) -> str:
     if summary.get("style_hist"):
         lines.insert(-1, f"  styles:     zipf S={summary['zipf']} -> "
                      f"{summary['style_hist']}")
+    jn = summary.get("journal")
+    if jn:
+        lines.append(
+            f"  journal:    {jn.get('admitted', 0)} admitted, "
+            f"{jn.get('done', 0)} done, "
+            f"{jn.get('deduped', 0)} deduped "
+            f"({jn.get('resubmit_deduped', 0)} resubmissions answered "
+            "from the journal)")
     return "\n".join(lines)

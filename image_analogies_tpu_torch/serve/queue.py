@@ -1,7 +1,7 @@
 """Bounded admission queue + compatibility-keyed batch pop (the port's
 copy of the JAX package's ``serve/queue.py``; its chaos admission site
 ``serve.admit`` waits for the port's chaos plane, ROADMAP Queue 1 item
-10d, and its journal replay ``restore`` for item 10b).
+10d).
 
 One lock + condition guards a deque.  ``submit`` never blocks: at depth
 it raises :class:`Rejected` immediately (backpressure is the client's
@@ -214,6 +214,21 @@ class AdmissionQueue:
         with self._lock:
             self._items.appendleft(req)
             obs_metrics.inc("serve.requeued")
+            obs_metrics.set_gauge("serve.queue_depth", len(self._items))
+            self._cond.notify_all()
+
+    def restore(self, reqs: List[Request]) -> None:
+        """Re-enqueue journal-replayed requests in their original admit
+        order (recovery).  Like :meth:`requeue`, bypasses the depth bound:
+        these requests were ALREADY admitted — by the previous incarnation
+        of this process — and the journal is the witness; bouncing them
+        here would lose accepted work, the exact failure the journal
+        exists to prevent."""
+        with self._lock:
+            if not reqs:
+                return
+            self._items.extend(reqs)
+            obs_metrics.max_gauge("serve.queue_depth_peak", len(self._items))
             obs_metrics.set_gauge("serve.queue_depth", len(self._items))
             self._cond.notify_all()
 

@@ -16,9 +16,16 @@ Lifecycle contract:
    requests with Rejected("shutting_down")), joins the workers, then
    closes the run scope so ``run_end`` carries the final counters.
 
-The write-ahead journal of the JAX server (``journal_dir``,
-``Server.kill`` / ``recover``) waits for the port's journal (ROADMAP
-Queue 1 item 10b); ``ServeConfig`` refuses a ``journal_dir`` until then.
+Durability (``ServeConfig.journal_dir``): a write-ahead request journal
+(serve/journal.py) records every admit before the queue sees it and
+every transition after.  ``start()`` then runs :meth:`Server.recover`
+BEFORE accepting traffic: finished entries arm done-dedupe (duplicate
+submissions answer instantly with the recorded response — exactly-once
+from the client's view), incomplete entries re-enqueue in original admit
+order on this server's device, and entries whose dispatch history
+already exhausted ``crash_requeues`` are marked poisoned and shed forever
+with ``Rejected("poison")``.  ``kill()`` is the non-graceful teardown
+that models process death.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from image_analogies_tpu_torch.obs import trace as obs_trace
 from image_analogies_tpu_torch.obs.slo import SloTracker
 from image_analogies_tpu_torch.serve import batcher
 from image_analogies_tpu_torch.serve import degrade as serve_degrade
+from image_analogies_tpu_torch.serve import journal as serve_journal
 from image_analogies_tpu_torch.serve.degrade import CostModel
 from image_analogies_tpu_torch.serve.policy import TenantQuota
 from image_analogies_tpu_torch.serve.queue import AdmissionQueue
@@ -100,8 +108,23 @@ class Server:
                               slow_window_s=cfg.slo_slow_window_s)
         if obs_scope is not None:
             obs_scope.slo = self.slo
+            if cfg.journal_dir:
+                # black-box dumps land next to the worker's journal —
+                # the one directory that survives this worker's death
+                obs_scope.dump_dir = cfg.journal_dir
+        # Write-ahead journal: None unless configured — the disabled
+        # request path must never touch the journal module (zero-cost
+        # contract, locked by tests).
+        self._journal = (serve_journal.RequestJournal(
+            cfg.journal_dir, fsync=cfg.journal_fsync)
+            if cfg.journal_dir else None)
+        # idem -> Future for requests reconstructed by recover(); lets an
+        # embedder (or drill) wait for replayed work to finish.
+        self.recovery: Dict[str, "Future[Response]"] = {}
+        self.recovery_stats: Optional[Dict[str, int]] = None
         self._pool = WorkerPool(cfg, self._queue, self.cost_model,
-                                slo=self.slo, obs_scope=obs_scope)
+                                slo=self.slo, journal=self._journal,
+                                obs_scope=obs_scope)
         self._exit = contextlib.ExitStack()
         self._accepting = False
         self._started = False
@@ -137,6 +160,7 @@ class Server:
                 "max_batch": self.cfg.max_batch,
                 "workers": self.cfg.workers,
                 "warmup_sizes": [list(s) for s in self.cfg.warmup_sizes],
+                "journal": self.cfg.journal_dir,
                 "deadline_ordering": self.cfg.deadline_ordering,
                 "breaker_threshold": self.cfg.breaker_threshold,
                 "cost_prior": self.cost_prior_source,
@@ -151,6 +175,12 @@ class Server:
             obs_ledger.arm(capacity=self.cfg.ledger_capacity,
                            tenant_k=self.cfg.tenant_k)
             self._ledger_armed = True
+        if self.obs_scope is None and self.cfg.journal_dir:
+            # standalone journaled server: the run scope's flight
+            # recorder dumps into this journal dir on a death path
+            scope = obs_metrics.current_scope()
+            if scope is not None and scope.dump_dir is None:
+                scope.dump_dir = self.cfg.journal_dir
         obs_metrics.inc(f"serve.cost_prior.{self.cost_prior_source}")
         obs_metrics.set_gauge("serve.queue_depth", 0)
         if self.cfg.warmup_sizes:
@@ -158,6 +188,12 @@ class Server:
                                 sizes=len(self.cfg.warmup_sizes)):
                 self.warmup_report = tune_warmup.warmup_buckets(
                     self.cfg.params, self.cfg.warmup_sizes)
+        if self._journal is not None:
+            # Replay BEFORE traffic: recovered work re-enqueues first,
+            # and done-dedupe / poison state is armed before the first
+            # duplicate submission can arrive.
+            self._journal.open()
+            self.recover()
         self._pool.start()
         self._t_start = time.monotonic()
         self._accepting = True
@@ -178,6 +214,8 @@ class Server:
                 serve_degrade.persist_rate(self.cost_model, self.cfg.params)
             except Exception:  # pragma: no cover - persistence best-effort
                 pass
+        if self._journal is not None:
+            self._journal.close()
         self._disarm_ledger()
         self._started = False
         self._exit.close()
@@ -186,6 +224,118 @@ class Server:
         if self._ledger_armed:
             self._ledger_armed = False
             obs_ledger.disarm()
+
+    @_scoped
+    def kill(self) -> None:
+        """Non-graceful teardown — the drill-facing stand-in for process
+        death.  Nothing is drained and no future is resolved: queued and
+        in-flight clients are left hanging, exactly as a real death
+        leaves them.  The write-ahead journal on disk is the only thing
+        that survives; a new Server on the same ``journal_dir`` picks the
+        work back up via :meth:`recover`."""
+        if not self._started:
+            return
+        self._accepting = False
+        self._queue.close()
+        self._queue.drain_rejected()  # dropped unresolved, like a death
+        self._pool.join(2.0)
+        if self._journal is not None:
+            self._journal.close()
+        self._disarm_ledger()
+        self._started = False
+        self._exit.close()
+
+    # -- recovery ----------------------------------------------------------
+
+    @_scoped
+    def recover(self) -> Dict[str, int]:
+        """Replay the journal: arm done-dedupe and the poison set, then
+        re-enqueue every incomplete entry in original admit order.
+        Replayed requests carry no deadline (the original client's
+        absolute deadline died with the old process; the recovered
+        response is what a duplicate submission dedupes against) and
+        continue their pre-restart dispatch history: an entry whose
+        ``dispatched`` count already exceeds ``crash_requeues`` is marked
+        poisoned and shed instead of being given another chance to crash
+        the fleet."""
+        assert self._journal is not None
+        rep = self._journal.replay()
+        stats = {"entries": len(rep.entries), "replayed": 0, "poisoned": 0,
+                 "done": 0, "unrecoverable": 0,
+                 "quarantined": rep.quarantined}
+        restored = []
+        for ent in rep.incomplete:
+            if ent.dispatched > self.cfg.crash_requeues:
+                obs_ledger.emit_decision("server", "poison",
+                                         "replay_dispatch_exhausted",
+                                         idem=ent.idem)
+                self._journal.record_decision(
+                    ent.idem, "server", "poison",
+                    "replay_dispatch_exhausted",
+                    dispatched=ent.dispatched)
+                self._journal.record_poisoned(ent.idem)
+                stats["poisoned"] += 1
+                obs_trace.emit_record({"event": "serve_replay",
+                                       "idem": ent.idem,
+                                       "action": "poisoned",
+                                       "dispatched": ent.dispatched})
+                continue
+            # the recovered request runs on THIS server's device
+            payload = self._journal.load_payload(
+                ent.idem, device=self.cfg.params.device)
+            if payload is None:  # spill damaged: quarantined, not re-run
+                obs_ledger.emit_decision("server", "reject",
+                                         "payload_corrupt", idem=ent.idem)
+                self._journal.record_rejected(ent.idem, "payload_corrupt")
+                stats["unrecoverable"] += 1
+                obs_trace.emit_record({"event": "serve_replay",
+                                       "idem": ent.idem,
+                                       "action": "unrecoverable"})
+                continue
+            a, ap, b, params = payload
+            with self._id_lock:
+                self._next_id += 1
+                rid = self._next_id
+            fut: "Future[Response]" = Future()
+            req = Request(
+                request_id=rid, a=a, ap=ap, b=b, params=params,
+                key=batcher.batch_key(a, ap, b, params), future=fut,
+                idem=ent.idem, replayed=True, requeues=ent.dispatched)
+            restored.append(req)
+            self.recovery[ent.idem] = fut
+            stats["replayed"] += 1
+            obs_ledger.emit_decision("server", "replay",
+                                     "incomplete_after_restart",
+                                     idem=ent.idem)
+            self._journal.record_decision(ent.idem, "server", "replay",
+                                          "incomplete_after_restart",
+                                          dispatched=ent.dispatched)
+            obs_metrics.inc("serve.journal.replayed")
+            obs_trace.emit_record({"event": "serve_replay",
+                                   "idem": ent.idem, "request": rid,
+                                   "action": "requeued",
+                                   "dispatched": ent.dispatched})
+        stats["done"] = sum(1 for e in rep.entries.values()
+                            if e.done is not None)
+        self._queue.restore(restored)
+        obs_trace.emit_record({"event": "serve_recovery", **stats})
+        self.recovery_stats = stats
+        return stats
+
+    def wait_recovered(self, timeout: Optional[float] = None) -> Dict[str, str]:
+        """Block until every journal-replayed request resolves; returns
+        ``{idem: outcome}`` where outcome is the response status or the
+        exception type name."""
+        end = None if timeout is None else time.monotonic() + timeout
+        out: Dict[str, str] = {}
+        for idem, fut in self.recovery.items():
+            left = None if end is None else max(0.0,
+                                                end - time.monotonic())
+            try:
+                out[idem] = fut.result(left).status
+            except Exception as exc:  # noqa: BLE001 - summarized
+                out[idem] = type(exc).__name__
+        return out
 
     def __enter__(self) -> "Server":
         return self.start()
@@ -200,16 +350,89 @@ class Server:
                params: Optional[AnalogyParams] = None,
                deadline_s: Optional[float] = None,
                wire_bytes: int = 0,
-               priority: int = 2) -> "Future[Response]":
+               priority: int = 2,
+               idempotency_key: Optional[str] = None) -> "Future[Response]":
         """Enqueue one request; returns a Future resolving to a Response
         (or raising DeadlineExceeded / the dispatch error).  Raises
         :class:`Rejected` when the server is full or shutting down, when
         the dispatch breaker is open, or when the tenant's quota is
-        spent."""
+        spent.
+
+        With the journal enabled, ``idempotency_key`` (or the derived
+        content key) makes submission exactly-once across restarts: a
+        key the journal already finished answers instantly with the
+        recorded response, and a key marked poisoned sheds with
+        ``Rejected("poison")`` before it can touch a worker — checked
+        ahead of the breaker, so known-poison retries never trip it."""
         if not self._accepting:
             raise Rejected("shutting_down")
         p = params or self.cfg.params
-        key = None
+        key = idem = None
+        if self._journal is not None:
+            if (idempotency_key is not None
+                    and not serve_journal.valid_idem(idempotency_key)):
+                # The key names files under the journal dir — anything
+                # outside [A-Za-z0-9_-]{1,64} (path separators, dots)
+                # is refused before it can touch a path or a journal
+                # line.  HTTP pre-checks this and answers 400.
+                obs_metrics.inc("serve.rejected")
+                raise Rejected("bad_idempotency_key")
+            key = batcher.batch_key(a, ap, b, p)
+            idem = idempotency_key or serve_journal.idem_key(
+                batcher.key_str(key), np.asarray(b))
+            if self._journal.is_poisoned(idem):
+                obs_metrics.inc("serve.rejected")
+                obs_metrics.inc("serve.poisoned")
+                obs_ledger.emit_decision("server", "shed", "poison",
+                                         idem=idem)
+                raise Rejected("poison")
+            cached = self._journal.lookup_done(idem)
+            if cached is not None:
+                obs_metrics.inc("serve.journal.deduped")
+                obs_trace.emit_record({"event": "serve_dedupe",
+                                       "request": cached.request_id,
+                                       "idem": idem})
+                # The dedupe verdict is part of this key's causal chain
+                # ("done, bit-exact dedupe on retry") — journal it so
+                # `ia why` shows the retry was answered, not re-run.
+                obs_ledger.emit_decision("server", "dedupe",
+                                         "journal_done", idem=idem)
+                self._journal.record_decision(idem, "server", "dedupe",
+                                              "journal_done")
+                fut: "Future[Response]" = Future()
+                fut.set_result(cached)
+                return fut
+            rec = self.recovery.get(idem)
+            if rec is not None and not rec.done():
+                # Join-replay: this key is ALREADY being recomputed by
+                # recover()'s replay — a duplicate submission (e.g. a
+                # router re-forward after a cross-process handoff, where
+                # no in-process future exists to re-chain) joins the
+                # in-flight replayed request instead of re-admitting it,
+                # keeping recovery exactly-once-compute across the
+                # process boundary.
+                obs_metrics.inc("serve.journal.join_replay")
+                obs_trace.emit_record({"event": "serve_join_replay",
+                                       "idem": idem})
+                obs_ledger.emit_decision("server", "join_replay",
+                                         "replay_in_flight", idem=idem)
+                self._journal.record_decision(idem, "server",
+                                              "join_replay",
+                                              "replay_in_flight")
+                joined: "Future[Response]" = Future()
+
+                def _chain(f: "Future[Response]",
+                           out: "Future[Response]" = joined) -> None:
+                    if out.done():
+                        return
+                    exc = f.exception()
+                    if exc is not None:
+                        out.set_exception(exc)
+                    else:
+                        out.set_result(f.result())
+
+                rec.add_done_callback(_chain)
+                return joined
         if self._pool.breaker.admission_open():
             # Breaker-aware admission: the dispatch breaker is open, so
             # an accepted request would only sit in the queue to be
@@ -218,7 +441,8 @@ class Server:
             # is non-claiming, so the half-open probe still flows.
             obs_metrics.inc("serve.rejected")
             obs_metrics.inc("serve.rejected.breaker_open")
-            obs_ledger.emit_decision("server", "shed", "breaker_open")
+            obs_ledger.emit_decision("server", "shed", "breaker_open",
+                                     idem=idem)
             raise Rejected("breaker_open")
         if self._quota is not None:
             # Per-tenant admission quota (tenant = the batch key's
@@ -236,7 +460,10 @@ class Server:
                 obs_metrics.inc("serve.quota_throttled")
                 obs_ledger.record_throttle(tenant)
                 obs_ledger.emit_decision("server", "shed", "quota",
-                                         tenant=tenant[:12])
+                                         idem=idem, tenant=tenant[:12])
+                if self._journal is not None and idem is not None:
+                    self._journal.record_decision(
+                        idem, "server", "shed", "quota")
                 raise Rejected("quota")
         if deadline_s is None:
             deadline_s = self.cfg.default_deadline_s
@@ -250,6 +477,7 @@ class Server:
             params=p,
             key=key if key is not None else batcher.batch_key(a, ap, b, p),
             future=fut,
+            idem=idem,
             wire_bytes=wire_bytes,
             priority=priority,
             # Submit runs on the caller's thread; the worker thread that
@@ -259,7 +487,20 @@ class Server:
         )
         if deadline_s is not None:
             req.deadline = req.t_submit + deadline_s
-        self._queue.submit(req)  # Rejected propagates to the caller
+        if self._journal is not None:
+            # WAL ordering: the admit record (payload spill + sealed
+            # line) lands BEFORE the queue sees the request, so an
+            # accepted request with no journal trace cannot exist.
+            self._journal.record_admit(
+                idem, rid, req.a, req.ap, req.b, p, deadline_s,
+                batcher.key_str(req.key))
+            try:
+                self._queue.submit(req)
+            except Rejected as exc:
+                self._journal.record_rejected(idem, exc.reason)
+                raise
+        else:
+            self._queue.submit(req)  # Rejected propagates to the caller
         # Admission instant: the first hop of the request's trace chain
         # (ia trace renders admit -> queue wait -> batch -> dispatch).
         obs_trace.emit_record({"event": "serve_admit",
@@ -306,10 +547,16 @@ class Server:
         gauges = snap.get("gauges", {})
         breaker = self._pool.breaker
         workers_ok = all(live.values()) if live else True
+        # Liveness vs readiness split: a server still working through its
+        # journal replay backlog is ALIVE (accepting, threads up) but not
+        # READY.
+        recovering = any(not f.done() for f in self.recovery.values())
         return {
             "ok": bool(self._started and self._accepting and workers_ok),
             "accepting": self._accepting,
-            "ready": bool(self._accepting),
+            "ready": bool(self._accepting and not recovering),
+            "recovering": recovering,
+            "recovery": self.recovery_stats,
             "uptime_s": (round(time.monotonic() - self._t_start, 3)
                          if self._t_start is not None else 0.0),
             "queue_depth": len(self._queue),
@@ -332,6 +579,11 @@ class Server:
             # per-tenant admission quota state (None when QoS is off)
             "quota": (self._quota.snapshot()
                       if self._quota is not None else None),
+            # durability plane: live serve.journal.* counter tallies plus
+            # lock-holder pid / active segment index (None when the
+            # journal is disabled)
+            "journal": ({**self._journal.stats(), **self._journal.info()}
+                        if self._journal is not None else None),
         }
 
 
@@ -343,8 +595,10 @@ class Client:
     def __init__(self, server: Server):
         self._server = server
 
-    def submit(self, a, ap, b, params=None, deadline_s=None):
-        return self._server.submit(a, ap, b, params, deadline_s)
+    def submit(self, a, ap, b, params=None, deadline_s=None,
+               idempotency_key=None):
+        return self._server.submit(a, ap, b, params, deadline_s,
+                                   idempotency_key=idempotency_key)
 
     def request(self, a, ap, b, params=None, deadline_s=None, timeout=None):
         return self._server.request(a, ap, b, params, deadline_s, timeout)

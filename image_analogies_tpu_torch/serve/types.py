@@ -4,9 +4,7 @@
 Host-side only: numpy planes in, numpy planes out.  The engine types
 (`AnalogyParams`, `AnalogyResult`) are reused as they are, so a served
 request runs the code path a CLI run does, to the bit.  The fleet's
-``FleetConfig`` comes with the fleet (ROADMAP Queue 1 item 10c), and the
-write-ahead journal (``journal_dir``) with item 10b: until then a
-``ServeConfig`` with a ``journal_dir`` raises.
+``FleetConfig`` comes with the fleet (ROADMAP Queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -34,9 +32,13 @@ class Rejected(RuntimeError):
     ``"worker_crash"`` when a crashed worker exhausted the requeue budget,
     ``"quota"`` when the tenant's per-style admission token bucket is
     empty (serve/policy.py — the viral style degrades itself, not the
-    server; a verdict about the request).  The JAX package's
-    ``"poison"`` and ``"bad_idempotency_key"`` come with the journal
-    (ROADMAP Queue 1 item 10b).
+    server; like ``"poison"`` a verdict about the request),
+    ``"poison"`` when the request's idempotency key was previously marked
+    poisoned in the write-ahead journal (it exhausted ``crash_requeues``
+    once already — resubmission sheds instantly, before the breaker, so a
+    known-poison key can neither re-crash the server nor trip the
+    breaker), ``"bad_idempotency_key"`` when a journaled server is given
+    a key outside ``[A-Za-z0-9_-]{1,64}`` (keys name spill files).
     """
 
     def __init__(self, reason: str):
@@ -135,10 +137,6 @@ class ServeConfig:
     qos: Optional[QosPolicy] = None
 
     def __post_init__(self):
-        if self.journal_dir:
-            raise ValueError(
-                "journal_dir: the write-ahead request journal is not "
-                "ported yet (ROADMAP Queue 1 item 10b)")
         if self.ledger_capacity < 1:
             raise ValueError("ledger_capacity must be >= 1")
         if self.tenant_k < 1:
@@ -190,6 +188,11 @@ class Request:
     # per request (X-IA-Priority over HTTP); inert unless the queue
     # runs with a QosPolicy that arms weighted_fair.
     priority: int = 2
+    # Write-ahead-journal identity (None when the journal is disabled).
+    # ``replayed`` marks a request reconstructed by Server.recover() —
+    # its dispatch transitions continue the pre-restart history.
+    idem: Optional[str] = None
+    replayed: bool = False
 
     def __post_init__(self):
         if self.priority < 1:

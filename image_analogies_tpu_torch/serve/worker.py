@@ -30,9 +30,14 @@ Two containment layers sit around that:
   ring is dumped (``obs/recorder.py dump_current``) where the scope has a
   dump directory.
 
-The JAX worker's write-ahead journal transitions wait for the port's
-journal (ROADMAP Queue 1 item 10b), and its chaos site ``serve.dispatch``
-and process-death fault for the chaos plane (item 10d).
+Write-ahead journal (serve/journal.py, when the server has one): each
+request's ``dispatched`` line lands before its engine call (on the lane
+engine's path, every member's before the one call), its ``done`` line
+(the response spilled) before its future resolves, and every terminal
+refusal, poison verdict, control-plane decision and cost vector beside
+them.  The JAX worker's chaos site ``serve.dispatch`` and its
+process-death fault wait for the port's chaos plane (ROADMAP Queue 1
+item 10d).
 """
 
 from __future__ import annotations
@@ -78,9 +83,11 @@ def _claim(req: Request) -> bool:
 class WorkerPool:
     def __init__(self, cfg: ServeConfig, queue: AdmissionQueue,
                  cost_model: Optional[serve_degrade.CostModel] = None,
-                 slo: Optional[SloTracker] = None, obs_scope=None):
+                 slo: Optional[SloTracker] = None, journal=None,
+                 obs_scope=None):
         self._cfg = cfg
         self._queue = queue
+        self._journal = journal  # write-ahead journal (None = disabled)
         self._obs_scope = obs_scope  # fleet worker's scope (None standalone)
         self._cost = cost_model or serve_degrade.CostModel()
         self.breaker = CircuitBreaker(cfg.breaker_threshold,
@@ -159,9 +166,14 @@ class WorkerPool:
                              requeues=req.requeues)
                 self._queue.requeue(req)
             else:
-                # requeue budget exhausted: this request takes workers
-                # down every time it runs
+                # Requeue budget exhausted: this request takes workers
+                # down every time it runs.  Persist the poison verdict so
+                # any RESUBMISSION of the same idempotency key sheds at
+                # admission with Rejected("poison") instead of crashing
+                # the server again.
                 self._decide(req, "poison", "crash_requeues_exhausted")
+                if self._journal is not None and req.idem:
+                    self._journal.record_poisoned(req.idem)
                 obs_metrics.inc("serve.rejected")
                 req.future.set_exception(Rejected("worker_crash"))
 
@@ -215,6 +227,14 @@ class WorkerPool:
         for req in batch:
             if not _claim(req):
                 return False
+
+        # WAL transition for every member BEFORE the engine call (same
+        # contract as the one-by-one path; replay treats a repeated
+        # `dispatched` append from a later fallback as the same state)
+        if self._journal is not None:
+            for req in batch:
+                if req.idem:
+                    self._journal.record_dispatched(req.idem)
 
         t0 = time.monotonic()
         try:
@@ -288,22 +308,29 @@ class WorkerPool:
                                           batch_size=len(batch),
                                           dispatch_ms=resp.dispatch_ms)
                 self._emit_cost(req, resp, params)
+                if self._journal is not None and req.idem:
+                    self._journal.record_done(req.idem, resp)
                 req.future.set_result(resp)
         return True
 
     def _decide(self, req: Request, verdict: str, cause: str,
                 **extra) -> None:
         """One control-plane verdict on this request's fate: counter +
-        trace record (the obs/ledger funnel)."""
+        trace record (the obs/ledger funnel) and, when journaled, a sealed
+        ``decision`` line `ia why` replays."""
         obs_ledger.emit_decision("worker", verdict, cause,
-                                 request=req.request_id, **extra)
+                                 idem=req.idem, request=req.request_id,
+                                 **extra)
+        if self._journal is not None and req.idem:
+            self._journal.record_decision(req.idem, "worker", verdict,
+                                          cause, **extra)
 
     def _emit_cost(self, req: Request, resp: Response, params, *,
                    retries: int = 0) -> None:
         """Assemble this request's cost vector at dispatch completion.
-        Fast-exits before building anything when the ledger plane is off
-        — the disarmed path allocates nothing."""
-        if not obs_ledger.armed():
+        Fast-exits before building anything when both sinks (ledger
+        plane, journal) are off — the disarmed path allocates nothing."""
+        if not obs_ledger.armed() and self._journal is None:
             return
         degraded = resp.degraded or {}
         vec = {
@@ -325,6 +352,8 @@ class WorkerPool:
         }
         obs_ledger.record(vec)
         obs_trace.emit_record({"event": "serve_cost", **vec})
+        if self._journal is not None and req.idem:
+            self._journal.record_cost(req.idem, vec)
 
     def _emit_request_record(self, req: Request, status: str, *,
                              batch_size: int, dispatch_ms: float = 0.0,
@@ -378,6 +407,7 @@ class WorkerPool:
             self._record_slo(req, False)
             self._emit_request_record(req, "timeout", batch_size=batch_size)
             self._decide(req, "timeout", "deadline_expired")
+            self._journal_rejected(req, "deadline")
             req.future.set_exception(
                 DeadlineExceeded(req.request_id, -(req.remaining() or 0.0)))
             return backend
@@ -399,6 +429,7 @@ class WorkerPool:
             self._record_slo(req, False)
             self._emit_request_record(req, "rejected", batch_size=batch_size)
             self._decide(req, "shed", "breaker_open")
+            self._journal_rejected(req, "circuit_open")
             req.future.set_exception(Rejected("circuit_open"))
             return backend
 
@@ -409,6 +440,13 @@ class WorkerPool:
         else:
             backend = backend or get_backend(params)
             dispatch_backend = backend
+
+        # WAL transition: dispatched BEFORE the engine call.  If the
+        # process dies anywhere past this line without a done append,
+        # replay sees `dispatched` and re-enqueues (counting the attempt
+        # against the cross-restart poison budget).
+        if self._journal is not None and req.idem:
+            self._journal.record_dispatched(req.idem)
 
         t0 = time.monotonic()
         # Per-request attempt count for the cost vector: run_with_retry
@@ -438,6 +476,7 @@ class WorkerPool:
             self._record_slo(req, False)
             self._emit_request_record(req, "error", batch_size=batch_size,
                                       dispatch_ms=(time.monotonic() - t0) * 1e3)
+            self._journal_rejected(req, "error")
             req.future.set_exception(exc)
             return backend
 
@@ -471,5 +510,17 @@ class WorkerPool:
                                   degraded=degraded)
         self._emit_cost(req, resp, params,
                         retries=max(attempts["n"] - 1, 0))
+        # WAL transition: done is appended (response spilled + digest
+        # sealed) BEFORE the future resolves.  If the process dies between
+        # the two, the client never saw the answer and replay serves the
+        # recorded one — the exactly-once edge, not a duplicate.
+        if self._journal is not None and req.idem:
+            self._journal.record_done(req.idem, resp)
         req.future.set_result(resp)
         return backend
+
+    def _journal_rejected(self, req: Request, reason: str) -> None:
+        """Terminal non-success transition: replay must not re-enqueue a
+        request whose client already saw a definitive refusal."""
+        if self._journal is not None and req.idem:
+            self._journal.record_rejected(req.idem, reason)

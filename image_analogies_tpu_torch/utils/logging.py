@@ -19,9 +19,9 @@ from typing import Any, Callable, Dict, Optional, TextIO
 
 logger = logging.getLogger("image_analogies_tpu_torch")
 
-# Optional per-record stamper: the observability layer (not ported yet,
-# ROADMAP Queue 1 item 10) registers one to add run_id/seq while a run is
-# active.  A hook, so this module imports nothing of obs.
+# Optional per-record stamper: the observability layer (obs/trace.py)
+# registers one to add run_id/seq while a run is active.  A hook, so this
+# module imports nothing of obs.
 _STAMPER: Optional[Callable[[Dict[str, Any]], None]] = None
 
 

@@ -151,8 +151,16 @@ def test_server_on_the_card_without_one_raises():
 
 
 def test_journal_dir_names_its_roadmap_item(tmp_path):
-    with pytest.raises(ValueError, match="10b"):
-        _cfg(journal_dir=str(tmp_path))
+    """ROADMAP Queue 1 item 10b brought the write-ahead journal: a
+    ``journal_dir`` is accepted (it was refused, naming the item, until
+    then) and the server appends to a segment of its own there."""
+    cfg = _cfg(journal_dir=str(tmp_path / "j"), journal_fsync=False,
+               workers=1)
+    with Server(cfg) as srv:
+        journal = srv.health()["journal"]
+    assert journal["segment"] == 1 and journal["lock_pid"] == os.getpid()
+    assert sorted(os.listdir(tmp_path / "j")) == [
+        "payloads", "segment-000001.jsonl"]
 
 
 # ------------------------------------------------- batching, bits
@@ -734,16 +742,40 @@ def test_cli_serve_zipf_and_flash_crowd_load(capsys):
 # ------------------------------------------- counters under threads
 
 
-def test_launch_counts_and_fault_injector_hold_under_threads():
-    """More threads than cores bump the launch counts and draw armed
-    faults with a tiny switch interval: no count is lost and exactly the
-    armed faults fire (the serve workers' shared state)."""
-    import sys
+class _SlowReads(dict):
+    """A dict whose every read yields the interpreter for a moment: a
+    read-modify-write of one entry (``d[k] += 1``) then interleaves with
+    the other threads' unless a lock holds it from the read to the
+    write."""
 
+    def __getitem__(self, key):
+        value = dict.__getitem__(self, key)
+        time.sleep(2e-5)
+        return value
+
+
+def test_launch_counts_and_fault_injector_hold_under_threads(monkeypatch):
+    """The serve workers' shared state under threads, with the
+    interleavings forced: the launch counts and the armed-fault count are
+    dicts whose reads yield (``_SlowReads``) between the read and the
+    write of every bump, and ``argmin_l2``'s card branch (its library, its
+    stream and its workspace stood in for on the CPU) yields between
+    fetching the merge workspace and enqueueing the kernel while another
+    thread resets the workspaces.  With the locks no count is lost,
+    exactly the armed faults fire and no launch is handed a dropped
+    workspace; without any one of them (``match._LAUNCH_LOCK``,
+    ``failure._INJECT_LOCK``, ``match._ARGMIN_LOCK``) the test fails."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from image_analogies_tpu_torch.ops import _build
     from image_analogies_tpu_torch.ops import match
 
-    threads, per = 4 * (os.cpu_count() or 2), 2000
+    monkeypatch.setattr(match, "LAUNCHES", _SlowReads(match.LAUNCHES))
+    monkeypatch.setattr(failure, "_INJECT", _SlowReads(failure._INJECT))
     match.reset_launch_counts()
+    threads, per = 8, 100
     armed = threads * per // 3
     failure.inject_failures(armed)
     fired = []
@@ -760,17 +792,74 @@ def test_launch_counts_and_fault_injector_hold_under_threads():
         with lock:
             fired.append(n)
 
-    old = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in pool)
+    assert match.LAUNCHES["argmin_l2"] == threads * per
+    assert sum(fired) == armed and failure._INJECT["n"] == 0
+
+    # argmin_l2's card branch against utils/failure.reset_device_state
+    stream = 7
+
+    def workspace(device, stream_, m):  # the real one, in host memory
+        key = (device.index, stream_)
+        ws = match._ARGMIN_WORKSPACE.get(key)
+        if ws is None:
+            ws = match._ARGMIN_WORKSPACE[key] = (
+                torch.full((256 * match._ARGMIN_KEY_STRIDE,), -1,
+                           dtype=torch.int64), torch.zeros(1, dtype=torch.int32))
+        return ws
+
+    dropped = []
+
+    def launch(*args):  # ia_argmin_l2's arguments, in order
+        keys_ptr, dev, stream_ = args[12], args[16], args[17]
+        time.sleep(2e-4)  # the reset runs here unless the lock holds it
+        ws = match._ARGMIN_WORKSPACE.get((dev, stream_))
+        if ws is None or ws[0].data_ptr() != keys_ptr:
+            dropped.append(keys_ptr)
+        return 0
+
+    monkeypatch.setattr(match, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(match, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(match, "_device_index", lambda t: 0)
+    monkeypatch.setattr(match, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(match, "_argmin_workspace", workspace)
+    monkeypatch.setattr(_build, "load", lambda name: SimpleNamespace(
+        ia_argmin_l2=launch))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(
+                            cuda_stream=stream))
+    q = torch.zeros((8, 4))
+    dbp, dbn = torch.zeros((256, 4)), torch.zeros(256)
+    stop = threading.Event()
+
+    def resetter():
+        while not stop.is_set():
+            failure.reset_device_state()
+
+    def launcher():
+        for _ in range(50):
+            match.argmin_l2(q, dbp, dbn)
+
+    match._ARGMIN_WORKSPACE.clear()
+    match.reset_launch_counts()
+    reset = threading.Thread(target=resetter)
+    reset.start()
+    pool = [threading.Thread(target=launcher) for _ in range(4)]
     try:
-        pool = [threading.Thread(target=work) for _ in range(threads)]
         for t in pool:
             t.start()
         for t in pool:
             t.join(timeout=120)
     finally:
-        sys.setswitchinterval(old)
-    assert not any(t.is_alive() for t in pool)
-    assert match.LAUNCHES["argmin_l2"] == threads * per
-    assert sum(fired) == armed and failure._INJECT["n"] == 0
+        stop.set()
+        reset.join(timeout=120)
+        match._ARGMIN_WORKSPACE.clear()
+    assert not any(t.is_alive() for t in pool + [reset])
+    assert match.LAUNCHES["argmin_l2"] == 4 * 50
+    assert dropped == []
     match.reset_launch_counts()
