@@ -260,14 +260,49 @@ and carried on):
                 ``cli archive inspect --json`` (a segment, nothing
                 quarantined) as subprocesses.  The walls of (a) and (c),
                 the recovery seconds, the peak memory and the journal's
-                bytes are printed beside the card's name and power limit.
-                It checks bits and counts, not times.
+                bytes are printed beside the card's name and power limit;
+                (6) the fleet on check 1's four requests and singleton
+                runs: (a) an in-process fleet of two (``wire="binary"``, a
+                journal root): each response its singleton's bits, all four
+                routed to one home worker (``router.routed.*``), the
+                launches exactly (engine launches + lone members) x a
+                singleton's; (c) ``serve_fleet_http`` on an ephemeral
+                loopback port over (a)'s fleet: one request POSTed as an
+                ``x-ia-f32`` frame with a fresh idempotency key and an
+                ``X-IA-Trace``, its singleton's bits, the caller's trace id,
+                one singleton's launches; ``/healthz`` the fleet view,
+                ``/metrics`` Prometheus 0.0.4 with ``worker=`` series; (b)
+                a subprocess fleet of two ``worker_main`` children on the
+                card: each spawn's seconds and the card's compute pids at
+                its entry, the four requests sent and their home SIGKILLed
+                once its ``/healthz`` journal shows them admitted and
+                dispatched, not done, three seconds into the batch (its
+                kernels running); the card's used memory at the kill and
+                at the replacement's spawn; the health loop's replacement
+                is generation 1 on the
+                same directory (stale lock swept), the corpse not on the
+                card when it spawns, ``router.deaths`` 1 and ``handoffs``
+                1, every future answered with its singleton's bits, and
+                the children's ``launch.*`` counters, read through the
+                federated ``/metrics.json`` snapshot, exactly their runs'
+                (the corpse's launches die with it); the handoff and
+                recovery seconds, each child's ``hbm.peak_bytes`` and how
+                it ended at shutdown (0 drained, -9 killed after 15 s);
+                (d) ``cli fleet --selftest 6 --transport subprocess`` and
+                ``cli fleet --selftest 6 --autoscale`` as subprocesses
+                (started after (1)), exit 0, the autoscaled summary's
+                ``control.autoscale`` true; (e) no ``worker_main`` process
+                left alive or on the card, ``live_workers()`` empty and
+                ``reap_orphans()`` 0.  It checks bits and counts, not
+                times.
 
 card_vs_cpu's CPU runs run in a side process started with the script
-(they need no card).  The ann, mesh and serve phases run in side
-processes of their own (this script with ``--phases ann --inline``,
-``--phases mesh --inline`` and ``--phases serve --inline``), started once
-the driver phase is done, beside the lanes and tune phases: their output is printed when each has ended, and
+(they need no card).  The video, ann, mesh and serve phases run in side
+processes of their own (this script with ``--phases video --inline``,
+``--phases ann --inline`` and so on), started once the driver phase is
+done, beside the lanes and tune phases (the video phase runs after the
+driver since PR 22, to keep the whole script well inside its limit):
+their output is printed when each has ended, and
 a side phase that fails fails the script.  Each phase's seconds, and the
 seconds since the script began, are a ``[time]`` line after it (a side
 phase's own, inside its output; the line after it here, the seconds this
@@ -5120,8 +5155,408 @@ def serve_journal(params, load, singles):
     shutil.rmtree(adir, ignore_errors=True)
 
 
+FLEET_TRACE = "f1ee7c0de6"  # check 6(c)'s caller trace id (X-IA-Trace)
+FLEET_KILL_AFTER_S = 3.0  # check 6(b): the kill, this long after dispatch
+WORKER_MAIN = "image_analogies_tpu_torch.serve.worker_main"
+
+
+def card_pids():
+    """{pid: used memory} of the compute processes nvidia-smi lists on the
+    card (empty where the machine shows it none)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi compute apps exit {out.returncode}: "
+             f"{out.stderr.strip()}")
+    pids = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            pids[int(pid)] = mem.strip()
+    return pids
+
+
+def card_memory_used_mib():
+    """The card's used memory, MiB, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi memory.used exit {out.returncode}: "
+             f"{out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def worker_main_pids():
+    """Pids of every live ``worker_main`` process on the machine (read
+    from /proc)."""
+    found = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if WORKER_MAIN in cmd and "python" in cmd:
+            found.append(int(name))
+    return sorted(found)
+
+
+def fleet_cli_start(tmp):
+    """Check 6(d): ``cli fleet --selftest 6`` over the subprocess
+    transport and with ``--autoscale``, at their default shapes, as
+    subprocesses side by side (a tune store each)."""
+    procs = []
+    for i, extra in enumerate((["--transport", "subprocess"],
+                               ["--autoscale"])):
+        env = dict(os.environ,
+                   IA_TUNE_STORE=os.path.join(tmp, f"fleet_tune{i}.json"))
+        procs.append((extra, subprocess.Popen(
+            [sys.executable, "-m", "image_analogies_tpu_torch.cli", "fleet",
+             "--selftest", "6", *extra], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def fleet_cli_wait(procs):
+    for extra, proc in procs:
+        label = " ".join(["fleet --selftest 6", *extra])
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"serve: cli {label} ran past 600 s")
+        if proc.returncode != 0:
+            fail(f"serve: cli {label} exit {proc.returncode}: "
+                 f"{out[-1500:]} {err[-1500:]}")
+        summary = json.loads(err.strip().splitlines()[-1])
+        say("serve", check="fleet_cli", args=label, rc=proc.returncode,
+            transport=summary["transport"], completed=summary["completed"],
+            errors=summary["errors"], bit_identical=summary["bit_identical"],
+            routed=summary["routed"], codecs=summary["codecs"],
+            wire_bytes=summary["wire_bytes"], control=summary["control"],
+            served_s=summary["served_s"],
+            sequential_s=summary["sequential_s"])
+        if summary["errors"] or not summary["bit_identical"] or \
+                summary["completed"] != 6:
+            fail(f"serve: cli {label}: {summary}")
+        if "--autoscale" in extra and \
+                (summary["control"] or {}).get("autoscale") is not True:
+            fail(f"serve: cli {label} control {summary['control']}")
+        if "subprocess" in extra and summary["transport"] != "subprocess":
+            fail(f"serve: cli {label} transport {summary['transport']}")
+
+
+def fleet_runs(counters):
+    """Singleton runs' worth of launches a worker's counters say it
+    launched: each lane-engine launch and each member run alone."""
+    return (counters.get("batch.launches", 0)
+            + counters.get("serve.completed", 0)
+            - counters.get("batch.lanes", 0))
+
+
+def fleet_launches(counters):
+    """A worker's own launch counts (``launch.*``, counted in its run)."""
+    return {k.split(".", 1)[1]: int(v) for k, v in counters.items()
+            if k.startswith("launch.") and v}
+
+
+def fleet_inproc_and_http(params, load, singles, single, root):
+    """Check 6(a) and (c): an in-process fleet of two, binary wire, a
+    journal root; check 1's four requests through the router, then one
+    more over ``serve_fleet_http``."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from image_analogies_tpu_torch.obs import fleet as obs_fleet
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.serve import FleetConfig, ServeConfig
+    from image_analogies_tpu_torch.serve import wire
+    from image_analogies_tpu_torch.serve.fleet import Fleet
+    from image_analogies_tpu_torch.serve.http import serve_fleet_http
+
+    cfg = FleetConfig(
+        serve=ServeConfig(params=params, workers=1, max_batch=4,
+                          batch_window_ms=SERVE_WINDOW_MS,
+                          cost_persist=False, journal_fsync=True),
+        size=2, wire="binary", journal_root=root)
+    with Fleet(cfg) as fl:
+        # (a)
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        futs = [fl.submit(*planes) for planes in load]
+        resps, errors = [], []
+        for f in futs:
+            try:
+                resps.append(f.result(timeout=600))
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+        wall_a = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launched = serve_counts()
+        counters = obs_fleet.merge_snapshots(
+            fl.metrics_snapshots())["counters"]
+        routed = {k.split("router.routed.", 1)[1]: int(v) for k, v in
+                  obs_metrics.snapshot()["counters"].items()
+                  if k.startswith("router.routed.")}
+        runs = fleet_runs(counters)
+        want = {k: runs * v for k, v in single.items()}
+        bits = [bool(np.array_equal(r.bp, s.bp) and
+                     np.array_equal(r.bp_y, s.bp_y))
+                for r, s in zip(resps, singles)]
+        wire_a = int(obs_metrics.snapshot()["counters"].get(
+            "router.wire_bytes", 0))
+
+        # (c) the fleet's HTTP front, one request as a frame
+        httpd = serve_fleet_http(fl, 0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            match.reset_launch_counts()
+            t0 = time.perf_counter()
+            code, hdrs, body = serve_http_call(
+                base, "/v1/analogy", wire.encode_planes(load[0]),
+                {"Content-Type": wire.CONTENT_TYPE,
+                 "Accept": wire.CONTENT_TYPE,
+                 "X-IA-Idempotency-Key": "fleet-c-0",
+                 "X-IA-Trace": f"{FLEET_TRACE}/-/-"})
+            wall_c = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            c_launched = serve_counts()
+            if code != 200:
+                fail(f"serve: check 6(c) POST gave {code}: {body[:300]!r}")
+            c_bits = bool(np.array_equal(wire.decode_planes(body)[0],
+                                         singles[0].bp))
+            trace_hdr = hdrs.get("X-IA-Trace") or ""
+            health = json.loads(serve_http_call(base, "/healthz")[2])
+            mcode, mhdrs, mbody = serve_http_call(base, "/metrics")
+            text = mbody.decode()
+            fams = prometheus_families(text)
+            solo = serve_http_call(base, "/metrics?worker=w0")[0]
+            unknown = serve_http_call(base, "/metrics?worker=w9")[0]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    labeled = sorted({w for w in ("w0", "w1")
+                      if f'worker="{w}"' in text})
+    say("serve", check="fleet_inproc", size=SERVE_SIZE, wire="binary",
+        a_wall_s=wall_a, a_errors=errors, a_bits_equal=bits,
+        a_routed=routed, a_engine_launches=counters.get("batch.launches", 0),
+        a_lanes=counters.get("batch.lanes", 0),
+        a_completed=counters.get("serve.completed", 0),
+        a_launches=launched, a_expected_launches=want, a_wire_bytes=wire_a,
+        c_wall_s=wall_c, c_bits_equal=c_bits, c_trace=trace_hdr,
+        c_launches=c_launched, c_healthz_size=health.get("size"),
+        c_healthz_ring=health.get("ring"),
+        c_healthz_workers=sorted(health.get("workers") or {}),
+        c_metrics_status=mcode, c_metrics_type=mhdrs.get("Content-Type"),
+        c_metrics_families=len(fams), c_metrics_labeled=labeled,
+        c_worker_metrics=solo, c_unknown_worker=unknown,
+        card=nvidia_smi())
+    if errors or len(resps) != len(load) or not all(bits):
+        fail(f"serve: check 6(a) errors {errors}, bits {bits}")
+    if sorted(routed.values()) != [len(load)]:
+        fail(f"serve: check 6(a) routed {routed}: the key's requests are "
+             "not on one home worker")
+    if launched != want or counters.get("serve.completed") != len(load):
+        fail(f"serve: check 6(a) launched {launched}; {runs} singleton "
+             f"runs launch {want}")
+    if not c_bits or not trace_hdr.startswith(FLEET_TRACE + "/") or \
+            c_launched != single:
+        fail(f"serve: check 6(c) bits {c_bits}, trace {trace_hdr!r}, "
+             f"launches {c_launched} (one singleton's: {single})")
+    if health.get("size") != 2 or sorted(health.get("workers") or {}) != \
+            ["w0", "w1"] or health.get("transport") != "inproc":
+        fail(f"serve: check 6(c) healthz {health}")
+    if mcode != 200 or not labeled or (solo, unknown) != (200, 404):
+        fail(f"serve: check 6(c) /metrics {mcode}, labeled {labeled}, "
+             f"?worker=w0 {solo}, ?worker=w9 {unknown}")
+
+
+def fleet_subprocess(params, load, singles, single, root):
+    """Check 6(b): a subprocess fleet of two children on the card, a
+    journal root; check 1's four requests sent, their home SIGKILLed once
+    its journal shows them admitted and not all done; the health loop
+    replaces it as generation 1 on the same directory."""
+    import signal
+
+    import numpy as np
+
+    from image_analogies_tpu_torch.obs import fleet as obs_fleet
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.serve import FleetConfig, ServeConfig
+    from image_analogies_tpu_torch.serve.fleet import Fleet
+
+    cfg = FleetConfig(
+        serve=ServeConfig(params=params, workers=1, max_batch=4,
+                          batch_window_ms=SERVE_WINDOW_MS,
+                          cost_persist=False, journal_fsync=True),
+        size=2, wire="binary", transport="subprocess", journal_root=root)
+    fl = Fleet(cfg)
+    spawns = []
+    real_spawn = fl.transport.spawn
+
+    def timed_spawn(wid, generation, *args, **kw):
+        # what is alive, and on the card, as the spawn begins: the
+        # corpse of a replaced child must be reaped (its /proc entry
+        # gone) and off the card before its replacement starts
+        at_entry = card_pids()
+        alive = [sp["pid"] for sp in spawns
+                 if os.path.exists(f"/proc/{sp['pid']}")]
+        mib = card_memory_used_mib()
+        t0 = time.perf_counter()
+        handle = real_spawn(wid, generation, *args, **kw)
+        spawns.append({"wid": wid, "generation": generation,
+                       "pid": handle.pid, "s": time.perf_counter() - t0,
+                       "card_pids_at_entry": sorted(at_entry),
+                       "children_alive_at_entry": alive,
+                       "card_mib_at_entry": mib})
+        return handle
+
+    fl.transport.spawn = timed_spawn
+    t_start = time.perf_counter()
+    with fl:
+        start_s = time.perf_counter() - t_start
+        children = {w: h.pid for w, h in fl.workers.items()}
+        t0 = time.perf_counter()
+        futs = [fl.submit(*planes) for planes in load]
+        homes = sorted({e.wid for w in children
+                        for e in fl.router.pending_for(w)})
+        if len(homes) != 1:
+            fail(f"serve: check 6(b) the key's requests went to {homes}")
+        home = homes[0]
+        handle = fl.workers[home]
+        # the kill comes once the batch is dispatched and its kernels run
+        # (FLEET_KILL_AFTER_S past the dispatched lines; a 1024^2 batch
+        # takes ten seconds or more), so the corpse holds a context and
+        # memory on the card
+        journal = {}
+        end = time.monotonic() + 300
+        while time.monotonic() < end:
+            journal = handle.health().get("journal") or {}
+            if journal.get("dispatched", 0) >= len(load):
+                break
+            time.sleep(0.05)
+        time.sleep(FLEET_KILL_AFTER_S)
+        journal = handle.health().get("journal") or {}
+        on_card = card_pids()
+        mib_at_kill = card_memory_used_mib()
+        corpse = handle.pid
+        done_at_kill = journal.get("done", 0)
+        os.kill(corpse, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while not fl.handoffs and time.perf_counter() - t_kill < 300:
+            time.sleep(0.02)
+        handoff_s = time.perf_counter() - t_kill
+        resps, errors = [], []
+        for f in futs:
+            try:
+                resps.append(f.result(timeout=600))
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(repr(exc))
+        recovery_s = time.perf_counter() - t_kill
+        wall = time.perf_counter() - t0
+        snaps = fl.metrics_snapshots()
+        health = fl.health()
+        fleet_counters = obs_metrics.snapshot()["counters"]
+        pending = fl.router.pending_count()
+    procs = {w: h.proc.returncode for w, h in fl.workers.items()}
+    merged = obs_fleet.merge_snapshots(snaps)["counters"]
+    per_worker = {w: {"launches": fleet_launches(s["counters"]),
+                      "runs": fleet_runs(s["counters"]),
+                      "completed": s["counters"].get("serve.completed", 0),
+                      "engine_launches": s["counters"].get(
+                          "batch.launches", 0),
+                      "hbm_peak_bytes": {k: v for k, v in
+                                         s["gauges"].items()
+                                         if k.startswith("hbm.peak_bytes")}}
+                  for w, s in snaps.items()}
+    want = {k: fleet_runs(merged) * v for k, v in single.items()}
+    replacement = [s for s in spawns if s["generation"] == 1]
+    bits = [bool(np.array_equal(r.bp, s.bp) and
+                 np.array_equal(r.bp_y, s.bp_y))
+            for r, s in zip(resps, singles)]
+    wh = health["workers"][home]
+    say("serve", check="fleet_subprocess", size=SERVE_SIZE, home=home,
+        start_s=start_s, spawns=spawns, children=children,
+        children_on_card={w: p in on_card for w, p in children.items()},
+        admitted_at_kill=journal.get("admitted"),
+        dispatched_at_kill=journal.get("dispatched"),
+        card_mib_at_kill=mib_at_kill,
+        done_at_kill=done_at_kill, handoff_s=handoff_s,
+        recovery_s=recovery_s, wall_s=wall, errors=errors,
+        bits_equal=bits, handoffs=health["handoffs"],
+        deaths=fleet_counters.get("router.deaths", 0),
+        router_handoffs=fleet_counters.get("router.handoffs", 0),
+        resubmitted=fleet_counters.get("router.resubmitted", 0),
+        hop_disconnects=fleet_counters.get("router.hop_disconnects", 0),
+        wire_bytes=int(fleet_counters.get("router.wire_bytes", 0)),
+        pending=pending, home_generation=wh.get("generation"),
+        home_journal=wh.get("journal"), recovered=fl.handoffs[0]["recovered"]
+        if fl.handoffs else None, per_worker=per_worker,
+        launches=fleet_launches(merged), expected_launches=want,
+        shutdown_returncodes=procs, card=nvidia_smi())
+    if errors or len(resps) != len(load) or not all(bits) or pending:
+        fail(f"serve: check 6(b) errors {errors}, bits {bits}, pending "
+             f"{pending}")
+    if done_at_kill >= len(load) or \
+            journal.get("admitted", 0) != len(load) or \
+            journal.get("dispatched", 0) != len(load):
+        fail(f"serve: check 6(b) the kill came at journal {journal}")
+    if (health["handoffs"], fleet_counters.get("router.deaths"),
+            fleet_counters.get("router.handoffs")) != (1, 1, 1) or \
+            wh.get("generation") != 1 or \
+            (wh.get("journal") or {}).get("stale_lock_swept") != 1:
+        fail(f"serve: check 6(b) handoffs {health['handoffs']}, counters "
+             f"{fleet_counters}, home {wh}")
+    if len(replacement) != 1 or corpse in replacement[0][
+            "card_pids_at_entry"] or corpse in replacement[0][
+            "children_alive_at_entry"]:
+        fail(f"serve: check 6(b) the corpse {corpse} was still alive or on "
+             f"the card when its replacement spawned: {replacement}")
+    if fleet_launches(merged) != want or sorted(snaps) != sorted(children):
+        fail(f"serve: check 6(b) the children launched "
+             f"{fleet_launches(merged)}; their runs launch {want}")
+
+
+def serve_fleet(params, load, singles, tmp):
+    """Check 6 (a)-(c): the fleet on check 1's four requests and their
+    singleton runs: (a) and (c) in process, (b) over the subprocess
+    transport."""
+    single = expected_launches(params, SERVE_SIZE)
+    fleet_inproc_and_http(params, load, singles, single,
+                          os.path.join(tmp, "fleet_a"))
+    fleet_subprocess(params, load, singles, single,
+                     os.path.join(tmp, "fleet_b"))
+
+
+def fleet_orphans():
+    """Check 6(e), once every fleet and CLI of the phase has ended."""
+    from image_analogies_tpu_torch.serve import transport
+
+    live = transport.live_workers()
+    reaped = transport.reap_orphans()
+    alive = worker_main_pids()
+    on_card = card_pids()
+    say("serve", check="fleet_orphans", live_workers=len(live),
+        reaped=reaped, worker_main_alive=alive,
+        card_compute_pids=sorted(on_card))
+    if live or reaped or alive or set(alive) & set(on_card):
+        fail(f"serve: check 6(e) live {live}, reaped {reaped}, worker_main "
+             f"alive {alive}, on the card {sorted(on_card)}")
+
+
 def phase_serve():
-    """The serving path (``serve/``) on the card: checks 1-5 of the
+    """The serving path (``serve/``) on the card: checks 1-6 of the
     docstring's serve phase, on npr_1024 with ``remap_luminance=False``
     (the serve configuration: with the remap on, differing targets refuse
     the lane engine by design)."""
@@ -5137,6 +5572,9 @@ def phase_serve():
     t0 = time.perf_counter()
     load, singles = serve_selftest(params)
     t1 = time.perf_counter()
+    # after check 1, whose walls are recorded: three more processes on
+    # the card (the CLIs and the subprocess one's two children)
+    fleet_cli = fleet_cli_start(tmp)
     # two exemplar pairs with four targets each, seeded planes
     rng = np.random.RandomState(11)
     shape = (SERVE_SMALL, SERVE_SMALL)
@@ -5150,13 +5588,17 @@ def phase_serve():
     t3 = time.perf_counter()
     serve_journal(params, load, singles)
     t4 = time.perf_counter()
+    serve_fleet(params, load, singles, tmp)
+    t5 = time.perf_counter()
     serve_cli_wait(cli)
+    fleet_cli_wait(fleet_cli)
+    fleet_orphans()
     say("serve", selftest_s=t1 - t0, behaviours_s=t2 - t1,
-        two_workers_s=t3 - t2, journal_s=t4 - t3,
-        cli_extra_wait_s=time.perf_counter() - t4)
+        two_workers_s=t3 - t2, journal_s=t4 - t3, fleet_s=t5 - t4,
+        cli_extra_wait_s=time.perf_counter() - t5)
 
 
-SIDE_PHASES = ("ann", "mesh", "serve")
+SIDE_PHASES = ("video", "ann", "mesh", "serve")
 SIDE_TIMEOUT_S = 1100
 _SIDES = []  # the side processes started, for stop_sides
 
@@ -5350,9 +5792,6 @@ def main() -> None:
     if "modes" in phases:
         path_launches["modes"] = phase_modes()
     lap("modes")
-    if "video" in phases:
-        phase_video()
-    lap("video")
     if "driver" in phases:
         phase_driver(a, ap_, b)
     lap("driver")
@@ -5370,6 +5809,12 @@ def main() -> None:
     if "tune" in phases:
         phase_tune(a, ap_, b)
     lap("tune")
+    if "video" in phases:
+        if sides:
+            side_wait(sides["video"])
+        else:
+            phase_video()
+    lap("video")
     if "ann" in phases:
         if sides:
             side_wait(sides["ann"])

@@ -80,6 +80,7 @@ from image_analogies_tpu_torch.models.analogy import (
     _prep_planes,
     create_image_analogy,
 )
+from image_analogies_tpu_torch.obs import device as obs_device
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import trace as obs_trace
 from image_analogies_tpu_torch.ops.features import spec_for_level
@@ -330,6 +331,9 @@ def _run_batch(a, ap, targets, params, backend) -> List[Any]:
             bp_pyr[i][level], s_pyr[i][level], st = outs[i]
             st["total_ms"] = total_ms
             stats[i].append(st)
+        # the per-level memory watermark (hbm.peak_bytes.d<N>), as the
+        # single-image driver and the JAX engine record it
+        obs_device.record_memory(level, params.log_path)
 
     results: List[Any] = [None] * k
     for i in range(k):

@@ -486,6 +486,87 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_fleet(args) -> int:
+    """Router + worker fleet (serve/fleet.py, serve/router.py): N servers
+    behind a consistent-hash router with health-gated spillover and
+    dead-worker journal handoff, in this process or as ``worker_main``
+    children (``--transport subprocess``), each on ``--device``.
+    ``--selftest N`` routes the synthetic load through the ring and exits
+    0 iff no request errored and every response equals its singleton's
+    bits (JSON summary on stderr); ``--http PORT`` binds the loopback
+    front end on the fleet (0 = an ephemeral port, printed) and serves
+    until interrupted."""
+    from image_analogies_tpu_torch.serve.types import FleetConfig, ServeConfig
+
+    params = _params_from_args(args, PRESETS["oil_filter"])
+    scfg = ServeConfig(
+        params=params,
+        queue_depth=args.queue_depth,
+        batch_window_ms=args.batch_window_ms,
+        max_batch=args.max_batch,
+        workers=args.workers,
+        cost_persist=False,
+        journal_dir=None,  # per-worker dirs derive from journal_root
+    )
+    # --policy FILE > --autoscale > static fleet.  With bare --autoscale
+    # the declarative defaults apply except the ceiling, which --size
+    # already names: the fleet breathes between the policy floor and the
+    # size the operator asked for.
+    policy = None
+    if args.policy:
+        from image_analogies_tpu_torch.serve.policy import ControlPolicy
+        policy = ControlPolicy.load(args.policy)
+    elif args.autoscale:
+        from image_analogies_tpu_torch.serve.policy import ControlPolicy
+        policy = ControlPolicy(max_workers=max(1, args.size))
+    fcfg = FleetConfig(
+        serve=scfg,
+        size=args.size,
+        journal_root=args.journal,
+        wire=args.wire,
+        transport=args.transport,
+        policy=policy,
+    )
+
+    if args.selftest is not None:
+        from image_analogies_tpu_torch.serve import loadgen
+
+        flash_crowd = (loadgen.parse_flash_crowd(args.flash_crowd)
+                       if args.flash_crowd else None)
+        with _maybe_metrics_server(args):
+            summary = loadgen.fleet_selftest(fcfg, args.selftest,
+                                             seed=args.seed,
+                                             zipf=args.zipf,
+                                             styles=args.styles,
+                                             flash_crowd=flash_crowd)
+        print(loadgen.render_fleet(summary))
+        print(json.dumps(summary, sort_keys=True), file=sys.stderr)
+        return 0 if (summary["errors"] == 0
+                     and summary["bit_identical"]) else 1
+
+    if args.http is None:
+        print("fleet: pass --selftest N or --http PORT", file=sys.stderr)
+        return 2
+
+    from image_analogies_tpu_torch.serve.fleet import Fleet
+    from image_analogies_tpu_torch.serve.http import serve_fleet_http
+
+    with Fleet(fcfg) as fl:
+        httpd = serve_fleet_http(fl, args.http)
+        print(f"fleet of {len(fl.workers)} ({fcfg.transport}) serving on "
+              f"http://127.0.0.1:{httpd.server_address[1]} "
+              f"(POST /v1/analogy, GET /healthz, GET /metrics, "
+              f"GET /timeline, GET /tenants); Ctrl-C to drain+exit",
+              flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
+    return 0
+
+
 def cmd_warmup(args) -> int:
     """Build and load every kernel library a target size's levels launch
     (tune/warmup.py): with --compile-cache-dir a later process finds them
@@ -983,6 +1064,76 @@ def build_parser() -> argparse.ArgumentParser:
                          "inspect offline with `archive`)")
     _add_engine_flags(sv)
     sv.set_defaults(fn=cmd_serve)
+
+    fp = sub.add_parser("fleet",
+                        help="router + worker fleet: consistent-hash "
+                             "affinity on the batch key, health-gated "
+                             "spillover, dead-worker journal handoff "
+                             "(--selftest N for the routed synthetic "
+                             "load, --http PORT for the loopback front "
+                             "end)")
+    fp.add_argument("--selftest", type=int, default=None, metavar="N",
+                    help="route N synthetic mixed-shape requests through "
+                         "the ring against a sequential baseline; gates "
+                         "on zero errors and bit-identity")
+    fp.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="bind the loopback-only HTTP front end on the "
+                         "fleet (fleet-view /healthz, routed "
+                         "/v1/analogy; 0 = an ephemeral port, printed) "
+                         "and serve until interrupted")
+    fp.add_argument("--size", type=int, default=2,
+                    help="number of Server workers (in-process, or "
+                         "children with --transport subprocess)")
+    fp.add_argument("--wire", choices=("auto", "binary", "json"),
+                    default="auto",
+                    help="router<->worker hop encoding: auto/binary "
+                         "negotiate the IAF2 raw-f32 frame, json forces "
+                         "the fallback list transport")
+    fp.add_argument("--transport", choices=("inproc", "subprocess"),
+                    default="inproc",
+                    help="worker isolation: inproc keeps each worker an "
+                         "in-process Server (zero-copy hops); subprocess "
+                         "spawns each as a real OS process on a loopback "
+                         "port — SIGKILL-able, journal lock holds a real "
+                         "foreign pid, hops speak IAF2 over HTTP; each "
+                         "child runs on --device, a CUDA context of its "
+                         "own on the card")
+    fp.add_argument("--journal", default=None, metavar="DIR",
+                    help="journal ROOT: each worker journals under "
+                         "DIR/<wid>; a dead worker's directory is handed "
+                         "to its replacement for exactly-once replay")
+    fp.add_argument("--queue-depth", type=int, default=32)
+    fp.add_argument("--batch-window-ms", type=float, default=4.0)
+    fp.add_argument("--max-batch", type=int, default=8)
+    fp.add_argument("--workers", type=int, default=1,
+                    help="worker THREADS per server (the fleet dimension "
+                         "is --size)")
+    fp.add_argument("--zipf", type=float, default=None, metavar="S",
+                    help="selftest load: Zipf(S)-skewed per-style "
+                         "frequency over --styles synthetic styles "
+                         "(see serve --zipf)")
+    fp.add_argument("--styles", type=int, default=0,
+                    help="style count for --zipf (default 8)")
+    fp.add_argument("--flash-crowd", default=None, metavar="T0,DUR,MULT",
+                    help="selftest arrival shape: Poisson arrivals whose "
+                         "rate multiplies by MULT inside [T0, T0+DUR) "
+                         "seconds (see serve --flash-crowd)")
+    fp.add_argument("--autoscale", action="store_true",
+                    help="arm the elastic control plane with the default "
+                         "declarative policy (--size becomes the "
+                         "ceiling): the fleet starts at the policy floor "
+                         "and the reconcile loop grows/shrinks it on "
+                         "observed queue depth, SLO burn, and breaker "
+                         "state — every verdict lands in the decision "
+                         "plane (`why ctl-<verdict>-<wid>`)")
+    fp.add_argument("--policy", default=None, metavar="FILE",
+                    help="ControlPolicy JSON file (implies autoscaling): "
+                         "min/max workers, pressure/calm thresholds, "
+                         "hysteresis window counts, per-direction "
+                         "cooldowns; unknown keys are rejected")
+    fp.add_argument("--seed", type=int, default=0)
+    _add_engine_flags(fp)
+    fp.set_defaults(fn=cmd_fleet)
 
     wu = sub.add_parser("warmup",
                         help="build every kernel library a target "

@@ -1,10 +1,12 @@
-"""The single-process serving path of the port (the JAX package's
-``serve/``, without its fleet).
+"""The serving path of the port (the JAX package's ``serve/``): one
+server, or a fleet of them behind a consistent-hash router.
 
 Layering (each module one concern):
 
-- :mod:`serve.types`    — ServeConfig / Request / Response / Rejected.
-- :mod:`serve.policy`   — per-tenant QoS: admission quotas and
+- :mod:`serve.types`    — ServeConfig / FleetConfig / Request / Response /
+  Rejected.
+- :mod:`serve.policy`   — the fleet's autoscaling targets
+  (``ControlPolicy``) and per-tenant QoS: admission quotas and
   weighted-fair pop.
 - :mod:`serve.queue`    — thread-safe admission queue (bounded depth,
   explicit ``Rejected(reason="queue_full")`` backpressure, EDF pop).
@@ -24,24 +26,35 @@ Layering (each module one concern):
 - :mod:`serve.wire`     — the ``IAF2`` raw-f32 plane frames and ``IAT1``
   trace-context frames.
 - :mod:`serve.http`     — the loopback stdlib HTTP front end (``ia serve
-  --http PORT``).
-- :mod:`serve.loadgen`  — ``ia serve --selftest N`` synthetic load.
+  --http PORT``, the fleet's ``ia fleet --http PORT``).
+- :mod:`serve.router`   — consistent-hash ring (sha256 positions) +
+  spillover routing by batch key; re-answers in-flight futures across a
+  worker death by idempotency key.
+- :mod:`serve.transport` — how the fleet reaches a worker: in-process
+  Servers, or ``serve.worker_main`` children on loopback ports; the
+  crash-loop supervisor.
+- :mod:`serve.control`  — the fleet's gate verdicts and autoscaling.
+- :mod:`serve.fleet`    — N stable-identity Server workers behind the
+  router: health-gate loop, dead-worker detection, and journal-directory
+  handoff to the replacement (``ia fleet``).
+- :mod:`serve.loadgen`  — ``ia serve --selftest N`` / ``ia fleet
+  --selftest N`` synthetic load.
 
 Everything here is host-side orchestration: no module of ``serve/``
 launches a kernel or imports torch itself; the card's
 work happens only inside the engine (``models/analogy.py``,
-``batch/engine.py``).  The fleet (ROADMAP Queue 1 item 10c) is not
-ported yet.
+``batch/engine.py``), in this process or in a fleet's child.
 """
 
 from image_analogies_tpu_torch.serve.server import Client, Server
 from image_analogies_tpu_torch.serve.types import (
     DeadlineExceeded,
+    FleetConfig,
     Rejected,
     Request,
     Response,
     ServeConfig,
 )
 
-__all__ = ["Client", "Server", "ServeConfig", "Request", "Response",
-           "Rejected", "DeadlineExceeded"]
+__all__ = ["Client", "Server", "ServeConfig", "FleetConfig", "Request",
+           "Response", "Rejected", "DeadlineExceeded"]

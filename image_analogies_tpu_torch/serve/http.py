@@ -1,8 +1,8 @@
 """Optional loopback HTTP front end (stdlib ``http.server`` only; the
-port's copy of the JAX package's ``serve/http.py`` without its fleet
-half).
+port's copy of the JAX package's ``serve/http.py``).
 
-Strictly a thin transport over :class:`serve.server.Server` — no logic
+Strictly a thin transport over :class:`serve.server.Server` (or a
+:class:`serve.fleet.Fleet`, :func:`serve_fleet_http`) — no logic
 lives here; binding is loopback-only by construction.
 
 API:
@@ -48,12 +48,17 @@ out and vice versa both work); errors are always JSON.
 Trace propagation: every POST reads ``X-IA-Trace``
 (``trace_id/parent_span/request_id``, ``-`` for absent fields) and
 adopts the caller's trace context — or mints one — before submitting,
-so client, worker, and engine spans share one trace id; the header is
-echoed on every response (success and error alike).
+so client, router, worker, and engine spans share one trace id; the
+header is echoed on every response (success and error alike).
 
-The fleet's front (``serve_fleet_http``), the router->worker hop
-(``X-IA-Worker-Hop``: both planes and the stats back) and the
-per-worker timeline come with the fleet (ROADMAP Queue 1 item 10c).
+The fleet's front (:func:`serve_fleet_http`) answers the same API over
+the router: ``/healthz`` is the fleet view, ``/metrics`` the federated
+exposition (``?worker=<wid>`` one worker's isolated registry).  A
+router->worker hop (``X-IA-Worker-Hop: 1``, a subprocess worker's
+``worker_main``) gets the full Response back: both planes (bp, bp_y) in
+the frame, or ``bp_y`` / ``stats`` / ``degraded`` in the JSON, and the
+stats and degraded detail as ``X-IA-Stats`` / ``X-IA-Degraded-Detail``
+headers beside a frame.
 """
 
 from __future__ import annotations
@@ -84,13 +89,18 @@ def _make_handler(server: Server):
                               device=server.cfg.params.device)
 
 
-def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
+def _make_handler_from(health_fn, submit_fn, refresh_fn, metrics_fn=None,
+                       timeline_fn=None, snapshot_fn=None,
                        tenants_fn=None, device="cuda"):
-    # (The JAX factory's metrics_fn and timeline_fn, the fleet's federated
-    # /metrics and per-worker /timeline, come with the fleet: ROADMAP
-    # Queue 1 item 10c.)
+    # metrics_fn(worker: Optional[str]) -> Optional[str]: override for
+    # the /metrics exposition (the fleet's federated view, with
+    # ?worker=<wid> selecting one worker's isolated registry).  None
+    # keeps the default ambient-scope exposition.
+    # timeline_fn(window_s: Optional[float]) -> dict: override for the
+    # /timeline document; None uses the armed process timeline.
     # snapshot_fn() -> dict: when set, GET /metrics.json answers the raw
-    # registry snapshot (the fleet's subprocess workers export it).
+    # registry snapshot (subprocess workers export it so the fleet can
+    # federate their isolated registries without scope chaining).
     # device: where a request's own params document (X-IA-Params / the
     # JSON "params") runs — the server's device, never one named by the
     # caller.
@@ -159,6 +169,16 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
 
         def _get_metrics(self, parts) -> None:
             refresh_fn()
+            if metrics_fn is not None:
+                query = urllib.parse.parse_qs(parts.query)
+                worker = (query.get("worker") or [None])[0]
+                text = metrics_fn(worker)
+                if text is None:
+                    self._reply(404, {"error": "unknown_worker",
+                                      "worker": worker})
+                    return
+                self._reply_text(200, text, obs_live.CONTENT_TYPE)
+                return
             self._reply_text(
                 200,
                 obs_live.render_prometheus(obs_live.snapshot_or_none()),
@@ -187,8 +207,9 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
             except ValueError:
                 self._reply(400, {"error": "bad_window", "window": window})
                 return
+            fn = timeline_fn or obs_timeline.snapshot_json
             try:
-                doc = obs_timeline.snapshot_json(window_s)
+                doc = fn(window_s)
             except KeyError as exc:
                 self._reply(404, {"error": "unknown_window",
                                   "detail": str(exc)})
@@ -201,9 +222,11 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
                 return
             ctype = (self.headers.get("Content-Type") or "").split(";")[0]
             binary_in = ctype.strip().lower() == wire.CONTENT_TYPE
-            # The fleet's router->worker hop (X-IA-Worker-Hop: the full
-            # Response back) comes with the fleet (ROADMAP Queue 1 item
-            # 10c); this front answers the client-facing shape only.
+            # A router->worker hop (serve/transport.py SubprocessHandle)
+            # flags itself so the reply carries the full Response —
+            # both planes plus stats/degraded detail — instead of the
+            # client-facing single-plane shape.
+            worker_hop = self.headers.get("X-IA-Worker-Hop") == "1"
             try:
                 length = int(self.headers.get("Content-Length", "0"))
                 body = self.rfile.read(length)
@@ -300,7 +323,10 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
                        "total_ms": round(resp.total_ms, 3)}
             accept = (self.headers.get("Accept") or "")
             if wire.CONTENT_TYPE in accept.lower():
-                frame = wire.encode_planes([np.asarray(resp.bp, np.float32)])
+                out_planes = [np.asarray(resp.bp, np.float32)]
+                if worker_hop:
+                    out_planes.append(np.asarray(resp.bp_y, np.float32))
+                frame = wire.encode_planes(out_planes)
                 self.send_response(200)
                 self.send_header("Content-Type", wire.CONTENT_TYPE)
                 self.send_header("Content-Length", str(len(frame)))
@@ -310,6 +336,12 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
                                  "1" if resp.degraded else "0")
                 self.send_header("X-IA-Batch-Size", str(resp.batch_size))
                 self.send_header("X-IA-Timings", json.dumps(timings))
+                if worker_hop:
+                    self.send_header(
+                        "X-IA-Stats", json.dumps(resp.stats, default=str))
+                    self.send_header(
+                        "X-IA-Degraded-Detail",
+                        json.dumps(resp.degraded, default=str))
                 if trace_hdr:
                     self.send_header(obs_trace.TRACE_HEADER, trace_hdr)
                 self.end_headers()
@@ -324,13 +356,43 @@ def _make_handler_from(health_fn, submit_fn, refresh_fn, snapshot_fn=None,
                 "trace": ctx["trace"],
                 "bp": resp.bp.tolist(),
             }
+            if worker_hop:
+                doc["bp_y"] = np.asarray(resp.bp_y,
+                                         np.float32).tolist()
+                doc["stats"] = json.loads(
+                    json.dumps(resp.stats, default=str))
+                doc["degraded"] = json.loads(
+                    json.dumps(resp.degraded, default=str))
             self._reply(200, doc, headers=trace_headers)
 
     return Handler
 
 
 def serve_http(server: Server, port: int) -> ThreadingHTTPServer:
-    """Bind a loopback-only HTTP server; caller runs serve_forever().
-    (The fleet's ``serve_fleet_http`` comes with the fleet, ROADMAP Queue
-    1 item 10c.)"""
+    """Bind a loopback-only HTTP server; caller runs serve_forever()."""
     return ThreadingHTTPServer(("127.0.0.1", port), _make_handler(server))
+
+
+def serve_fleet_http(fleet, port: int) -> ThreadingHTTPServer:
+    """Fleet front end: same transport, but /healthz is the FLEET view
+    (per-worker liveness, ring membership, gates, journal ownership,
+    per-worker obs scope identity), POST /v1/analogy routes through the
+    consistent-hash Router, and GET /metrics is the FEDERATED exposition
+    (obs/fleet.py): merged samples plus ``worker="<wid>"`` labeled
+    series, with ``?worker=<wid>`` selecting one worker's isolated
+    registry (unknown wid -> 404).  A request's params document runs on
+    the fleet's device."""
+
+    def _refresh():
+        for handle in list(fleet.workers.values()):
+            try:
+                handle.refresh_gauges()
+            except Exception:  # noqa: BLE001 - a dying worker is fine
+                pass
+
+    return ThreadingHTTPServer(
+        ("127.0.0.1", port),
+        _make_handler_from(fleet.health, fleet.submit, _refresh,
+                           metrics_fn=fleet.metrics_text,
+                           tenants_fn=fleet.tenants_doc,
+                           device=fleet.cfg.serve.params.device))

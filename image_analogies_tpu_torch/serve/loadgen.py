@@ -1,6 +1,7 @@
-"""Synthetic load generator — ``ia serve --selftest N`` (the selftest half
-of the JAX package's ``serve/loadgen.py``; its fleet half comes with the
-fleet, ROADMAP Queue 1 item 10c).
+"""Synthetic load generator — ``ia serve --selftest N`` and ``ia fleet
+--selftest N`` (the port's copy of the JAX package's ``serve/loadgen.py``;
+its ``arrival_schedule`` comes with the soak driver, ROADMAP Queue 1 item
+10d).
 
 Replays N requests with mixed target shapes (a few exemplar classes, so
 both coalescing and singleton fallback paths exercise), optionally with
@@ -265,6 +266,144 @@ def selftest(cfg: ServeConfig, n: int, *, seed: int = 0,
         "flash_crowd": flash_crowd,
         "journal": journal_stats,
     }
+
+
+def fleet_selftest(fcfg: "Any", n: int, *, seed: int = 0,
+                   deadline_ms: Optional[Any] = None,
+                   shapes: Sequence[Tuple[int, int]] = DEFAULT_SHAPES,
+                   zipf: Optional[float] = None, styles: int = 0,
+                   flash_crowd: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, Any]:
+    """``ia fleet --selftest N``: the synthetic load routed through the
+    consistent-hash Router over a worker fleet, against the same
+    sequential baseline.  On top of the single-server gates it verifies
+    ring affinity did something (per-worker routed counts), reports the
+    negotiated wire codec (the ``--wire`` flag exercises IAF2 vs JSON),
+    and counts spills/handoffs — all under the same bit-identity bar."""
+    from image_analogies_tpu_torch.models.analogy import create_image_analogy
+    from image_analogies_tpu_torch.obs import metrics as obs_metrics
+    from image_analogies_tpu_torch.serve.fleet import Fleet
+    from image_analogies_tpu_torch.soak.trace import trace_plan
+
+    load, sched, deadline_s = trace_plan(
+        n, shapes, seed, zipf=zipf, styles=styles,
+        flash_crowd=flash_crowd, deadline_ms=deadline_ms)
+
+    seq_params = fcfg.serve.params.replace(metrics=False, log_path=None)
+    baseline = {}
+    t0 = time.perf_counter()
+    for item in load:
+        baseline[item["index"]] = create_image_analogy(
+            item["a"], item["ap"], item["b"], seq_params).bp
+    seq_s = time.perf_counter() - t0
+
+    responses: Dict[int, Any] = {}
+    errors: Dict[int, BaseException] = {}
+    rejected = 0
+    with Fleet(fcfg) as fl:
+        t0 = time.perf_counter()
+        futures = {}
+        for item in load:
+            _pace(sched, item["index"], t0)
+            try:
+                futures[item["index"]] = fl.submit(
+                    item["a"], item["ap"], item["b"],
+                    deadline_s=deadline_s(item["index"]))
+            except Rejected:
+                rejected += 1
+        for idx, fut in futures.items():
+            try:
+                responses[idx] = fut.result(timeout=600)
+            except BaseException as exc:  # noqa: BLE001 - summarized
+                errors[idx] = exc
+        srv_s = time.perf_counter() - t0
+        health = fl.health()
+        snap = obs_metrics.snapshot() or {}
+        counters = snap.get("counters", {})
+
+    ok = [r for r in responses.values() if r.degraded is None]
+    degraded = [r for r in responses.values() if r.degraded is not None]
+    identical = all(
+        np.array_equal(responses[idx].bp, baseline[idx])
+        for idx in responses if responses[idx].degraded is None)
+    latencies = [r.total_ms for r in responses.values()]
+    routed = {k.split("router.routed.", 1)[1]: int(v)
+              for k, v in counters.items()
+              if k.startswith("router.routed.")}
+    codecs = {k.split("router.wire.", 1)[1]: int(v)
+              for k, v in counters.items()
+              if k.startswith("router.wire.")}
+
+    return {
+        "n": n,
+        "fleet_size": fcfg.size,
+        "wire": fcfg.wire,
+        "transport": getattr(fcfg, "transport", "inproc"),
+        "shapes": [list(s) for s in shapes],
+        "sequential_s": round(seq_s, 3),
+        "served_s": round(srv_s, 3),
+        "sequential_rps": round(n / seq_s, 3) if seq_s else 0.0,
+        "served_rps": round(len(responses) / srv_s, 3) if srv_s else 0.0,
+        "speedup": round(seq_s / srv_s, 3) if srv_s else 0.0,
+        "p50_ms": round(percentile(latencies, 50), 2),
+        "p95_ms": round(percentile(latencies, 95), 2),
+        "completed": len(ok),
+        "degraded": len(degraded),
+        "timeouts": sum(1 for e in errors.values()
+                        if type(e).__name__ == "DeadlineExceeded"),
+        "errors": sum(1 for e in errors.values()
+                      if type(e).__name__ != "DeadlineExceeded"),
+        "rejected": rejected,
+        "routed": routed,
+        "codecs": codecs,
+        "wire_bytes": int(counters.get("router.wire_bytes", 0)),
+        "spills": int(counters.get("router.spills", 0)),
+        "hop_faults": int(counters.get("router.hop_faults", 0)),
+        "handoffs": health.get("handoffs", 0),
+        "ring": health.get("ring", {}),
+        "bit_identical": bool(identical),
+        "zipf": zipf,
+        "style_hist": style_hist(load),
+        "flash_crowd": flash_crowd,
+        "control": health.get("control"),
+    }
+
+
+def render_fleet(summary: Dict[str, Any]) -> str:
+    lines = [
+        f"fleet selftest: {summary['n']} requests over "
+        f"{summary['fleet_size']} workers (wire={summary['wire']}, "
+        f"transport={summary.get('transport', 'inproc')})",
+        f"  sequential: {summary['sequential_s']}s "
+        f"({summary['sequential_rps']} req/s)",
+        f"  routed:     {summary['served_s']}s "
+        f"({summary['served_rps']} req/s, speedup x{summary['speedup']})",
+        f"  latency:    p50 {summary['p50_ms']}ms  p95 {summary['p95_ms']}ms",
+        f"  outcomes:   {summary['completed']} ok, "
+        f"{summary['degraded']} degraded, {summary['timeouts']} timeout, "
+        f"{summary['rejected']} rejected, {summary['errors']} error",
+        f"  affinity:   routed {summary['routed']} "
+        f"(ring members {summary['ring'].get('members', [])})",
+        f"  wire:       {summary['codecs']} "
+        f"({summary['wire_bytes']} frame bytes)",
+        f"  resilience: {summary['spills']} spills, "
+        f"{summary['hop_faults']} hop faults, "
+        f"{summary['handoffs']} handoffs",
+        f"  bit-identical to singleton dispatch: "
+        f"{summary['bit_identical']}",
+    ]
+    if summary.get("style_hist"):
+        lines.insert(-1, f"  styles:     zipf S={summary['zipf']} -> "
+                     f"{summary['style_hist']}")
+    if summary.get("flash_crowd"):
+        fc = summary["flash_crowd"]
+        lines.insert(-1, f"  flash crowd: x{fc['mult']} surge at "
+                     f"t0={fc['t0']}s for {fc['duration']}s")
+    ctl = summary.get("control")
+    if ctl and ctl.get("autoscale"):
+        lines.insert(-1, f"  autoscale:  fleet size {ctl.get('size')}"
+                     f" (last verdict: {ctl.get('last_verdict')})")
+    return "\n".join(lines)
 
 
 def render(summary: Dict[str, Any]) -> str:

@@ -1,15 +1,25 @@
-"""Per-tenant QoS policy, as plain JSON (the port's copy of the JAX
-package's ``serve/policy.py``; its fleet autoscaling document,
-``ControlPolicy``, comes with the fleet, ROADMAP Queue 1 item 10c).
+"""Declarative control-plane policy: autoscaling targets + per-tenant
+QoS, as plain JSON (the port's copy of the JAX package's
+``serve/policy.py``).
 
-:class:`QosPolicy` says how one tenant's traffic may degrade itself
-rather than the server: per-style token-bucket admission quotas (fed by
-the tenants sketch's observed cost shares), weighted-fair queue pop
-across tenants, and priority-class weights.  It round-trips to plain JSON
-(``to_json`` / ``from_json``).  :class:`TenantQuota` is the runtime half:
-a bounded dict of token buckets with an injectable clock, throttled by
-observed cost share (a tenant consuming more than ``share_cap`` of the
-dispatch cost has its refill scaled down in proportion).
+Two documents live here:
+
+- :class:`ControlPolicy` — what the elastic fleet should look like
+  (min/max workers, queue-depth / p95 / SLO-burn targets, hysteresis
+  windows, cooldowns).  serve/control.py's reconcile loop reads ONLY
+  this policy plus observed signals; it never invents thresholds.
+- :class:`QosPolicy` — how one tenant's traffic may degrade itself
+  rather than the server: per-style token-bucket admission quotas (fed
+  by the tenants sketch's observed cost shares), weighted-fair queue pop
+  across tenants, and priority-class weights.
+
+Both round-trip to plain JSON (``to_json`` / ``from_json``; the control
+policy also ``load``s a file), and a file written by either package loads
+in the other.  :class:`TenantQuota` is the runtime half of the quota
+story: a bounded dict of token buckets with an injectable clock,
+throttled by observed cost share (a tenant consuming more than
+``share_cap`` of the dispatch cost has its refill scaled down in
+proportion).
 
 Host-side only: nothing here touches the card.
 """
@@ -17,6 +27,7 @@ Host-side only: nothing here touches the card.
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -85,6 +96,68 @@ class QosPolicy:
         if extra:
             raise ValueError(f"unknown qos policy fields: {sorted(extra)}")
         return QosPolicy(**doc)
+
+
+@dataclasses.dataclass(frozen=True)
+class ControlPolicy:
+    """Declarative autoscaling targets for one fleet.
+
+    Scale-up arms when ANY pressure signal holds for
+    ``scale_up_windows`` consecutive reconcile passes: mean ready-worker
+    queue depth >= ``queue_high``, fast SLO burn rate >=
+    ``max_burn_rate``, or windowed p95 >= ``target_p95_ms`` (when set).
+    Scale-down arms when mean depth <= ``queue_low`` AND burn is below
+    target for ``scale_down_windows`` passes.  Each direction has its
+    own cooldown so the fleet breathes instead of oscillating.
+    """
+
+    min_workers: int = 1
+    max_workers: int = 4
+    queue_high: float = 4.0
+    queue_low: float = 0.5
+    max_burn_rate: float = 2.0
+    target_p95_ms: float = 0.0          # 0 = p95 signal disabled
+    scale_up_windows: int = 2
+    scale_down_windows: int = 4
+    scale_up_cooldown_s: float = 1.0
+    scale_down_cooldown_s: float = 2.0
+
+    def __post_init__(self):
+        if self.min_workers < 1:
+            raise ValueError("min_workers must be >= 1")
+        if self.max_workers < self.min_workers:
+            raise ValueError("max_workers must be >= min_workers")
+        if self.queue_high <= 0 or self.queue_low < 0:
+            raise ValueError("queue_high must be > 0, queue_low >= 0")
+        if self.queue_low >= self.queue_high:
+            raise ValueError("queue_low must be < queue_high")
+        if self.max_burn_rate <= 0:
+            raise ValueError("max_burn_rate must be > 0")
+        if self.target_p95_ms < 0:
+            raise ValueError("target_p95_ms must be >= 0")
+        if self.scale_up_windows < 1 or self.scale_down_windows < 1:
+            raise ValueError("hysteresis windows must be >= 1")
+        if self.scale_up_cooldown_s < 0 or self.scale_down_cooldown_s < 0:
+            raise ValueError("cooldowns must be >= 0")
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_json(doc: Dict[str, Any]) -> "ControlPolicy":
+        if not isinstance(doc, dict):
+            raise ValueError("control policy must be a JSON object")
+        known = {f.name for f in dataclasses.fields(ControlPolicy)}
+        extra = set(doc) - known
+        if extra:
+            raise ValueError(
+                f"unknown control policy fields: {sorted(extra)}")
+        return ControlPolicy(**doc)
+
+    @staticmethod
+    def load(path: str) -> "ControlPolicy":
+        with open(path) as f:
+            return ControlPolicy.from_json(json.load(f))
 
 
 class TenantQuota:

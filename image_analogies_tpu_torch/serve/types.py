@@ -3,8 +3,7 @@
 
 Host-side only: numpy planes in, numpy planes out.  The engine types
 (`AnalogyParams`, `AnalogyResult`) are reused as they are, so a served
-request runs the code path a CLI run does, to the bit.  The fleet's
-``FleetConfig`` comes with the fleet (ROADMAP Queue 1 item 10c).
+request runs the code path a CLI run does, to the bit.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from image_analogies_tpu_torch.config import AnalogyParams
-from image_analogies_tpu_torch.serve.policy import QosPolicy
+from image_analogies_tpu_torch.serve.policy import ControlPolicy, QosPolicy
 
 
 class Rejected(RuntimeError):
@@ -32,7 +31,8 @@ class Rejected(RuntimeError):
     ``"worker_crash"`` when a crashed worker exhausted the requeue budget,
     ``"quota"`` when the tenant's per-style admission token bucket is
     empty (serve/policy.py — the viral style degrades itself, not the
-    server; like ``"poison"`` a verdict about the request),
+    fleet; like ``"poison"`` this is a verdict about the REQUEST, so
+    the router never spills it to another worker),
     ``"poison"`` when the request's idempotency key was previously marked
     poisoned in the write-ahead journal (it exhausted ``crash_requeues``
     once already — resubmission sheds instantly, before the breaker, so a
@@ -157,6 +157,87 @@ class ServeConfig:
                 or self.slo_slow_window_s < self.slo_fast_window_s):
             raise ValueError(
                 "slo windows must satisfy 0 < fast <= slow")
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Router + worker-fleet knobs (serve/fleet.py, serve/router.py).
+
+    ``serve`` is the per-worker template; each worker gets a copy with
+    ``journal_dir`` pointed at ``<journal_root>/<wid>`` (when
+    ``journal_root`` is set) so a dead worker's journal directory can be
+    handed, whole, to its replacement."""
+
+    serve: ServeConfig
+    size: int = 2                  # number of in-process Server workers
+    journal_root: Optional[str] = None
+    vnodes: int = 32               # virtual nodes per worker on the ring
+    # Worker transport (serve/transport.py): "inproc" keeps today's
+    # in-process Server workers; "subprocess" spawns each worker as a
+    # `python -m image_analogies_tpu_torch.serve.worker_main` child on its
+    # own loopback HTTP port — same wire frames, same journal handoff, but
+    # kill/replace is a real SIGKILL + re-spawn on the same journal dir.
+    transport: str = "inproc"
+    # Subprocess readiness handshake deadline: the child must report
+    # {pid, port} over its startup pipe within this many seconds (torch
+    # import, the card's context, warmup and journal replay all happen
+    # before ready).
+    spawn_timeout_s: float = 120.0
+    # Crash-loop supervisor (transport.CrashLoopSupervisor): a worker
+    # death within ``crash_loop_window_s`` of its own spawn counts as
+    # RAPID; respawns after rapid deaths back off (capped jittered,
+    # utils.failure.backoff_delay over backoff_s/backoff_cap_s below),
+    # and ``crash_loop_threshold`` consecutive rapid deaths gate the
+    # worker ("crash_loop") instead of respawning forever.  0 disables
+    # the gate (respawn always).
+    crash_loop_window_s: float = 1.0
+    crash_loop_threshold: int = 3
+    # Router<->worker hop encoding: "auto"/"binary" negotiate the IAF2
+    # frame (serve/wire.py) when the worker advertises it, "json" forces
+    # the list transport (the fallback both sides always speak).
+    wire: str = "auto"
+    health_interval_s: float = 0.25  # health-gate poll cadence
+    death_checks: int = 2          # consecutive failed polls -> dead
+    # Gate a worker (spill its keys to the next ring successor) when its
+    # queue depth reaches this fraction of queue_depth, or any breaker
+    # reports "open".
+    spill_queue_frac: float = 0.8
+    spill_retries: int = 3         # extra route attempts after the first
+    backoff_s: float = 0.05        # utils.failure.backoff_delay base
+    backoff_cap_s: float = 1.0
+    # Elastic-fleet control plane (serve/control.py): when set, the
+    # fleet starts at ``policy.min_workers`` (``size`` is ignored) and
+    # the health daemon's reconcile pass scales it between min and max
+    # under the declarative targets.  None (default) keeps the fixed
+    # ``size`` fleet with no autoscaling — only the gate/death verdicts
+    # (now rendered by the control plane) remain.
+    policy: Optional[ControlPolicy] = None
+
+    def __post_init__(self):
+        if self.size < 1:
+            raise ValueError("size must be >= 1")
+        if self.vnodes < 1:
+            raise ValueError("vnodes must be >= 1")
+        if self.wire not in ("auto", "binary", "json"):
+            raise ValueError("wire must be auto|binary|json")
+        if self.transport not in ("inproc", "subprocess"):
+            raise ValueError("transport must be inproc|subprocess")
+        if self.spawn_timeout_s <= 0:
+            raise ValueError("spawn_timeout_s must be > 0")
+        if self.crash_loop_window_s < 0 or self.crash_loop_threshold < 0:
+            raise ValueError(
+                "crash_loop_window_s/crash_loop_threshold must be >= 0")
+        if self.health_interval_s <= 0:
+            raise ValueError("health_interval_s must be > 0")
+        if self.death_checks < 1:
+            raise ValueError("death_checks must be >= 1")
+        if not 0.0 < self.spill_queue_frac <= 1.0:
+            raise ValueError("spill_queue_frac must be in (0, 1]")
+        if self.spill_retries < 0:
+            raise ValueError("spill_retries must be >= 0")
+        if self.backoff_s <= 0 or self.backoff_cap_s < self.backoff_s:
+            raise ValueError(
+                "backoff must satisfy 0 < backoff_s <= backoff_cap_s")
 
 
 @dataclasses.dataclass

@@ -116,10 +116,10 @@ def decode_planes(data: bytes) -> List[np.ndarray]:
 
 # --- trace-context frame -----------------------------------------------------
 #
-# Negotiated alongside IAF2 on the fleet's router->worker hops (ROADMAP
-# Queue 1 item 10c, in the port): a tiny side frame
-# carrying the request's trace context (obs/trace.py TRACE_KEYS) so the
-# hop that re-encodes planes also re-encodes the context — the codec
+# Negotiated alongside IAF2 on the fleet's router->worker hops
+# (serve/transport.py WorkerHandle.forward): a tiny side frame carrying
+# the request's trace context (obs/trace.py TRACE_KEYS) so the hop that
+# re-encodes planes also re-encodes the context — the codec
 # roundtrip is the process-boundary rehearsal.  Same strictness rules
 # as the plane frame: exact consume, validated lengths, string-only
 # payload, hard cap before any allocation.

@@ -91,3 +91,29 @@ def warmup_buckets(params: Any, sizes, *, seed: int = 0):
     """:func:`warmup` over a set of (height, width) target sizes; one
     summary each."""
     return [warmup(params, int(h), int(w), seed=seed) for (h, w) in sizes]
+
+
+def fleet_libraries(params: Any) -> Dict[str, str]:
+    """Before the first spawn of a subprocess fleet: build every missing
+    kernel library once, in the parent, into the directory in effect for
+    ``params`` (the build ``ia warmup`` ends in, one ``nvcc`` a source, all
+    started together), and return the environment that names it to the
+    children (``{IA_COMPILE_CACHE_DIR: dir}``), so that N children neither
+    compile inside their readiness windows nor build N copies.  The JAX
+    fleet's children compile their programs themselves; this is the
+    port's counterpart.  Returns {} when there is nothing to build for:
+    the host oracle, a CPU device, or no card (a child asked for the card
+    there refuses in ``Server.start``)."""
+    if getattr(params, "backend", "cuda") != "cuda" or \
+            not str(getattr(params, "device", "cuda")).startswith("cuda"):
+        return {}
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}
+    directory = _build.set_build_dir(compile_cache_dir(params))
+    missing = [n for n in _build.KERNEL_SOURCES
+               if not os.path.exists(_build.library_path(n))]
+    if missing:
+        _build.build(missing)
+    return {_build.COMPILE_CACHE_ENV: directory}

@@ -184,6 +184,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 12
     for sub in ("parallel", "serve", "soak"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    # the fleet's modules, the subprocess worker's entry included
+    for mod in ("serve/router.py", "serve/transport.py", "serve/fleet.py",
+                "serve/control.py", "serve/worker_main.py", "obs/fleet.py"):
+        assert os.path.join(root, *mod.split("/")) in files, mod
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -716,7 +716,8 @@ def test_serve_never_launches_a_kernel_itself():
         assert ".cuda." not in src, name
     assert {"server.py", "worker.py", "queue.py", "batcher.py",
             "degrade.py", "breaker.py", "policy.py", "loadgen.py",
-            "types.py"} <= scanned
+            "types.py", "router.py", "transport.py", "fleet.py",
+            "control.py", "worker_main.py"} <= scanned
 
 
 def test_cli_serve_zipf_and_flash_crowd_load(capsys):
