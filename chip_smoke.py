@@ -295,15 +295,37 @@ and carried on):
                 left alive or on the card, ``live_workers()`` empty and
                 ``reap_orphans()`` 0.  It checks bits and counts, not
                 times.
+20. chaos      — the seeded fault plane (``chaos/``) on the card: (a)
+                ``cli chaos --selftest --json`` as a subprocess: exit 0,
+                each of the twelve drill kinds ok with an injection, the
+                determinism check ok, then no ``worker_main`` left
+                (``live_workers()`` empty, ``reap_orphans()`` 0, none in
+                /proc); (b) beside it, npr_1024 on the seed-7 oracle
+                inputs in a metrics run, cold, clean, then armed: a
+                transient and an oom at level 0's ``level.dispatch`` visit
+                (``level_retry`` 1), a hang there past a watchdog of three
+                times the clean run's slowest level dispatch (the hang
+                twice the watchdog: ``watchdog.timeouts`` 1,
+                ``watchdog.abandoned`` 1, ``level_retry`` 1, a
+                flight-recorder dump, the abandoned attempt waited for
+                and its launches counted: none), a ``corrupt`` at
+                ``ckpt.save`` and the disarmed resume
+                (``ckpt.quarantined`` 1, 4,093 + 253 launches), then clean
+                again.  Every run MAIN_DIGEST's bits, exactly
+                6,138 packed_best + 1,783 argmin_l2 launches and its
+                counters reconciled with its plan by the port's
+                ``_reconcile``; the walls and the retries' and resume's
+                costs beside the card's name and power limit (recorded,
+                not claimed).
 
 card_vs_cpu's CPU runs run in a side process started with the script
-(they need no card).  The video, ann, mesh and serve phases run in side
-processes of their own (this script with ``--phases video --inline``,
-``--phases ann --inline`` and so on), started once the driver phase is
-done, beside the lanes and tune phases (the video phase runs after the
-driver since PR 22, to keep the whole script well inside its limit):
-their output is printed when each has ended, and
-a side phase that fails fails the script.  Each phase's seconds, and the
+(they need no card).  The video, ann, mesh, serve and chaos phases run in
+side processes of their own (this script with ``--phases video
+--inline``, ``--phases ann --inline`` and so on), started once the
+``driver`` phase is done, beside the lanes and tune phases (the video
+phase runs after the ``driver`` phase, to keep the whole script well
+inside its limit): their output is printed when each has ended, and a
+side phase that fails fails the script.  Each phase's seconds, and the
 seconds since the script began, are a ``[time]`` line after it (a side
 phase's own, inside its output; the line after it here, the seconds this
 process waited for it).
@@ -336,6 +358,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -348,7 +371,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
           "modes", "video", "driver", "lanes", "tune", "ann", "mesh",
-          "serve")
+          "serve", "chaos")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -5598,7 +5621,226 @@ def phase_serve():
         cli_extra_wait_s=time.perf_counter() - t5)
 
 
-SIDE_PHASES = ("video", "ann", "mesh", "serve")
+CHAOS_KINDS = 12  # runner.DRILL_KINDS: the JAX package's but flash_crowd
+
+
+def chaos_selftest_start(tmp):
+    """Check (a): ``cli chaos --selftest --json`` as a subprocess on the
+    card (its tune store a file of its own)."""
+    cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", "chaos",
+           "--selftest", "--json"]
+    env = dict(os.environ, IA_TUNE_STORE=os.path.join(tmp, "tune.json"))
+    return (subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def chaos_selftest_wait(started):
+    """Check (a): exit 0, each of the twelve kinds ok with an injection,
+    the determinism check ok, and no ``worker_main`` left."""
+    from image_analogies_tpu_torch.serve import transport
+
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail("chaos: cli chaos --selftest ran past 600 s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"chaos: cli chaos --selftest exit {proc.returncode}: "
+             f"{out[-2000:]} {err[-2000:]}")
+    doc = json.loads(err.strip().splitlines()[-1])
+    reports = {r["kind"]: r for r in doc["reports"]}
+    for kind, r in reports.items():
+        say("chaos", check="selftest", kind=kind, ok=r["ok"],
+            injected=r.get("injected"), sites=r.get("sites"),
+            outcomes=r.get("outcomes"), problems=r.get("problems"))
+    kinds = [k for k in reports if k != "determinism"]
+    bad = [k for k, r in reports.items()
+           if not r["ok"] or (k != "determinism" and not r["injected"])]
+    if (not doc["ok"] or bad or len(kinds) != CHAOS_KINDS
+            or "determinism" not in reports):
+        fail(f"chaos: selftest kinds {kinds}, failing {bad}")
+    live = transport.live_workers()
+    reaped = transport.reap_orphans()
+    alive = worker_main_pids()
+    say("chaos", check="selftest_done", kinds=len(kinds), seconds=secs,
+        live_workers=len(live), reaped=reaped, worker_main_alive=alive)
+    if live or reaped or alive:
+        fail(f"chaos: worker_main left after the selftest: live {live}, "
+             f"reaped {reaped}, alive {alive}")
+    return secs
+
+
+def chaos_run(label, params, a, ap, b, want, plan=None, dump_dir=None,
+              resume=None):
+    """Check (b): one ``create_image_analogy`` of npr_1024 in a metrics
+    run, armed with ``plan`` when given (``resume``: then a disarmed
+    resume from level 0 in the same run, held to its own launches): its
+    launch counts set to 0 just before it and read just after, the bits
+    MAIN_DIGEST's, the launches exactly ``want``, the counters reconciled
+    with the plan by the port's ``_reconcile``.  A hang's abandoned
+    attempt is waited for before the launches are read.  Returns the
+    run's wall, counters and stats (and the resume's wall)."""
+    import threading
+
+    import torch
+
+    from image_analogies_tpu_torch import chaos, create_image_analogy
+    from image_analogies_tpu_torch.chaos import runner
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+    from image_analogies_tpu_torch.ops import match
+
+    p = params.replace(metrics=True)
+    walls = {}
+    with obs_trace.run_scope(p) as ctx:
+        ctx.scope.dump_dir = dump_dir
+        match.reset_launch_counts()
+        t0 = time.perf_counter()
+        with (chaos.plan_scope(plan) if plan is not None
+              else contextlib.nullcontext()):
+            res = create_image_analogy(a, ap, b, p)
+            torch.cuda.synchronize()
+            walls["wall_s"] = time.perf_counter() - t0
+            sites = chaos.snapshot()
+        # an abandoned attempt runs on past the result: wait for it to
+        # end, so that a launch it made would be counted below
+        for t in threading.enumerate():
+            if t.name == "ia-watchdog-body":
+                t.join(timeout=600)
+                if t.is_alive():
+                    fail(f"chaos {label}: the abandoned attempt never ended")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in match.LAUNCHES.items() if v}
+        digest = bits_digest(res)
+        stats = res.stats
+        resumed = None
+        if resume is not None:
+            match.reset_launch_counts()
+            t1 = time.perf_counter()
+            resumed = create_image_analogy(
+                a, ap, b, p.replace(resume_from_level=0))
+            torch.cuda.synchronize()
+            walls["resume_wall_s"] = time.perf_counter() - t1
+            resume_launches = {k: v for k, v in match.LAUNCHES.items() if v}
+        counters = dict(ctx.registry.snapshot()["counters"])
+    problems = runner._reconcile(plan, counters) if plan is not None else []
+    if digest != MAIN_DIGEST:
+        problems.append(f"bits {digest} != MAIN_DIGEST {MAIN_DIGEST}")
+    if launches != {k: v for k, v in want.items() if v}:
+        problems.append(f"launched {launches}, expected {want}")
+    if resumed is not None:
+        if bits_digest(resumed) != MAIN_DIGEST:
+            problems.append(f"resume bits {bits_digest(resumed)}")
+        if resume_launches != {k: v for k, v in resume.items() if v}:
+            problems.append(f"resume launched {resume_launches}, expected "
+                            f"{resume}")
+    say("chaos", check="full_width", run=label, bits=digest, **walls,
+        launches=launches, sites=sites if plan is not None else None,
+        counters={k: v for k, v in counters.items()
+                  if k.startswith(("chaos.", "level_retry", "retry.",
+                                   "watchdog.", "ckpt.", "obs.blackbox"))},
+        level_total_ms={st["level"]: st["total_ms"] for st in stats},
+        problems=problems)
+    if problems:
+        fail(f"chaos {label}: {problems}")
+    return walls, counters, stats
+
+
+def chaos_full_width(a, ap, b, tmp, selftest_start):
+    """Check (b): npr_1024 at 1024^2 on seed 7's inputs, cold and clean
+    (then ``selftest_start()``, so check (a) runs beside the armed runs),
+    armed with a transient and an oom at level 0's ``level.dispatch``
+    visit, a hang there past a watchdog of at least three times the clean
+    run's slowest level dispatch, and a ``corrupt`` at ``ckpt.save``
+    followed by the disarmed resume, then clean again.  Returns
+    selftest_start's handle."""
+    from image_analogies_tpu_torch import PRESETS
+    from image_analogies_tpu_torch.chaos import ChaosPlan, SiteRule
+    from image_analogies_tpu_torch.obs import recorder as obs_recorder
+
+    params = PRESETS["npr_1024"]
+    want = expected_launches(params, a.shape[0])
+    # the process's first run pays its own start-up: the clean run that
+    # times the levels is the second
+    chaos_run("cold", params, a, ap, b, want)
+    clean, _, stats = chaos_run("clean", params, a, ap, b, want)
+    started = selftest_start()
+    top = len(stats) - 1  # dispatch visits run coarsest first
+    visit0 = top  # level 0's visit of level.dispatch
+    slowest_s = max(st["total_ms"] for st in stats) / 1e3
+
+    def plan(name, site, rule):
+        return ChaosPlan(seed=7, sites=((site, rule),), name=f"card-{name}")
+
+    out = {"clean_wall_s": clean["wall_s"], "slowest_level_s": slowest_s}
+    for kind in ("transient", "oom"):
+        walls, counters, _ = chaos_run(
+            kind, params.replace(level_retries=1), a, ap, b, want,
+            plan(kind, "level.dispatch",
+                 SiteRule(kind=kind, schedule=(visit0,))))
+        if counters.get("level_retry") != 1:
+            fail(f"chaos {kind}: level_retry {counters.get('level_retry')}")
+        out[f"{kind}_wall_s"] = walls["wall_s"]
+        out[f"{kind}_cost_s"] = walls["wall_s"] - clean["wall_s"]
+    timeout_s = 3.0 * slowest_s
+    hang_ms = 2.0 * timeout_s * 1e3
+    dumps = os.path.join(tmp, "dumps")
+    walls, counters, _ = chaos_run(
+        "hang", params.replace(level_retries=1, dispatch_timeout_s=timeout_s),
+        a, ap, b, want,
+        plan("hang", "level.dispatch",
+             SiteRule(kind="latency", schedule=(visit0,),
+                      latency_ms=hang_ms, hang=True)), dump_dir=dumps)
+    found = [obs_recorder.load_dump(d) for d in obs_recorder.list_dumps(dumps)]
+    if (counters.get("watchdog.timeouts") != 1
+            or counters.get("level_retry") != 1
+            or counters.get("watchdog.abandoned") != 1
+            or [d["reason"] for d in found] != ["watchdog_timeout"]):
+        fail(f"chaos hang: counters {counters}, dumps "
+             f"{[d['reason'] for d in found]}")
+    out.update(hang_wall_s=walls["wall_s"],
+               hang_cost_s=walls["wall_s"] - clean["wall_s"],
+               hang_timeout_s=timeout_s, hang_latency_s=hang_ms / 1e3,
+               hang_dump_records=len(found[0]["records"]))
+    walls, counters, _ = chaos_run(
+        "corrupt", params.replace(checkpoint_dir=os.path.join(tmp, "ck")),
+        a, ap, b, want,
+        plan("corrupt", "ckpt.save", SiteRule(kind="corrupt", schedule=(0,))),
+        resume=expected_launches(params, a.shape[0], levels=(0, top)))
+    if counters.get("ckpt.quarantined") != 1:
+        fail(f"chaos corrupt: ckpt.quarantined "
+             f"{counters.get('ckpt.quarantined')}")
+    out.update(corrupt_wall_s=walls["wall_s"],
+               resume_wall_s=walls["resume_wall_s"],
+               resume_cost_s=walls["resume_wall_s"] - clean["wall_s"])
+    # the first clean run had the card's other users but not check (a):
+    # a second one brackets the armed runs
+    walls, _, _ = chaos_run("clean_after", params, a, ap, b, want)
+    say("chaos", check="full_width_walls", **out,
+        clean_after_wall_s=walls["wall_s"], card=nvidia_smi())
+    return started
+
+
+def phase_chaos(a, ap, b):
+    """The chaos plane on the card: (a) the drills' selftest as a
+    subprocess, started after (b)'s first clean run and beside its armed
+    runs of the main path."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ia_chaos_")
+    t0 = time.perf_counter()
+    started = chaos_full_width(a, ap, b, tmp,
+                               lambda: chaos_selftest_start(tmp))
+    t1 = time.perf_counter()
+    secs = chaos_selftest_wait(started)
+    say("chaos", full_width_s=t1 - t0, selftest_s=secs,
+        selftest_extra_wait_s=time.perf_counter() - t1)
+
+
+SIDE_PHASES = ("video", "ann", "mesh", "serve", "chaos")
 SIDE_TIMEOUT_S = 1100
 _SIDES = []  # the side processes started, for stop_sides
 
@@ -5745,7 +5987,7 @@ def main() -> None:
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
             "batched", "batched_profile", "driver", "lanes",
-            "tune", "ann", "mesh"} & set(phases):
+            "tune", "ann", "mesh", "chaos"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -5833,6 +6075,12 @@ def main() -> None:
         else:
             phase_serve()
     lap("serve")
+    if "chaos" in phases:
+        if sides:
+            side_wait(sides["chaos"])
+        else:
+            phase_chaos(a, ap_, b)
+    lap("chaos")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

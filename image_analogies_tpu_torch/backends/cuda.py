@@ -1437,8 +1437,11 @@ def _resolve_ann_projection(job: LevelJob):
       request recovers the two-stage path.
 
     The key is the catalog's ``feature_key`` of the level's A side, the one
-    ``ia catalog build`` seals under.  The JAX package's ``match.prefilter``
-    chaos site waits for the port of chaos."""
+    ``ia catalog build`` seals under.  The chaos site ``match.prefilter``
+    fires here; its ``corrupt`` directive flips one byte of the sealed
+    artifact before the load (``catalog/ann.py damage_artifact``), so the
+    quarantine, exact fallback and reseal run end to end."""
+    from image_analogies_tpu_torch import chaos
     from image_analogies_tpu_torch.catalog import ann as catalog_ann
     from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
 
@@ -1448,7 +1451,11 @@ def _resolve_ann_projection(job: LevelJob):
     key = catalog_tiers.feature_key(job.spec, job.a_src, job.a_filt,
                                     job.a_src_coarse, job.a_filt_coarse,
                                     job.a_temporal)
-    existed = os.path.exists(catalog_ann.artifact_path(root_dir, key))
+    path = catalog_ann.artifact_path(root_dir, key)
+    directive = chaos.site("match.prefilter", level=job.level)
+    if directive == "corrupt":
+        catalog_ann.damage_artifact(path, seed=chaos.plan_seed() or 0)
+    existed = os.path.exists(path)
     got = catalog_ann.load_artifact(root_dir, key)
     if got is not None:
         obs_metrics.inc("ann.artifact_hits")

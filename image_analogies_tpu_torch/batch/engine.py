@@ -44,9 +44,9 @@ opens its own obs run scope and tune pin scope, as a singleton's does.
   cpu_backend       ``backend="cpu"``: the host oracle's literal raster
                     scan has no lane axis
 
-``degrade_divergence`` is serve's (``serve/worker.py``); the chaos site
-``engine.batch`` waits for the port's chaos plane (ROADMAP Queue 1 item
-10d).
+``degrade_divergence`` is serve's (``serve/worker.py``).  The chaos site
+``engine.batch`` opens each lane's build, inside the per-lane fault
+boundary.
 ``dispatch_timeout_s`` and ``pipeline`` are neither refused nor applied,
 as in the JAX engine: lanes run lock-step, with no watchdog.
 
@@ -68,6 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.backends import get_backend
 from image_analogies_tpu_torch.backends.base import LevelJob
 from image_analogies_tpu_torch.backends.cuda import CudaMatcher
@@ -302,8 +303,10 @@ def _run_batch(a, ap, targets, params, backend) -> List[Any]:
                 b_filt_coarse=bp_pyr[i][level + 1] if coarse else None,
             )
             try:
-                # the per-lane fault boundary: one lane's host-side build
-                # can fail without taking the shared scan down
+                # the per-lane fault boundary: the chaos site and one
+                # lane's host-side build can fail without taking the
+                # shared scan down
+                chaos.site("engine.batch", lane=i, level=level)
                 dbs[i] = backend.build_features(job)
                 jobs[i] = job
             except Exception as e:  # noqa: BLE001 - isolated per lane

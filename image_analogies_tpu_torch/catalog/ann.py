@@ -126,9 +126,8 @@ def load_artifact(root: str, key: str
 
 
 def damage_artifact(path: str, seed: int = 0) -> None:
-    """Damage helper (the JAX package's ``match.prefilter`` corrupt
-    directive; the port's drills and tests call it directly): flip one
-    byte of the sealed artifact in place, deterministically from
+    """Damage helper (the ``match.prefilter`` site's corrupt directive,
+    ``backends/cuda.py _resolve_ann_projection``): flip one byte of the sealed artifact in place, deterministically from
     ``seed``, so the next load fails its seal and quarantines."""
     if not os.path.exists(path):
         return

@@ -20,9 +20,9 @@ construction at every tier — a miss anywhere only costs time.
 As in the JAX package, the card's driver does not consult the feature
 tiers (its backend builds each level's DB on the device); on the card the
 catalog serves the sealed ANN bases (``catalog/ann.py``) through
-:func:`root` and :func:`feature_key`.  The JAX package's ``devcache.tier``
-chaos site waits for the port of chaos; :func:`evict` is its directive's
-effect, callable directly.
+:func:`root` and :func:`feature_key`.  The chaos site ``devcache.tier``
+opens each resolution; its ``corrupt`` directive is a mid-request
+:func:`evict` of the key (``catalog.chaos_evictions``).
 
 Configuration mirrors devcache: env ``IA_CATALOG_DIR`` /
 ``IA_CATALOG_HOST_BYTES`` win over the per-run ``AnalogyParams`` knobs
@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.catalog import store
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import trace as obs_trace
@@ -232,8 +233,8 @@ def _insert_host(key: str, db: np.ndarray, aff: np.ndarray) -> None:
 
 
 def evict(key: str) -> bool:
-    """Drop ``key`` from BOTH memory tiers (the JAX package's chaos
-    directive / operator).
+    """Drop ``key`` from BOTH memory tiers (the chaos directive /
+    operator).
     Disk entries stay — the next resolution falls through to them."""
     global _host_bytes
     hit = False
@@ -272,8 +273,14 @@ def snapshot() -> Dict[str, Any]:
 def resolve(style: str, key: str, *, level: int = -1) -> Optional[Entry]:
     """Tier-by-tier resolution; None means every tier missed and the
     caller builds cold (then records through :meth:`CatalogRef.record`).
-    ``level`` names the level for the JAX package's chaos site, which
-    the port does not have yet."""
+    """
+    directive = chaos.site("devcache.tier", style=style, level=level)
+    if directive == "corrupt":
+        # the "corrupt" directive doubles as the mid-request tier
+        # eviction order: drop the key from both memory tiers NOW, so
+        # the resolution below must recover through disk or a rebuild
+        evict(key)
+        obs_metrics.inc("catalog.chaos_evictions")
     with _LOCK:
         ent = _resident.get(key)
         if ent is not None:

@@ -23,6 +23,7 @@
         --root journal/
     python -m image_analogies_tpu_torch.cli metrics run.jsonl
     python -m image_analogies_tpu_torch.cli archive inspect archive/
+    python -m image_analogies_tpu_torch.cli chaos --selftest
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -59,7 +60,10 @@ write-ahead request journal; ``--archive DIR``: the telemetry archive)
 until interrupted.  ``journal``, ``why``, ``metrics`` and ``archive``
 are the offline readers of the journal, the run log and the archive, with
 the JAX package's flags, outputs and exit codes; they take no engine
-flags and need no card.
+flags and need no card.  ``chaos`` runs the seeded fault drills
+(``chaos/``: ``--selftest`` or ``--plan FILE``, ``--kinds``, ``--seed``,
+``--json``) on ``--device``, with the JAX package's rendering and exit
+codes 0, 1 and 2.
 """
 
 from __future__ import annotations
@@ -565,6 +569,41 @@ def cmd_fleet(args) -> int:
         finally:
             httpd.shutdown()
     return 0
+
+
+def cmd_chaos(args) -> int:
+    """Seeded fault-injection drills (chaos/): run a workload under a
+    fault plan on ``--device`` and assert full recovery — bit-identical
+    output, no lost or hung request, and injection counters reconciled
+    against the recovery counters they should have caused.  --selftest
+    runs one canonical drill per drill kind plus the schedule-determinism
+    check; --plan FILE replays a custom ChaosPlan JSON.  Exit 0 when every
+    drill passed, 1 when one failed, 2 on a bad plan or no mode."""
+    from image_analogies_tpu_torch.chaos import ChaosPlan
+    from image_analogies_tpu_torch.chaos import runner as chaos_runner
+
+    if args.selftest:
+        kinds = args.kinds.split(",") if args.kinds else None
+        result = chaos_runner.selftest(seed=args.seed, kinds=kinds,
+                                       device=args.device)
+    elif args.plan:
+        try:
+            plan = ChaosPlan.load(args.plan)
+        except (OSError, ValueError) as exc:
+            print(f"chaos: bad plan {args.plan}: {exc}", file=sys.stderr)
+            return 2
+        report = chaos_runner.run_drill(plan, device=args.device)
+        report.setdefault("kind", plan.name or "plan")
+        result = {"seed": plan.seed, "ok": report["ok"],
+                  "reports": [report]}
+    else:
+        print("chaos: pass --plan FILE or --selftest", file=sys.stderr)
+        return 2
+    print(chaos_runner.render(result))
+    if args.json:
+        print(json.dumps(result, sort_keys=True, default=str),
+              file=sys.stderr)
+    return 0 if result["ok"] else 1
 
 
 def cmd_warmup(args) -> int:
@@ -1134,6 +1173,36 @@ def build_parser() -> argparse.ArgumentParser:
     fp.add_argument("--seed", type=int, default=0)
     _add_engine_flags(fp)
     fp.set_defaults(fn=cmd_fleet)
+
+    ch = sub.add_parser("chaos",
+                        help="seeded fault-injection drills: run a "
+                             "workload under a fault plan and assert "
+                             "bit-identical recovery, no lost requests, "
+                             "and injection/recovery counter "
+                             "reconciliation")
+    ch.add_argument("--plan", default=None, metavar="FILE",
+                    help="ChaosPlan JSON (seed + per-site fault rules) "
+                         "to replay against the matching drill workload")
+    ch.add_argument("--selftest", action="store_true",
+                    help="one canonical drill per kind "
+                         "(transient, oom, latency, corrupt, crash, "
+                         "process_death, fleet_death, "
+                         "fleet_death_subprocess, batch_partial, "
+                         "devcache_tier, ann_corrupt, archive_torn) plus "
+                         "the same-seed schedule-determinism check")
+    ch.add_argument("--kinds", default=None,
+                    help="comma-separated fault-kind subset for "
+                         "--selftest (default: all)")
+    ch.add_argument("--seed", type=int, default=0,
+                    help="plan seed — same seed, same fault schedule")
+    ch.add_argument("--json", action="store_true",
+                    help="also print the full machine-readable report "
+                         "to stderr")
+    ch.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the drills run: the card (default; exits "
+                         "non-zero where there is none) or the CPU (the "
+                         "kernels' plain versions)")
+    ch.set_defaults(fn=cmd_chaos)
 
     wu = sub.add_parser("warmup",
                         help="build every kernel library a target "

@@ -32,8 +32,9 @@ sealed artifacts (``catalog/``, ``backends/cuda.py``).  With
 and, as in the JAX driver, only then does the driver consult the
 catalog's feature tiers: each level's A-side goes to the matcher as
 ``job.a_features`` (``catalog/tiers.py lookup``), and a cold build records
-itself back through it.  The chaos sites are not ported yet (ROADMAP
-Queue 1 item 10d).
+itself back through it.  The chaos site ``level.dispatch`` opens each
+level's dispatch inside the body the watchdog runs, so an injected hang is
+abandoned on its own stream as a real wedge would be.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.backends import get_backend
 from image_analogies_tpu_torch.backends.base import LevelJob, Matcher
 from image_analogies_tpu_torch.catalog import tiers as catalog_tiers
@@ -436,14 +438,18 @@ def _create_image_analogy(a, ap, b, params, backend, dev, keep_levels,
                 if gap_t0 is not None:
                     timing["host_gap_ms"] += (t0 - gap_t0) * 1e3
 
+                def level_body():
+                    chaos.site("level.dispatch", level=level)
+                    return backend.synthesize_level(
+                        backend.build_features(job), job)
+
                 def dispatch():
                     # the watchdog wraps the whole dispatch INSIDE the retry
                     # body: a wedged level raises WatchdogTimeout
                     # (transient) and is retried, on a stream of its own
                     return failure.run_with_watchdog(
-                        lambda: backend.synthesize_level(
-                            backend.build_features(job), job),
-                        params.dispatch_timeout_s, context={"level": level},
+                        level_body, params.dispatch_timeout_s,
+                        context={"level": level},
                         log_path=params.log_path, device=dev)
 
                 with obs_trace.span("level", level=level):

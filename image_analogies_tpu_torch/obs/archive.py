@@ -55,6 +55,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.obs import metrics as _metrics
 from image_analogies_tpu_torch.obs import trace as _trace
 
@@ -170,14 +171,20 @@ class TelemetryArchive:
     def append(self, kind: str, doc: Any,
                now: Optional[float] = None) -> bool:
         """Seal one record onto the current segment.  Returns False when
-        the record was dropped (disk trouble) — the archive is a witness,
-        never a request-path dependency, so write failures count
-        (``obs.archive.append_errors``) and drop rather than raise."""
+        the record was dropped (injected or real disk trouble) — the
+        archive is a witness, never a request-path dependency, so write
+        failures count (``obs.archive.append_errors``) and drop rather
+        than raise."""
         if now is None:
             now = self._clock()
-        # The JAX package's chaos site ``archive.append`` (an injected
-        # disk-full or a corrupted write) stands here once the port has
-        # its chaos plane (ROADMAP Queue 1 item 10d).
+        try:
+            directive = chaos.site("archive.append", kind=kind)
+        except Exception:  # noqa: BLE001 - an injected write failure
+            # raising fault kinds model disk-full / EIO on the write
+            with self._lock:
+                self._dropped += 1
+            _metrics.inc("obs.archive.append_errors")
+            return False
         with self._lock:
             rec = {"ts": round(now, 3), "seq": self._seq,
                    "kind": kind, "doc": doc}
@@ -195,6 +202,11 @@ class TelemetryArchive:
             self._appended += 1
             self._seg_bytes += len(line) + 1
             _metrics.inc("obs.archive.appended")
+            if directive == "corrupt":
+                # damage lands AFTER a successful-looking write — the
+                # torn-segment drill's realistic failure shape.
+                from image_analogies_tpu_torch.chaos import faults as _faults
+                _faults.corrupt_file(path, seed=self._seq, n_flips=1)
             if self._seg_bytes >= self.max_segment_bytes:
                 self._seg_index += 1
                 self._seg_bytes = 0

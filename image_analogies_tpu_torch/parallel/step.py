@@ -33,7 +33,7 @@ every rank of the (data, db) mesh:
 
 Every rank of a ``db`` group runs the whole scan loop on the full query
 set against its own shard, so every rank ends with the same bits.  The
-JAX package's chaos site ``mesh.step`` waits for the port of chaos.
+chaos site ``mesh.step`` opens each step.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.backends.cuda import (
     LevelDB,
     batched_scan_core,
@@ -128,6 +129,7 @@ def multichip_level_step(
     runs query-parallel.  Counts ``mesh.level_steps`` and
     ``mesh.psum_gather_bytes`` (the JAX package's host-side estimate of
     the gathers' payload) in a metrics run."""
+    chaos.site("mesh.step", frames=int(frame_static_q.shape[0]))
     t_total = int(frame_static_q.shape[0])
     data = mesh.shape["data"]
     strategy = template.strategy

@@ -67,6 +67,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.config import AnalogyParams
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import trace as obs_trace
@@ -345,9 +346,10 @@ class RequestJournal:
         return pid
 
     def _append(self, record: Dict[str, Any]) -> None:
-        # The JAX package's chaos site ``serve.journal`` (a process death
-        # with this transition unrecorded) stands here once the port has
-        # its chaos plane (ROADMAP Queue 1 item 10d).
+        # The chaos plane's process-death site: a ProcessDeath raised
+        # here models the process dying with this transition unrecorded —
+        # exactly the torn-history case replay must absorb.
+        chaos.site("serve.journal", op=record.get("op", "?"))
         # Wall-clock stamp on every line so `ia why` can merge-order
         # events across worker journals and the router's DecisionLog
         # (pre-stamp journals sort by file order, which is still causal

@@ -1,7 +1,6 @@
 """Bounded admission queue + compatibility-keyed batch pop (the port's
-copy of the JAX package's ``serve/queue.py``; its chaos admission site
-``serve.admit`` waits for the port's chaos plane, ROADMAP Queue 1 item
-10d).
+copy of the JAX package's ``serve/queue.py``, its chaos admission site
+``serve.admit`` included).
 
 One lock + condition guards a deque.  ``submit`` never blocks: at depth
 it raises :class:`Rejected` immediately (backpressure is the client's
@@ -38,6 +37,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.serve.policy import QosPolicy
 from image_analogies_tpu_torch.serve.types import Rejected, Request
@@ -70,6 +70,10 @@ class AdmissionQueue:
             return len(self._items)
 
     def submit(self, req: Request) -> None:
+        # admission-layer fault injection (drills): a raising kind here
+        # surfaces synchronously to the submitting client, like any other
+        # admission refusal — never a half-enqueued request.
+        chaos.site("serve.admit", request=req.request_id)
         with self._lock:
             if self._closed:
                 obs_metrics.inc("serve.rejected")

@@ -42,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.obs import ledger as obs_ledger
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import trace as obs_trace
@@ -245,9 +246,7 @@ class Router:
                              else "hop_fault",
                              home=order[0], to=wid)
             try:
-                # (The JAX router's chaos site "router.forward" sits here,
-                # with its ProcessDeath re-raise below: they come with the
-                # chaos plane, ROADMAP Queue 1 item 10d.)
+                chaos.site("router.forward", worker=wid, key=kstr)
                 src = self._fleet.forward(wid, a, ap, b, p,
                                           deadline_s, idem,
                                           priority=priority)
@@ -256,6 +255,8 @@ class Router:
                                        "idem": idem, "worker": wid,
                                        "key": kstr, "attempt": attempt})
                 return wid, src
+            except chaos.ProcessDeath:
+                raise  # the ROUTER process dying is never contained
             except Rejected as exc:
                 if exc.reason in ("poison", "bad_idempotency_key",
                                   "quota"):

@@ -35,9 +35,14 @@ request's ``dispatched`` line lands before its engine call (on the lane
 engine's path, every member's before the one call), its ``done`` line
 (the response spilled) before its future resolves, and every terminal
 refusal, poison verdict, control-plane decision and cost vector beside
-them.  The JAX worker's chaos site ``serve.dispatch`` and its
-process-death fault wait for the port's chaos plane (ROADMAP Queue 1
-item 10d).
+them.
+
+Chaos: the site ``serve.dispatch`` opens each batch run (a raising kind
+there is a crash below the per-request handler, contained as one).  A
+``chaos.ProcessDeath`` is NOT contained: the worker thread counts
+``serve.process_deaths``, emits ``serve_process_death``, dumps the black
+box last and exits, its futures unresolved, as a dead process leaves
+them; the write-ahead journal's replay is the only recovery.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import threading
 import time
 from typing import List, Optional
 
+from image_analogies_tpu_torch import chaos
 from image_analogies_tpu_torch.obs import ledger as obs_ledger
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.obs import recorder as obs_recorder
@@ -138,6 +144,25 @@ class WorkerPool:
                 return
             try:
                 self._run_batch(batch)
+            except chaos.ProcessDeath:
+                # The chaos plane's process-death fault: deliberately NOT
+                # contained — a dead process cannot requeue anything.
+                # The thread exits, futures stay unresolved, and the only
+                # recovery path is the write-ahead journal on restart
+                # (the kill-restart drill's whole premise).
+                obs_metrics.inc("serve.process_deaths")
+                obs_trace.emit_record({"event": "serve_process_death",
+                                       "batch_size": len(batch)})
+                # Black box out the door LAST, so the ring contains the
+                # death record itself; the per-request context already
+                # unwound with the raise, so the dump's attribution comes
+                # from the batch itself.
+                obs_recorder.dump_current("process_death", extra={
+                    "batch_size": len(batch),
+                    "requests": [r.request_id for r in batch],
+                    "key": batcher.key_str(batch[0].key),
+                    "trace": (batch[0].trace or {}).get("trace")})
+                return
             except BaseException as exc:  # noqa: BLE001 - crash containment
                 self._contain_crash(batch, exc)
 
@@ -183,6 +208,10 @@ class WorkerPool:
             obs_metrics.set_gauge("serve.inflight", self._inflight)
 
     def _run_batch(self, batch: List[Request]) -> None:
+        # batch-level fault injection (drills): raising kinds here model a
+        # worker dying below the per-request handler — they escape into
+        # _loop's crash containment, which must resolve every member.
+        chaos.site("serve.dispatch", batch=len(batch))
         self._track_inflight(len(batch))
         obs_metrics.observe("serve.batch_size", len(batch))
         try:

@@ -7,9 +7,10 @@ saves after each level and, with ``resume_from_level``, loads every
 finished coarser level instead of recomputing it.  The npz fields
 (``level``, ``bp``, ``s``, ``digest``, ``checksum``) and the seal are the
 JAX package's, so a file written by either package loads in the other.
-The JAX package's chaos sites (``ckpt.save``, ``ckpt.load``) and its
-``ckpt.quarantined`` counter wait for the port of chaos and obs (ROADMAP
-Queue 1 items 7 and 10).
+A damaged file is quarantined and counted (``ckpt.quarantined``).  The
+chaos sites ``ckpt.save`` and ``ckpt.load`` stand where the JAX package
+has them; a ``corrupt`` directive at ``ckpt.save`` damages the file after
+its atomic rename, a write that looked whole.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from image_analogies_tpu_torch import chaos
+from image_analogies_tpu_torch.chaos import faults as chaos_faults
 from image_analogies_tpu_torch.obs import metrics as obs_metrics
 from image_analogies_tpu_torch.utils import logging as ialog
 
@@ -75,16 +78,15 @@ def _payload_checksum(bp: np.ndarray, s: np.ndarray,
 
 def quarantine(path: str, *, event: str = "ckpt_quarantined",
                log_path: Optional[str] = None,
-               counter: Optional[str] = None) -> str:
+               counter: str = "ckpt.quarantined") -> str:
     """Move a damaged file aside as ``<path>.corrupt`` (never deleted: the
-    bytes are evidence), emit an ``event`` record and, with ``counter``,
-    count it in the active metrics run (the catalog's stores pass
-    ``catalog.quarantined`` / ``ann.quarantined``).  Returns the new
-    path."""
+    bytes are evidence), emit an ``event`` record and count ``counter`` in
+    the active metrics run (other stores pass their own:
+    ``catalog.quarantined``, ``ann.quarantined``,
+    ``serve.journal.quarantined``).  Returns the new path."""
     qpath = path + ".corrupt"
     os.replace(path, qpath)
-    if counter:
-        obs_metrics.inc(counter)
+    obs_metrics.inc(counter)
     ialog.emit({"event": event, "path": path}, log_path)
     return qpath
 
@@ -93,12 +95,17 @@ def save_level(ckpt_dir: str, level: int, bp: np.ndarray,
                s: np.ndarray, digest: str = "") -> str:
     """Write level ``level``'s (bp, s) with its digest and seal; the file
     appears whole or not at all (written aside, then renamed)."""
+    # a raising fault fires before any byte moves; a corrupt directive
+    # lands after the rename, a write that looked whole
+    directive = chaos.site("ckpt.save", level=level)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = level_path(ckpt_dir, level)
     tmp = path + ".tmp.npz"
     np.savez(tmp, level=level, bp=bp, s=s, digest=digest,
              checksum=_payload_checksum(bp, s, digest))
     os.replace(tmp, path)
+    if directive == "corrupt":
+        chaos_faults.corrupt_file(path, chaos.plan_seed() or 0)
     return path
 
 
@@ -114,6 +121,7 @@ def load_level(ckpt_dir: str, level: int, digest: str = "",
     next run does not trip on it, and the level is recomputed.  A file with
     no digest (written before the field existed) loads only when no digest
     is asked."""
+    chaos.site("ckpt.load", level=level)
     path = level_path(ckpt_dir, level)
     if not os.path.exists(path):
         return None

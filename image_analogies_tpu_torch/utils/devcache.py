@@ -25,8 +25,14 @@ read them.  Uploads stage through pinned host memory and copy without
 blocking the host.  Every value is shared by every hit and MUST be treated
 as immutable (no consumer in the port writes into one).
 
-The JAX package's devcache counters and its chaos site wait for the port
-of obs and chaos (ROADMAP Queue 1 items 7 and 10).
+Counters, in the active metrics run, as the JAX package names them: an
+upload of ``device_put_cached`` counts ``devcache.hits`` or
+``devcache.misses`` with ``devcache.upload_bytes``; an entry pushed out by
+the budget counts ``devcache.evictions`` and ``devcache.evicted_bytes``;
+the ``devcache.bytes`` gauge follows every insert, eviction and clear.  A
+cached tensor cannot be freed under the cache, so the JAX package's
+``devcache.dead_evictions`` (a donated buffer found deleted) has no cause
+here.  A miss visits the chaos site ``devcache.upload`` before it uploads.
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from image_analogies_tpu_torch import chaos
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
 
 _DEFAULT_MAX_BYTES = 1 << 30  # 1 GiB of cached device values
 _TINY_BYTES = 1 << 16  # arrays below this pass through
@@ -85,6 +94,7 @@ def clear() -> None:
     with _LOCK:
         _cache.clear()
         _bytes = 0
+    obs_metrics.set_gauge("devcache.bytes", 0)
 
 
 def _tensors(value) -> Tuple[torch.Tensor, ...]:
@@ -126,15 +136,20 @@ def cached(key: tuple, make: Callable[[], Any], device) -> Any:
     """The value ``make()`` builds on ``device`` (a tensor or a tuple of
     tensors), memoized under ``key``, which must name everything the value
     depends on, the device included."""
+    return _cached(key, make, _device(device))[0]
+
+
+def _cached(key: tuple, make: Callable[[], Any], dev: torch.device
+            ) -> Tuple[Any, bool]:
+    """``cached``'s value and whether it was a hit."""
     global _bytes
-    dev = _device(device)
     with _LOCK:
         entry = _cache.get(key)
         if entry is not None:
             _cache.move_to_end(key)
     if entry is not None:
         _ready(entry, dev)
-        return entry.value
+        return entry.value, True
     value = make()
     stream = event = None
     if dev.type == "cuda":
@@ -143,6 +158,7 @@ def cached(key: tuple, make: Callable[[], Any], device) -> Any:
         event.record(stream)
     nbytes = sum(t.numel() * t.element_size() for t in _tensors(value))
     limit = max_bytes()
+    evicted = []
     with _LOCK:
         old = _cache.pop(key, None)  # another thread made it meanwhile
         if old is not None:
@@ -150,9 +166,15 @@ def cached(key: tuple, make: Callable[[], Any], device) -> Any:
         _cache[key] = _Entry(value, nbytes, stream, event)
         _bytes += nbytes
         while _bytes > limit and _cache:
-            _, evicted = _cache.popitem(last=False)
-            _bytes -= evicted.nbytes
-    return value
+            _, out = _cache.popitem(last=False)
+            _bytes -= out.nbytes
+            evicted.append(out.nbytes)
+        total = _bytes
+    for n in evicted:
+        obs_metrics.inc("devcache.evictions")
+        obs_metrics.inc("devcache.evicted_bytes", n)
+    obs_metrics.set_gauge("devcache.bytes", total)
+    return value, False
 
 
 def device_put_cached(x, device) -> Optional[torch.Tensor]:
@@ -173,4 +195,15 @@ def device_put_cached(x, device) -> Optional[torch.Tensor]:
     # prefetch thread hashes beside the thread issuing launches
     key = (hashlib.sha1(arr).hexdigest(), arr.shape, str(arr.dtype),
            str(dev))
-    return cached(key, lambda: upload(arr, dev), dev)
+
+    def miss():
+        chaos.site("devcache.upload", nbytes=arr.nbytes)
+        return upload(arr, dev)
+
+    value, hit = _cached(key, miss, dev)
+    if hit:
+        obs_metrics.inc("devcache.hits")
+    else:
+        obs_metrics.inc("devcache.misses")
+        obs_metrics.inc("devcache.upload_bytes", arr.nbytes)
+    return value

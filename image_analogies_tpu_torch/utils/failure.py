@@ -30,8 +30,14 @@ which a launch that faulted or was abandoned may not have).
 
 ``inject_failures`` makes the next ``n`` wrapped calls raise the synthetic
 transient ``InjectedFailure``, so recovery is exercised deterministically
-without real faults.  The JAX package's metrics counters and its flight
-recorder dump wait for the port of obs (ROADMAP Queue 1 item 10).
+without real faults (the chaos plane's ``ChaosTransient`` is one too).
+
+Counters, in the active metrics run, the JAX package's names at its places:
+``level_retry`` for each retried fault, ``retry.exhausted`` for a fault past
+a budget that was given, ``watchdog.timeouts`` for each deadline passed and
+``watchdog.abandoned`` when an abandoned body ends later.  A timeout also
+dumps the current scope's flight-recorder ring (``obs/recorder.py
+dump_current``) before the transient surfaces.
 """
 
 from __future__ import annotations
@@ -44,7 +50,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from image_analogies_tpu_torch.utils import devcache
+from image_analogies_tpu_torch.obs import metrics as obs_metrics
+from image_analogies_tpu_torch.obs import recorder as obs_recorder
 from image_analogies_tpu_torch.utils import logging as ialog
 
 # armed synthetic faults (fault injection for tests and drills); the lock
@@ -115,6 +122,7 @@ def reset_device_state() -> None:
     upload cache, the caching allocator's free blocks (on the card) and
     ``argmin_l2``'s per-stream merge workspaces."""
     from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.utils import devcache
 
     devcache.clear()
     with match._ARGMIN_LOCK:  # never between a launch's fetch and enqueue
@@ -151,6 +159,9 @@ def run_with_retry(
                 raise
             if attempt >= retries:
                 if retries > 0:
+                    # only a budget that was given counts: a retries=0
+                    # caller never asked for recovery
+                    obs_metrics.inc("retry.exhausted")
                     ialog.emit({
                         "event": "retry_exhausted",
                         "attempts": attempt + 1,
@@ -159,6 +170,7 @@ def run_with_retry(
                     }, log_path)
                 raise
             attempt += 1
+            obs_metrics.inc("level_retry")
             ialog.emit({
                 "event": "level_retry",
                 "attempt": attempt,
@@ -184,14 +196,16 @@ def run_with_watchdog(
 
     The body runs on a daemon thread; past ``timeout_s`` the caller emits
     a ``watchdog_timeout`` record and raises ``WatchdogTimeout``
-    (transient, so ``run_with_retry`` is its recovery).  Python threads
-    cannot be killed: the wedged body is ABANDONED and runs on, its result
-    or error dropped.  On a CUDA ``device`` each attempt runs on a stream
-    of its own, so an abandoned attempt's late launches never share a
-    stream, or ``argmin_l2``'s per-stream merge workspace, with the retry;
-    the body waits for its stream before it returns, so the deadline
-    covers the device work.  ``timeout_s <= 0`` runs the body inline: no
-    thread, no stream."""
+    (transient, so ``run_with_retry`` is its recovery), after counting
+    ``watchdog.timeouts`` and dumping the current scope's flight-recorder
+    ring.  Python threads cannot be killed: the wedged body is ABANDONED
+    and runs on, its result or error dropped, and counts
+    ``watchdog.abandoned`` when it ends.  On a CUDA ``device`` each
+    attempt runs on a stream of its own, so an abandoned attempt's late
+    launches never share a stream, or ``argmin_l2``'s per-stream merge
+    workspace, with the retry; the body waits for its stream before it
+    returns, so the deadline covers the device work.  ``timeout_s <= 0``
+    runs the body inline: no thread, no stream."""
     if timeout_s <= 0:
         return fn()
     cuda = device is not None and torch.device(device).type == "cuda"
@@ -209,16 +223,25 @@ def run_with_watchdog(
         except BaseException as exc:  # noqa: BLE001 - forwarded or dropped
             box["error"] = exc
         finally:
+            if done.is_set():  # the caller timed out: a late end
+                obs_metrics.inc("watchdog.abandoned")
             done.set()
 
     t = threading.Thread(target=body, name="ia-watchdog-body", daemon=True)
     t.start()
     if not done.wait(timeout_s):
+        done.set()  # marks the body abandoned before it ends
+        obs_metrics.inc("watchdog.timeouts")
         ialog.emit({
             "event": "watchdog_timeout",
             "timeout_s": timeout_s,
             **(context or {}),
         }, log_path)
+        # a wedge is when the ring matters: dump it (the record above
+        # included) before the transient surfaces
+        obs_recorder.dump_current("watchdog_timeout",
+                                  extra={"timeout_s": timeout_s,
+                                         **(context or {})})
         raise WatchdogTimeout(
             f"dispatch exceeded watchdog timeout {timeout_s:g}s "
             "(presumed wedged; surfacing as transient)")

@@ -182,11 +182,14 @@ def test_port_never_imports_jax_or_the_jax_package():
         subdirs[:] = [s for s in subdirs if s != "_build"]  # build outputs
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 12
-    for sub in ("parallel", "serve", "soak"):
+    for sub in ("parallel", "serve", "soak", "chaos"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
-    # the fleet's modules, the subprocess worker's entry included
+    # the fleet's modules, the subprocess worker's entry included, and
+    # the chaos plane's
     for mod in ("serve/router.py", "serve/transport.py", "serve/fleet.py",
-                "serve/control.py", "serve/worker_main.py", "obs/fleet.py"):
+                "serve/control.py", "serve/worker_main.py", "obs/fleet.py",
+                "chaos/__init__.py", "chaos/faults.py", "chaos/plan.py",
+                "chaos/inject.py", "chaos/drills.py", "chaos/runner.py"):
         assert os.path.join(root, *mod.split("/")) in files, mod
     for path in files:
         for mod in _imports(path):
