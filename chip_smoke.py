@@ -297,7 +297,7 @@ and carried on):
                 times.
 20. chaos      — the seeded fault plane (``chaos/``) on the card: (a)
                 ``cli chaos --selftest --json`` as a subprocess: exit 0,
-                each of the twelve drill kinds ok with an injection, the
+                each of the thirteen drill kinds ok with an injection, the
                 determinism check ok, then no ``worker_main`` left
                 (``live_workers()`` empty, ``reap_orphans()`` 0, none in
                 /proc); (b) beside it, npr_1024 on the seed-7 oracle
@@ -317,9 +317,32 @@ and carried on):
                 ``_reconcile``; the walls and the retries' and resume's
                 costs beside the card's name and power limit (recorded,
                 not claimed).
+21. soak       — the trace-driven soak (``soak/``, ``ia soak``) and the
+                run-log readers: (a) ``cli soak --seed 7 --json`` as a
+                subprocess twice (the second with ``--workdir``): exit 0,
+                ``ia soak: PASS``, loss 0, at least two kills, a handoff
+                for each, both ``REQUIRED_SITES`` injected, the two
+                verdict lists equal; (b) ``cli soak --full --json
+                --workdir`` once: green, ``p999_ms`` within the spec's
+                bound; (c) the soak serves on the host oracle as the JAX
+                soak does: every ``launch.*`` counter in (a)'s and (b)'s
+                facts 0, while the engine's own counters reach them
+                (``level_retry`` at least the injected transients); each
+                run's wall, ``p999_ms``, kills and handoffs; (d) one warm
+                npr_1024 run at 1024^2 on the seed-7 oracle inputs in a
+                metrics run with a log: ``cli report --json`` on it shows
+                five levels with device ms, ``kernel.flops`` above 0 and
+                the launch counters the run made (6,138 packed_best, 1,783
+                argmin_l2), ``cli report`` a ``kernel cost`` line, ``cli
+                trace`` events on the host and device tracks; ``cli top
+                --once --from-archive`` on (a)'s and (b)'s archive roots
+                (exit 0 where a sealed timeline document survived the
+                plan's torn segment, else 2 with ``no archived timeline
+                documents``); ``cli blackbox --all`` on any flight-recorder
+                dump the workdirs hold (none: said so).
 
 card_vs_cpu's CPU runs run in a side process started with the script
-(they need no card).  The video, ann, mesh, serve and chaos phases run in
+(they need no card).  The video, ann, mesh, serve, chaos and soak phases run in
 side processes of their own (this script with ``--phases video
 --inline``, ``--phases ann --inline`` and so on), started once the
 ``driver`` phase is done, beside the lanes and tune phases (the video
@@ -371,7 +394,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("env", "kernels", "main", "oracle", "exact_hi2", "rescue",
           "two_pass", "batched", "gate", "card_vs_cpu", "modes_small",
           "modes", "video", "driver", "lanes", "tune", "ann", "mesh",
-          "serve", "chaos")
+          "serve", "chaos", "soak")
 
 # cycles of the spin kernel ahead of each timed call (~0.5 ms at the
 # H100's clocks, longer than any wrapper's host work)
@@ -5621,7 +5644,7 @@ def phase_serve():
         cli_extra_wait_s=time.perf_counter() - t5)
 
 
-CHAOS_KINDS = 12  # runner.DRILL_KINDS: the JAX package's but flash_crowd
+CHAOS_KINDS = 13  # runner.DRILL_KINDS: the JAX package's, flash_crowd too
 
 
 def chaos_selftest_start(tmp):
@@ -5636,7 +5659,7 @@ def chaos_selftest_start(tmp):
 
 
 def chaos_selftest_wait(started):
-    """Check (a): exit 0, each of the twelve kinds ok with an injection,
+    """Check (a): exit 0, each of the thirteen kinds ok with an injection,
     the determinism check ok, and no ``worker_main`` left."""
     from image_analogies_tpu_torch.serve import transport
 
@@ -5840,7 +5863,200 @@ def phase_chaos(a, ap, b):
         selftest_extra_wait_s=time.perf_counter() - t1)
 
 
-SIDE_PHASES = ("video", "ann", "mesh", "serve", "chaos")
+SOAK_TIMEOUT_S = 600  # one ia soak subprocess
+SOAK_REPORT_LEVELS = 5  # npr_1024's levels at 1024^2
+
+
+def soak_cli(args, tmp, timeout=SOAK_TIMEOUT_S):
+    """``python -m image_analogies_tpu_torch.cli ARGS`` as a subprocess
+    (its tune store a file of its own).  Returns (exit code, stdout,
+    stderr, seconds)."""
+    cmd = [sys.executable, "-m", "image_analogies_tpu_torch.cli", *args]
+    env = dict(os.environ, IA_TUNE_STORE=os.path.join(tmp, "tune.json"))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"soak: cli {' '.join(args[:2])} ran past {timeout} s")
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def soak_run(label, args, tmp):
+    """Checks (a)-(c) on one ``cli soak ... --json`` run: exit 0, PASS,
+    loss 0, kills with their handoffs, the required sites injected, no
+    kernel launched while the engine's counters reach the facts.  Returns
+    the result document."""
+    from image_analogies_tpu_torch.soak import driver as soak_driver
+
+    rc, out, err, secs = soak_cli(["soak", *args, "--json"], tmp)
+    if rc != 0 or "ia soak: PASS" not in out:
+        fail(f"soak {label}: exit {rc}: {out[-3000:]} {err[-2000:]}")
+    doc = json.loads(err.strip().splitlines()[-1])
+    facts = doc["facts"]
+    counters = facts["counters"]
+    sites = {k: v.get("injected", 0) for k, v in facts["sites"].items()}
+    launches = {k: v for k, v in counters.items() if k.startswith("launch.")}
+    problems = []
+    if not doc["ok"] or doc["loss"] != 0:
+        problems.append(f"ok {doc['ok']} loss {doc['loss']}")
+    if len(facts["kills"]) < 2 or len(facts["handoffs"]) < len(facts["kills"]):
+        problems.append(f"kills {facts['kills']} handoffs "
+                        f"{len(facts['handoffs'])}")
+    silent = [s for s in soak_driver.REQUIRED_SITES if not sites.get(s)]
+    if silent:
+        problems.append(f"required sites silent: {silent}")
+    if sum(launches.values()) != 0:
+        problems.append(f"the soak launched kernels: {launches}")
+    if counters.get("level_retry", 0) < sites.get("level.dispatch", 0):
+        problems.append(f"level_retry {counters.get('level_retry')} < "
+                        f"{sites.get('level.dispatch')} injected")
+    say("soak", check="run", run=label, seconds=secs,
+        wall_s=facts["wall_s"], p999_ms=doc["p999_ms"], loss=doc["loss"],
+        p999_bound_ms=facts["spec"]["p999_bound_ms"],
+        kills=facts["kills"], handoffs=len(facts["handoffs"]),
+        answered=facts["answered"], submitted=facts["submitted"],
+        sites=sites, launches=launches,
+        level_retry=counters.get("level_retry", 0),
+        autocompact=counters.get("serve.journal.autocompact", 0),
+        verdicts=[(v["name"], v["ok"]) for v in doc["verdicts"]],
+        problems=problems)
+    if problems:
+        fail(f"soak {label}: {problems}")
+    return doc
+
+
+def soak_archive_top(label, root, tmp):
+    """``cli top --once --from-archive ROOT``: exit 0 where a sealed
+    timeline document survived, else 2 saying none did."""
+    from image_analogies_tpu_torch.obs import archive as obs_archive
+
+    archive = obs_archive.TelemetryArchive(root)
+    kept = archive.replay()["kinds"]
+    torn = archive.stats()["quarantined"]
+    rc, out, err, _ = soak_cli(["top", "--once", "--from-archive", root], tmp,
+                               timeout=120)
+    want = 0 if kept.get("timeline") else 2
+    say("soak", check="top_from_archive", run=label, rc=rc, kinds=kept,
+        quarantined=torn, frame_lines=len(out.splitlines()),
+        err=err.strip()[-300:])
+    # the plan tears one segment: none survives where it was the only one
+    if rc != want or torn < 1 or (rc == 0 and "WORKER" not in out) or (
+            rc == 2 and "no archived timeline documents" not in err):
+        fail(f"soak top {label}: exit {rc} (want {want}): {out[-1000:]} "
+             f"{err[-1000:]}")
+
+
+def soak_blackbox(roots, tmp):
+    """``cli blackbox DIR --all`` on each directory of ``roots`` that holds
+    a flight-recorder dump."""
+    dirs = sorted({d for root in roots for d, _, names in os.walk(root)
+                   if any(n.startswith("blackbox-") and n.endswith(".json")
+                          for n in names)})
+    if not dirs:
+        say("soak", check="blackbox", dumps=0,
+            note="no flight-recorder dump in the soak workdirs")
+    for d in dirs:
+        rc, out, err, _ = soak_cli(["blackbox", d, "--all"], tmp,
+                                   timeout=120)
+        say("soak", check="blackbox", dir=os.path.relpath(d, tmp), rc=rc,
+            dumps=out.count("blackbox: reason="))
+        if rc != 0 or "blackbox: reason=" not in out:
+            fail(f"soak blackbox {d}: exit {rc}: {err[-1000:]}")
+
+
+def soak_reports(a, ap, b, tmp):
+    """Check (d): one warm npr_1024 run at 1024^2 in a metrics run with a
+    log (after a cold one), then ``cli report --json``, ``cli report`` and
+    ``cli trace`` on the log."""
+    import torch
+
+    from image_analogies_tpu_torch import PRESETS, create_image_analogy
+    from image_analogies_tpu_torch.ops import match
+
+    params = PRESETS["npr_1024"]
+    want = expected_launches(params, a.shape[0])
+    create_image_analogy(a, ap, b, params)
+    torch.cuda.synchronize()
+    log = os.path.join(tmp, "npr_1024.jsonl")
+    match.reset_launch_counts()
+    t0 = time.perf_counter()
+    create_image_analogy(a, ap, b, params.replace(metrics=True, log_path=log))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in match.LAUNCHES.items() if v}
+    rc, out, err, _ = soak_cli(["report", log, "--json"], tmp, timeout=300)
+    if rc != 0:
+        fail(f"soak report --json: exit {rc}: {err[-2000:]}")
+    (run,) = json.loads(out)["runs"]
+    c = run["counters"]
+    levels = {r["level"]: r["device_ms"] for r in run["levels"]}
+    got = {k.split(".", 1)[1]: int(v) for k, v in c.items()
+           if k.startswith("launch.")}
+    rc_t, text, err_t, _ = soak_cli(["report", log], tmp, timeout=300)
+    trace_path = os.path.join(tmp, "trace.json")
+    rc_x, said, err_x, _ = soak_cli(["trace", log, "-o", trace_path], tmp,
+                                    timeout=300)
+    tracks = {}
+    if rc_x == 0:
+        with open(trace_path) as f:
+            for e in json.load(f)["traceEvents"]:
+                if e["ph"] != "M":
+                    tracks[e["tid"]] = tracks.get(e["tid"], 0) + 1
+    problems = []
+    if launches != want or got != want:
+        problems.append(f"launches {launches}, counters {got}, want {want}")
+    if (len(levels) != SOAK_REPORT_LEVELS
+            or not all(ms > 0 for ms in levels.values())):
+        problems.append(f"levels {levels}")
+    if not (run["compile"] and run["compile"]["flops"] > 0
+            and run["compile"]["flops"] == c.get("kernel.flops")):
+        problems.append(f"compile section {run['compile']}")
+    if rc_t != 0 or "kernel cost" not in text or "xla cost" in text:
+        problems.append(f"report text exit {rc_t}: {err_t[-500:]}")
+    if rc_x != 0 or not tracks.get(1) or not tracks.get(2):
+        problems.append(f"trace exit {rc_x}, events by track {tracks}: "
+                        f"{err_x[-500:]}")
+    say("soak", check="reports", wall_s=wall, launches=launches,
+        level_device_ms=levels, kernel_flops=c.get("kernel.flops"),
+        kernel_bytes=c.get("kernel.bytes"), trace_events_by_track=tracks,
+        manifest={k: run["manifest"].get(k) for k in (
+            "device_kind", "power_limit", "torch_version")},
+        trace_said=said.strip(), problems=problems)
+    if problems:
+        fail(f"soak reports: {problems}")
+
+
+def phase_soak(a, ap, b):
+    """The soak on the card's host (it serves on the host oracle) and the
+    run-log readers at full width: checks (a)-(d)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="ia_soak_")
+    t0 = time.perf_counter()
+    first = soak_run("smoke_1", ["--seed", "7"], tmp)
+    work_a, work_b = os.path.join(tmp, "smoke"), os.path.join(tmp, "full")
+    second = soak_run("smoke_2", ["--seed", "7", "--workdir", work_a], tmp)
+    if [(v["name"], v["ok"]) for v in first["verdicts"]] != \
+            [(v["name"], v["ok"]) for v in second["verdicts"]]:
+        fail("soak: the two smoke runs' verdicts differ")
+    t1 = time.perf_counter()
+    full = soak_run("full", ["--full", "--workdir", work_b], tmp)
+    if full["p999_ms"] is None or \
+            full["p999_ms"] > full["facts"]["spec"]["p999_bound_ms"]:
+        fail(f"soak full: p999_ms {full['p999_ms']}")
+    t2 = time.perf_counter()
+    soak_reports(a, ap, b, tmp)
+    t3 = time.perf_counter()
+    soak_archive_top("smoke_2", os.path.join(work_a, "archive"), tmp)
+    soak_archive_top("full", os.path.join(work_b, "archive"), tmp)
+    soak_blackbox((work_a, work_b), tmp)
+    say("soak", smoke_s=t1 - t0, full_s=t2 - t1, reports_s=t3 - t2,
+        readers_s=time.perf_counter() - t3, card=nvidia_smi())
+
+
+SIDE_PHASES = ("video", "ann", "mesh", "serve", "chaos", "soak")
 SIDE_TIMEOUT_S = 1100
 _SIDES = []  # the side processes started, for stop_sides
 
@@ -5987,7 +6203,7 @@ def main() -> None:
     path_launches = {}
     if {"main", "oracle", "profile", "exact_hi2", "rescue", "two_pass",
             "batched", "batched_profile", "driver", "lanes",
-            "tune", "ann", "mesh", "chaos"} & set(phases):
+            "tune", "ann", "mesh", "chaos", "soak"} & set(phases):
         a, ap_, b = load_oracle_inputs()
     if {"main", "oracle", "profile"} & set(phases):
         params, result, path_launches["main"] = phase_main(a, ap_, b)
@@ -6081,6 +6297,12 @@ def main() -> None:
         else:
             phase_chaos(a, ap_, b)
     lap("chaos")
+    if "soak" in phases:
+        if sides:
+            side_wait(sides["soak"])
+        else:
+            phase_soak(a, ap_, b)
+    lap("soak")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed3w_best:

@@ -1,7 +1,6 @@
 """Drill runner — ``ia chaos``: run workloads under fault plans and
 assert the resilience invariants (the port's copy of the JAX package's
-``chaos/runner.py``, every drill but ``flash_crowd``, which comes with the
-soak slice: its Zipf surge needs loadgen's ``arrival_schedule``).
+``chaos/runner.py``).
 
 Every drill takes the ``device`` (``"cuda"`` unless the caller asks for
 the CPU) and runs the device matcher there (``chaos/drills.py`` maps the
@@ -67,20 +66,22 @@ _KIND_NOTES = {
     "archive_torn": "torn sealed archive segment quarantined at read, "
                     "valid prefix survives; disk-full drops counted, "
                     "never raised",
+    "flash_crowd": "Zipf surge scales the fleet up under policy, a "
+                   "worker dies mid-surge, the idle fleet shrinks back; "
+                   "exactly-once, viral tenant throttles itself",
 }
 
 # What `selftest` (and the tests' parametrization) iterates: every raw
 # fault kind plus the composite drills — fleet_death arms TWO sites
 # (process_death at serve.journal, transient at router.forward) and
 # batch_partial targets the lane engine's per-lane boundary — which are
-# drill names rather than members of FAULT_KINDS.  The JAX tuple ends
-# with "flash_crowd"; that drill comes with the soak slice (it drives
-# loadgen's arrival_schedule, which the port has not yet).
+# drill names rather than members of FAULT_KINDS.
 def _drill_kinds():
     from image_analogies_tpu_torch.chaos import FAULT_KINDS
     return tuple(FAULT_KINDS) + ("fleet_death", "fleet_death_subprocess",
                                  "batch_partial", "devcache_tier",
-                                 "ann_corrupt", "archive_torn")
+                                 "ann_corrupt", "archive_torn",
+                                 "flash_crowd")
 
 
 DRILL_KINDS = _drill_kinds()
@@ -172,6 +173,16 @@ def plan_for_kind(kind: str, seed: int = 0) -> ChaosPlan:
         # the disk-full leg (one site carries one rule per plan).
         sites = (("archive.append", SiteRule(kind="corrupt",
                                              schedule=(1,))),)
+    elif kind == "flash_crowd":
+        # Elastic-fleet drill geometry: the surge, the mid-surge worker
+        # kill, and the cool-down retire are all delivered by the drill
+        # itself (loadgen arrival schedule + handle.kill + the control
+        # plane's own policy).  The one armed site is a transient at a
+        # level dispatch mid-surge — absorbed by the engine's level
+        # retry — proving local fault recovery still holds while the
+        # fleet is actively scaling around it.
+        sites = (("level.dispatch", SiteRule(kind="transient",
+                                             schedule=(2,))),)
     elif kind == "batch_partial":
         # Batched-engine drill geometry (k=3 lanes, 2 levels): the
         # engine.batch site is visited once per (level, lane), coarsest
@@ -1274,8 +1285,261 @@ def drill_archive_torn(plan: ChaosPlan, *, seed: int = 7,
     }
 
 
+def _settled_at_floor(events: Sequence[Dict[str, Any]], floor: int) -> bool:
+    """The LAST scale verdict is a retirement that reached ``floor``.  The
+    JAX drill waits for any such event, which an earlier retirement can
+    satisfy (the fleet shrank to the floor mid-surge and grew again): it
+    then snapshots the events before the final retirement's record, and
+    ``control.scale_down`` counts one more than the snapshot."""
+    return (bool(events) and events[-1]["verdict"] == "scale_down"
+            and events[-1]["size"] <= floor)
+
+
+def drill_flash_crowd(plan: ChaosPlan, *, seed: int = 7,
+                      device: str = "cuda", backend: str = "cuda"
+                      ) -> Dict[str, Any]:
+    """Elastic-fleet flash-crowd drill: a Zipf-skewed surge against an
+    autoscaling fleet under a declarative ControlPolicy + per-tenant QoS.
+
+    The composite shape: paced submits follow the shared loadgen
+    arrival schedule (base rate, then a surge multiplier); queue
+    pressure drives the control plane past its hysteresis so it spawns
+    workers mid-load; one worker is killed mid-surge (the health daemon
+    hands its journal to a replacement, exactly as the fleet_death
+    drills prove); once the crowd passes, the idle fleet retires back
+    to ``min_workers``.  One armed transient at ``level.dispatch``
+    proves local retry recovery still holds while all of that happens.
+
+    Invariants: every answered request is bit-identical to a direct
+    engine run; every submit resolves to exactly one outcome (answer or
+    quota refusal — zero loss); ALL quota throttles land on the viral
+    style while non-viral tenants complete untouched with a bounded
+    p95; every scale verdict is reconstructable through the decision
+    plane (``ia why ctl-scale_up-<wid>``) and reconciles against the
+    ``control.*`` / ``serve.decision.*`` counters."""
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+    from image_analogies_tpu_torch.serve import journal as serve_journal
+    from image_analogies_tpu_torch.serve import loadgen
+    from image_analogies_tpu_torch.serve import policy as serve_policy
+    from image_analogies_tpu_torch.serve.fleet import Fleet
+    from image_analogies_tpu_torch.serve.types import FleetConfig, Rejected
+
+    # Zipf-in-spirit heavy hitter, with EXACT per-style counts so the
+    # quota geometry is deterministic: style 0 is viral (30 requests,
+    # far past any reachable token allowance), styles 1..2 are the long
+    # tail (4 each, under the burst — they must never throttle).
+    rng = np.random.RandomState(seed)
+    shape = (12, 12)
+    styles = [(rng.rand(*shape).astype(np.float32),
+               rng.rand(*shape).astype(np.float32)) for _ in range(3)]
+    picks = [0] * 30 + [1] * 4 + [2] * 4
+    rng.shuffle(picks)
+    n = len(picks)
+    load = []
+    for i, s in enumerate(picks):
+        a, ap = styles[s]
+        load.append({"index": i, "style": s, "a": a, "ap": ap,
+                     "b": rng.rand(*shape).astype(np.float32)})
+    # The drill and `ia bench` share ONE traffic model: the loadgen
+    # flash-crowd schedule.  A short base-rate preamble, then a hard
+    # surge that outruns a single worker.
+    sched = loadgen.arrival_schedule(n, t0=0.2, duration=1.0, mult=20.0,
+                                     base_rps=30.0, seed=seed)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = drills.serve_config(workers=1, max_batch=4, device=device,
+                                  backend=backend)
+        # level retries absorb the armed transient; the tiny quota
+        # (burst 5, negligible refill) is what the viral style's 30
+        # requests must exceed even across every bucket incarnation a
+        # scale-up / kill-replacement can mint (max_workers + spill
+        # targets: 4 buckets x 5 tokens < 30).
+        cfg = dataclasses.replace(
+            cfg,
+            params=cfg.params.replace(level_retries=3),
+            qos=serve_policy.QosPolicy(quota_rps=0.01, quota_burst=5.0))
+        policy = serve_policy.ControlPolicy(
+            min_workers=1, max_workers=3, queue_high=2.0, queue_low=0.5,
+            scale_up_windows=1, scale_down_windows=2,
+            scale_up_cooldown_s=0.1, scale_down_cooldown_s=0.1)
+        fcfg = FleetConfig(serve=cfg, size=3, vnodes=16,
+                           journal_root=os.path.join(tmp, "journals"),
+                           health_interval_s=0.03, death_checks=2,
+                           backoff_s=0.01, backoff_cap_s=0.05,
+                           policy=policy)
+        baseline = {item["index"]: drills.run_image(
+            item["a"], item["ap"], item["b"], cfg.params)
+            for item in load}
+
+        problems: List[str] = []
+        throttles: Dict[int, int] = {}
+        rejected_other: List[str] = []
+        errors: Dict[int, BaseException] = {}
+        originals: Dict[int, Any] = {}
+        with obs_trace.run_scope(cfg.params) as ctx:
+            inject.arm(plan)
+            try:
+                with Fleet(fcfg) as fl:
+                    futures = {}
+                    killed = None
+                    t0 = time.perf_counter()
+                    for item in load:
+                        delay = sched[item["index"]] - (time.perf_counter()
+                                                        - t0)
+                        if delay > 0:
+                            time.sleep(delay)
+                        if (killed is None and item["index"] >= n // 2
+                                and len(fl.workers) >= 2):
+                            # mid-surge death: the health daemon must
+                            # hand the journal to a replacement while
+                            # the control plane keeps scaling
+                            killed = sorted(fl.workers)[0]
+                            fl.workers[killed].kill()
+                        try:
+                            futures[item["index"]] = fl.submit(
+                                item["a"], item["ap"], item["b"],
+                                idempotency_key="fc-{}".format(
+                                    item["index"]),
+                                priority=(serve_policy.PRIORITY_INTERACTIVE
+                                          if item["style"] else
+                                          serve_policy.PRIORITY_STANDARD))
+                        except Rejected as exc:
+                            if exc.reason == "quota":
+                                throttles[item["style"]] = \
+                                    throttles.get(item["style"], 0) + 1
+                            else:
+                                rejected_other.append(exc.reason)
+                    if killed is None:
+                        # surge drained before the kill window — wait
+                        # for the scale-up and deliver the death anyway
+                        end = time.monotonic() + 30.0
+                        while len(fl.workers) < 2 \
+                                and time.monotonic() < end:
+                            time.sleep(0.01)
+                        if len(fl.workers) >= 2:
+                            killed = sorted(fl.workers)[0]
+                            fl.workers[killed].kill()
+                    for idx, fut in futures.items():
+                        try:
+                            originals[idx] = fut.result(timeout=120)
+                        except BaseException as exc:  # noqa: BLE001
+                            errors[idx] = exc
+                    # cool-down: the idle fleet must shrink back to the
+                    # policy floor on its own
+                    end = time.monotonic() + 60.0
+                    while (len(fl.workers) > policy.min_workers
+                           and time.monotonic() < end):
+                        time.sleep(0.02)
+                    # The retirement's decision record lands AFTER the
+                    # worker leaves the map (scale_down pops first so a
+                    # racing forward spills to a live successor), so
+                    # settle until the floor-reaching event is visible
+                    # before snapshotting — else the counter read after
+                    # scope exit can outrun the event list.
+                    end = time.monotonic() + 10.0
+                    while (not _settled_at_floor(fl.control.events,
+                                                 policy.min_workers)
+                           and time.monotonic() < end):
+                        time.sleep(0.01)
+                    final_size = len(fl.workers)
+                    events = list(fl.control.events)
+                    handoffs = list(fl.handoffs)
+                    snap = inject.snapshot()
+            finally:
+                inject.disarm()
+            counters = _counters(ctx)
+
+        if killed is None:
+            problems.append("fleet never scaled up; no worker to kill")
+        up_events = [e for e in events if e["verdict"] == "scale_up"]
+        down_events = [e for e in events if e["verdict"] == "scale_down"]
+        if not up_events:
+            problems.append("control plane never recorded a scale_up")
+        if not down_events:
+            problems.append("control plane never recorded a scale_down")
+        if final_size != policy.min_workers:
+            problems.append(
+                f"fleet ended at {final_size} workers, policy floor is "
+                f"{policy.min_workers}")
+        if not handoffs:
+            problems.append("mid-surge kill produced no journal handoff")
+        # zero-loss accounting: every submit resolved to exactly one of
+        # answer / quota refusal; nothing else
+        if errors:
+            problems.append(f"{len(errors)} futures errored: "
+                            f"{sorted(type(e).__name__ for e in errors.values())}")
+        if rejected_other:
+            problems.append(f"non-quota rejections: {rejected_other}")
+        if len(originals) + len(errors) + sum(throttles.values()) \
+                + len(rejected_other) != n:
+            problems.append("outcome accounting does not sum to n")
+        # QoS: the viral style absorbs ALL throttles; the long tail
+        # completes untouched with a bounded p95
+        if not throttles.get(0):
+            problems.append("viral style was never quota-throttled")
+        if any(s for s in throttles if s != 0):
+            problems.append(f"non-viral styles throttled: {throttles}")
+        lat_tail = [originals[i].total_ms for i in originals if picks[i]]
+        tail_p95 = loadgen.percentile(lat_tail, 95)
+        if len(lat_tail) != 8:
+            problems.append(
+                f"only {len(lat_tail)}/8 non-viral requests answered")
+        if tail_p95 > 30_000:
+            problems.append(f"non-viral p95 {tail_p95}ms exceeds bound")
+        identical = all(
+            np.array_equal(originals[i].bp, baseline[i])
+            for i in originals if originals[i].degraded is None)
+        if not identical:
+            problems.append("answered output differs from clean run")
+        # decision plane: counters reconcile and `ia why` reconstructs
+        # each scale verdict from the sealed log
+        for name in ("control.scale_up", "control.scale_down"):
+            got = counters.get(name, 0)
+            want_n = len(up_events if name.endswith("up") else down_events)
+            if got != want_n:
+                problems.append(f"{name}={got} != {want_n} events")
+            mirrored = counters.get(
+                "serve.decision." + name.split(".", 1)[1], 0)
+            if mirrored != got:
+                problems.append(
+                    f"serve.decision mirror {mirrored} != {name}={got}")
+        for ev in up_events[:1] + down_events[:1]:
+            idem = "ctl-{}-{}".format(ev["verdict"], ev["worker"])
+            why = serve_journal.reconstruct(idem, fcfg.journal_root)
+            if not why.get("found"):
+                problems.append(f"ia why found no evidence for {idem}")
+        problems += _reconcile(plan, counters)
+        injected = sum(st["injected"] for st in snap.values())
+        if injected < 1:
+            problems.append("the armed transient never fired")
+        return {
+            "workload": "flash_crowd",
+            "plan": plan.to_dict(),
+            "injected": injected,
+            "sites": snap,
+            "handoffs": handoffs,
+            "scale_events": events,
+            "killed": killed,
+            "final_size": final_size,
+            "outcomes": {
+                "answered": len(originals),
+                "quota_throttled": {f"s{k}": v
+                                    for k, v in sorted(throttles.items())},
+                "tail_p95_ms": round(tail_p95, 2),
+            },
+            "counters": {k: v for k, v in counters.items()
+                         if k.startswith(("chaos.", "serve.", "router.",
+                                          "control."))},
+            "identical": identical,
+            "ok": not problems,
+            "problems": problems,
+        }
+
+
 def run_drill(plan: ChaosPlan, **kw) -> Dict[str, Any]:
     """Dispatch a plan to the workload its sites target."""
+    if "flash_crowd" in (plan.name or ""):
+        return drill_flash_crowd(plan, **kw)
     if any(name == "archive.append" for name, _ in plan.sites):
         return drill_archive_torn(plan, **kw)
     if any(name == "match.prefilter" for name, _ in plan.sites):

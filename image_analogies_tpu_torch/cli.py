@@ -1,5 +1,5 @@
 """Command-line interface of the port (counterpart of the JAX package's
-``cli.py`` ``run``, ``video``, ``sweep`` and ``eval``).
+``cli.py``: every subcommand but ``bench``).
 
     python -m image_analogies_tpu_torch.cli run --mode filter --a A.png \\
         --ap Ap.png --b B.png --out Bp.png --levels 3 --kappa 5
@@ -24,6 +24,11 @@
     python -m image_analogies_tpu_torch.cli metrics run.jsonl
     python -m image_analogies_tpu_torch.cli archive inspect archive/
     python -m image_analogies_tpu_torch.cli chaos --selftest
+    python -m image_analogies_tpu_torch.cli soak --seed 7 --json
+    python -m image_analogies_tpu_torch.cli report run.jsonl --json
+    python -m image_analogies_tpu_torch.cli trace run.jsonl -o trace.json
+    python -m image_analogies_tpu_torch.cli top --once --from-archive archive/
+    python -m image_analogies_tpu_torch.cli blackbox journal/ --all
 
 Every engine command runs on the card (``--device cuda``, the default)
 and exits non-zero where there is none; ``--device cpu`` runs the plain
@@ -63,7 +68,16 @@ the JAX package's flags, outputs and exit codes; they take no engine
 flags and need no card.  ``chaos`` runs the seeded fault drills
 (``chaos/``: ``--selftest`` or ``--plan FILE``, ``--kinds``, ``--seed``,
 ``--json``) on ``--device``, with the JAX package's rendering and exit
-codes 0, 1 and 2.
+codes 0, 1 and 2.  ``soak`` replays a seeded traffic trace against an
+autoscaling fleet with chaos armed (``soak/``: ``--spec``, ``--full``,
+``--seed``, ``--workdir``, ``--json``) on ``--device``, serving on the host
+oracle as the JAX soak does; exit 0 on a green gate, 1 on a red one, 2 on
+a bad or missing spec.  ``report``, ``trace``, ``top`` and ``blackbox``
+read a run log (``obs/report.py``, ``obs/export.py``), a serving front's
+``/timeline`` or ``/tenants`` (or an archive: ``--from-archive``) and a
+journal directory's flight-recorder dumps, with the JAX package's flags,
+outputs and exit codes; they take no engine flags and need no card.
+ROADMAP lists ``bench`` under the port's own benchmark.
 """
 
 from __future__ import annotations
@@ -604,6 +618,236 @@ def cmd_chaos(args) -> int:
         print(json.dumps(result, sort_keys=True, default=str),
               file=sys.stderr)
     return 0 if result["ok"] else 1
+
+
+def cmd_report(args) -> int:
+    """Analyze a run-log JSONL (obs/report.py): per-level timing
+    breakdown, counter totals, retry/coherence summaries, compile/HBM
+    sections, manifest.  --json prints the analyze() dict per run."""
+    from image_analogies_tpu_torch.obs import report as obs_report
+
+    if not os.path.exists(args.log):
+        print(f"report: no such log: {args.log}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(obs_report.report_json(args.log))
+    else:
+        print(obs_report.report(args.log))
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Live terminal cockpit over a serving front end's ``/timeline``
+    endpoint: QPS, windowed p50/p95, queue depth, breaker states, HBM
+    peak, and anomaly flags per worker (obs/timeline.py renders; this
+    command only fetches and redraws).  ``--once`` prints a single
+    frame and exits — the CI-friendly mode tier-1 drives against a
+    live selftest server.  ``--tenants`` switches to the per-style
+    view over ``/tenants``: top-K tenants by request count with QPS,
+    p95, cost share, and degrade/retry burden (obs/ledger.py)."""
+    import time as _time
+    import urllib.error
+    import urllib.request
+
+    from image_analogies_tpu_torch.obs import timeline as obs_timeline
+
+    if getattr(args, "from_archive", None):
+        # Replay archived history into the cockpit: every sealed
+        # timeline document becomes one frame, no server needed.
+        from image_analogies_tpu_torch.obs import archive as obs_archive
+
+        ar = obs_archive.TelemetryArchive(args.from_archive)
+        frames = ar.history("timeline")
+        if not frames:
+            print(f"top: no archived timeline documents under "
+                  f"{args.from_archive}", file=sys.stderr)
+            return 2
+        if args.once:
+            print(obs_timeline.render_cockpit(frames[-1]))
+            return 0
+        try:
+            for doc in frames:
+                sys.stdout.write(
+                    "\x1b[2J\x1b[H" + obs_timeline.render_cockpit(doc)
+                    + "\n")
+                sys.stdout.flush()
+                _time.sleep(args.interval)
+        except KeyboardInterrupt:
+            pass
+        return 0
+
+    if args.tenants:
+        from image_analogies_tpu_torch.obs import ledger as obs_ledger
+
+        t_url = args.url.rstrip("/") + "/tenants"
+
+        def fetch_tenants():
+            with urllib.request.urlopen(t_url, timeout=5) as resp:
+                return json.loads(resp.read().decode())
+
+        if args.once:
+            try:
+                doc = fetch_tenants()
+            except (OSError, ValueError, urllib.error.URLError) as exc:
+                print(f"top: cannot fetch {t_url}: {exc}",
+                      file=sys.stderr)
+                return 2
+            sys.stdout.write(obs_ledger.render_tenants(doc))
+            return 0
+        try:
+            while True:
+                try:
+                    frame = obs_ledger.render_tenants(fetch_tenants())
+                except (OSError, ValueError,
+                        urllib.error.URLError) as exc:
+                    frame = f"top: cannot fetch {t_url}: {exc}\n"
+                sys.stdout.write("\x1b[2J\x1b[H" + frame)
+                sys.stdout.flush()
+                _time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+
+    url = args.url.rstrip("/") + "/timeline"
+    if args.window is not None:
+        url += f"?window={args.window:g}"
+    health_url = args.url.rstrip("/") + "/healthz"
+
+    def fetch():
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return json.loads(resp.read().decode())
+
+    def fleet_line():
+        # Best-effort elastic-fleet banner from /healthz: live size vs
+        # configured, the control plane's last verdict, and how to
+        # attribute it.  Single-server fronts (no "control" section)
+        # and fetch failures render nothing.
+        try:
+            with urllib.request.urlopen(health_url, timeout=5) as resp:
+                doc = json.loads(resp.read().decode())
+        except (OSError, ValueError, urllib.error.URLError):
+            return ""
+        ctl = doc.get("control") if isinstance(doc, dict) else None
+        if not isinstance(ctl, dict):
+            return ""
+        line = (f"fleet: size={ctl.get('size', '?')}"
+                f"/{doc.get('configured_size', '?')} "
+                f"autoscale={'on' if ctl.get('autoscale') else 'off'}")
+        last = ctl.get("last_verdict")
+        if isinstance(last, dict):
+            line += (f"  last={last.get('verdict', '?')}"
+                     f"({last.get('cause', '?')}) "
+                     f"{last.get('worker', '?')} "
+                     f"— ia why ctl-{last.get('verdict', '?')}-"
+                     f"{last.get('worker', '?')}")
+        return line + "\n"
+
+    if args.once:
+        try:
+            doc = fetch()
+        except (OSError, ValueError, urllib.error.URLError) as exc:
+            print(f"top: cannot fetch {url}: {exc}", file=sys.stderr)
+            return 2
+        print(fleet_line() + obs_timeline.render_cockpit(doc))
+        return 0
+    try:
+        while True:
+            try:
+                frame = (fleet_line()
+                         + obs_timeline.render_cockpit(fetch()))
+            except (OSError, ValueError,
+                    urllib.error.URLError) as exc:
+                frame = f"top: cannot fetch {url}: {exc}"
+            # ANSI clear+home, then one full frame: flicker-free enough
+            # for a 1 Hz cockpit without a curses dependency
+            sys.stdout.write("\x1b[2J\x1b[H" + frame + "\n")
+            sys.stdout.flush()
+            _time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_trace(args) -> int:
+    """Convert a run-log JSONL into a Chrome/Perfetto trace.json
+    (obs/export.py) for chrome://tracing / ui.perfetto.dev."""
+    from image_analogies_tpu_torch.obs import export as obs_export
+
+    if not os.path.exists(args.log):
+        print(f"trace: no such log: {args.log}", file=sys.stderr)
+        return 2
+    res = obs_export.export_trace(args.log, args.out)
+    print(f"{args.out}: {res['events']} events from "
+          f"{res['records']} records")
+    return 0
+
+
+def cmd_soak(args) -> int:
+    """Trace-driven soak (soak/): replay a seeded TraceSpec against an
+    autoscaling fleet with chaos armed the whole run, then gate on the
+    duration-emergent invariants — zero-loss accounting, audit-subset
+    bit-identity, the DDSketch p99.9 bound, zero ceiling alarms, and
+    journals bounded under autocompaction.  Exits non-zero on a red
+    gate (exit 1; 2 on a bad or missing spec); failing verdicts name an
+    `ia why`-linkable culprit key.  The fleet runs on ``--device`` and
+    serves on the host oracle, as the JAX soak does: no kernel launches."""
+    from image_analogies_tpu_torch.soak import driver as soak_driver
+    from image_analogies_tpu_torch.soak import invariants as soak_invariants
+    from image_analogies_tpu_torch.soak import trace as soak_trace
+
+    if args.spec:
+        try:
+            spec = soak_trace.TraceSpec.load(args.spec)
+        except (OSError, ValueError) as exc:
+            print(f"soak: bad spec {args.spec}: {exc}", file=sys.stderr)
+            return 2
+    elif args.full:
+        spec = soak_trace.full_spec(seed=args.seed)
+    else:
+        spec = soak_trace.smoke_spec(seed=args.seed)
+    result = soak_driver.run(spec, workdir=args.workdir, device=args.device)
+    sys.stdout.write(soak_invariants.render(result))
+    if args.workdir:
+        print(f"artifacts kept under {args.workdir} — runbook: "
+              f"ia why <culprit> --root "
+              f"{result['facts'].get('journal_root')}; "
+              f"ia archive inspect {result['facts'].get('archive_root')}")
+    if args.json:
+        print(json.dumps(result, sort_keys=True, default=str),
+              file=sys.stderr)
+    return 0 if result["ok"] else 1
+
+
+def cmd_blackbox(args) -> int:
+    """Render the flight-recorder dumps (obs/recorder.py) sealed into a
+    journal directory on a death path — the last N records before a
+    process death, breaker trip, or watchdog timeout.  Default shows the
+    newest dump; ``--all`` walks every dump chronologically.  A dump
+    whose integrity seal fails is reported as damaged, never rendered."""
+    from image_analogies_tpu_torch.obs import recorder as obs_recorder
+
+    if not os.path.isdir(args.dir):
+        print(f"blackbox: no such directory {args.dir}", file=sys.stderr)
+        return 2
+    dumps = obs_recorder.list_dumps(args.dir)
+    if not dumps:
+        print(f"blackbox: no dumps in {args.dir}", file=sys.stderr)
+        return 1
+    if not args.all:
+        dumps = dumps[-1:]
+    docs = []
+    for path in dumps:
+        try:
+            docs.append((path, obs_recorder.load_dump(path)))
+        except ValueError as exc:
+            print(f"blackbox: {exc}", file=sys.stderr)
+            return 2
+    if args.json:
+        print(json.dumps([doc for _path, doc in docs], indent=2,
+                         sort_keys=True))
+        return 0
+    for path, doc in docs:
+        print(f"# {os.path.basename(path)}")
+        sys.stdout.write(obs_recorder.render_dump(doc, last=args.last))
+    return 0
 
 
 def cmd_warmup(args) -> int:
@@ -1188,7 +1432,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(transient, oom, latency, corrupt, crash, "
                          "process_death, fleet_death, "
                          "fleet_death_subprocess, batch_partial, "
-                         "devcache_tier, ann_corrupt, archive_torn) plus "
+                         "devcache_tier, ann_corrupt, archive_torn, "
+                         "flash_crowd) plus "
                          "the same-seed schedule-determinism check")
     ch.add_argument("--kinds", default=None,
                     help="comma-separated fault-kind subset for "
@@ -1294,6 +1539,104 @@ def build_parser() -> argparse.ArgumentParser:
                     help="machine-readable reconstruction (events with "
                          "ts/worker/op, decisions, cost vectors, chain)")
     wy.set_defaults(fn=cmd_why)
+
+    # the readers (report, trace, top, blackbox) take no engine flags and
+    # need no card
+    rp = sub.add_parser("report",
+                        help="analyze a run-log JSONL (--log-path output): "
+                             "per-level timing, counters, compile/HBM, "
+                             "manifest")
+    rp.add_argument("log", help="path to the run-log JSONL")
+    rp.add_argument("--json", action="store_true",
+                    help="machine-readable output: the analyze() dict per "
+                         "run (levels, counters, compile, hbm)")
+    rp.set_defaults(fn=cmd_report)
+
+    tr = sub.add_parser("trace",
+                        help="convert a run-log JSONL into a Chrome/"
+                             "Perfetto trace.json (host/device/compile "
+                             "tracks)")
+    tr.add_argument("log", help="path to the run-log JSONL")
+    tr.add_argument("-o", "--out", default="trace.json",
+                    help="output trace path (default: trace.json)")
+    tr.set_defaults(fn=cmd_trace)
+
+    tp = sub.add_parser("top",
+                        help="live terminal cockpit over a serving front "
+                             "end's /timeline endpoint (QPS, windowed "
+                             "p50/p95, queue depth, breakers, HBM, "
+                             "anomalies per worker)")
+    tp.add_argument("--url", default="http://127.0.0.1:8080",
+                    help="serving front end base URL "
+                         "(default: http://127.0.0.1:8080)")
+    tp.add_argument("--interval", type=float, default=1.0,
+                    help="refresh period in seconds (default: 1.0)")
+    tp.add_argument("--window", type=float, default=None,
+                    help="downsampling tier to read (e.g. 10 or 60; "
+                         "default: the finest)")
+    tp.add_argument("--once", action="store_true",
+                    help="print one frame and exit (CI mode)")
+    tp.add_argument("--tenants", action="store_true",
+                    help="per-style view over /tenants instead of the "
+                         "worker cockpit: top-K tenants by request "
+                         "count with QPS, p95, cost share, and degrade/"
+                         "retry burden (space-saving heavy hitters)")
+    tp.add_argument("--from-archive", default=None, metavar="ROOT",
+                    help="replay a durable telemetry archive instead of "
+                         "scraping a live server: each sealed timeline "
+                         "document renders as one cockpit frame at "
+                         "--interval pace (--once shows only the final "
+                         "frame)")
+    tp.set_defaults(fn=cmd_top)
+
+    # soak takes no engine flags (the driver builds its own fleet config),
+    # only --device
+    sk = sub.add_parser("soak",
+                        help="seeded trace-driven soak: replay a "
+                             "TraceSpec against an autoscaling fleet "
+                             "with chaos armed throughout and gate on "
+                             "duration-emergent invariants (zero loss, "
+                             "audit bit-identity, p99.9 bound, zero "
+                             "ceiling alarms, bounded journals)")
+    sk.add_argument("--spec", default=None, metavar="FILE",
+                    help="TraceSpec JSON (seed, Zipf styles, diurnal + "
+                         "flash-crowd shape, session/priority mixes, "
+                         "chaos plan); default is the built-in smoke")
+    sk.add_argument("--full", action="store_true",
+                    help="run the bench-profile soak (hundreds of "
+                         "requests) instead of the smoke")
+    sk.add_argument("--seed", type=int, default=7,
+                    help="seed for the built-in specs — same seed, "
+                         "byte-identical request stream")
+    sk.add_argument("--workdir", default=None, metavar="DIR",
+                    help="persist journals/archive/catalog under DIR "
+                         "(default: swept tempdir) so a red gate's "
+                         "culprits stay reconstructable via ia why")
+    sk.add_argument("--json", action="store_true",
+                    help="also print the full machine-readable result "
+                         "to stderr")
+    sk.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the fleet runs: the card (default; exits "
+                         "non-zero where there is none) or the CPU; it "
+                         "serves on the host oracle either way")
+    sk.set_defaults(fn=cmd_soak)
+
+    bb = sub.add_parser("blackbox",
+                        help="render sealed flight-recorder dumps from a "
+                             "journal directory (the last records before "
+                             "a process death / breaker trip / watchdog "
+                             "timeout)")
+    bb.add_argument("dir", help="journal directory holding "
+                                "blackbox-*.json dumps")
+    bb.add_argument("--all", action="store_true",
+                    help="render every dump (default: newest only)")
+    bb.add_argument("--last", type=int, default=0,
+                    help="trim each dump to its N newest records "
+                         "(0 = all)")
+    bb.add_argument("--json", action="store_true",
+                    help="machine-readable output (seal-verified)")
+    bb.set_defaults(fn=cmd_blackbox)
+
     return ap
 
 

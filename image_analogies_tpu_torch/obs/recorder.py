@@ -1,6 +1,6 @@
 """Flight recorder: a bounded ring of recent records per ObsScope, and
 its sealed black-box dumps (the port's copy of the JAX package's
-``obs/recorder.py``; ``ia blackbox`` waits for ROADMAP Queue 1 item 10e).
+``obs/recorder.py``; :func:`render_dump` is ``ia blackbox``'s renderer).
 
 Every record stamped while a run is active (anything flowing through
 ``utils.logging.emit``) is also appended to the current scope's ring, so
@@ -166,3 +166,36 @@ def load_dump(path: str) -> Dict[str, Any]:
         raise ValueError(f"blackbox dump {path}: seal mismatch "
                          f"(want {want}, got {got})")
     return doc
+
+
+def render_dump(doc: Dict[str, Any], *, last: int = 0) -> str:
+    """Human-readable flight log: one line per record, timestamped
+    relative to the final record (the moment of death).  ``last`` trims
+    to the N newest records (0 = all)."""
+    records = list(doc.get("records") or [])
+    if last > 0:
+        records = records[-last:]
+    end_ts = None
+    for rec in reversed(records):
+        ts = rec.get("ts")
+        if isinstance(ts, (int, float)):
+            end_ts = float(ts)
+            break
+    lines = [
+        f"blackbox: reason={doc.get('reason', '?')} "
+        f"scope={doc.get('scope') or '(unscoped)'} "
+        f"records={len(doc.get('records') or [])} "
+        f"dropped={doc.get('dropped', 0)}"
+    ]
+    for rec in records:
+        ts = rec.get("ts")
+        if end_ts is not None and isinstance(ts, (int, float)):
+            stamp = f"{float(ts) - end_ts:+9.3f}s"
+        else:
+            stamp = " " * 10
+        ev = rec.get("event") or rec.get("name") or "record"
+        detail = {k: v for k, v in sorted(rec.items())
+                  if k not in ("ts", "event") and not isinstance(v, dict)}
+        body = " ".join(f"{k}={v}" for k, v in detail.items())
+        lines.append(f"  {stamp} {ev} {body}".rstrip())
+    return "\n".join(lines) + "\n"

@@ -1,7 +1,5 @@
 """Synthetic load generator — ``ia serve --selftest N`` and ``ia fleet
---selftest N`` (the port's copy of the JAX package's ``serve/loadgen.py``;
-its ``arrival_schedule`` comes with the soak driver, ROADMAP Queue 1 item
-10d).
+--selftest N`` (the port's copy of the JAX package's ``serve/loadgen.py``).
 
 Replays N requests with mixed target shapes (a few exemplar classes, so
 both coalescing and singleton fallback paths exercise), optionally with
@@ -97,6 +95,21 @@ def parse_flash_crowd(spec: str) -> Dict[str, float]:
     if mult < 1:
         raise ValueError("flash-crowd MULT must be >= 1")
     return {"t0": t0, "duration": duration, "mult": mult}
+
+
+def arrival_schedule(n: int, *, t0: float, duration: float, mult: float,
+                     base_rps: float = 50.0, seed: int = 0) -> List[float]:
+    """Deterministic arrival offsets (seconds from run start) for a
+    flash-crowd load: Poisson arrivals at ``base_rps``, multiplied by
+    ``mult`` inside the ``[t0, t0+duration)`` surge window.  One seed
+    fixes the whole schedule, so the chaos drill and a soak replay the
+    exact same traffic.  Delegates to the soak TraceSpec — the single
+    arrival model selftests, drills, and soaks share."""
+    from image_analogies_tpu_torch.soak.trace import TraceSpec
+
+    return TraceSpec(seed=int(seed), requests=max(0, int(n)),
+                     base_rps=base_rps,
+                     flash_crowds=((t0, duration, mult),)).arrivals()
 
 
 def _pace(sched: Optional[List[float]], idx: int, t_start: float) -> None:

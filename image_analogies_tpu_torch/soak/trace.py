@@ -1,6 +1,5 @@
-"""`TraceSpec` — the replayable traffic model (the port's copy of the JAX
-package's ``soak/trace.py``; the soak driver, its invariants and ``ia
-soak`` wait for ROADMAP Queue 1 item 10d).
+"""`TraceSpec` — the replayable traffic model behind ``ia soak`` (the
+port's copy of the JAX package's ``soak/trace.py``).
 
 One JSON artifact fixes an entire request stream: Zipf style popularity
 (tenant skew), diurnal + flash-crowd arrival shapes on top of Poisson
@@ -9,8 +8,9 @@ and priority classes.  Everything is a pure function of the spec — same
 spec ⇒ byte-identical request stream, locked by :meth:`stream_digest`.
 
 The arrival model here is the one arrival model: the ``--selftest`` load
-(``trace_plan``) delegates to it, so selftests and soaks never drift onto
-parallel traffic generators.
+(``trace_plan``) and ``loadgen.arrival_schedule`` (the flash-crowd
+drill's pacing) delegate to it, so selftests, drills and soaks never
+drift onto parallel traffic generators.
 
 Serve-free at module scope (content generation borrows
 ``loadgen.make_load`` lazily) and torch-free.
@@ -31,7 +31,7 @@ PRIORITY_NAMES = ("interactive", "standard", "background")
 
 # Seed-stream offsets: content (make_load), pacing, and population draws
 # must never share bytes — each derived stream gets its own salt.
-PACE_SALT = 0x9E37       # the JAX package's pacing salt
+PACE_SALT = 0x9E37       # shared with loadgen.arrival_schedule
 POPULATION_SALT = 0x51ED
 
 
@@ -303,3 +303,31 @@ def trace_plan(n: int, shapes: Sequence[Tuple[int, int]], seed: int, *,
                                 deadline_ms=deadline_ms)
     sched = spec.arrivals() if flash_crowd else None
     return spec.build_load(), sched, spec.deadline_for
+
+
+def smoke_spec(seed: int = 7) -> TraceSpec:
+    """The built-in tier-1 smoke: small but complete — Zipf tenant skew,
+    a diurnal ripple under one flash crowd, every session kind, mixed
+    deadlines, two driver kills, and the default chaos plan (armed by the
+    driver) covering worker death recovery, tier eviction, artifact
+    tearing, and hop latency."""
+    return TraceSpec(
+        name="smoke", seed=seed, requests=24, shapes=((12, 12),),
+        zipf=1.1, styles=3, base_rps=30.0,
+        flash_crowds=((0.2, 0.6, 8.0),),
+        diurnal_period_s=4.0, diurnal_amplitude=0.3,
+        deadline_ms=(None, None, 30_000.0),
+        kill_every=9, p999_bound_ms=60_000.0, audit=6)
+
+
+def full_spec(seed: int = 7) -> TraceSpec:
+    """The bench-profile soak: the same composite shape at duration —
+    hundreds of requests, two surges over a diurnal cycle, periodic kills
+    throughout; its ``p999_ms`` and ``loss`` are the soak's headlines."""
+    return TraceSpec(
+        name="full", seed=seed, requests=240, shapes=((16, 16),),
+        zipf=1.1, styles=6, base_rps=40.0,
+        flash_crowds=((1.0, 2.0, 10.0), (5.0, 1.5, 6.0)),
+        diurnal_period_s=8.0, diurnal_amplitude=0.4,
+        deadline_ms=(None, None, None, 60_000.0),
+        kill_every=48, p999_bound_ms=120_000.0, audit=16)

@@ -7,8 +7,8 @@ The port's side mirrors ``tests/test_chaos.py``:
   ``device="cpu"`` (the kernels' plain versions under the faults):
   bit-identical recovery, no lost or hung request, and the injection
   counters reconciled against the recovery counters they caused.  The
-  kinds are the JAX package's without ``flash_crowd``, which comes with
-  the soak slice (it drives loadgen's ``arrival_schedule``);
+  kinds are the JAX package's, ``flash_crowd`` (loadgen's
+  ``arrival_schedule`` surge against an autoscaling fleet) included;
 - same seed, same fault schedule; a disarmed site touches nothing;
   ``max_faults`` caps a rule; an unplanned site passes through;
   ``plan_scope`` disarms on error;
@@ -17,9 +17,9 @@ The port's side mirrors ``tests/test_chaos.py``:
 - ``ia chaos`` on the CPU: a selftest subset, a plan file, and no mode.
 
 The JAX test ``test_chaos_telemetry_in_report_and_trace`` reads the
-chaos section of ``ia report`` and the chaos track of the exported trace
-(``obs/report.py``, ``obs/export.py``): those come with the port's
-reports (ROADMAP item 10e), and its mirror with them.
+chaos section of ``ia report`` and the chaos track of the exported trace;
+its mirror, on the port's ``obs/report.py`` and ``obs/export.py``, is
+here too.
 
 Across the two packages:
 
@@ -36,7 +36,12 @@ Across the two packages:
   workers happened to form, which thread timing decides in either
   package, so only that site's injections are compared.
 
-The subprocess fleet drill is held to the JAX one on its ``ok``,
+The ``flash_crowd`` drill is held to the JAX one on its injections,
+plan, bits and final fleet size, and on every non-viral request answered
+(its quota throttles and scale events follow thread timing in either
+package); the port's drill is ``ok``, the JAX one ``ok`` but for its
+settle race, which the port's drill repairs (``_settled_at_floor``).  The subprocess fleet drill is held to the JAX
+one on its ``ok``,
 injections, per-site snapshot, router counters and the home journal's
 states; it spawns ``worker_main`` children in each package (about 25 s
 for the JAX one).  Every comparison is exact.
@@ -128,15 +133,15 @@ def test_drill_recovers_per_fault_kind(kind):
 
 def test_drill_kinds_cover_fault_kinds():
     """DRILL_KINDS is FAULT_KINDS plus the composite drills: the JAX
-    tuple without flash_crowd (the soak slice's)."""
+    tuple, flash_crowd included."""
     from image_analogies_tpu import chaos as jchaos
     from image_analogies_tpu.chaos import runner as jrunner
 
     assert set(chaos.FAULT_KINDS) <= set(runner.DRILL_KINDS)
     assert "fleet_death" in runner.DRILL_KINDS
     assert chaos.FAULT_KINDS == jchaos.FAULT_KINDS
-    assert runner.DRILL_KINDS == tuple(
-        k for k in jrunner.DRILL_KINDS if k != "flash_crowd")
+    assert runner.DRILL_KINDS == jrunner.DRILL_KINDS
+    assert "flash_crowd" in runner.DRILL_KINDS
     assert chaos.KNOWN_SITES == jchaos.KNOWN_SITES
     assert len(chaos.KNOWN_SITES) == 13
 
@@ -505,6 +510,85 @@ def test_subprocess_fleet_drill_matches_the_jax_drill():
     assert ours["disk"]["home"]["states"] == theirs["disk"]["home"]["states"]
     assert jtransport.reap_orphans() == 0
     assert transport.live_workers() == [] and transport.reap_orphans() == 0
+
+
+def test_chaos_telemetry_in_report_and_trace(tmp_path):
+    """An injection under an observed run surfaces in the port's ``ia
+    report`` chaos section and on its trace's chaos track."""
+    from image_analogies_tpu_torch.config import AnalogyParams
+    from image_analogies_tpu_torch.obs import export as obs_export
+    from image_analogies_tpu_torch.obs import report as obs_report
+    from image_analogies_tpu_torch.obs import trace as obs_trace
+
+    log = str(tmp_path / "run.jsonl")
+    params = AnalogyParams(backend="cpu", device="cpu", metrics=True,
+                           log_path=log)
+    plan = ChaosPlan(seed=0, sites=(
+        ("level.dispatch", SiteRule(kind="latency", p=1.0,
+                                    latency_ms=0.0)),))
+    with obs_trace.run_scope(params):
+        with inject.plan_scope(plan):
+            inject.site("level.dispatch", level=0)
+
+    an = obs_report.analyze(obs_report.load_records(log))
+    assert an["chaos"]["injected"] == 1
+    assert an["chaos"]["by_site"] == {"level.dispatch": 1}
+    assert an["chaos"]["by_kind"] == {"latency": 1}
+    assert "chaos:" in obs_report.report(log)
+    out = str(tmp_path / "trace.json")
+    obs_export.export_trace(log, out)
+    with open(out) as f:
+        trace = json.load(f)
+    hits = [e for e in trace["traceEvents"]
+            if e.get("tid") == obs_export.CHAOS_TID and e["ph"] == "i"]
+    assert [e["name"] for e in hits] == ["inject latency @level.dispatch"]
+
+
+def test_flash_crowd_drill_matches_the_jax_drill():
+    """The elastic-fleet surge on the host oracle in both packages: one
+    injected transient, the same plan, every answer its clean run's bits,
+    the fleet back at its floor, only the viral style throttled, a worker
+    killed and handed off; the port's drill ok."""
+    from image_analogies_tpu.chaos import runner as jrunner
+
+    theirs = jrunner.run_drill(jrunner.plan_for_kind("flash_crowd", 0))
+    ours = runner.run_drill(runner.plan_for_kind("flash_crowd", 0),
+                            device="cpu", backend="cpu")
+    assert ours["ok"], ours["problems"]
+    # the JAX drill's one known flake, its settle race (ROADMAP Queue 3,
+    # "Observed in the reference"), is all it may report
+    race = re.compile(r"control\.scale_down=\d+ != \d+ events")
+    assert all(race.fullmatch(p) for p in theirs["problems"]), \
+        theirs["problems"]
+    for rep in (ours, theirs):
+        assert rep["killed"] is not None and rep["handoffs"]
+        assert list(rep["outcomes"]["quota_throttled"]) == ["s0"]
+    assert ours["plan"] == theirs["plan"]
+    assert ours["injected"] == theirs["injected"] == 1
+    assert ({s: v["injected"] for s, v in ours["sites"].items()}
+            == {s: v["injected"] for s, v in theirs["sites"].items()})
+    assert ours["identical"] is theirs["identical"] is True
+    assert ours["final_size"] == theirs["final_size"] == 1
+    chaos_counters = [{k: v for k, v in rep["counters"].items()
+                       if k.startswith("chaos.")} for rep in (ours, theirs)]
+    assert chaos_counters[0] == chaos_counters[1]
+
+
+_UP, _DOWN = "scale_up", "scale_down"
+
+
+@pytest.mark.parametrize("sizes,settled", [
+    ([], False),
+    ([(_UP, 2), (_UP, 3), (_DOWN, 2)], False),
+    ([(_UP, 2), (_UP, 3), (_DOWN, 2), (_DOWN, 1)], True),
+    ([(_UP, 2), (_DOWN, 1), (_UP, 2)], False),  # the JAX wait: True
+    ([(_UP, 2), (_DOWN, 1), (_UP, 2), (_DOWN, 1)], True),
+])
+def test_flash_crowd_settles_on_the_last_retirement(sizes, settled):
+    """The drill snapshots its scale events once the last verdict is the
+    retirement that reached the floor, not an earlier one."""
+    events = [{"verdict": v, "size": n, "worker": f"w{n}"} for v, n in sizes]
+    assert runner._settled_at_floor(events, 1) is settled
 
 
 SITE_MODULES = {

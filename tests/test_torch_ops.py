@@ -184,12 +184,15 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert len(files) > 12
     for sub in ("parallel", "serve", "soak", "chaos"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
-    # the fleet's modules, the subprocess worker's entry included, and
-    # the chaos plane's
+    # the fleet's modules, the subprocess worker's entry included, the
+    # chaos plane's, the soak harness's and the run-log readers
     for mod in ("serve/router.py", "serve/transport.py", "serve/fleet.py",
                 "serve/control.py", "serve/worker_main.py", "obs/fleet.py",
                 "chaos/__init__.py", "chaos/faults.py", "chaos/plan.py",
-                "chaos/inject.py", "chaos/drills.py", "chaos/runner.py"):
+                "chaos/inject.py", "chaos/drills.py", "chaos/runner.py",
+                "soak/__init__.py", "soak/trace.py", "soak/driver.py",
+                "soak/invariants.py", "obs/report.py", "obs/export.py",
+                "obs/recorder.py", "serve/loadgen.py", "cli.py"):
         assert os.path.join(root, *mod.split("/")) in files, mod
     for path in files:
         for mod in _imports(path):
