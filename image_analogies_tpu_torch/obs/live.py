@@ -21,10 +21,9 @@ Three consumers share it:
 
 Contract (same as the rest of obs/): stdlib only, no torch, and a
 zero-cost disarmed path — with no active run, :func:`snapshot_or_none` is
-one module-global read returning ``None``, allocating nothing.  The JAX
-module reads run logs through ``obs/report.py``; the port keeps its own
-copy of that reader (:func:`load_records`) until the report is ported
-(ROADMAP Queue 1 item 10e).
+one module-global read returning ``None``, allocating nothing.  Run logs
+are read through ``obs/report.py``'s ``load_records``, as in the JAX
+module.
 """
 
 from __future__ import annotations
@@ -184,31 +183,14 @@ def default_health() -> Dict[str, Any]:
 # --- run-log (post-hoc / sidecar) snapshots --------------------------------
 
 
-def load_records(path: str) -> List[Dict[str, Any]]:
-    """The JSON records of a run log, in order (the JAX package's
-    ``obs/report.load_records``): a torn tail line (a preempted run) and
-    non-object lines are skipped."""
-    recs = []
-    with open(path) as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                rec = json.loads(line)
-            except json.JSONDecodeError:
-                continue  # tolerate truncated tail lines (preempted run)
-            if isinstance(rec, dict):
-                recs.append(rec)
-    return recs
-
-
 def snapshot_from_log(path: str) -> Optional[Dict[str, dict]]:
     """Latest ``run_end`` metrics snapshot found in a run-log JSONL, or
     ``None`` when no run has ended yet.  Re-read per scrape so a sidecar
     ``ia metrics --port`` serves fresh numbers as runs complete."""
+    from image_analogies_tpu_torch.obs import report as _report
+
     snap = None
-    for rec in load_records(path):
+    for rec in _report.load_records(path):
         if rec.get("event") == "run_end" and isinstance(rec.get("metrics"),
                                                         dict):
             snap = rec["metrics"]
@@ -216,7 +198,9 @@ def snapshot_from_log(path: str) -> Optional[Dict[str, dict]]:
 
 
 def health_from_log(path: str) -> Dict[str, Any]:
-    records = load_records(path)
+    from image_analogies_tpu_torch.obs import report as _report
+
+    records = _report.load_records(path)
     run_ids = []
     ended = set()
     for rec in records:

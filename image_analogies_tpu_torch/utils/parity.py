@@ -19,6 +19,10 @@ For every level (coarsest first) and every pixel q with s_x[q] != s_y[q]:
      rule because d_coh lies within the resolution band of
      d_app * kappa_mult;
    - `unexplained`: anything else — a real disparity, target count 0.
+
+Beside the JAX module's fields, the port's audit names the first
+divergence (``first_divergence``: its level, pixel, kind and the two picks'
+float64 gap relative to the score magnitude, the quantity ``tol`` bounds).
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ def audit_source_map_mismatches(
     total = {"mismatches": 0, "ctx_diverged": 0, "tie_exact": 0,
              "tie_fp": 0, "kappa_boundary": 0, "unexplained": 0}
     first_divergence_is_tie = None  # set at the coarsest mismatching level
+    first_divergence = None
     max_fp_band = 0.0  # worst observed relative score gap among fp ties
 
     for level in range(levels - 1, -1, -1):  # coarsest -> finest (scan order)
@@ -181,6 +186,13 @@ def audit_source_map_mismatches(
             k = int(np.argmin(mism))
             first_divergence_is_tie = bool(tie_exact[k] or tie_fp[k]
                                            or kappa_boundary[k])
+            kinds = (("ctx_diverged", ~clean), ("tie_exact", tie_exact),
+                     ("tie_fp", tie_fp), ("kappa_boundary", kappa_boundary),
+                     ("unexplained", unexplained))
+            first_divergence = {
+                "level": level, "pixel": int(mism[k]),
+                "kind": next(name for name, m in kinds if m[k]),
+                "rel_gap": float(dd[k] / max(scale[k], 1e-12))}
 
         rec.update(
             ctx_diverged=int((~clean).sum()),
@@ -204,6 +216,7 @@ def audit_source_map_mismatches(
         "clean_ctx_tie_fraction": round(
             (clean_n - total["unexplained"]) / max(clean_n, 1), 6),
         "first_divergence_is_tie": first_divergence_is_tie,
+        "first_divergence": first_divergence,
         "max_fp_band": max_fp_band,
         "tol": tol,
     }

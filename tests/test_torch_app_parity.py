@@ -1,0 +1,281 @@
+"""``chip_smoke.py``'s parity phase on the CPU: the comparison it makes for
+each pair, at 32^2.
+
+The phase runs each application twice on the same inputs, at its preset's
+match mode and with ``match_mode="exact_hi"``, and holds the first run to
+the second (``parity_pair``: the levels that ran exact_hi in both are the
+same bits, the tie-audit leaves at most ``UNEXPLAINED_MAX`` of the
+mismatches unexplained and the first divergence is a tie).  Here the same
+function runs with ``device="cpu"`` (every kernel's plain version).  The
+crossover is lowered so that level 0 (32^2 = 1,024 A rows) takes the
+packed scan and level 1 (256 rows) the fp32 argmin, and the scan wrappers
+count a launch by the width rule each call would take on the card
+(``_packed2k_route`` / ``_packed3_route``), so the phase's launch checks
+run too.  Two cases must fail: a pick moved off a tie, and a level below
+the crossover that differs.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from image_analogies_tpu_torch.backends import cuda as bcuda
+from image_analogies_tpu_torch.ops import match
+from tests.test_torch_wavefront import one_torch_thread  # noqa: F401
+
+SIZE = 32
+# between level 1's 16^2 = 256 A rows and level 0's 32^2 = 1,024
+CROSSOVER = 512
+
+
+@pytest.fixture
+def cpu_parity(monkeypatch):
+    """The phase's card calls made no-ops, the crossover lowered, each
+    scan wrapper counting its route's launch on CPU tensors."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: 0)
+    monkeypatch.setattr(bcuda, "PACKED_CROSSOVER_ROWS", CROSSOVER)
+    packed, argmin = match.packed_best, bcuda.argmin_l2
+
+    def counted_packed(qa, w1, k_used=0, **kw):
+        route = (match._packed3_route if kw.get("fold_a")
+                 else match._packed2k_route)(k_used or qa.shape[1])
+        match._count_launch(route)
+        return packed(qa, w1, k_used, **kw)
+
+    def counted_argmin(*args, **kw):
+        match._count_launch("argmin_l2")
+        return argmin(*args, **kw)
+
+    monkeypatch.setattr(match, "packed_best", counted_packed)
+    monkeypatch.setattr(bcuda, "packed_best", counted_packed)
+    monkeypatch.setattr(bcuda, "argmin_l2", counted_argmin)
+    match.reset_launch_counts()
+    yield
+    match.reset_launch_counts()
+
+
+def _case(label):
+    """The phase's pair ``label`` at 32^2 on the CPU."""
+    for name, call, params in chip_smoke.parity_cases(
+            SIZE, SIZE, SIZE, device="cpu"):
+        if name == label:
+            return call, params
+    raise KeyError(label)
+
+
+# pair: (the preset run's mode by level, the kernel each packed level
+# routes to, the levels that ran exact_hi in both runs)
+PAIRS = {
+    "super_resolution_rgb": ({0: "exact_hi2_2p", 1: "exact_hi"},
+                             {"packed2kw_best"}, [1]),
+    "super_resolution_rgb_exact_hi2": ({0: "exact_hi2", 1: "exact_hi2"},
+                                       {"packed3w_best"}, []),
+    "texture_by_numbers": ({0: "exact_hi2_2p"}, {"packed_best"}, []),
+    "oil_filter": ({0: "exact_hi2_2p", 1: "exact_hi", 2: "exact_hi"},
+                   {"packed_best"}, [1, 2]),
+    "super_resolution": ({0: "exact_hi2_2p", 1: "exact_hi"},
+                         {"packed_best"}, [1]),
+    "texture_synthesis": ({0: "exact_hi2_2p", 1: "exact_hi", 2: "exact_hi"},
+                          {"packed_best"}, [1, 2]),
+}
+
+
+@pytest.mark.parametrize("label", list(PAIRS))
+def test_parity_pair_holds_on_the_cpu(cpu_parity, label):
+    """Each pair of the phase, at 32^2: the packed level takes the route
+    the card would (RGB at patch 7: packed2kw; with exact_hi2: packed3w),
+    the lower levels are bit-equal, and the audit explains every
+    mismatch."""
+    modes, routes, equal = PAIRS[label]
+    call, params = _case(label)
+    rec = chip_smoke.parity_pair(label, call, params)
+    assert rec["level_mode"] == modes
+    assert set(rec["launches"]) == routes | (
+        {"argmin_l2"} if "exact_hi" in modes.values() else set())
+    assert set(rec["exact_hi_launches"]) == {"argmin_l2"}
+    assert rec["bit_equal_levels"] == equal
+    assert rec["unexplained"] == 0, rec
+    assert rec["first_divergence_is_tie"] in (True, None), rec
+    assert rec["ssim"] >= chip_smoke.SSIM_MIN
+    assert rec["failures"] == []
+    chip_smoke.parity_verdict([rec])
+
+
+def test_the_width_rules_send_rgb_at_patch_7_past_the_narrow_kernels():
+    """The lanes of RGB super-resolution (patch 7, ``source_rgb``): 832 at
+    level 0 and 688 at level 1 for packed2k, 414 and 342 for packed3."""
+    assert {match._packed2k_route(k) for k in (832, 688)} == \
+        {"packed2kw_best"}
+    assert {match._packed3_route(k) for k in (416, 352)} == \
+        {"packed3w_best"}
+    assert match._packed2k_route(368) == "packed_best"
+
+
+def _moved_off_a_tie(pre, exact):
+    """The preset run with the first pixel of level 0 (no causal context:
+    its decision rests on the static queries alone, which level 1's equal
+    bits make equal) picking the DB row half the DB away from the exact_hi
+    run's pick."""
+    a, ap, b, params, res, launches, wall = pre
+    bp, s = res.levels[0]
+    s = np.array(s)
+    n = int(np.prod(np.asarray(a).shape[:2]))
+    s.reshape(-1)[0] = (int(np.asarray(exact[4].levels[0][1]).reshape(-1)[0])
+                        + n // 2) % n
+    res = dataclasses.replace(res, levels=[(bp, s), *res.levels[1:]])
+    return a, ap, b, params, res, launches, wall
+
+
+def _lower_level_differs(pre, exact):
+    """The preset run with one value of level 1 (exact_hi in both runs)
+    moved by an ulp."""
+    a, ap, b, params, res, launches, wall = pre
+    bp, s = res.levels[1]
+    bp = np.array(bp, np.float32)
+    bp.reshape(-1)[5] = np.nextafter(bp.reshape(-1)[5], np.float32(2))
+    res = dataclasses.replace(res, levels=[res.levels[0], (bp, s),
+                                           *res.levels[2:]])
+    return a, ap, b, params, res, launches, wall
+
+
+@pytest.mark.parametrize("tamper,message", [
+    (_moved_off_a_tie, "unexplained"),
+    (_lower_level_differs, "ran exact_hi in both runs and differ"),
+])
+def test_parity_hold_fails_a_disparity(cpu_parity, capsys, tamper, message):
+    """A disparity fails the phase: ``parity_hold`` records its reason and
+    ``parity_verdict`` exits non-zero with it, while the untampered pair
+    holds."""
+    label = "super_resolution_rgb"
+    call, params = _case(label)
+    pre = chip_smoke.parity_run(f"{label} auto", call, params)
+    exact = chip_smoke.parity_run(f"{label} exact_hi", call,
+                                  params.replace(match_mode="exact_hi"))
+    held = chip_smoke.parity_hold(label, pre, exact)
+    bad = chip_smoke.parity_hold(label, tamper(pre, exact), exact)
+    assert held["failures"] == []
+    assert any(message in f for f in bad["failures"]), bad["failures"]
+    chip_smoke.parity_verdict([held])
+    with pytest.raises(SystemExit) as ei:
+        chip_smoke.parity_verdict([held, bad])
+    assert ei.value.code == 1
+    assert message in capsys.readouterr().err
+
+
+# ------------------------------- the JAX package's packed scan against its own
+
+
+# application: (side, make_all seed, crossover rows): inputs on which the
+# JAX package's packed2k scan leaves its fp32 scan at a tie or near-tie
+# and the synthesis that follows comes out another texture
+JAX_CASES = {
+    "texture_by_numbers": (80, 10, 4096),
+    "super_resolution": (80, 3, 1600),
+    "texture_synthesis": (64, 8, 1024),
+}
+
+
+@pytest.fixture
+def jax_tpu_kernels(monkeypatch):
+    """The JAX package's level build and anchors as on its TPU (a platform
+    proxy, so the DB is padded for the packed and fp32 scans), with their
+    Pallas kernels in interpret mode."""
+    import functools
+
+    from image_analogies_tpu.backends import tpu as jtpu
+    from image_analogies_tpu.ops import pallas_match as pm
+    from tests.test_torch_anchor_modes import _TpuPlatformJax
+
+    calls = []
+    packed2k = functools.partial(pm.packed2k_best, interpret=True)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return packed2k(*args, **kw)
+
+    monkeypatch.setattr(jtpu, "jax", _TpuPlatformJax())
+    monkeypatch.setattr(jtpu, "packed2k_best", counted)
+    monkeypatch.setattr(pm, "pallas_argmin_l2_prepadded", functools.partial(
+        pm.pallas_argmin_l2_prepadded, interpret=True))
+    return jtpu, calls
+
+
+@pytest.mark.parametrize("app", list(JAX_CASES))
+def test_jax_packed_scan_against_its_fp32_scan(cpu_parity, jax_tpu_kernels,
+                                               monkeypatch, app):
+    """Why ``PARITY_REPORTED`` reports some limits of a pair instead of
+    holding them: the JAX package's own packed2k scan (``match_mode=
+    "auto"`` past a lowered crossover, its Pallas kernels in interpret
+    mode) against its fp32 scan (``exact_hi``), on the analogy inputs the
+    port's parity pair hands its engine.  The JAX tie-audit explains all
+    but at most ``UNEXPLAINED_MAX`` of the mismatches, yet the B' planes
+    are far apart (SSIM < ``SSIM_MIN``): one tie flip re-routes every later
+    causal window.  On texture synthesis the first divergence is a
+    near-tie that resolves apart just past the audit's band.  The port's
+    pair makes the JAX package's picks in both runs, the port's audit
+    reads them as the JAX audit does, and the phase's verdict passes only
+    because those limits are the ones reported."""
+    from image_analogies_tpu.config import PRESETS as JPRESETS
+    from image_analogies_tpu.models.analogy import (
+        create_image_analogy as j_create)
+    from image_analogies_tpu.utils.parity import (
+        audit_source_map_mismatches as j_audit)
+    from image_analogies_tpu.utils.ssim import ssim as j_ssim
+    from image_analogies_tpu_torch.utils.parity import (
+        audit_source_map_mismatches as t_audit)
+
+    size, seed, crossover = JAX_CASES[app]
+    jtpu, packed_calls = jax_tpu_kernels
+    monkeypatch.setattr(jtpu, "_PACKED_CROSSOVER_ROWS", crossover)
+    monkeypatch.setattr(bcuda, "PACKED_CROSSOVER_ROWS", crossover)
+    call, params = next((c, p) for name, c, p in chip_smoke.parity_cases(
+        size, size, size, seed, device="cpu") if name == app)
+    pre = chip_smoke.parity_run(f"{app} auto", call, params)
+    exact = chip_smoke.parity_run(f"{app} exact_hi", call,
+                                  params.replace(match_mode="exact_hi"))
+    a, ap, b, tp = pre[:4]
+
+    jp = JPRESETS[app].replace(backend="tpu")
+    for field in ("levels", "patch_size", "kappa", "src_weight",
+                  "remap_luminance", "color_mode"):
+        assert getattr(jp, field) == getattr(tp, field), field
+    jres = j_create(a, ap, b, jp, keep_levels=True)
+    assert packed_calls, "the JAX anchor never reached its packed kernel"
+    jeres = j_create(a, ap, b, jp.replace(match_mode="exact_hi"),
+                     keep_levels=True)
+    audit = j_audit(a, ap, b, jp, jres.levels, jeres.levels)
+    assert j_ssim(np.asarray(jres.bp_y),
+                  np.asarray(jeres.bp_y)) < chip_smoke.SSIM_MIN
+    want_tie = "first_divergence_is_tie" not in chip_smoke.PARITY_REPORTED[app]
+    assert audit["first_divergence_is_tie"] is want_tie, audit
+    # a tie flip and what follows from it; on texture synthesis the near-tie
+    # and the one or two like it that the new context leads to: past
+    # UNEXPLAINED_MAX of the mismatches, as the card's 512^2 pair
+    assert audit["mismatches"] > 1000
+    assert audit["unexplained"] == 0 if want_tie else \
+        0 < audit["unexplained"] <= 2, audit
+    if not want_tie:
+        assert (audit["unexplained"] / audit["mismatches"]
+                > chip_smoke.UNEXPLAINED_MAX), audit
+
+    for run, ref in ((pre[4], jres), (exact[4], jeres)):
+        for (_, s_t), (_, s_j) in zip(run.levels, ref.levels):
+            np.testing.assert_array_equal(s_t, np.asarray(s_j))
+    mine = t_audit(a, ap, b, tp, jres.levels, jeres.levels)
+    assert {k: mine[k] for k in audit} == audit
+    rec = chip_smoke.parity_hold(app, pre, exact)
+    assert rec["ssim"] < chip_smoke.SSIM_MIN
+    assert rec["first_divergence_is_tie"] is want_tie
+    # what the phase holds here passes: the limits the JAX package does not
+    # keep are the ones it reports
+    assert rec["failures"] == [], rec
+    if not want_tie:
+        fd = rec["first_divergence"]
+        assert fd["kind"] == "unexplained" and fd["rel_gap"] > mine["tol"]

@@ -445,3 +445,38 @@ def test_cli_soak_exit_codes(tmp_path, capsys):
     assert main(["soak", "--spec", str(tmp_path / "missing.json"),
                  "--device", "cpu"]) == 2
     assert "bad spec" in capsys.readouterr().err
+
+
+def test_chip_smoke_soak_side_times_its_runs_before_its_card_part(
+        monkeypatch, tmp_path):
+    """``chip_smoke.py``'s soak side runs its three timed soaks at once
+    (the script starts it before the other side phases fill the host),
+    and its card part (the logged npr_1024 runs for ``ia report``) and
+    the readers only once ``card_after`` exists (the script creates it
+    when the other side phases start)."""
+    import tempfile
+
+    import chip_smoke
+
+    window = tmp_path / "open"
+    order = []
+
+    def soak_run(label, args, tmp):
+        order.append((label, window.exists()))
+        if label == "full":  # the window opens later
+            threading.Timer(0.3, window.touch).start()
+        return {"verdicts": [], "p999_ms": 1.0,
+                "facts": {"spec": {"p999_bound_ms": 2.0}}}
+
+    monkeypatch.setattr(chip_smoke, "soak_run", soak_run)
+    for name in ("soak_reports", "soak_archive_top", "soak_blackbox"):
+        monkeypatch.setattr(
+            chip_smoke, name,
+            lambda *a, name=name: order.append((name, window.exists())))
+    monkeypatch.setattr(chip_smoke, "nvidia_smi", lambda: "cpu")
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    chip_smoke.phase_soak(None, None, None, str(window))
+    assert order == [("smoke_1", False), ("smoke_2", False),
+                     ("full", False), ("soak_reports", True),
+                     ("soak_archive_top", True), ("soak_archive_top", True),
+                     ("soak_blackbox", True)]
