@@ -109,8 +109,18 @@ and carried on):
                 peak memory, launches held to each level's wavefront steps
                 on the kernel its lane width routes to.
 13. video      — ``video_analogy`` with the video preset on three 512^2
-                frames: two_phase cold then warm, sequential once, each
-                frame's stats, ``flicker()`` and the launch counts.
+                frames: two_phase cold, then four clips held call by call
+                to ``exact_hi`` (luminance two_phase and sequential, RGB
+                sources with ``source_rgb`` two_phase: packed2kw at 608
+                lanes with the temporal block, and with exact_hi2:
+                packed3w at 2L = 296, 304 lanes as launched; two frames
+                each): each call
+                re-run with ``match_mode="exact_hi"`` on its recorded
+                inputs, previous frame and anchor, and held by the
+                tie-audit with the temporal block as the parity phase
+                holds an application (one parity line a call); each
+                clip's stats, ``flicker()`` and launch counts, each
+                call's launches too.
 14. driver     — the driver's surroundings on the main path (npr_1024 on
                 the 1024^2 oracle inputs, warm), a line a step: a clean
                 run (6,138 packed_best and 1,783 argmin_l2 launches, the
@@ -356,9 +366,12 @@ and carried on):
                 tie-audit of the preset run's levels against the exact_hi
                 run's at the main path's limits (unexplained <= 1e-4 of the
                 mismatches, the first divergence a tie) and SSIM >= 0.98,
-                but for the limits ``PARITY_REPORTED`` prints instead (the
-                JAX package's own packed scan does not keep them on that
-                application); one line a pair (mismatches by kind, the
+                but for the limits ``PARITY_REPORTED`` names (the JAX
+                package's own packed scan does not keep them on that
+                application): SSIM printed, the unexplained mismatches and
+                the first divergence each held to be the packed scan's own
+                pick (the audit's ``packed_pick``); one line a pair
+                (mismatches by kind, the
                 first divergence and its gap, max fp band, audit seconds,
                 both walls).  Every pair runs; then any that did not hold
                 fails the phase.
@@ -542,20 +555,41 @@ DEFAULT_ANN_TOP_M = 64
 PARITY_RGB_SIZE = 1024
 PARITY_EXACT_HI2_SIZE = 512
 PARITY_APP_SIZE = 512
+# the video side's clips (``video_cases``): the video preset at 512^2,
+# where level 0 (262,144 rows) takes the packed scan and levels 1-2 the
+# fp32 argmin; the RGB clips' frames, cut from 3 to 2 by the rule set with
+# the side (the whole script took 966.3 s on a slow host, past 950, and
+# the video side 348.0 s, past 340): each keeps one phase-2 call
+VIDEO_SIZE = 512
+VIDEO_RGB_FRAMES = 2
 # the limits of a pair that the JAX package's own packed scan does not
-# keep against its fp32 scan on the same application: reported, not held
+# keep against its fp32 scan on the same application: SSIM reported, not
+# held; the unexplained fraction and the first divergence held instead to
+# the packed scan's own arithmetic (``parity_hold``: each such pixel the
+# pick the packed2k scores make)
 # (tests/test_torch_app_parity.py test_jax_packed_scan_against_its_fp32_scan
 # shows each on the JAX package's Pallas kernels).  A tie flip re-routes
 # every later causal window, and where the coherence term is weak the
 # texture comes out another (SSIM); texture synthesis's first near-tie can
 # resolve apart past the audit's band (the first divergence), and the new
 # context leads to a few more like it, whose count does not grow with the
-# mismatches that follow (the unexplained fraction: 1.1e-4 at 512^2)
+# mismatches that follow (the unexplained fraction: 1.1e-4 at 512^2).  The
+# luminance video clips (the oil filter pair, with and without the temporal
+# block) first diverge at level 0's first pixel, a near-tie 7.8e-6 to
+# 9.3e-6 apart that the JAX package's packed scan resolves as the card's
+# does, with a handful more like it (1.3e-4 to 1.6e-4), and a few calls'
+# textures come out another (tests/test_torch_video_parity.py
+# test_jax_packed_scan_leaves_the_clips_first_pixel_past_the_band and
+# test_jax_packed_scan_with_the_temporal_block_against_its_fp32_scan)
+LUMINANCE_VIDEO_REPORTED = ("ssim", "first_divergence_is_tie",
+                            "unexplained_fraction")
 PARITY_REPORTED = {
     "texture_by_numbers": ("ssim",),
     "super_resolution": ("ssim",),
     "texture_synthesis": ("ssim", "first_divergence_is_tie",
                           "unexplained_fraction"),
+    "video_two_phase": LUMINANCE_VIDEO_REPORTED,
+    "video_sequential": LUMINANCE_VIDEO_REPORTED,
 }
 
 
@@ -564,7 +598,7 @@ def fail(msg: str, code: int = 1) -> None:
     sys.exit(code)
 
 
-def say(phase: str, **fields) -> None:
+def say(phase: str, /, **fields) -> None:
     print(f"[{phase}] " + json.dumps(fields, sort_keys=False), flush=True)
 
 
@@ -2770,6 +2804,8 @@ def phase_oracle(a, ap, b, params, result, phase="oracle",
         tie_exact=audit["tie_exact"], tie_fp=audit["tie_fp"],
         kappa_boundary=audit["kappa_boundary"],
         unexplained=audit["unexplained"], unexplained_fraction=frac,
+        packed_pick=audit["packed_pick"],
+        packed_replay=audit["packed_replay"],
         explained=audit["mismatch_explained_by_ties"],
         first_divergence_is_tie=audit["first_divergence_is_tie"],
         max_fp_band=audit["max_fp_band"],
@@ -3002,57 +3038,79 @@ def phase_card_vs_cpu(refs):
                  f"{diff:.4f}, SSIM {s:.4f})")
 
 
+def level_route(params, level, levels, mode, src_channels, temporal=False):
+    """(kernel, width) of one level of a wavefront call: the launch-count
+    key its resolved match mode runs at the level's lane width (packed2k
+    past 512 lanes: packed2kw_best; packed3 past 256: packed3w_best) and
+    that width (the packed lanes, rounded to 16, or the fp32 argmin's F)."""
+    from image_analogies_tpu_torch.ops import match
+    from image_analogies_tpu_torch.ops.features import spec_for_level
+
+    spec = spec_for_level(params, level, levels, src_channels,
+                          temporal=temporal)
+    lw = int(spec.query_live_mask().sum())
+    if mode == "exact_hi2_2p":
+        lanes = (4 * lw + 3 + 15) // 16 * 16
+        return match._packed2k_route(lanes), lanes
+    if mode == "exact_hi2":
+        lanes = (2 * lw + 15) // 16 * 16
+        return match._packed3_route(lanes), lanes
+    return ANCHOR_KERNEL[mode], spec.total
+
+
 def want_launches(params, b_shape, stats, src_channels, temporal=False):
     """Kernel launches of one wavefront ``create_image_analogy`` call from
     its level stats: c(h-1)+w steps a level (B's plane at that level), each
     on the kernel its resolved match mode runs at the level's lane width
-    (packed2k past 512 lanes: packed2kw_best; packed3 past 256:
-    packed3w_best)."""
-    from image_analogies_tpu_torch.ops import match
-    from image_analogies_tpu_torch.ops.features import spec_for_level
-
+    (``level_route``)."""
     levels = len(stats)
     c = params.patch_size // 2 + 1
     out = {}
     for st in stats:
-        level, mode = st["level"], st["match_mode"]
+        level = st["level"]
         hb, wb = b_shape
         for _ in range(level):
             hb, wb = (hb + 1) // 2, (wb + 1) // 2
-        spec = spec_for_level(params, level, levels, src_channels,
-                              temporal=temporal)
-        lw = int(spec.query_live_mask().sum())
-        if mode == "exact_hi2_2p":
-            key = match._packed2k_route((4 * lw + 3 + 15) // 16 * 16)
-        elif mode == "exact_hi2":
-            key = match._packed3_route((2 * lw + 15) // 16 * 16)
-        else:
-            key = ANCHOR_KERNEL[mode]
+        key, _ = level_route(params, level, levels, st["match_mode"],
+                             src_channels, temporal)
         out[key] = out.get(key, 0) + c * (hb - 1) + wb
     return out
 
 
-def want_video_launches(params, b_shape, stats):
+def source_channels(a, ap, b, params):
+    """The channels a call's source planes carry (1, or 3 for RGB sources
+    with ``color_mode="source_rgb"``), as ``models/analogy.py``'s
+    ``_prep_planes`` builds them."""
+    from image_analogies_tpu_torch.models.analogy import _prep_planes
+
+    a_src = _prep_planes(a, ap, b, params)[0]
+    return 1 if a_src.ndim == 2 else a_src.shape[-1]
+
+
+def want_video_launches(params, b_shape, stats, src_channels):
     """``want_launches`` summed over a clip's calls (its stats grouped by
     frame and phase; the temporal block in phase 2 and in every sequential
-    frame but the first)."""
+    frame but the first) on sources of ``src_channels``
+    (``source_channels`` of the clip's A, A' and first frame)."""
     groups = {}
     for st in stats:
         groups.setdefault((st["phase"], st["frame"]), []).append(st)
     out = {}
     for (phase, frame), sts in groups.items():
         temporal = phase == "phase2" or (phase == "seq" and frame > 0)
-        for k, v in want_launches(params, b_shape, sts, 1, temporal).items():
+        for k, v in want_launches(params, b_shape, sts, src_channels,
+                                  temporal).items():
             out[k] = out.get(k, 0) + v
     return out
 
 
-def run_app(phase, label, fn, want):
+def run_app(phase, label, fn, want=None):
     """One application run on the card: every launch count set to 0 just
-    before ``fn()`` and read just after, held to ``want(result)`` (each
-    kernel once per wavefront step of its levels, no other kernel); prints
-    each level's mode, scan ms and coherence ratio, the wall-clock and the
-    peak device memory.  Returns (result, launches, wall seconds)."""
+    before ``fn()`` and read just after, held to ``want(result)`` where
+    given (each kernel once per wavefront step of its levels, no other
+    kernel); prints each level's mode, scan ms and coherence ratio, the
+    wall-clock and the peak device memory.  Returns (result, launches, wall
+    seconds)."""
     import numpy as np
     import torch
 
@@ -3065,7 +3123,7 @@ def run_app(phase, label, fn, want):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in match.LAUNCHES.items() if v}
-    expected = want(result)
+    expected = want(result) if want else None
     levels = [dict(level=st["level"], mode=st.get("match_mode"),
                    ms=st["ms"], coherence=st["coherence_ratio"],
                    **{k: st[k] for k in ("frame", "phase") if k in st})
@@ -3073,7 +3131,8 @@ def run_app(phase, label, fn, want):
     say(phase, run=label, wall_s=wall, levels=levels, launches=launches,
         expected_launches=expected,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if launches != {k: v for k, v in expected.items() if v}:
+    if expected is not None and launches != {k: v for k, v in
+                                             expected.items() if v}:
         fail(f"{phase} {label}: launched {launches}, expected {expected} "
              "(one per wavefront step of its levels)")
     outs = result.frames if hasattr(result, "frames") else [result.bp]
@@ -3161,7 +3220,8 @@ def phase_modes_small():
     assets = make_golden_assets()
     for name, (call, params, shape, chans, video) in golden_calls(
             assets).items():
-        want = ((lambda r: want_video_launches(params, shape, r.stats))
+        want = ((lambda r: want_video_launches(params, shape, r.stats,
+                                                chans))
                 if video else
                 (lambda r: want_launches(params, shape, r.stats, chans)))
         got, _, _ = run_app("modes_small", name, lambda: call(params), want)
@@ -3224,29 +3284,143 @@ def phase_modes(size=1024):
         fail(f"modes: RGB super-resolution launched {launches}")
 
 
-def phase_video(size=512):
-    """``video_analogy`` with ``PRESETS["video"]`` on three 512^2 frames
-    (``utils/assets.make_all(512, 0)``'s drifting blob and its filter
-    pair): level 0 (262,144 rows) runs packed2k, at 336 lanes where the
-    temporal block rides (phase 2, and every sequential frame but the
-    first) and at 224 lanes without it; levels 1-2 the fp32 argmin (F = 93
-    and, at the coarsest, 75 with the block).  two_phase cold then warm,
-    then sequential once: each frame's stats, ``flicker()`` and the launch
-    counts."""
-    from image_analogies_tpu_torch import PRESETS, video_analogy
+def rgb_video_inputs(size, n=3, seed=5):
+    """An RGB clip for ``color_mode="source_rgb"`` at side ``size``: A
+    three seeded ``_perlin_ish`` planes, A' each through ``_oil_filter``
+    (``make_all``'s filter pair in color), and ``n`` frames of a tinted
+    blob drifting right over three more planes (``make_all``'s video frames
+    in color), so that the temporal term has motion to follow."""
+    import numpy as np
+
+    from image_analogies_tpu_torch.utils.assets import (_oil_filter,
+                                                        _perlin_ish)
+
+    rng = np.random.default_rng(seed)
+    planes = lambda: np.stack([_perlin_ish(size, size, rng)
+                               for _ in range(3)], -1)
+    a = planes()
+    ap = np.stack([_oil_filter(a[..., c]) for c in range(3)], -1)
+    base = planes()
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    tint = np.array([1.0, 0.6, 0.3], np.float32)
+    frames = []
+    for t in range(n):
+        blob = np.exp(-((yy - size * 0.5) ** 2
+                        + (xx - size * (0.3 + 0.1 * t)) ** 2)
+                      / (2 * (0.08 * size) ** 2))
+        frames.append((0.7 * base + 0.5 * blob[..., None] * tint).clip(
+            0, 1).astype(np.float32))
+    return a, ap, frames
+
+
+def video_cases(size=VIDEO_SIZE, **overrides):
+    """The video side's clips in order, as (label, a, ap, frames, params,
+    scheme; ``overrides`` on every preset), all with ``PRESETS["video"]``:
+    ``make_all(size, 0)``'s three frames and filter pair two_phase and
+    sequential, then ``rgb_video_inputs(size, VIDEO_RGB_FRAMES)`` with
+    ``color_mode="source_rgb"`` two_phase, at the preset's match mode and
+    with ``match_mode="exact_hi2"``."""
+    from image_analogies_tpu_torch import PRESETS
     from image_analogies_tpu_torch.utils.assets import make_all
 
+    P = lambda **kw: PRESETS["video"].replace(**kw, **overrides)
     x = make_all(size, 0)
-    frames = [x[f"video_f{t}"] for t in range(3)]
-    params = PRESETS["video"]
-    for scheme, label in (("two_phase", "cold"), ("two_phase", "warm"),
-                          ("sequential", "first")):
-        res, _, _ = run_app(
-            "video", f"{scheme} {label}",
-            lambda: video_analogy(x["filter_a"], x["filter_ap"], frames,
-                                  params, scheme=scheme),
-            lambda r: want_video_launches(params, frames[0].shape, r.stats))
-        say("video", run=f"{scheme} {label}", flicker=res.flicker())
+    lum = (x["filter_a"], x["filter_ap"], [x[f"video_f{t}"]
+                                           for t in range(3)])
+    rgb = rgb_video_inputs(size, VIDEO_RGB_FRAMES)
+    return [
+        ("video_two_phase", *lum, P(), "two_phase"),
+        ("video_sequential", *lum, P(), "sequential"),
+        ("video_rgb", *rgb, P(color_mode="source_rgb"), "two_phase"),
+        ("video_rgb_exact_hi2", *rgb,
+         P(color_mode="source_rgb", match_mode="exact_hi2"), "two_phase"),
+    ]
+
+
+def video_pair(label, a, ap, frames, params, scheme):
+    """One clip held call by call to ``exact_hi``: ``video_analogy``
+    through ``run_app`` (``flicker()`` printed), each of its
+    ``create_image_analogy`` calls recorded (``recording_calls`` on
+    ``models.video``) and its own launches held to ``want_launches`` on
+    the clip's source channels, the temporal block where it rode (their
+    sum is ``want_video_launches``); then each call once more with
+    ``match_mode="exact_hi"`` on the recorded inputs, previous frame and
+    anchor, held to the recorded call by ``parity_hold`` (the clip is not
+    run again: phase 2 would then read the exact run's own phase-1
+    frames).  Returns (the clip's launches, the calls' records)."""
+    from image_analogies_tpu_torch import create_image_analogy, video_analogy
+    from image_analogies_tpu_torch.models import video
+
+    chans = source_channels(a, ap, frames[0], params)
+    shape = frames[0].shape[:2]
+    calls = []
+    with recording_calls(calls, video):
+        res, launches, _ = run_app(
+            "video", f"{label} {params.match_mode}",
+            lambda: video_analogy(a, ap, frames, params, scheme=scheme))
+    say("video", run=label, flicker=res.flicker())
+    recs = []
+    for ca, cap, cb, cp, cres, claunches, cwall, prev, anchor in calls:
+        temporal = cp.temporal_weight > 0 and prev is not None
+        frame, phase = cres.stats[0]["frame"], cres.stats[0]["phase"]
+        tag = f"{label} frame {frame} {phase}"
+        want = want_launches(cp, shape, cres.stats, chans, temporal)
+        if claunches != want:
+            fail(f"video {tag}: launched {claunches}, expected {want}")
+        ep = cp.replace(match_mode="exact_hi")
+        eres, elaunches, ewall = run_app(
+            "video", f"{tag} exact_hi",
+            lambda: create_image_analogy(ca, cap, cb, ep, temporal_prev=prev,
+                                         remap_anchor=anchor,
+                                         keep_levels=True),
+            lambda r: want_launches(ep, shape, r.stats, chans, temporal))
+        recs.append(parity_hold(
+            label, (ca, cap, cb, cp, cres, claunches, cwall),
+            (ca, cap, cb, ep, eres, elaunches, ewall), temporal_prev=prev,
+            remap_anchor=anchor, frame=frame, phase=phase, temporal=temporal,
+            routes={st["level"]: level_route(
+                cp, st["level"], len(cres.stats), st["match_mode"], chans,
+                temporal) for st in cres.stats}))
+    return launches, recs
+
+
+def phase_video(size=VIDEO_SIZE):
+    """``video_analogy`` with ``PRESETS["video"]`` on 512^2 clips
+    (``video_cases``): level 0 (262,144 rows) runs the packed scan, levels
+    1-2 the fp32 argmin (F = 93 and, at the coarsest, 75 with the
+    temporal block).  The luminance clip two_phase cold (packed2k at 224
+    lanes, 336 where the temporal block rides: phase 2, and every
+    sequential frame but the first), then each clip of ``video_cases``
+    held call by call to its exact_hi run (``video_pair``): luminance
+    two_phase and sequential, RGB sources with ``color_mode="source_rgb"``
+    (packed2kw at 608 lanes with the block) and the same with
+    ``match_mode="exact_hi2"`` (packed3w at 2L = 296, 304 lanes as
+    launched, with the block).  Each clip's launches and ``flicker()``,
+    one parity line per call; every pair runs, then the phase fails if any
+    call did not hold or an RGB clip did not launch its wide kernel."""
+    from image_analogies_tpu_torch import video_analogy
+
+    t0 = time.perf_counter()
+    cases = video_cases(size)
+    _, a, ap, frames, params, _ = cases[0]
+    res, _, _ = run_app(
+        "video", "two_phase cold",
+        lambda: video_analogy(a, ap, frames, params, scheme="two_phase"),
+        lambda r: want_video_launches(params, frames[0].shape, r.stats,
+                                      source_channels(a, ap, frames[0],
+                                                      params)))
+    say("video", run="two_phase cold", flicker=res.flicker())
+    launches, recs = {}, []
+    for label, *case in cases:
+        launches[label], got = video_pair(label, *case)
+        recs += got
+    parity_verdict(recs)
+    for label, kernel in (("video_rgb", "packed2kw_best"),
+                          ("video_rgb_exact_hi2", "packed3w_best")):
+        if not launches[label].get(kernel):
+            fail(f"video: {label} launched {launches[label]}, no {kernel}")
+    say("video", calls=len(recs), launches=launches,
+        s=time.perf_counter() - t0, card=nvidia_smi())
 
 
 def phase_profile(a, ap, b, params, phase="profile"):
@@ -5282,9 +5456,12 @@ def card_memory_used_mib():
     return float(out.stdout.strip().splitlines()[0])
 
 
-def worker_main_pids():
-    """Pids of every live ``worker_main`` process on the machine (read
-    from /proc)."""
+def worker_main_pids(own_group=True):
+    """Pids of every live ``worker_main`` process of this process group
+    (read from /proc), or with ``own_group=False`` of the whole machine.
+    Each side phase runs in a process group of its own, and a fleet's
+    children stay in their parent's group after it exits, so a side counts
+    its own fleets' leftovers and not another side's live fleet."""
     found = []
     for name in os.listdir("/proc"):
         if not name.isdigit():
@@ -5292,10 +5469,12 @@ def worker_main_pids():
         try:
             with open(f"/proc/{name}/cmdline", "rb") as f:
                 cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            if (WORKER_MAIN in cmd and "python" in cmd
+                    and (not own_group
+                         or os.getpgid(int(name)) == os.getpgrp())):
+                found.append(int(name))
         except OSError:
             continue
-        if WORKER_MAIN in cmd and "python" in cmd:
-            found.append(int(name))
     return sorted(found)
 
 
@@ -6111,25 +6290,38 @@ def phase_soak(a, ap, b, card_after=None):
 
 
 @contextlib.contextmanager
-def recording_calls(calls):
-    """Inside the block, ``modes.create_image_analogy`` runs with
+def recording_calls(calls, module=None):
+    """Inside the block, ``module.create_image_analogy`` (``models.modes``'
+    by default; ``models.video``'s for a clip) runs with
     ``keep_levels=True`` and appends each call's (a, ap, b, params,
-    result) to ``calls`` (``tests/test_torch_modes.py``'s
-    ``_recording``)."""
+    result, launches, wall seconds, temporal_prev, remap_anchor) to
+    ``calls``: the launches counted while the call ran, the call's own
+    (``tests/test_torch_modes.py``'s ``_recording``,
+    ``tests/test_torch_video.py``'s ``_recorded``)."""
     from image_analogies_tpu_torch.models import modes
+    from image_analogies_tpu_torch.ops import match
 
-    create = modes.create_image_analogy
+    module = module or modes
+    create = module.create_image_analogy
 
-    def call(a, ap, b, params, *args, **kwargs):
-        res = create(a, ap, b, params, *args, keep_levels=True, **kwargs)
-        calls.append((a, ap, b, params, res))
+    def call(a, ap, b, params, *args, temporal_prev=None, remap_anchor=None,
+             **kwargs):
+        before = dict(match.LAUNCHES)
+        t0 = time.perf_counter()
+        res = create(a, ap, b, params, *args, temporal_prev=temporal_prev,
+                     remap_anchor=remap_anchor, keep_levels=True, **kwargs)
+        wall = time.perf_counter() - t0
+        launches = {k: n - before.get(k, 0)
+                    for k, n in match.LAUNCHES.items() if n - before.get(k, 0)}
+        calls.append((a, ap, b, params, res, launches, wall, temporal_prev,
+                      remap_anchor))
         return res
 
-    modes.create_image_analogy = call
+    module.create_image_analogy = call
     try:
         yield
     finally:
-        modes.create_image_analogy = create
+        module.create_image_analogy = create
 
 
 def parity_run(label, call, params):
@@ -6137,22 +6329,18 @@ def parity_run(label, call, params):
     ``create_image_analogy`` call recorded and its launches held to
     ``want_launches`` of the recorded inputs and params.  Returns (a, ap,
     b, params, result, launches, wall) of that call."""
-    from image_analogies_tpu_torch.models.analogy import _prep_planes
-
     calls = []
 
     def want(result):
-        a, ap, b, p, _ = calls[-1]
-        a_src = _prep_planes(a, ap, b, p)[0]
-        chans = 1 if a_src.ndim == 2 else a_src.shape[-1]
-        return want_launches(p, b.shape[:2], result.stats, chans)
+        a, ap, b, p = calls[-1][:4]
+        return want_launches(p, b.shape[:2], result.stats,
+                             source_channels(a, ap, b, p))
 
     with recording_calls(calls):
-        _, launches, wall = run_app("parity", label, lambda: call(params),
-                                    want)
+        run_app("parity", label, lambda: call(params), want)
     if len(calls) != 1:
         fail(f"parity {label}: {len(calls)} create_image_analogy calls")
-    return (*calls[0], launches, wall)
+    return calls[0][:7]
 
 
 def planes_equal(x, y):
@@ -6165,14 +6353,21 @@ def planes_equal(x, y):
                for u, v in zip(x, y))
 
 
-def parity_hold(label, preset, exact):
+def parity_hold(label, preset, exact, temporal_prev=None, remap_anchor=None,
+                **fields):
     """Hold a preset run (``parity_run``) to the ``exact_hi`` run of the
     same call: the same inputs and params but the match mode; every level
     that ran exact_hi in both (below ``PACKED_CROSSOVER_ROWS``) the same
     bits; the tie-audit of the preset run's levels against the exact_hi
     run's at the main path's limits (``UNEXPLAINED_MAX``, the first
     divergence a tie) and SSIM of their B' >= ``SSIM_MIN``, but the
-    limits ``PARITY_REPORTED`` names for the pair.  Prints one line and
+    limits ``PARITY_REPORTED`` names for the pair: SSIM is then printed
+    only, and the other two are held to the packed scan's own arithmetic
+    instead (every unexplained mismatch, and a first divergence that is no
+    tie, the pick the packed2k scores make: the audit's ``packed_pick``
+    over the levels that scanned packed2k).  A video call's pair
+    passes the call's ``temporal_prev`` and ``remap_anchor`` (both runs
+    had the same) on to the audit.  Prints one line, ``fields`` in it, and
     returns it as a dict, what failed under ``failures``
     (``parity_verdict`` fails the phase on any)."""
     import numpy as np
@@ -6195,14 +6390,18 @@ def parity_hold(label, preset, exact):
     unequal = [lv for lv in both
                if not planes_equal(res.levels[lv], eres.levels[lv])]
     t0 = time.perf_counter()
-    audit = audit_source_map_mismatches(a, ap, b, params, res.levels,
-                                        eres.levels)
+    audit = audit_source_map_mismatches(
+        a, ap, b, params, res.levels, eres.levels,
+        temporal_prev=temporal_prev, remap_anchor=remap_anchor,
+        packed_levels=[lv for lv, mode in modes.items()
+                       if mode == "exact_hi2_2p"])
     audit_s = time.perf_counter() - t0
     frac = audit["unexplained"] / max(audit["mismatches"], 1)
+    off_packed = audit["unexplained"] - audit["packed_pick"]
     s = ssim(res.bp_y, eres.bp_y)
     rec = dict(
-        pair=label, size=list(b.shape[:2]), match_mode=params.match_mode,
-        level_mode=modes, ssim=s,
+        pair=label, **fields, size=list(b.shape[:2]),
+        match_mode=params.match_mode, level_mode=modes, ssim=s,
         value_match=float((res.source_map == eres.source_map).mean()),
         level_mismatches={r["level"]: r["mismatches"]
                           for r in audit["per_level"]},
@@ -6210,6 +6409,8 @@ def parity_hold(label, preset, exact):
         tie_exact=audit["tie_exact"], tie_fp=audit["tie_fp"],
         kappa_boundary=audit["kappa_boundary"],
         unexplained=audit["unexplained"], unexplained_fraction=frac,
+        packed_pick=audit["packed_pick"],
+        packed_replay=audit["packed_replay"],
         first_divergence_is_tie=audit["first_divergence_is_tie"],
         first_divergence=audit["first_divergence"],
         max_fp_band=audit["max_fp_band"], audit_s=audit_s,
@@ -6223,12 +6424,20 @@ def parity_hold(label, preset, exact):
                         "differ")
     if not s >= SSIM_MIN and "ssim" not in reported:
         failures.append(f"SSIM vs the exact_hi run {s:.4f} < {SSIM_MIN}")
-    if not frac <= UNEXPLAINED_MAX and "unexplained_fraction" not in reported:
-        failures.append(f"tie-audit unexplained fraction {frac:.3g} > "
-                        f"{UNEXPLAINED_MAX}")
-    if (audit["first_divergence_is_tie"] is False
-            and "first_divergence_is_tie" not in reported):
-        failures.append("the first divergence is not a tie")
+    if "unexplained_fraction" not in reported:
+        if not frac <= UNEXPLAINED_MAX:
+            failures.append(f"tie-audit unexplained fraction {frac:.3g} > "
+                            f"{UNEXPLAINED_MAX}")
+    elif off_packed:
+        failures.append(f"{off_packed} unexplained mismatches are not the "
+                        "packed scan's own pick")
+    first = audit["first_divergence"]
+    if audit["first_divergence_is_tie"] is False:
+        if "first_divergence_is_tie" not in reported:
+            failures.append("the first divergence is not a tie")
+        elif not first["packed_pick"]:
+            failures.append("the first divergence is neither a tie nor the "
+                            "packed scan's own pick")
     rec["reported"] = list(reported)
     rec["failures"] = failures
     say("parity", **rec)
@@ -6603,6 +6812,11 @@ def main() -> None:
                 with open(args.side_out, "w") as f:
                     json.dump(path_launches["parity"], f)
     lap("parity")
+    if sides:
+        # every side has exited: a worker_main left anywhere is a leak
+        alive = worker_main_pids(own_group=False)
+        if alive:
+            fail(f"worker_main left after the side phases: {alive}")
     if not set(PHASES) <= set(phases):
         return
     # each kernel's launches from the run of its path (packed2kw_best and

@@ -297,14 +297,21 @@ def packed2k_scan(q1: torch.Tensor, q2: torch.Tensor, wk: torch.Tensor, *,
     lanes.  ``q1``/``q2`` (M, L) bf16 are the bit-mask split of the
     centered live query dims.  Returns (idx (M,) int32, val (M,) fp32),
     the first maximum."""
+    return packed_best(packed2k_query_rows(q1, q2, wk.shape[1]), wk,
+                       _round_up(4 * q1.shape[1] + 3, 16),
+                       chunks_per_sm=chunks_per_sm, ring_stages=ring_stages)
+
+
+def packed2k_query_rows(q1: torch.Tensor, q2: torch.Tensor, kp: int
+                        ) -> torch.Tensor:
+    """(M, kp) bf16: the packed2k scan's query rows ``[q1|q1|1 1 1|q2|q1|0]``
+    against ``pack_wk``'s ``[d1|d2|n1 n2 n3|d1|d3|0]``."""
     m, lw = q1.shape
-    qa = torch.cat([
+    return torch.cat([
         q1, q1, torch.ones((m, 3), dtype=torch.bfloat16, device=q1.device),
         q2, q1,
-        torch.zeros((m, wk.shape[1] - 4 * lw - 3), dtype=torch.bfloat16,
+        torch.zeros((m, kp - 4 * lw - 3), dtype=torch.bfloat16,
                     device=q1.device)], dim=1)
-    return packed_best(qa, wk, _round_up(4 * lw + 3, 16),
-                       chunks_per_sm=chunks_per_sm, ring_stages=ring_stages)
 
 
 def pack_w12(src: torch.Tensor, shift: torch.Tensor, half_norm: torch.Tensor,

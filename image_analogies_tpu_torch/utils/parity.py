@@ -19,15 +19,35 @@ For every level (coarsest first) and every pixel q with s_x[q] != s_y[q]:
      rule because d_coh lies within the resolution band of
      d_app * kappa_mult;
    - `unexplained`: anything else — a real disparity, target count 0.
+4. at a level where run X's full-DB anchor was the packed2k scan
+   (``packed_levels``), an unexplained mismatch is replayed with that
+   scan's own arithmetic: `packed_pick` (a part of `unexplained`, not
+   beside it) if run X's pick is the decision the packed scores make on
+   the shared query — a row whose packed2k score (``backends/cuda.py
+   packed2k_scan``'s operands, their products summed exactly) lies within
+   ``tol`` of the best, measured against the magnitude of that scan's own
+   centered terms, kept against the coherence candidates by the kappa
+   rule, or the coherence pick where one such row loses to it
+   (``packed_replay``: each replayed pixel's gap below the best).  The
+   packed scheme's resolution (~1e-5 of the uncentered score, more where
+   centering makes a dark window's terms large) is wider than ``tol``: its
+   near-ties resolve apart past the band, as the JAX package's own packed
+   scan does.
 
 Beside the JAX module's fields, the port's audit names the first
 divergence (``first_divergence``: its level, pixel, kind and the two picks'
-float64 gap relative to the score magnitude, the quantity ``tol`` bounds).
+float64 gap relative to the score magnitude, the quantity ``tol`` bounds),
+it replays the packed levels' unexplained mismatches (``packed_pick``),
+and it audits a video call: ``temporal_prev`` and ``remap_anchor`` are the
+call's own (``models/video.py``), so the DB and both runs' static queries
+carry the temporal block (A' on the DB side, the previous frame's pyramid
+on the query side, the same plane for both runs) and A's planes are
+remapped against the clip's anchor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,6 +62,55 @@ from image_analogies_tpu_torch.ops.pyramid import build_pyramid_np
 # queries per float64 product in the kappa-boundary pass (an (N, 32)
 # float64 block: 256 MiB at N = 2^20)
 AUDIT_CHUNK = 32
+# DB rows per float64 block of the packed replay's scores
+PACKED_ROWS = 65536
+# replayed pixels the audit describes one by one (``packed_replay``)
+PACKED_REPLAY_SHOWN = 16
+
+
+def _packed2k_band(db: np.ndarray, live: np.ndarray, tol: float):
+    """The packed2k scan of one level's DB (``db`` (N, F) float32, the
+    query-live dims ``live``) as the card runs it: ``pack_wk``'s operands
+    and ``packed2k_query_rows``' query rows, every bf16 product summed
+    exactly in float64.  Its terms are those of the centered rows and
+    queries, so its fp resolution is ``tol`` of their magnitude
+    (||q_c||^2 + ||d_c||^2), not of the uncentered one the audit's band
+    reads.  Returns ``band(queries (M, F) float32, picks (M,)) -> [(rows,
+    short)]``: for each query the rows whose score lies within that band of
+    the best (twice the score gap, a distance gap, at most ``tol`` of the
+    magnitude), and the pick's gap below the best in the same unit."""
+    import torch
+
+    from image_analogies_tpu_torch.backends.cuda import (
+        pack_wk, packed2k_query_rows, packed_shift_and_halfnorm)
+    from image_analogies_tpu_torch.ops.match import bf16_split3
+
+    src = torch.from_numpy(np.ascontiguousarray(db, np.float32))
+    live_t = torch.from_numpy(np.asarray(live, np.int64))
+    shift, half_norm = packed_shift_and_halfnorm(src, live_t)
+    wk, _ = pack_wk(src, shift, half_norm, live_t, src.shape[0])
+    k = 4 * live_t.numel() + 3
+    d_c = 2.0 * half_norm.double().numpy()  # ||d_c||^2 of every row
+
+    def band(queries, picks):
+        q_c = (torch.from_numpy(queries) - shift[None, :])[:, live_t]
+        g1, g2, _ = bf16_split3(q_c)
+        qa = packed2k_query_rows(g1.to(torch.bfloat16),
+                                 g2.to(torch.bfloat16),
+                                 wk.shape[1])[:, :k].double()
+        scores = torch.cat([qa @ wk[r0:r0 + PACKED_ROWS, :k].double().T
+                            for r0 in range(0, wk.shape[0], PACKED_ROWS)],
+                           dim=1).numpy()
+        q_n = (q_c.double() ** 2).sum(dim=1).numpy()
+        out = []
+        for s_m, qn, x in zip(scores, q_n, picks):
+            best = int(np.argmax(s_m))
+            mag = qn + np.maximum(d_c, d_c[best])
+            gap = 2.0 * (s_m[best] - s_m) / mag
+            out.append((np.nonzero(gap <= tol)[0], float(gap[x])))
+        return out
+
+    return band
 
 
 def audit_source_map_mismatches(
@@ -52,17 +121,26 @@ def audit_source_map_mismatches(
     levels_x: Sequence[Tuple[np.ndarray, np.ndarray]],
     levels_y: Sequence[Tuple[np.ndarray, np.ndarray]],
     tol: float = 2e-6,
+    *,
+    temporal_prev: Optional[np.ndarray] = None,
+    remap_anchor: Optional[np.ndarray] = None,
+    packed_levels: Sequence[int] = (),
 ) -> Dict:
     """Audit run X (e.g. the port) against run Y (e.g. the oracle).
 
     ``levels_*``: per-level (bp, s) planes, FINEST FIRST (the
     ``create_image_analogy(..., keep_levels=True)`` layout; the cached
     oracle npz stores them as bp_l{i}/s_l{i}).  Inputs a/ap/b and params
-    must be exactly those of the two runs.  Returns per-level records and
-    aggregate fractions (see the module docstring)."""
+    must be exactly those of the two runs, and so must ``temporal_prev``
+    and ``remap_anchor`` (a video call's; both None otherwise).
+    ``packed_levels``: the levels at which run X's anchor was the packed2k
+    scan (``match_mode`` "exact_hi2_2p" in its stats), whose unexplained
+    mismatches are replayed (``packed_pick``).  Returns per-level records
+    and aggregate fractions (see the module docstring)."""
     from image_analogies_tpu_torch.models.analogy import _prep_planes
 
-    a_src, b_src, a_filt, _, _ = _prep_planes(a, ap, b, params)
+    a_src, b_src, a_filt, _, _ = _prep_planes(a, ap, b, params,
+                                              remap_anchor=remap_anchor)
     levels = len(levels_x)
     if len(levels_y) != levels:
         raise ValueError(f"level count mismatch: {levels} vs {len(levels_y)}")
@@ -70,14 +148,19 @@ def audit_source_map_mismatches(
     a_src_pyr = build_pyramid_np(a_src, levels)
     a_filt_pyr = build_pyramid_np(a_filt, levels)
     b_src_pyr = build_pyramid_np(b_src, levels)
+    temporal = params.temporal_weight > 0 and temporal_prev is not None
+    prev_pyr = (build_pyramid_np(np.asarray(temporal_prev, np.float32),
+                                 levels) if temporal else None)
     src_channels = 1 if a_src.ndim == 2 else a_src.shape[-1]
 
     per_level: List[Dict] = []
     total = {"mismatches": 0, "ctx_diverged": 0, "tie_exact": 0,
-             "tie_fp": 0, "kappa_boundary": 0, "unexplained": 0}
+             "tie_fp": 0, "kappa_boundary": 0, "unexplained": 0,
+             "packed_pick": 0}
     first_divergence_is_tie = None  # set at the coarsest mismatching level
     first_divergence = None
     max_fp_band = 0.0  # worst observed relative score gap among fp ties
+    packed_replay: List[Dict] = []
 
     for level in range(levels - 1, -1, -1):  # coarsest -> finest (scan order)
         bp_x, s_x = levels_x[level]
@@ -96,19 +179,22 @@ def audit_source_map_mismatches(
             per_level.append(rec)
             continue
 
-        spec = spec_for_level(params, level, levels, src_channels)
+        spec = spec_for_level(params, level, levels, src_channels,
+                              temporal=temporal)
         coarse = level + 1 < levels
         db = build_features_np(
             spec, a_src_pyr[level], a_filt_pyr[level],
             a_src_pyr[level + 1] if coarse else None,
-            a_filt_pyr[level + 1] if coarse else None)
+            a_filt_pyr[level + 1] if coarse else None,
+            temporal_fine=a_filt_pyr[level] if temporal else None)
 
         def static_q_for(levels_run):
             return build_features_np(
                 spec, b_src_pyr[level], None,
                 b_src_pyr[level + 1] if coarse else None,
                 np.asarray(levels_run[level + 1][0], np.float32)
-                if coarse else None)
+                if coarse else None,
+                temporal_fine=prev_pyr[level] if temporal else None)
 
         stat_x = static_q_for(levels_x)
         stat_y = static_q_for(levels_y)
@@ -149,6 +235,10 @@ def audit_source_map_mismatches(
         # from the shared context — a branch flip at the kappa boundary is
         # legal when d_coh sits within resolution of d_app * kappa_mult
         kappa_boundary = np.zeros(mism.size, bool)
+        # the coherence minimum of each hard mismatch (inf: no candidate)
+        # and whether run X's pick attains it
+        d_coh_of = np.full(mism.size, np.inf)
+        x_is_coh = np.zeros(mism.size, bool)
         kappa_mult = params.kappa_factor(level) ** 2
         ha, wa = a_filt_pyr[level].shape[:2]
         off = window_offsets(spec.fine_size)
@@ -173,12 +263,43 @@ def audit_source_map_mismatches(
             if not inb.any():
                 continue
             cand = (si[inb] * wa + sj[inb]).astype(np.int64)
-            d_coh = float(np.min(np.sum(
-                (db64[cand] - qv[None, :]) ** 2, axis=1)))
+            d_cand = np.sum((db64[cand] - qv[None, :]) ** 2, axis=1)
+            d_coh = float(np.min(d_cand))
+            d_coh_of[k] = d_coh
+            x_is_coh[k] = bool(np.any((cand == sx[mism[k]])
+                                      & (d_cand <= d_coh + tol * scale[k])))
             if abs(d_coh - d_app * kappa_mult) <= tol * scale[k] * max(
                     kappa_mult, 1.0):
                 kappa_boundary[k] = True
         unexplained = clean & ~tie_exact & ~tie_fp & ~kappa_boundary
+
+        # the packed level's unexplained mismatches, replayed with the
+        # packed2k scan's own scores: run X's pick is a packed-band row the
+        # kappa rule keeps against the coherence minimum, or that minimum
+        # where a packed-band row loses to it
+        packed_pick = np.zeros(mism.size, bool)
+        replay = np.nonzero(unexplained)[0] if level in packed_levels else ()
+        if len(replay):
+            band = _packed2k_band(db, np.nonzero(spec.query_live_mask())[0],
+                                  tol)
+            for c0 in range(0, len(replay), AUDIT_CHUNK):
+                ks = replay[c0:c0 + AUDIT_CHUNK]
+                for k, (rows, short) in zip(ks, band(qx[ks], sx[mism[ks]])):
+                    qv = qx[k].astype(np.float64)
+                    d_rows = np.sum((db64[rows] - qv[None, :]) ** 2, axis=1)
+                    slack = tol * scale[k] * max(kappa_mult, 1.0)
+                    x = sx[mism[k]]
+                    app = (x in rows and d_coh_of[k] >= kappa_mult
+                           * float(d_rows[rows == x][0]) - slack)
+                    coh = x_is_coh[k] and bool(np.any(
+                        d_coh_of[k] <= kappa_mult * d_rows + slack))
+                    packed_pick[k] = app or coh
+                    if len(packed_replay) < PACKED_REPLAY_SHOWN:
+                        packed_replay.append(dict(
+                            level=level, pixel=int(mism[k]),
+                            packed_gap=short, band_rows=int(rows.size),
+                            coherence=bool(x_is_coh[k]),
+                            packed_pick=bool(app or coh)))
 
         if first_divergence_is_tie is None:
             # scan-order-first mismatch at the coarsest mismatching level:
@@ -192,7 +313,8 @@ def audit_source_map_mismatches(
             first_divergence = {
                 "level": level, "pixel": int(mism[k]),
                 "kind": next(name for name, m in kinds if m[k]),
-                "rel_gap": float(dd[k] / max(scale[k], 1e-12))}
+                "rel_gap": float(dd[k] / max(scale[k], 1e-12)),
+                "packed_pick": bool(packed_pick[k])}
 
         rec.update(
             ctx_diverged=int((~clean).sum()),
@@ -202,8 +324,9 @@ def audit_source_map_mismatches(
             unexplained=int(unexplained.sum()),
         )
         per_level.append(rec)
-        for k in total:
+        for k in rec.keys() & total.keys():
             total[k] += rec[k]
+        total["packed_pick"] += int(packed_pick.sum())
 
     m = max(total["mismatches"], 1)
     clean_n = (total["tie_exact"] + total["tie_fp"]
@@ -218,5 +341,6 @@ def audit_source_map_mismatches(
         "first_divergence_is_tie": first_divergence_is_tie,
         "first_divergence": first_divergence,
         "max_fp_band": max_fp_band,
+        "packed_replay": packed_replay,
         "tol": tol,
     }

@@ -221,7 +221,9 @@ def test_jax_packed_scan_against_its_fp32_scan(cpu_parity, jax_tpu_kernels,
     near-tie that resolves apart just past the audit's band.  The port's
     pair makes the JAX package's picks in both runs, the port's audit
     reads them as the JAX audit does, and the phase's verdict passes only
-    because those limits are the ones reported."""
+    because those limits are the ones reported, the unexplained mismatches
+    and the first divergence then held to be the packed scan's own picks
+    (the audit's packed replay)."""
     from image_analogies_tpu.config import PRESETS as JPRESETS
     from image_analogies_tpu.models.analogy import (
         create_image_analogy as j_create)
@@ -274,8 +276,12 @@ def test_jax_packed_scan_against_its_fp32_scan(cpu_parity, jax_tpu_kernels,
     assert rec["ssim"] < chip_smoke.SSIM_MIN
     assert rec["first_divergence_is_tie"] is want_tie
     # what the phase holds here passes: the limits the JAX package does not
-    # keep are the ones it reports
+    # keep are the ones it reports, and each unexplained mismatch (the
+    # first divergence among them) is the pick the packed scan's own
+    # scores make
     assert rec["failures"] == [], rec
+    assert rec["packed_pick"] == rec["unexplained"], rec
     if not want_tie:
         fd = rec["first_divergence"]
         assert fd["kind"] == "unexplained" and fd["rel_gap"] > mine["tol"]
+        assert fd["packed_pick"] is True

@@ -480,3 +480,35 @@ def test_chip_smoke_soak_side_times_its_runs_before_its_card_part(
                      ("full", False), ("soak_reports", True),
                      ("soak_archive_top", True), ("soak_archive_top", True),
                      ("soak_blackbox", True)]
+
+
+def test_chip_smoke_counts_only_its_own_groups_worker_mains():
+    """``chip_smoke.py``'s serve and chaos sides check that no
+    ``worker_main`` is left once their fleets have ended, while the other
+    side phases run beside them, each in a process group of its own: a
+    side counts the ``worker_main`` processes of its own group (a fleet's
+    children keep it), not another side's live fleet; main counts the
+    whole machine once every side has exited."""
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    sleeper = [sys.executable, "-c", "import time; time.sleep(60)",
+               chip_smoke.WORKER_MAIN]
+    mine = subprocess.Popen(sleeper)
+    other = subprocess.Popen(sleeper, process_group=0)
+    try:
+        deadline = time.monotonic() + 30
+        while not {mine.pid, other.pid} <= set(
+                chip_smoke.worker_main_pids(own_group=False)):
+            assert time.monotonic() < deadline, "the sleepers never started"
+            time.sleep(0.05)
+        own = chip_smoke.worker_main_pids()
+        assert mine.pid in own and other.pid not in own
+    finally:
+        for proc in (mine, other):
+            proc.kill()
+            proc.wait(timeout=30)
+    assert not {mine.pid, other.pid} & set(
+        chip_smoke.worker_main_pids(own_group=False))
